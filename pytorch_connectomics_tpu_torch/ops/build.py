@@ -1,0 +1,110 @@
+"""Build and load the hand-written CUDA kernels of the port.
+
+Each ``csrc/*.cu`` source compiles with ``nvcc`` into a shared library with a
+plain C interface, which :mod:`ctypes` loads. The library is built on first
+use into ``build/kernels/`` at the repository root, named by a hash of its
+sources and flags, so an edited source is rebuilt and an unchanged one is
+loaded as it is. Nothing is built or imported when this module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
+
+# one entry per library: its sources (the first is compiled, the rest are
+# headers it includes and only enter the content hash)
+LIBRARIES: Dict[str, List[str]] = {
+    "mednext_block": ["mednext_block.cu", "mednext_block.cuh"],
+}
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+# compiler report (ptxas registers/spills) of the last build, per library
+build_log: Dict[str, str] = {}
+
+
+def find_nvcc() -> str:
+    for cand in (
+        os.environ.get("CUDA_HOME") and os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    for src in LIBRARIES[name]:
+        h.update((CSRC / src).read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def _compile_cmd(name: str, out: Path) -> List[str]:
+    return [find_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(out), str(CSRC / LIBRARIES[name][0])]
+
+
+def build(names: Optional[Sequence[str]] = None) -> Dict[str, Path]:
+    """Compile the named libraries (default: all) that are not built yet,
+    one ``nvcc`` process per source, all started together. Returns their
+    paths; raises with the compiler output when a build fails."""
+    names = list(names or LIBRARIES)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {n: library_path(n) for n in names}
+    procs = {}
+    for n in names:
+        if paths[n].exists():
+            continue
+        tmp = paths[n].with_suffix(f".{os.getpid()}.tmp")
+        procs[n] = (tmp, subprocess.Popen(
+            _compile_cmd(n, tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ))
+    failed = []
+    for n, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        build_log[n] = out
+        if proc.returncode != 0:
+            failed.append(f"{n}: nvcc exited {proc.returncode}\n{out}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, paths[n])
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library ``name``, built first if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build([name])[name]))
+            _declare(name, lib)
+            _loaded[name] = lib
+        return lib
+
+
+def _declare(name: str, lib: ctypes.CDLL) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if name == "mednext_block":
+        lib.mednext_stats_parts.argtypes = [i, i, i, i, i, i]
+        lib.mednext_stats_parts.restype = i
+        lib.mednext_dw_stats.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.mednext_dw_stats.restype = i
+        lib.mednext_block_apply.argtypes = [p] * 10 + [i] * 8 + [f, p]
+        lib.mednext_block_apply.restype = i
+        lib.mednext_error_string.argtypes = [i]
+        lib.mednext_error_string.restype = ctypes.c_char_p
