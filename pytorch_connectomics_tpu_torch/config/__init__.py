@@ -8,7 +8,6 @@ from .loader import (  # noqa: F401
     config_hash,
     load_config,
     load_yaml_with_bases,
-    resolve_raw_config,
     resolve_stages,
     resolve_system_sentinels,
     validate_config,

@@ -10,11 +10,9 @@ Reference behavior being reproduced:
 - validation rule set                   (``config_io.py:488``)
 
 The port's own copy of ``pytorch_connectomics_tpu/config/loader.py``. It
-differs in three places: ``num_devices`` resolves against the visible CUDA
-devices, the free-form kwarg validation of augmentation and decoding blocks
-is left out (the port has neither yet), and PyYAML is imported only where a
-YAML file is read, so an already resolved config dict loads without it
-(:func:`resolve_raw_config`).
+differs in two places: ``num_devices`` resolves against the visible CUDA
+devices, and the free-form kwarg validation of augmentation and decoding
+blocks is left out (the port has neither yet).
 """
 
 from __future__ import annotations
@@ -270,21 +268,22 @@ def resolve_system_sentinels(cfg: Config) -> None:
     cfg.system.mesh = mesh
 
 
-def resolve_raw_config(
+def load_config(
     path: str | Path | None = None,
     overrides: Iterable[str] = (),
     mode: str = "train",
     raw_dict: Optional[Dict[str, Any]] = None,
     use_builtin_profiles: bool = True,
-) -> Dict[str, Any]:
-    """YAML(+bases) -> overrides(pre) -> stage merge -> profile expansion ->
-    overrides(post): the plain dict that :func:`load_config` types. Loading
-    this dict again with ``use_builtin_profiles=False`` gives the same
-    config, and needs no YAML parser when there are no overrides."""
+) -> Config:
+    """Full pipeline: YAML(+bases) -> overrides(pre) -> stage merge ->
+    profile expansion -> overrides(post) -> path/sentinel resolution ->
+    typed Config -> validation."""
     if raw_dict is not None:
         raw = copy.deepcopy(raw_dict)
+        config_dir = None
     else:
         raw = load_yaml_with_bases(path)
+        config_dir = Path(path).resolve().parent
     if use_builtin_profiles and _BUILTIN_PROFILES.exists():
         builtin = load_yaml_with_bases(_BUILTIN_PROFILES)
         raw = deep_merge(builtin, raw)
@@ -294,22 +293,8 @@ def resolve_raw_config(
     raw = resolve_stages(raw, mode)
     raw = expand_profiles(raw, registries)  # stage blocks may carry selectors
     apply_overrides(raw, overrides)
-    raw.pop("_merge_context", None)
-    return raw
-
-
-def load_config(
-    path: str | Path | None = None,
-    overrides: Iterable[str] = (),
-    mode: str = "train",
-    raw_dict: Optional[Dict[str, Any]] = None,
-    use_builtin_profiles: bool = True,
-) -> Config:
-    """Full pipeline: :func:`resolve_raw_config` -> path/sentinel resolution
-    -> typed Config -> validation."""
-    raw = resolve_raw_config(path, overrides, mode, raw_dict, use_builtin_profiles)
-    config_dir = Path(path).resolve().parent if raw_dict is None else None
     resolve_data_paths(raw, config_dir)
+    raw.pop("_merge_context", None)
     cfg: Config = build_dataclass(Config, raw)
     resolve_system_sentinels(cfg)
     resolve_precision(cfg)

@@ -30,12 +30,7 @@ class InferenceManager:
             raise NotImplementedError("output heads of multi-head models are not ported yet")
         self.model = model
         self.device = torch.device(device)
-
-        def apply_fn(windows: torch.Tensor) -> torch.Tensor:
-            return model(windows)
-
-        self.apply_fn = apply_fn
-        self.engine = make_engine(apply_fn, inf.window, cfg.model.input_size, self.device)
+        self.engine = make_engine(model, inf.window, cfg.model.input_size, self.device)
         acts = inf.model.act
         if acts is None:
             acts = (getattr(inf.model, "extra", None) or {}).get("channel_activations")

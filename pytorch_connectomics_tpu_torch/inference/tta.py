@@ -3,8 +3,8 @@ for the serial variant loop.
 
 Flip/rot90 variant enumeration with deduplication, per-channel activations,
 per-channel-slice ensembling, and :class:`TTAPredictor`, which runs the
-window engine once per variant. The variant transforms and activations take
-numpy arrays or torch tensors; the predictor keeps the volume, each
+window engine once per variant. The variant transforms, activations and
+the ensemble work on tensors: the predictor keeps the volume, each
 variant's prediction and the ensemble on the device and copies only the
 result to the host. Variant sharding across devices,
 patch-local TTA and the affinity flip realignment are not ported yet and
@@ -92,59 +92,45 @@ def enumerate_tta_variants(
     return out
 
 
-def _variant_signature(v: Dict[str, Any]) -> bytes:
-    probe = np.arange(64, dtype=np.int64).reshape(4, 4, 4)
-    return apply_variant(probe, v).tobytes()
+def _variant_signature(v: Dict[str, Any]) -> Tuple[int, ...]:
+    probe = torch.arange(64).reshape(4, 4, 4)
+    return tuple(apply_variant(probe, v).flatten().tolist())
 
 
-def apply_variant(vol, variant: Dict[str, Any]):
-    """vol: (Z,Y,X[,C]) numpy array or tensor -> flips, then rot90 in the
-    variant's plane."""
-    plane = tuple(variant.get("plane", (1, 2)))
-    if isinstance(vol, torch.Tensor):
-        out = torch.flip(vol, dims=tuple(variant["flip"])) if variant["flip"] else vol
-        return torch.rot90(out, variant["rot"], dims=plane).contiguous() if variant["rot"] else out.contiguous()
-    out = np.flip(vol, axis=tuple(variant["flip"])) if variant["flip"] else vol
+def apply_variant(vol: torch.Tensor, variant: Dict[str, Any]) -> torch.Tensor:
+    """vol: (Z,Y,X[,C]) -> flips, then rot90 in the variant's plane."""
+    out = torch.flip(vol, dims=tuple(variant["flip"])) if variant["flip"] else vol
     if variant["rot"]:
-        out = np.rot90(out, variant["rot"], axes=plane)
-    return np.ascontiguousarray(out)
+        out = torch.rot90(out, variant["rot"], dims=tuple(variant.get("plane", (1, 2))))
+    return out.contiguous()
 
 
-def invert_variant(pred, variant: Dict[str, Any]):
-    plane = tuple(variant.get("plane", (1, 2)))
-    if isinstance(pred, torch.Tensor):
-        out = torch.rot90(pred, -variant["rot"], dims=plane) if variant["rot"] else pred
-        return (torch.flip(out, dims=tuple(variant["flip"])) if variant["flip"] else out).contiguous()
-    out = np.rot90(pred, -variant["rot"], axes=plane) if variant["rot"] else pred
+def invert_variant(pred: torch.Tensor, variant: Dict[str, Any]) -> torch.Tensor:
+    out = pred
+    if variant["rot"]:
+        out = torch.rot90(out, -variant["rot"], dims=tuple(variant.get("plane", (1, 2))))
     if variant["flip"]:
-        out = np.flip(out, axis=tuple(variant["flip"]))
-    return np.ascontiguousarray(out)
+        out = torch.flip(out, dims=tuple(variant["flip"]))
+    return out.contiguous()
 
 
-def _apply_act(x, act: Optional[str]):
+_ACTS = {"sigmoid": torch.sigmoid, "tanh": torch.tanh, "softmax": lambda v: torch.softmax(v, dim=-1)}
+
+
+def _apply_act(x: torch.Tensor, act: Optional[str]) -> torch.Tensor:
     if act in ("none", None, ""):
         return x
-    if isinstance(x, torch.Tensor):
-        fns = {"sigmoid": torch.sigmoid, "tanh": torch.tanh, "softmax": lambda v: torch.softmax(v, dim=-1)}
-        if act not in fns:
-            raise ValueError(f"unknown activation '{act}'")
-        return fns[act](x)
-    if act == "sigmoid":
-        return 1.0 / (1.0 + np.exp(-x))
-    if act == "tanh":
-        return np.tanh(x)
-    if act == "softmax":
-        e = np.exp(x - x.max(axis=-1, keepdims=True))
-        return e / e.sum(axis=-1, keepdims=True)
-    raise ValueError(f"unknown activation '{act}'")
+    if act not in _ACTS:
+        raise ValueError(f"unknown activation '{act}'")
+    return _ACTS[act](x)
 
 
-def apply_channel_activations(pred, acts: Optional[Union[str, List[Any]]]):
+def apply_channel_activations(pred: torch.Tensor, acts: Optional[Union[str, List[Any]]]) -> torch.Tensor:
     """acts: 'sigmoid' | list of {channels, activation} dicts | list of
-    [slice_spec, act] pairs; channels last; numpy array or tensor."""
+    [slice_spec, act] pairs; channels last."""
     if acts is None:
         return pred
-    out = pred.float().clone() if isinstance(pred, torch.Tensor) else pred.astype(np.float32).copy()
+    out = pred.float().clone()
     if isinstance(acts, str):
         return _apply_act(out, acts)
     for entry in acts:
@@ -157,28 +143,26 @@ def apply_channel_activations(pred, acts: Optional[Union[str, List[Any]]]):
     return out
 
 
-def ensemble(preds: Iterable, mode: Union[str, List[Any]] = "mean"):
+def ensemble(preds: Iterable[torch.Tensor], mode: Union[str, List[Any]] = "mean") -> torch.Tensor:
     """Per-channel-slice ensemble, e.g. ``[["0:9", "min"], ["9:", "mean"]]``,
-    of numpy arrays or tensors, folded one prediction at a time (a running
-    sum, minimum or maximum), so an iterator of predictions never holds more
-    than one of them besides the folds."""
+    folded one prediction at a time (a running sum, minimum or maximum), so
+    an iterator of predictions never holds more than one of them besides the
+    folds."""
     need = {mode} if isinstance(mode, str) else {str(m) for _, m in mode}
     if need - {"mean", "min", "max"}:
         raise ValueError(f"unknown ensemble mode(s) {sorted(need - {'mean', 'min', 'max'})}")
-    accs: Dict[str, Any] = {}
+    accs: Dict[str, torch.Tensor] = {}
     n = 0
     for p in preds:
         n += 1
-        lib = torch if isinstance(p, torch.Tensor) else np
-        for m, fold in (("mean", lib.add), ("min", lib.minimum), ("max", lib.maximum)):
+        for m, fold in (("mean", torch.add), ("min", torch.minimum), ("max", torch.maximum)):
             if m in need:
                 accs[m] = p if m not in accs else fold(accs[m], p)
     if "mean" in accs:
         accs["mean"] = accs["mean"] / n
     if isinstance(mode, str):
         return accs[mode]
-    first = accs[str(mode[0][1])]
-    out = first.clone() if isinstance(first, torch.Tensor) else first.copy()
+    out = accs[str(mode[0][1])].clone()
     for spec, m in mode:
         sl = parse_slice(str(spec))
         out[..., sl] = accs[str(m)][..., sl]

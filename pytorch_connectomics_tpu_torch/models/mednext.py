@@ -14,7 +14,9 @@ blocks and the head are plain PyTorch.
 
 Activations are channels-last ``(B, Z, Y, X, C)`` in the compute dtype
 (bfloat16 by default); parameters stay float32 and are cast per call, as
-flax does; the head computes in float32 and the output is float32.
+flax does, except the fused blocks' pointwise weights, which are cast once
+per parameter version; the head computes in float32 and the output is
+float32.
 
 This slice ports the stock 1x1x1 stem and the patchify stem (any per-axis
 stride, ``linear`` head). Deep supervision, task heads, 2-D mode, the
@@ -81,15 +83,28 @@ class MedNeXtBlock(nn.Module):
         self.pw2 = nn.Linear(cin * exp_ratio, cout)
         # strided / channel-changing residual: a 1x1x1 (transposed) conv
         self.res = None if (stride == 1 and cin == cout) else nn.Linear(cin, cout)
+        self._cast_key = None
+
+    def _pointwise_weights(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """pw1 and pw2 weights in the compute dtype, cast again only when a
+        weight moves or is written in place."""
+        ws = (self.pw1.weight, self.pw2.weight)
+        key = tuple((w.device, w.data_ptr(), w._version) for w in ws)
+        if key != self._cast_key:
+            with torch.inference_mode(False), torch.no_grad():
+                self._cast = tuple(w.detach().to(self.dtype).contiguous() for w in ws)
+            self._cast_key = key
+        return self._cast
 
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         dt = self.dtype
         x = x.to(dt)
         if self.fused:
             block = fused_block.fused_mednext_block_plain if plain else fused_block.fused_mednext_block
+            w1, w2 = self._pointwise_weights()
             return block(
                 x, self.conv_weight, self.norm.weight, self.norm.bias,
-                self.pw1.weight, self.pw1.bias, self.pw2.weight, self.pw2.bias, self.norm.eps,
+                w1, self.pw1.bias, w2, self.pw2.bias, self.norm.eps,
             )
         s = (self.stride,) * 3
         w, b = self.conv_weight.to(dt), self.conv_bias.to(dt)

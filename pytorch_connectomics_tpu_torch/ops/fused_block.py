@@ -13,7 +13,8 @@ version of each beside it.
 Activations are channels-last ``(B, Z, Y, X, C)``, contiguous, float32 or
 bfloat16. Weights keep PyTorch's layouts: ``w_dw`` ``(C, 1, 3, 3, 3)``,
 ``w1`` ``(R, C)``, ``w2`` ``(Cout, R)`` (``nn.Linear``), biases and norm
-affine ``(n,)``.
+affine ``(n,)``. The kernels take ``w1`` and ``w2`` in x's dtype (the caller
+casts them once, not per call) and the other parameters in float32.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises. Each wrapper counts its kernel launches in
@@ -144,11 +145,10 @@ def fused_block_apply(
     _require(w2.shape == (cout, r), f"w2 must be (Cout, R) = (*, {r}), got {tuple(w2.shape)}")
     _require(r % 16 == 0 and (r <= 64 or r % 64 == 0), f"hidden width {r} not supported")
     _require(cout % 16 == 0, f"output channels must be a multiple of 16, got {cout}")
-    f32 = dict(dtype=torch.float32)
-    w_dw = w_dw.to(**f32).reshape(c, 27).contiguous()
-    w1 = w1.to(x.dtype).contiguous()
-    w2 = w2.to(x.dtype).contiguous()
-    stats, gamma, beta, b1, b2 = (t.to(**f32).contiguous() for t in (stats, gamma, beta, b1, b2))
+    _require(w1.dtype == x.dtype and w2.dtype == x.dtype, f"w1 and w2 must be {x.dtype} like x")
+    w_dw = w_dw.reshape(c, 27)
+    for t in (stats, w_dw, gamma, beta, b1, b2):
+        _require(t.dtype == torch.float32, "stats, w_dw, norm affine and biases must be float32")
     _require(stats.shape == (b, 2, c), f"stats must be (B, 2, C), got {tuple(stats.shape)}")
     _check_cuda_inputs(x, stats, w_dw, gamma, beta, w1, b1, w2, b2)
     _require(w1.data_ptr() % 32 == 0 and w2.data_ptr() % 32 == 0, "weights must be 32-byte aligned")

@@ -44,21 +44,17 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def parse_args(argv: Optional[List[str]] = None, need_config: bool = True) -> argparse.Namespace:
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if need_config and not args.config:
+    if not args.config:
         parser.error("--config is required")
     return args
 
 
-def setup_config(args: argparse.Namespace, raw_config: Optional[Dict[str, Any]] = None) -> Config:
-    """Config from ``--config``, or from an already resolved config dict
-    (:func:`..config.loader.resolve_raw_config`), which needs no YAML parser."""
-    if raw_config is not None:
-        cfg = load_config(raw_dict=raw_config, overrides=args.overrides, mode=args.mode, use_builtin_profiles=False)
-    else:
-        cfg = load_config(args.config, overrides=args.overrides, mode=args.mode)
+def setup_config(args: argparse.Namespace) -> Config:
+    """Config from ``--config`` and the ``key=value`` overrides."""
+    cfg = load_config(args.config, overrides=args.overrides, mode=args.mode)
     if args.shard_id is not None:
         cfg.system.shard_id = args.shard_id
         cfg.system.num_shards = args.num_shards or 1

@@ -4,12 +4,11 @@ pipeline (the ``--mode test`` path of
 
 from __future__ import annotations
 
-import json
 import logging
 import sys
 import time
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict
 
 import torch
 
@@ -55,27 +54,22 @@ def load_weights(model: torch.nn.Module, checkpoint: str) -> None:
 
 
 def _write_config(cfg: Config, run_dir: Path) -> None:
-    """Resolved-config provenance in the run dir (YAML when PyYAML is
-    installed, JSON otherwise)."""
+    """Resolved-config provenance in the run dir."""
+    import yaml
+
     run_dir.mkdir(parents=True, exist_ok=True)
-    try:
-        import yaml
-    except ImportError:
-        (run_dir / "config.json").write_text(json.dumps(to_dict(cfg), indent=2, default=str))
-        return
     (run_dir / "config.yaml").write_text(yaml.safe_dump(to_dict(cfg), sort_keys=False, default_flow_style=None))
 
 
-def dispatch_runtime(args=None, raw_config: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
-    """Run ``args.mode``; ``raw_config`` replaces ``--config`` with an already
-    resolved config dict. Returns {mode, run_dir, metrics}."""
+def dispatch_runtime(args=None) -> Dict[str, Any]:
+    """Run ``args.mode``. Returns {mode, run_dir, metrics}."""
     if args is None:
-        args = parse_args(need_config=raw_config is None)
+        args = parse_args()
     if args.mode != "test":
         raise NotImplementedError(f"--mode {args.mode} is not ported yet (only --mode test)")
     setup_logging()
     device = resolve_device(args.device)
-    cfg = setup_config(args, raw_config)
+    cfg = setup_config(args)
     if not args.checkpoint:
         logger.warning(
             "--mode test without --checkpoint: inference runs with RANDOMLY-INITIALIZED "

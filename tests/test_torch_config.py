@@ -1,8 +1,7 @@
-"""The port's own config copy against the JAX package's loader, the
-committed resolution of the fast recipe, the device rule, and the rule that
-the port imports nothing of JAX."""
+"""The port's own config copy against the JAX package's loader, the CLI's
+overrides, the device rule, and the rule that the port imports nothing of
+JAX."""
 
-import json
 import subprocess
 import sys
 from pathlib import Path
@@ -11,12 +10,11 @@ import pytest
 
 from pytorch_connectomics_tpu.config import load_config as jax_load_config
 from pytorch_connectomics_tpu.config import to_dict as jax_to_dict
-from pytorch_connectomics_tpu_torch.config import load_config, resolve_raw_config, to_dict
+from pytorch_connectomics_tpu_torch.config import load_config, to_dict
 
 REPO = Path(__file__).resolve().parents[1]
 TUTORIALS = sorted(p.name for p in (REPO / "tutorials").glob("*.yaml"))
 FAST = REPO / "tutorials" / "mito_lucchi_tpu_fast.yaml"
-RESOLVED = REPO / "pytorch_connectomics_tpu_torch" / "config" / "resolved" / "mito_lucchi_tpu_fast.test.json"
 
 
 def _without_devices(d):
@@ -35,16 +33,22 @@ def test_loader_matches_jax(name):
     )
 
 
-def test_resolved_fast_recipe_is_current():
-    """The committed dict that chip_smoke.py loads where PyYAML is missing.
-    Regenerate with:
-    python -c "import json; from pytorch_connectomics_tpu_torch.config import resolve_raw_config as r;
-    print(json.dumps(r('tutorials/mito_lucchi_tpu_fast.yaml', mode='test'), indent=1, sort_keys=True))"
-    """
-    committed = json.loads(RESOLVED.read_text())
-    assert committed == resolve_raw_config(FAST, mode="test")
-    from_dict = to_dict(load_config(raw_dict=committed, mode="test", use_builtin_profiles=False))
-    assert from_dict == to_dict(load_config(FAST, mode="test"))
+@pytest.mark.parametrize("tta", [False, True])
+def test_cli_overrides_match_jax(tmp_path, tta):
+    """The overrides chip_smoke.py gives the CLI (volume paths, TTA switch)
+    resolve as the JAX package resolves them."""
+    from pytorch_connectomics_tpu_torch.runtime.cli import parse_args, setup_config
+
+    overrides = [
+        f"data.test.image={tmp_path / 'im.npy'}", f"data.test.label={tmp_path / 'mito.npy'}",
+        f"inference.test_time_augmentation.enabled={str(tta).lower()}",
+    ]
+    cfg = setup_config(parse_args(["--config", str(FAST), "--mode", "test", "--device", "cpu", *overrides]))
+    assert cfg.data.test.image == str(tmp_path / "im.npy")
+    assert cfg.inference.test_time_augmentation.enabled is tta
+    assert _without_devices(to_dict(cfg)) == _without_devices(
+        jax_to_dict(jax_load_config(FAST, overrides=overrides, mode="test"))
+    )
 
 
 def test_cli_refuses_to_run_on_cpu_unasked():

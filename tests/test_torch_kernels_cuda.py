@@ -65,6 +65,7 @@ def test_kernels_match_plain(device, shape, dtype):
     # f32 sums in another order: relative to the sum of magnitudes
     scale = fb.dw_stats_plain(x.abs(), p["w_dw"].abs())[:, :1].abs() + want_stats[:, 1:]
     assert torch.all((stats - want_stats).abs() <= 1e-5 * scale + 1e-3)
+    p.update(w1=p["w1"].to(dtype), w2=p["w2"].to(dtype))
     out = fb.fused_block_apply(x, want_stats, **p)
     want = fb.fused_block_apply_plain(x, want_stats, **p)
     torch.cuda.synchronize()
@@ -86,3 +87,7 @@ def test_cuda_tensor_never_falls_back(device):
         fb.dw_stats(x, torch.zeros((8, 1, 3, 3, 3), device=device))
     with pytest.raises(TypeError):
         fb.dw_stats(x.half(), torch.zeros((8, 1, 3, 3, 3), device=device))
+    p = _params(np.random.default_rng(0), 16, 32, 16, device)
+    xb = torch.zeros((1, 4, 4, 4, 16), device=device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # float32 w1/w2 with bfloat16 x: no cast inside the wrapper
+        fb.fused_block_apply(xb, fb.dw_stats(xb, p["w_dw"]), **p)

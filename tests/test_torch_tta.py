@@ -1,10 +1,12 @@
 """The port's TTA against the JAX package's: variant enumeration (with
 deduplication), variant application and inversion, per-channel activations,
 per-channel-slice ensembling, and TTAPredictor end to end on the window
-engines with a fixed linear apply_fn."""
+engines with a fixed linear apply_fn. The port's functions take tensors, the
+JAX package's numpy arrays; both get the same seeded inputs."""
 
 import numpy as np
 import pytest
+import torch
 
 from pytorch_connectomics_tpu.config.schema import TTAConfig as JaxTTAConfig
 from pytorch_connectomics_tpu.inference import tta as jt
@@ -31,8 +33,20 @@ def test_variants_match_jax(case):
     assert got == jt.enumerate_tta_variants(**case)
     vol = np.arange(4 * 4 * 4 * 2, dtype=np.float32).reshape(4, 4, 4, 2)
     for v in got:
-        np.testing.assert_array_equal(tt.apply_variant(vol, v), jt.apply_variant(vol, v))
-        np.testing.assert_array_equal(tt.invert_variant(tt.apply_variant(vol, v), v), vol)
+        out = tt.apply_variant(torch.from_numpy(vol), v)
+        np.testing.assert_array_equal(out.numpy(), jt.apply_variant(vol, v))
+        np.testing.assert_array_equal(tt.invert_variant(out, v).numpy(), vol)
+
+
+@pytest.mark.parametrize("case", VARIANT_CASES, ids=range(len(VARIANT_CASES)))
+def test_invert_matches_jax(case):
+    """Inversion of a (Z, Y, X, C) prediction with unequal sides, so a
+    rotation in any plane changes the shape."""
+    pred = np.random.default_rng(3).standard_normal((3, 5, 7, 2)).astype(np.float32)
+    for v in tt.enumerate_tta_variants(**case):
+        fwd = jt.apply_variant(pred, v)
+        got = tt.invert_variant(torch.from_numpy(fwd.copy()), v)
+        np.testing.assert_array_equal(got.numpy(), jt.invert_variant(fwd, v))
 
 
 def test_flip_all_has_eight_variants():
@@ -47,16 +61,16 @@ def test_flip_all_has_eight_variants():
 )
 def test_channel_activations_match_jax(acts):
     pred = np.random.default_rng(0).standard_normal((3, 4, 5, 3)).astype(np.float32) * 3
-    np.testing.assert_allclose(
-        tt.apply_channel_activations(pred, acts), jt.apply_channel_activations(pred, acts), rtol=1e-6, atol=1e-7
-    )
+    got = tt.apply_channel_activations(torch.from_numpy(pred), acts)
+    np.testing.assert_allclose(got.numpy(), jt.apply_channel_activations(pred, acts), rtol=1e-6, atol=1e-7)
 
 
 @pytest.mark.parametrize("mode", ["mean", "min", "max", [["0:1", "min"], ["1:", "mean"]]], ids=range(4))
 def test_ensemble_matches_jax(mode):
     rng = np.random.default_rng(1)
     preds = [rng.standard_normal((3, 4, 5, 2)).astype(np.float32) for _ in range(5)]
-    np.testing.assert_array_equal(tt.ensemble(preds, mode), jt.ensemble(preds, mode))
+    got = tt.ensemble((torch.from_numpy(p) for p in preds), mode)
+    np.testing.assert_array_equal(got.numpy(), jt.ensemble(preds, mode))
 
 
 @pytest.mark.parametrize("flip_axes,act", [("all", "sigmoid"), ("xy", None)])
