@@ -15,7 +15,21 @@ Phases (any failure exits non-zero; no phase catches its own failure):
               .npy volumes: the Lucchi++ test geometry 165x1024x768 without
               TTA, then 96x256x192 with flip TTA (8 variants); then the
               predict step alone at 165x1024x768, timed and profiled
-  6. report   a {"kernels": [...]} line, then {"ok": true, "device": ...} last
+  6. depthwise the training path's depthwise kernels (forward, input
+              gradient with mirrored taps, weight gradient) against their
+              plain versions at every stride-1 stage shape of MedNeXt-S
+              training (batch 8) on the synthetic and the Lucchi fast
+              recipes, bf16 and f32, with times (kernel, plain, bound,
+              library yardstick); two weight-gradient runs bit-identical
+  7. train    one MedNeXt-S train step at the Lucchi fast recipe's training
+              shape (batch 8 of 96^3, bf16, outside_block remat): loss and
+              per-leaf gradients of the kernel path against the plain path,
+              with fault probes that the limit must reject; step time, peak
+              memory and kernel launches per step
+  8. cli      the port's CLI on tutorials/mito_synthetic_cli_fast_tpu.yaml:
+              --mode train for 20 steps, then --mode test without
+              --checkpoint, which restores the train leg's last checkpoint
+  9. report   a {"kernels": [...]} line, then {"ok": true, "device": ...} last
 
 Imports torch and the port only. Details go to build/chip_smoke/chip_smoke.json.
 """
@@ -53,6 +67,23 @@ BATCH = 16
 # max |plain output|; PERF.md gives the readings it was set from
 MODEL_BF16_TOL = 0.02
 RECIPE = ROOT / "tutorials" / "mito_lucchi_tpu_fast.yaml"
+SYNTH_RECIPE = ROOT / "tutorials" / "mito_synthetic_cli_fast_tpu.yaml"
+# ((Z, Y, X), C, blocks per step) of the stride-1 MedNeXt-S blocks in
+# training, after the (1, 2, 2) stem: the synthetic recipe's 64^3 patch and
+# the Lucchi fast recipe's 96^3 patch, both at batch 8
+TRAIN_BATCH = 8
+TRAIN_STAGES = {
+    "synthetic": [((64, 32, 32), 32, 4), ((32, 16, 16), 64, 4), ((16, 8, 8), 128, 4), ((8, 4, 4), 256, 4),
+                  ((4, 2, 2), 512, 2)],
+    "lucchi": [((96, 48, 48), 32, 4), ((48, 24, 24), 64, 4), ((24, 12, 12), 128, 4), ((12, 6, 6), 256, 4),
+               ((6, 3, 3), 512, 2)],
+}
+# limits of the bf16 train step's kernel path against its plain path: the
+# loss, relative; each gradient leaf, as the norm of the difference over the
+# leaf's norm (conv_bias leaves, zero in exact arithmetic because GroupNorm
+# follows the conv, over the largest leaf norm); PERF.md gives the readings
+TRAIN_LOSS_TOL = 1e-3
+TRAIN_GRAD_TOL = 0.05
 
 
 def log(msg: str) -> None:
@@ -316,6 +347,11 @@ def run_slice(fb, dev, shape, tta, work, seed):
     return dict(shape=list(shape), tta=tta, seconds=secs, mvox_per_s=mvox, jaccard=metrics["jaccard"], launches=counts)
 
 
+def dev_us(e):
+    """Device time (us) of a profiler row, across torch versions."""
+    return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+
 def phase_predict_profile(dev, work, shape, report):
     """The predict step alone (InferenceManager.predict, TTA off) on the
     slice's volume, warm, timed on the host clock, then once more under
@@ -343,9 +379,6 @@ def phase_predict_profile(dev, work, shape, report):
         manager.predict(vol)
         torch.cuda.synchronize()
     prof_secs = time.perf_counter() - t0
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
 
     from torch.autograd import DeviceType
 
@@ -375,10 +408,319 @@ def phase_predict_profile(dev, work, shape, report):
     del model, manager
 
 
+def dw_bounds(n, c, es):
+    """Least times (ms) of one launch of the depthwise kernels on n voxels
+    of c channels, as (bytes term, operations term): each input read once
+    and each output written once over the HBM rate; 27 FMAs per value (and
+    the bias sum for the weight gradient) over the f32 CUDA-core rate."""
+    moved = 2 * n * c * es + 28 * c * 4
+    fwd = dict(bytes=moved / PEAK_BYTES * 1e3, ops=54 * n * c / PEAK_F32 * 1e3)
+    wgrad = dict(bytes=moved / PEAK_BYTES * 1e3, ops=55 * n * c / PEAK_F32 * 1e3)
+    return fwd, wgrad
+
+
+def phase_depthwise(dwk, dev, report):
+    log("== phase 6: depthwise kernels vs plain (batch 8) ==")
+    rows = []
+    for recipe, stages in TRAIN_STAGES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            es = 2 if dtype == torch.bfloat16 else 4
+            for spatial, c, per_step in stages:
+                shape = (TRAIN_BATCH, *spatial, c)
+                n = math.prod(shape[:4])
+                rng = np.random.default_rng(c)
+                x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
+                dy = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
+                w = torch.from_numpy(rng.standard_normal((c, 1, 3, 3, 3)).astype(np.float32) * 0.3).to(dev)
+                b = torch.from_numpy(rng.standard_normal(c).astype(np.float32)).to(dev)
+                wf = w.flip((2, 3, 4))
+                row = dict(recipe=recipe, C=c, spatial=list(spatial), dtype=str(dtype).split(".")[-1],
+                           blocks_per_step=per_step)
+                for name, args in (("forward", (x, w, b)), ("input_grad", (dy, wf, None))):
+                    got, want = dwk.depthwise3x3(*args), dwk.depthwise3x3_plain(*args)
+                    torch.cuda.synchronize()
+                    err = (got.float() - want.float()).abs().max().item()
+                    # f32: FMA order against the summed magnitudes; bf16: both sum
+                    # in f32 and round once, two ulps at the largest output
+                    mag = dwk.depthwise3x3_plain(args[0].float().abs(), args[1].abs()).abs().max().item()
+                    top = want.float().abs().max().item()
+                    tol = 1e-5 * mag if es == 4 else 2.0 ** (math.floor(math.log2(max(top, 1e-30))) - 6)
+                    if err > tol:
+                        fail(f"depthwise3x3 {name} {recipe} C={c} {dtype}: max error {err:.3g} > {tol:.3g}")
+                    row[name] = dict(max_abs_err=err, tol=tol)
+                    del got, want
+                gw, gb = dwk.depthwise3x3_wgrad(x, dy)
+                gw2, gb2 = dwk.depthwise3x3_wgrad(x, dy)
+                ww, wb = dwk.depthwise3x3_wgrad_plain(x, dy)
+                mw, mb = dwk.depthwise3x3_wgrad_plain(x.float().abs(), dy.float().abs())
+                torch.cuda.synchronize()
+                if not (torch.equal(gw, gw2) and torch.equal(gb, gb2)):
+                    fail(f"depthwise3x3_wgrad {recipe} C={c} {dtype}: two runs differ")
+                # f32 sums of B*N products in another order, against the summed magnitudes
+                rel = max(((gw - ww).abs() / (mw + 1e-30)).max().item(), ((gb - wb).abs() / (mb + 1e-30)).max().item())
+                if rel > 1e-5:
+                    fail(f"depthwise3x3_wgrad {recipe} C={c} {dtype}: relative error {rel:.3g} > 1e-5")
+                row["wgrad"] = dict(max_abs_err=max((gw - ww).abs().max().item(), (gb - wb).abs().max().item()),
+                                    max_rel_err=rel, bit_identical=True)
+                reps = 10 if n * c > 1e7 else 30
+                xn, dyn, wd, bd = x.permute(0, 4, 1, 2, 3), dy.permute(0, 4, 1, 2, 3), w.to(dtype), b.to(dtype)
+                b_fwd, b_wgrad = dw_bounds(n, c, es)
+                row["forward"].update(
+                    ms=cuda_ms(lambda: dwk.depthwise3x3(x, w, b), reps),
+                    plain_ms=cuda_ms(lambda: dwk.depthwise3x3_plain(x, w, b), reps),
+                    library_ms=cuda_ms(lambda: F.conv3d(xn, wd, bd, padding=1, groups=c), reps),
+                    bound_ms=max(b_fwd.values()), bound_parts=b_fwd,
+                )
+                row["input_grad"].update(
+                    ms=cuda_ms(lambda: dwk.depthwise3x3(dy, wf), reps),
+                    plain_ms=cuda_ms(lambda: dwk.depthwise3x3_plain(dy, wf), reps),
+                    library_ms=cuda_ms(lambda: torch.nn.grad.conv3d_input(xn.shape, wd, dyn, padding=1, groups=c), reps),
+                    bound_ms=max(b_fwd.values()), bound_parts=b_fwd,
+                )
+                row["wgrad"].update(
+                    ms=cuda_ms(lambda: dwk.depthwise3x3_wgrad(x, dy), reps),
+                    plain_ms=cuda_ms(lambda: dwk.depthwise3x3_wgrad_plain(x, dy), reps),
+                    library_ms=cuda_ms(lambda: torch.nn.grad.conv3d_weight(xn, w.shape, dyn, padding=1, groups=c), reps),
+                    bound_ms=max(b_wgrad.values()), bound_parts=b_wgrad,
+                )
+                rows.append(row)
+                f, g, wg = row["forward"], row["input_grad"], row["wgrad"]
+                log(
+                    f"{recipe:9s} C={c:3d} {row['dtype']:8s} fwd {f['ms']:.4f} ms (plain {f['plain_ms']:.4f}, bound "
+                    f"{f['bound_ms']:.4f}, library {f['library_ms']:.4f}, err {f['max_abs_err']:.3g}) | dgrad "
+                    f"{g['ms']:.4f} (library {g['library_ms']:.4f}) | wgrad {wg['ms']:.4f} ms (plain "
+                    f"{wg['plain_ms']:.4f}, bound {wg['bound_ms']:.4f}, library {wg['library_ms']:.4f}, rel err {rel:.2g})"
+                )
+                del x, dy, xn, dyn, gw, gb, gw2, gb2, ww, wb, mw, mb
+    report["depthwise_rows"] = rows
+    return rows
+
+
+def leaf_errors(got, want):
+    """Per-leaf gradient error: |g - g_ref| / |g_ref| (norms), and for
+    conv_bias leaves |g - g_ref| over the largest leaf norm."""
+    top = max(g.norm().item() for g in want.values())
+    out = {}
+    for n, g in want.items():
+        d = (got[n] - g).norm().item()
+        out[n] = d / top if n.endswith("conv_bias") else d / max(g.norm().item(), 1e-30)
+    return out
+
+
+def phase_train_step(dwk, fb, dev, report):
+    log("== phase 7: MedNeXt-S train step at the Lucchi fast recipe's training shape ==")
+    from pytorch_connectomics_tpu_torch.config import load_config
+    from pytorch_connectomics_tpu_torch.losses import LossOrchestrator
+    from pytorch_connectomics_tpu_torch.models import build_model
+    from pytorch_connectomics_tpu_torch.training.optim import build_optimizer
+    from pytorch_connectomics_tpu_torch.training.state import create_train_state, make_train_step
+
+    cfg = load_config(RECIPE, mode="train")
+    if cfg.model.mednext.checkpoint_style != "outside_block" or cfg.model.compute_dtype != "bfloat16":
+        fail("the Lucchi fast recipe no longer trains bf16 with outside_block remat")
+    model = build_model(cfg.model, device=dev, seed=0)
+    orch = LossOrchestrator(cfg.model.loss)
+    shape = (cfg.data.dataloader.batch_size, *cfg.data.dataloader.patch_size, 1)
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev)
+    y = torch.from_numpy((rng.random(shape) > 0.8).astype(np.float32)).to(dev)
+
+    def loss_and_grads(plain):
+        model.zero_grad(set_to_none=True)
+        loss, _ = orch(model(x, plain=plain), y)
+        loss.backward()
+        return loss.item(), {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+    dwk.reset_launch_counts()
+    fb.reset_launch_counts()
+    loss_k, g_k = loss_and_grads(False)
+    torch.cuda.synchronize()
+    counts = {k.__name__: k.launches for k in dwk.KERNELS + fb.KERNELS}
+    # 18 stride-1 blocks: forward, remat recompute and input gradient; one wgrad each
+    if counts != {"depthwise3x3": 54, "depthwise3x3_wgrad": 18, "dw_stats": 0, "fused_block_apply": 0}:
+        fail(f"one remat train step should launch depthwise3x3 54 and depthwise3x3_wgrad 18 times, got {counts}")
+    loss_p, g_p = loss_and_grads(True)
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    errs = leaf_errors(g_k, g_p)
+    worst = max(errs, key=errs.get)
+    log(f"loss kernel {loss_k:.6f} plain {loss_p:.6f} (rel err {loss_err:.3g}); worst leaf {worst} {errs[worst]:.4g}")
+    if not math.isfinite(loss_k) or loss_err > TRAIN_LOSS_TOL:
+        fail(f"train step loss: kernel {loss_k} vs plain {loss_p} (rel err {loss_err:.3g} > {TRAIN_LOSS_TOL})")
+    if errs[worst] > TRAIN_GRAD_TOL:
+        fail(f"train step gradient {worst}: error {errs[worst]:.3g} > {TRAIN_GRAD_TOL}")
+    probes = {}
+    for where, blk in (("stage 0", model.enc[0].blocks[0]), ("bottleneck", model.bottleneck.blocks[0])):
+        for fault, w, idx in (
+            ("dw tap (0,0,0) dropped", blk.conv_weight, (slice(None), 0, 0, 0, 0)),
+            ("hidden units 0:16 dropped", blk.pw2.weight, (slice(None), slice(0, 16))),
+        ):
+            with torch.no_grad():
+                saved = w[idx].clone()
+                w[idx] = 0
+            _, g_f = loss_and_grads(True)
+            with torch.no_grad():
+                w[idx] = saved
+            perr = leaf_errors(g_f, g_p)
+            probes[f"{fault}, {where}"] = max(perr.values())
+    for name, perr in probes.items():
+        log(f"fault probe ({name}): worst leaf error {perr:.4g} against the limit {TRAIN_GRAD_TOL}")
+    if min(probes.values()) <= TRAIN_GRAD_TOL:
+        fail(f"the gradient limit {TRAIN_GRAD_TOL} lets a fault probe pass: {probes}")
+    # the full step (forward, backward, clip, AdamW) through the kernels
+    opt, schedule = build_optimizer(cfg.optimization, model, 100)
+    state = create_train_state(model, opt)
+    step = make_train_step(orch, schedule, gradient_clip=cfg.optimization.gradient_clip_val)
+    batch = {"image": x, "label": y}
+    step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reps = 3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        logs = step(state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / reps * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(float(v)) for v in logs.values()):
+        fail(f"train step logs not finite: {logs}")
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        loss_and_grads(True)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) / reps * 1e3
+    log(f"train step {shape} bf16 remat: {step_ms:.1f} ms (plain forward+backward {plain_ms:.1f} ms), "
+        f"peak memory {peak / 2**30:.2f} GiB, launches per step {counts}")
+    # one step under the profiler: the device's busy time and its top kernels
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    prof_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    top = sorted(events, key=dev_us, reverse=True)[:10]
+    log(f"one step under the profiler: {prof_ms:.1f} ms, kernels {busy_ms:.1f} ms of device time")
+    for e in top:
+        log(f"  {dev_us(e) / 1e3:8.2f} ms  {e.count:5d}x  {e.key[:90]}")
+    report["train_step"] = dict(
+        shape=list(shape), step_ms=step_ms, plain_fwd_bwd_ms=plain_ms, peak_memory_bytes=peak,
+        launches_per_step=counts, profiled_ms=prof_ms, device_busy_ms=busy_ms,
+        top_kernels=[dict(name=e.key, device_ms=dev_us(e) / 1e3, count=e.count) for e in top], loss_kernel=loss_k, loss_plain=loss_p, loss_rel_err=loss_err,
+        grad_leaf_errors=errs, worst_leaf=worst, grad_tol=TRAIN_GRAD_TOL, fault_probe_leaf_errors=probes,
+    )
+    del model, opt, state, g_k, g_p
+
+
+def phase_cli_train_test(dwk, fb, dev, work, report):
+    log("== phase 8: CLI --mode train, then --mode test restoring it ==")
+    import shutil
+
+    from pytorch_connectomics_tpu_torch.runtime.cli import parse_args
+    from pytorch_connectomics_tpu_torch.runtime.dispatch import dispatch_runtime
+    from pytorch_connectomics_tpu_torch.training.checkpoint import is_checkpoint_dir
+
+    run_root = work / "cli_train"
+    shutil.rmtree(run_root, ignore_errors=True)
+    flags = ["--config", str(SYNTH_RECIPE), "--device", str(dev)]
+    train_args = parse_args(flags + [
+        "--mode", "train", f"save_path={run_root}", "optimization.n_steps_per_epoch=20",
+        "optimization.max_epochs=1", "monitor.logging.scalar.loss_every_n_steps=5",
+    ])
+    dwk.reset_launch_counts()
+    fb.reset_launch_counts()
+    res = dispatch_runtime(train_args)
+    torch.cuda.synchronize()
+    train_counts = {k.__name__: k.launches for k in dwk.KERNELS + fb.KERNELS}
+    if any(k.launches <= 0 for k in dwk.KERNELS):
+        fail(f"the train leg did not run through both depthwise kernels: {train_counts}")
+    run_dir = Path(res["run_dir"])
+    recs = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["train_loss_total"] for r in recs if "train_loss_total" in r]
+    if len(losses) < 2 or not all(math.isfinite(v) for v in losses):
+        fail(f"train leg losses missing or not finite: {losses}")
+    ckpt = res["checkpoint"]
+    if not ckpt or Path(ckpt).name != "last" or not is_checkpoint_dir(ckpt):
+        fail(f"train leg left no last checkpoint: {ckpt}")
+    st = res["train_stats"]
+    fb.reset_launch_counts()
+    test_res = dispatch_runtime(parse_args(flags + ["--mode", "test", f"save_path={run_root}"]))
+    torch.cuda.synchronize()
+    test_counts = {k.__name__: k.launches for k in fb.KERNELS}
+    restored = test_res.get("restored") or {}
+    if restored.get("checkpoint") != ckpt or restored.get("config_hash") != res["config_hash"]:
+        fail(f"the test leg did not restore the train leg's checkpoint {ckpt}: {restored}")
+    if any(v <= 0 for v in test_counts.values()):
+        fail(f"the test leg did not run through the fused kernels: {test_counts}")
+    metrics = next(iter(test_res["metrics"].values()))
+    if "jaccard" not in metrics or not math.isfinite(metrics["jaccard"]):
+        fail(f"test leg metrics: {metrics}")
+    steps_per_s = st["steps"] / st["seconds"]
+    host_ms = st["pipeline_host_seconds"] / max(1, st["pipeline_batches"]) * 1e3
+    log(f"train leg: {st['steps']} steps in {st['seconds']:.2f} s ({steps_per_s:.3f} steps/s), pipeline host "
+        f"{host_ms:.1f} ms per batch ({st['pipeline_batches']} batches), waited {st['data_wait_seconds']:.2f} s "
+        f"for batches; losses {losses[0]:.4f} -> {losses[-1]:.4f}; launches {train_counts}")
+    log(f"test leg restored {restored['checkpoint']} (step {restored['step']}, config hash "
+        f"{restored['config_hash']}): jaccard {metrics['jaccard']:.4f} (20 steps: measures nothing); "
+        f"launches {test_counts}")
+    report["cli"] = dict(train_stats=st, steps_per_s=steps_per_s, pipeline_host_ms_per_batch=host_ms,
+                         losses=losses, train_launches=train_counts, test_launches=test_counts,
+                         restored=restored, test_metrics=metrics)
+    return train_counts
+
+
+def kernel_line_rows(rows, main_counts, dw_rows, dw_counts):
+    source = "pytorch_connectomics_tpu_torch/ops/csrc/mednext_block.cu"
+    replaces = {
+        "dw_stats": "pytorch_connectomics_tpu/ops/fused_block_pallas.py:148",
+        "fused_block_apply": "pytorch_connectomics_tpu/ops/fused_block_pallas.py:238",
+    }
+    kernels = []
+    bf16 = [r for r in rows if r["dtype"] == "bfloat16"]
+    for name in ("dw_stats", "fused_block_apply"):
+        def per_forward(key):
+            vals = [r[name][key] for r in bf16]
+            if any(v is None for v in vals):
+                return None
+            return sum(v * r["blocks_per_forward"] for v, r in zip(vals, bf16))
+
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces[name],
+            launches=main_counts[name],
+            max_abs_err=max(r[name]["max_abs_err"] for r in bf16),
+            ms=per_forward("ms"), plain_ms=per_forward("plain_ms"), bound_ms=per_forward("bound_ms"),
+            bound_by="bytes" if sum(r[name]["bound_parts"]["bytes"] * r["blocks_per_forward"] for r in bf16)
+            >= sum(r[name]["bound_parts"]["ops"] * r["blocks_per_forward"] for r in bf16) else "operations",
+            library_ms=per_forward("library_ms"),
+        ))
+    # the depthwise kernels per train step of the main path (synthetic
+    # recipe, bf16, no remat): each stride-1 block launches depthwise3x3 for
+    # its forward and its input gradient, and depthwise3x3_wgrad once
+    main = [r for r in dw_rows if r["dtype"] == "bfloat16" and r["recipe"] == "synthetic"]
+    for name, parts in (("depthwise3x3", ("forward", "input_grad")), ("depthwise3x3_wgrad", ("wgrad",))):
+        def per_step(key, parts=parts):
+            return sum(r[p][key] * r["blocks_per_step"] for r in main for p in parts)
+
+        def bound_part(kind, parts=parts):
+            return sum(r[p]["bound_parts"][kind] * r["blocks_per_step"] for r in main for p in parts)
+
+        kernels.append(dict(
+            name=name, route="cuda", source="pytorch_connectomics_tpu_torch/ops/csrc/depthwise3x3.cu",
+            replaces="pytorch_connectomics_tpu/ops/depthwise_pallas.py:62", launches=dw_counts[name],
+            max_abs_err=max(r[p]["max_abs_err"] for r in dw_rows if r["dtype"] == "bfloat16" for p in parts),
+            ms=per_step("ms"), plain_ms=per_step("plain_ms"), bound_ms=per_step("bound_ms"),
+            bound_by="bytes" if bound_part("bytes") >= bound_part("ops") else "operations",
+            library_ms=per_step("library_ms"),
+        ))
+    return kernels
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
-    from pytorch_connectomics_tpu_torch.ops import build, fused_block as fb
+    from pytorch_connectomics_tpu_torch.ops import build, depthwise as dwk, fused_block as fb
 
     report = {}
     smi = subprocess.run(
@@ -420,30 +762,11 @@ def main() -> None:
     report["slice"] = [main_run, tta_run]
     phase_predict_profile(dev, work, (165, 1024, 768), report)
 
-    source = "pytorch_connectomics_tpu_torch/ops/csrc/mednext_block.cu"
-    replaces = {
-        "dw_stats": "pytorch_connectomics_tpu/ops/fused_block_pallas.py:148",
-        "fused_block_apply": "pytorch_connectomics_tpu/ops/fused_block_pallas.py:238",
-    }
-    kernels = []
-    for name in ("dw_stats", "fused_block_apply"):
-        bf16 = [r for r in rows if r["dtype"] == "bfloat16"]
+    dw_rows = phase_depthwise(dwk, dev, report)
+    phase_train_step(dwk, fb, dev, report)
+    train_counts = phase_cli_train_test(dwk, fb, dev, work, report)
 
-        def per_forward(key):
-            vals = [r[name][key] for r in bf16]
-            if any(v is None for v in vals):
-                return None
-            return sum(v * r["blocks_per_forward"] for v, r in zip(vals, bf16))
-
-        kernels.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces[name],
-            launches=main_run["launches"][name],
-            max_abs_err=max(r[name]["max_abs_err"] for r in bf16),
-            ms=per_forward("ms"), plain_ms=per_forward("plain_ms"), bound_ms=per_forward("bound_ms"),
-            bound_by="bytes" if sum(r[name]["bound_parts"]["bytes"] * r["blocks_per_forward"] for r in bf16)
-            >= sum(r[name]["bound_parts"]["ops"] * r["blocks_per_forward"] for r in bf16) else "operations",
-            library_ms=per_forward("library_ms"),
-        ))
+    kernels = kernel_line_rows(rows, main_run["launches"], dw_rows, train_counts)
     report["kernels"] = kernels
     (work / "chip_smoke.json").write_text(json.dumps(report, indent=2))
     print(json.dumps({"kernels": kernels}))

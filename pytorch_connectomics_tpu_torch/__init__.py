@@ -1,5 +1,7 @@
-"""PyTorch/CUDA port of pytorch_connectomics_tpu: the inference path of the
-MedNeXt recipes, with hand-written Hopper kernels for the fused MedNeXt block.
+"""PyTorch/CUDA port of pytorch_connectomics_tpu: training and inference of
+the MedNeXt recipes, with hand-written Hopper kernels for the fused MedNeXt
+block (inference) and the depthwise 3^3 conv and its weight gradient
+(training).
 
 The package imports torch, numpy and scipy, and nothing of JAX or of the JAX
 package. Entry points run on ``cuda`` unless the caller passes

@@ -1,5 +1,6 @@
-"""Intensity normalization (host-side, numpy): the port's copy of
-``normalize_volume`` from ``pytorch_connectomics_tpu/data/preprocess.py``."""
+"""Intensity normalization and grow-to-patch padding (host-side, numpy): the
+port's copies of ``normalize_volume`` and ``pad_to_min_shape`` from
+``pytorch_connectomics_tpu/data/preprocess.py``."""
 
 from __future__ import annotations
 
@@ -48,3 +49,20 @@ def normalize_volume(vol: np.ndarray, method: str = "smart", clip_percentiles=No
     if method == "none":
         return vol.astype(np.float32)
     raise ValueError(f"unknown normalization '{method}'")
+
+
+def pad_to_min_shape(vol: np.ndarray, min_shape, mode: str = "reflect"):
+    """Grow-to-ROI pad so crops of ``min_shape`` always fit; returns
+    ``(volume, pads)``."""
+    pads = []
+    spatial_offset = vol.ndim - len(min_shape)
+    for i in range(vol.ndim):
+        if i < spatial_offset:
+            pads.append((0, 0))
+            continue
+        need = max(0, min_shape[i - spatial_offset] - vol.shape[i])
+        pads.append((need // 2, need - need // 2))
+    if any(p != (0, 0) for p in pads):
+        np_mode = {"reflect": "reflect", "replicate": "edge", "constant": "constant"}[mode]
+        vol = np.pad(vol, pads, mode=np_mode)
+    return vol, tuple(pads)

@@ -5,25 +5,39 @@ A block is depthwise k^3 conv -> per-channel GroupNorm -> 1x1 expand (ratio
 R) -> GELU (tanh) -> 1x1 compress, plus a residual; stride-2 depthwise down
 blocks and transposed-conv up blocks join the stages; S/B/M/L presets.
 
-Every stride-1 block with as many output channels as input channels runs
-through the fused MedNeXt block kernels (:mod:`..ops.fused_block`): on a
-CUDA device the hand-written kernels, on the CPU their plain versions.
-``forward(x, plain=True)`` runs the plain versions on any device, the
-reference a kernel run is held against. The stems, the strided down and up
-blocks and the head are plain PyTorch.
+A stride-1 block with as many output channels as input channels runs one of
+two ways, chosen by autograd, not by ``train()``/``eval()``:
+
+- **inference** (grad disabled, or nothing requires grad): the fused MedNeXt
+  block kernels (:mod:`..ops.fused_block`), which never write the stencil,
+  the normalised tensor or the hidden activation to memory and so have no
+  backward pass;
+- **training** (grad enabled and the input or a parameter requires grad):
+  the unfused block, as the JAX package trains it: the depthwise conv
+  through the kernels of :mod:`..ops.depthwise` (an autograd Function whose
+  backward is a kernel too), then GroupNorm, the pointwise layers with their
+  weights cast inside autograd, tanh-GELU and the residual in torch ops.
+
+On a CUDA device the hand-written kernels run, on the CPU their plain
+versions. ``forward(x, plain=True)`` runs the plain versions on any device,
+the reference a kernel run is held against. The stems, the strided down and
+up blocks and the head are plain PyTorch.
 
 Activations are channels-last ``(B, Z, Y, X, C)`` in the compute dtype
 (bfloat16 by default); parameters stay float32 and are cast per call, as
-flax does, except the fused blocks' pointwise weights, which are cast once
-per parameter version; the head computes in float32 and the output is
-float32.
+flax does, except the fused blocks' pointwise weights at inference, which
+are cast once per parameter version; the head computes in float32 and the
+output is float32.
+
+``remat`` (``checkpoint_style: outside_block``, ``nn.remat`` of each stage
+block in JAX) wraps each stage block in ``torch.utils.checkpoint`` when grad
+is enabled: its activations are recomputed in the backward pass instead of
+kept.
 
 This slice ports the stock 1x1x1 stem and the patchify stem (any per-axis
 stride, ``linear`` head). Deep supervision, task heads, 2-D mode, the
 ``refine`` head, the full-resolution hybrid and kernel sizes other than 3
-raise ``NotImplementedError``. ``remat`` (activation checkpointing) only
-changes what training keeps for the backward pass; the port runs inference
-only, so the flag is accepted and has no effect.
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,8 +47,9 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from ..ops import fused_block
+from ..ops import depthwise, fused_block
 from .layers import Norm, conv3d_same, conv_transpose3d_same
 from .registry import register_architecture
 
@@ -86,8 +101,9 @@ class MedNeXtBlock(nn.Module):
         self._cast_key = None
 
     def _pointwise_weights(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """pw1 and pw2 weights in the compute dtype, cast again only when a
-        weight moves or is written in place."""
+        """pw1 and pw2 weights in the compute dtype for the fused inference
+        kernels, cast again only when a weight moves or is written in place.
+        Detached: the training block casts inside autograd instead."""
         ws = (self.pw1.weight, self.pw2.weight)
         key = tuple((w.device, w.data_ptr(), w._version) for w in ws)
         if key != self._cast_key:
@@ -99,6 +115,10 @@ class MedNeXtBlock(nn.Module):
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         dt = self.dtype
         x = x.to(dt)
+        if self.fused and torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in self.parameters())
+        ):
+            return self._train_block(x, plain)
         if self.fused:
             block = fused_block.fused_mednext_block_plain if plain else fused_block.fused_mednext_block
             w1, w2 = self._pointwise_weights()
@@ -128,16 +148,29 @@ class MedNeXtBlock(nn.Module):
         return res + y
 
 
+    def _train_block(self, x: torch.Tensor, plain: bool) -> torch.Tensor:
+        """The unfused stride-1 block, differentiable end to end."""
+        dt = self.dtype
+        conv = depthwise.depthwise3x3_plain if plain else depthwise.depthwise_conv3x3
+        y = self.norm(conv(x.contiguous(), self.conv_weight, self.conv_bias))
+        y = F.gelu(_lin(y, self.pw1, dt), approximate="tanh")
+        return x + _lin(y, self.pw2, dt)
+
+
 class _Stage(nn.Module):
-    def __init__(self, channels, num_blocks, exp_ratio, kernel, norm, dtype):
+    def __init__(self, channels, num_blocks, exp_ratio, kernel, norm, dtype, remat=False):
         super().__init__()
+        self.remat = remat
         self.blocks = nn.ModuleList(
             MedNeXtBlock(channels, exp_ratio, kernel, norm, dtype=dtype) for _ in range(num_blocks)
         )
 
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         for blk in self.blocks:
-            x = blk(x, plain)
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(blk, x, plain, use_reentrant=False)
+            else:
+                x = blk(x, plain)
         return x
 
 
@@ -176,6 +209,7 @@ class MedNeXt(nn.Module):
                 raise NotImplementedError(f"MedNeXt {what} is not ported yet")
         C, R, B = base_channels, list(exp_ratios), list(block_counts)
         self.in_channels, self.out_channels, self.dtype = in_channels, out_channels, dtype
+        self.remat = bool(remat)
         self.patchify_stem = bool(patchify_stem)
         if self.patchify_stem:
             self.stride = tuple(int(s) for s in patchify_stride)
@@ -190,7 +224,7 @@ class MedNeXt(nn.Module):
             self.head = nn.Linear(C, out_channels)
 
         def stage(i, ch):
-            return _Stage(ch, B[i], R[i], kernel, norm, dtype)
+            return _Stage(ch, B[i], R[i], kernel, norm, dtype, self.remat)
 
         self.enc = nn.ModuleList(stage(i, C * 2**i) for i in range(4))
         self.down = nn.ModuleList(

@@ -27,6 +27,7 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"
 # headers it includes and only enter the content hash)
 LIBRARIES: Dict[str, List[str]] = {
     "mednext_block": ["mednext_block.cu", "mednext_block.cuh"],
+    "depthwise3x3": ["depthwise3x3.cu", "mednext_block.cuh"],
 }
 
 _lock = threading.Lock()
@@ -108,3 +109,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.mednext_block_apply.restype = i
         lib.mednext_error_string.argtypes = [i]
         lib.mednext_error_string.restype = ctypes.c_char_p
+    elif name == "depthwise3x3":
+        lib.depthwise3x3_wgrad_parts.argtypes = [i, i, i, i, i, i]
+        lib.depthwise3x3_wgrad_parts.restype = i
+        lib.depthwise3x3_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+        lib.depthwise3x3_fwd.restype = i
+        lib.depthwise3x3_wgrad.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.depthwise3x3_wgrad.restype = i
+        lib.depthwise3x3_error_string.argtypes = [i]
+        lib.depthwise3x3_error_string.restype = ctypes.c_char_p

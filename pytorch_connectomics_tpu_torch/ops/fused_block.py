@@ -18,7 +18,10 @@ casts them once, not per call) and the other parameters in float32.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises. Each wrapper counts its kernel launches in
-its ``launches`` attribute.
+its ``launches`` attribute. The pair has no backward pass: called with grad
+enabled on a tensor that requires grad, a wrapper raises rather than return
+a result cut off from the autograd graph (training runs the unfused block,
+``models/mednext.py``).
 """
 
 from __future__ import annotations
@@ -51,6 +54,15 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when grad is enabled and any of ``tensors`` requires grad: the
+    kernels write their outputs outside autograd."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward pass; call it under torch.no_grad() or torch.inference_mode()"
+        )
+
+
 def _check_cuda_inputs(x: torch.Tensor, *others: torch.Tensor) -> None:
     _require(x.dim() == 5, f"x must be (B, Z, Y, X, C), got {tuple(x.shape)}")
     _require(x.is_contiguous(), "x must be contiguous channels-last (B, Z, Y, X, C)")
@@ -78,6 +90,7 @@ def dw_stats_plain(x: torch.Tensor, w_dw: torch.Tensor) -> torch.Tensor:
 
 def dw_stats(x: torch.Tensor, w_dw: torch.Tensor) -> torch.Tensor:
     """(B, 2, C) float32 GroupNorm statistics of dw(x); see the module doc."""
+    refuse_grad("dw_stats", x, w_dw)
     if x.device.type == "cpu":
         return dw_stats_plain(x, w_dw)
     _dtype_code(x)
@@ -136,6 +149,7 @@ def fused_block_apply(
 ) -> torch.Tensor:
     """(B, Z, Y, X, Cout) in x's dtype: the whole block given
     :func:`dw_stats` of x; see the module doc."""
+    refuse_grad("fused_block_apply", x, stats, w_dw, gamma, beta, w1, b1, w2, b2)
     if x.device.type == "cpu":
         return fused_block_apply_plain(x, stats, w_dw, gamma, beta, w1, b1, w2, b2, eps)
     code = _dtype_code(x)
@@ -170,6 +184,7 @@ fused_block_apply.launches = 0
 
 def fused_mednext_block(x, w_dw, gamma, beta, w1, b1, w2, b2, eps: float = EPS) -> torch.Tensor:
     """Statistics pass then apply pass: the block on channels-last x."""
+    refuse_grad("fused_mednext_block", x, w_dw, gamma, beta, w1, b1, w2, b2)
     return fused_block_apply(x, dw_stats(x, w_dw), w_dw, gamma, beta, w1, b1, w2, b2, eps)
 
 

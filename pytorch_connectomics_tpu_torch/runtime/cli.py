@@ -1,9 +1,10 @@
 """CLI argument parsing + config setup: the flag surface of
-``pytorch_connectomics_tpu/runtime/cli.py`` plus ``--device``. This slice
-implements ``--mode test``; the other modes are parsed and refused.
+``pytorch_connectomics_tpu/runtime/cli.py`` plus ``--device``. The port
+implements ``--mode train``, ``val`` and ``test``; ``tune`` and
+``tune-test`` are parsed and refused.
 
     python -m pytorch_connectomics_tpu_torch.runtime.cli \\
-        --config tutorials/mito_lucchi_tpu_fast.yaml --mode test [--device cpu] [key=value ...]
+        --config tutorials/mito_synthetic_cli_fast_tpu.yaml --mode train [--device cpu] [key=value ...]
 """
 
 from __future__ import annotations
@@ -18,13 +19,14 @@ from ..config.schema import Config
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="connectomics-torch",
-        description="PyTorch/CUDA port of connectomics-tpu: test-mode inference of EM segmentation",
+        description="PyTorch/CUDA port of connectomics-tpu: training and inference of EM segmentation",
     )
     p.add_argument("--config", "-c", default=None, help="YAML config path")
     p.add_argument("--mode", default="train", choices=["train", "val", "test", "tune", "tune-test"])
     p.add_argument(
         "--checkpoint", default=None,
-        help="weights: a .pt/.pth state_dict of the port, or a flax params .npz",
+        help="a checkpoint directory of the port (<run>/checkpoints/last), a .pt/.pth state_dict, "
+        "or a flax params .npz",
     )
     p.add_argument("--device", default="cuda", help="torch device (default cuda; 'cpu' runs on the CPU)")
     p.add_argument("--fast-dev-run", action="store_true", help="1 epoch x 2 steps smoke run")

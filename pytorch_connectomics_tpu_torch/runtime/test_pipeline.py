@@ -73,7 +73,7 @@ def run_test_pipeline(
     for vi, image_path in enumerate(images):
         vol_name = volume_name_from_path(image_path)
         t0 = time.perf_counter()
-        vol = read_volume(image_path)
+        vol = read_volume(image_path, device=device)
         if cfg.data.test.transpose:
             vol = np.transpose(vol, cfg.data.test.transpose)
         vol = normalize_volume(vol, cfg.data.preprocessing.normalize)
@@ -92,7 +92,7 @@ def run_test_pipeline(
             "inference[%s]: %.1fs (%.2f Mvox/s)", vol_name, t_save - t0, voxels / max(t_save - t0, 1e-9) / 1e6
         )
         if cfg.evaluation.enabled and vi < len(labels):
-            gt = read_volume(labels[vi])
+            gt = read_volume(labels[vi], device=device)
             if cfg.data.test.transpose:
                 gt = np.transpose(gt, cfg.data.test.transpose)
             all_metrics[vol_name] = run_evaluation_stage(prediction, gt, cfg.evaluation, out_dir, vol_name)

@@ -71,3 +71,63 @@ def test_cli_writes_npy_prediction_without_h5py(tmp_path, volume, monkeypatch):
     assert pred.shape == (1, 20, 40, 36) and np.isfinite(pred).all() and 0 <= pred.min() <= pred.max() <= 1
     assert (tmp_path / "out" / "tiny_scratch_prediction.json").exists()
     assert 0 <= res["metrics"]["tiny"]["jaccard"] <= 1
+
+
+SYNTH = "tutorials/mito_synthetic_cli_fast_tpu.yaml"
+TINY_TRAIN = [
+    "model.mednext.size=custom",
+    "model.mednext.base_channels=8",
+    "model.mednext.exp_ratio=2",
+    "model.mednext.block_counts=[1,1,1,1,1,1,1,1,1]",
+    "optimization.precision=32",
+    "model.input_size=[16,32,32]",
+    "inference.window.window_size=[16,32,32]",
+    "inference.window.sw_batch_size=2",
+    "data.test.image=synthetic://em2/cli_test_image?shape=16,40,36",
+    "data.test.label=synthetic://em2/cli_test_label?shape=16,40,36",
+]
+
+
+def test_cli_train_then_test_restores_the_checkpoint(tmp_path):
+    """--mode train --device cpu for two steps on the synthetic recipe cut
+    to a tiny model, then --mode test without --checkpoint: the test leg
+    finds the train leg's last checkpoint and restores its weights."""
+    import json
+
+    import torch
+
+    from pytorch_connectomics_tpu_torch.training.checkpoint import CheckpointManager
+
+    over = TINY_TRAIN + [
+        f"save_path={tmp_path / 'runs'}",
+        "data.train.image=synthetic://em2/cli_train_image?shape=16,48,48",
+        "data.train.label=synthetic://em2/cli_train_label?shape=16,48,48",
+        "data.dataloader.batch_size=2", "data.dataloader.patch_size=[16,32,32]",
+        "optimization.n_steps_per_epoch=2", "optimization.max_epochs=1",
+        "monitor.logging.scalar.loss_every_n_steps=1",
+    ]
+    res = main(["--config", SYNTH, "--mode", "train", "--device", "cpu", *over])
+    run_dir = tmp_path / "runs" / res["run_dir"].split("/")[-1]
+    assert res["train_stats"]["steps"] == 2
+    assert (run_dir / "config.yaml").exists()
+    recs = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["train_loss_total"] for r in recs if "train_loss_total" in r]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    last = run_dir / "checkpoints" / "last"
+    assert res["checkpoint"] == str(last) and (last / "state.pt").exists()
+    meta = CheckpointManager.read_metadata(last)
+    assert meta["step"] == 2 and meta["config_hash"] == res["config_hash"]
+    saved = CheckpointManager.load(last)
+    test = main(["--config", SYNTH, "--mode", "test", "--device", "cpu", *over])
+    assert test["restored"]["checkpoint"] == str(last) and test["restored"]["step"] == 2
+    assert test["restored"]["config_hash"] == res["config_hash"]
+    assert test["run_dir"] == str(run_dir / "test")
+    assert 0 <= test["metrics"]["synthetic"]["jaccard"] <= 1
+    pred = read_volume(str(run_dir / "test" / "synthetic_last_tta_x2_prediction.h5"))
+    assert pred.shape == (1, 16, 40, 36) and np.isfinite(pred).all()
+    # the restored weights are the trained ones, not the seeded init
+    from pytorch_connectomics_tpu_torch.config import load_config
+    from pytorch_connectomics_tpu_torch.models import build_model
+
+    init = build_model(load_config(SYNTH, overrides=over, mode="test").model, device="cpu", seed=42).state_dict()
+    assert any(not torch.equal(init[k], v) for k, v in saved["model"].items())

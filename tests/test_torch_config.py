@@ -64,7 +64,7 @@ def test_cli_refuses_to_run_on_cpu_unasked():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dispatch_runtime(parse_args(["--config", str(FAST), "--mode", "test"]))
     with pytest.raises(NotImplementedError):
-        dispatch_runtime(parse_args(["--config", str(FAST), "--mode", "train", "--device", "cpu"]))
+        dispatch_runtime(parse_args(["--config", str(FAST), "--mode", "tune", "--device", "cpu"]))
 
 
 PORT_MODULES = [

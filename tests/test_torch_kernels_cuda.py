@@ -1,6 +1,8 @@
-"""The MedNeXt block CUDA kernels against their plain PyTorch versions, on
-the card. Skipped where there is no CUDA device. This file imports no JAX,
-so it also runs with ``--noconftest`` on a machine without JAX:
+"""The port's CUDA kernels (the fused MedNeXt block pair and the training
+path's depthwise 3^3 conv and its weight gradient) against their plain
+PyTorch versions, on the card. Skipped where there is no CUDA device. This
+file imports no JAX, so it also runs with ``--noconftest`` on a machine
+without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py -q
 """
@@ -91,3 +93,90 @@ def test_cuda_tensor_never_falls_back(device):
     xb = torch.zeros((1, 4, 4, 4, 16), device=device, dtype=torch.bfloat16)
     with pytest.raises(ValueError):  # float32 w1/w2 with bfloat16 x: no cast inside the wrapper
         fb.fused_block_apply(xb, fb.dw_stats(xb, p["w_dw"]), **p)
+
+
+# ---------------------------------------------------------------------------
+# depthwise 3^3 conv kernels (training path)
+# ---------------------------------------------------------------------------
+
+from pytorch_connectomics_tpu_torch.ops import depthwise as dwk  # noqa: E402
+
+# (B, Z, Y, X, C): the stride-1 stage shapes of MedNeXt-S training on the
+# Lucchi fast recipe's 96^3 patch after the (1, 2, 2) stem at batch 2, the
+# synthetic recipe's bottleneck, and ragged shapes
+DW_SHAPES = [
+    (2, 96, 48, 48, 32),
+    (2, 48, 24, 24, 64),
+    (2, 24, 12, 12, 128),
+    (2, 12, 6, 6, 256),
+    (2, 6, 3, 3, 512),
+    (2, 4, 2, 2, 512),
+    (3, 5, 7, 9, 16),
+    (1, 3, 1, 2, 48),
+]
+
+
+def _bf16_ulps(ref, n):
+    top = ref.float().abs().max().item()
+    return 2.0 ** (np.floor(np.log2(max(top, 1e-30))) - 8 + n)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", DW_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_depthwise_kernels_match_plain(device, shape, dtype):
+    c = shape[-1]
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device, dtype)
+    dy = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device, dtype)
+    w = torch.from_numpy(rng.standard_normal((c, 1, 3, 3, 3)).astype(np.float32) * 0.3).to(device)
+    b = torch.from_numpy(rng.standard_normal(c).astype(np.float32)).to(device)
+    for args in ((x, w, b), (dy, w.flip((2, 3, 4)), None)):  # forward, input gradient
+        got, want = dwk.depthwise3x3(*args), dwk.depthwise3x3_plain(*args)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.dtype == dtype
+        err = (got.float() - want.float()).abs().max().item()
+        # f32: FMA order against the summed magnitudes. bf16: both sum in f32
+        # and round once, so a value can land one ulp apart; two ulps at the
+        # output's largest magnitude
+        mag = dwk.depthwise3x3_plain(args[0].float().abs(), args[1].abs()).abs().max().item()
+        tol = 1e-5 * mag if dtype == torch.float32 else _bf16_ulps(want, 2)
+        assert err <= tol, (err, tol)
+    gw, gb = dwk.depthwise3x3_wgrad(x, dy)
+    ww, wb = dwk.depthwise3x3_wgrad_plain(x, dy)
+    gw2, gb2 = dwk.depthwise3x3_wgrad(x, dy)
+    torch.cuda.synchronize()
+    assert gw.shape == (c, 1, 3, 3, 3) and gb.shape == (c,) and gw.dtype == gb.dtype == torch.float32
+    # f32 sums of B*N products in another order, against the summed magnitudes
+    mw, mb = dwk.depthwise3x3_wgrad_plain(x.float().abs(), dy.float().abs())
+    assert torch.all((gw - ww).abs() <= 1e-5 * mw + 1e-6), ((gw - ww).abs() / mw).max().item()
+    assert torch.all((gb - wb).abs() <= 1e-5 * mb + 1e-6), ((gb - wb).abs() / mb).max().item()
+    assert torch.equal(gw, gw2) and torch.equal(gb, gb2)  # deterministic
+
+
+def test_depthwise_function_backward_matches_plain_autograd(device):
+    rng = np.random.default_rng(2)
+    shape = (2, 6, 10, 12, 32)
+    x0 = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device)
+    w0 = torch.from_numpy(rng.standard_normal((32, 1, 3, 3, 3)).astype(np.float32)).to(device)
+    b0 = torch.from_numpy(rng.standard_normal(32).astype(np.float32)).to(device)
+    up = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device)
+    grads = []
+    for fn in (dwk.depthwise_conv3x3, dwk.depthwise3x3_plain):
+        x, w, b = (t.clone().requires_grad_(True) for t in (x0, w0, b0))
+        (fn(x, w, b) * up).sum().backward()
+        grads.append((x.grad, w.grad, b.grad))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * want.abs().max().item())
+
+
+def test_depthwise_never_falls_back(device):
+    w = torch.zeros((8, 1, 3, 3, 3), device=device)
+    with pytest.raises(ValueError):  # 8 channels: not taken
+        dwk.depthwise3x3(torch.zeros((1, 4, 4, 4, 8), device=device), w)
+    with pytest.raises(ValueError):  # more than 512 channels
+        dwk.depthwise3x3_wgrad(*(torch.zeros((1, 2, 2, 2, 1024), device=device),) * 2)
+    with pytest.raises(TypeError):
+        dwk.depthwise3x3(torch.zeros((1, 4, 4, 4, 16), device=device).half(), torch.zeros((16, 1, 3, 3, 3), device=device))
+    x = torch.zeros((1, 4, 4, 4, 16), device=device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward pass"):
+        dwk.depthwise3x3(x, torch.zeros((16, 1, 3, 3, 3), device=device))
