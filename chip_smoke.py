@@ -29,7 +29,18 @@ Phases (any failure exits non-zero; no phase catches its own failure):
   8. cli      the port's CLI on tutorials/mito_synthetic_cli_fast_tpu.yaml:
               --mode train for 20 steps, then --mode test without
               --checkpoint, which restores the train leg's last checkpoint
-  9. report   a {"kernels": [...]} line, then {"ok": true, "device": ...} last
+  9. conv3d   RSUNet's dense 3^3 conv kernel against its plain version at
+              every shape of RSUNet on the NucMM-Z recipe (batch 8 of 64^3,
+              bf16 and f32), with times (kernel, plain, bound, F.conv3d)
+ 10. rsunet   RSUNet at full width ([28,36,48,64], iso), seeded init: one
+              (8, 64, 64, 64, 1) batch through the kernel and through the
+              plain path, bf16 and f32; 15 launches per forward; four fault
+              probes that the bf16 limit must reject
+ 11. nucmm    the port's CLI, --mode test of tutorials/nuc_nucmm.yaml on a
+              seeded synthetic 165x1024x768 volume with connected-component
+              ground truth: prediction, bcd decode, instance metrics; then
+              the predict step alone, timed and profiled
+ 12. report   a {"kernels": [...]} line, then {"ok": true, "device": ...} last
 
 Imports torch and the port only. Details go to build/chip_smoke/chip_smoke.json.
 """
@@ -84,6 +95,26 @@ TRAIN_STAGES = {
 # follows the conv, over the largest leaf norm); PERF.md gives the readings
 TRAIN_LOSS_TOL = 1e-3
 TRAIN_GRAD_TOL = 0.05
+NUCMM = ROOT / "tutorials" / "nuc_nucmm.yaml"
+NUCMM_BATCH = 8
+NUCMM_SHAPE = (165, 1024, 768)
+# ((Z, Y, X), Cin, Cout, launches per forward) of RSUNet's 3^3 convs on the
+# NucMM-Z recipe's 64^3 window (width [28, 36, 48, 64], iso)
+CONV_SHAPES = [
+    ((64, 64, 64), 1, 28, 1),
+    ((64, 64, 64), 28, 28, 4),
+    ((32, 32, 32), 28, 36, 1),
+    ((32, 32, 32), 36, 36, 3),
+    ((16, 16, 16), 36, 48, 1),
+    ((16, 16, 16), 48, 48, 3),
+    ((8, 8, 8), 48, 64, 1),
+    ((8, 8, 8), 64, 64, 1),
+]
+# limits of RSUNet's kernel path against its plain path, as shares of max
+# |plain output|: bf16 set between the sound reading and the smallest fault
+# probe, f32 for sums in another order; PERF.md gives the readings
+RSUNET_BF16_TOL = 0.03
+RSUNET_F32_TOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -352,20 +383,22 @@ def dev_us(e):
     return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
 
 
-def phase_predict_profile(dev, work, shape, report):
+def phase_predict_profile(dev, work, shape, report, recipe=RECIPE, name=None, key="predict"):
     """The predict step alone (InferenceManager.predict, TTA off) on the
-    slice's volume, warm, timed on the host clock, then once more under
-    torch.profiler for the device's busy time and its top kernels."""
+    slice's volume ``work/<name>_im.npy``, warm, timed on the host clock,
+    then once more under torch.profiler for the device's busy time and its
+    top kernels; recorded under ``report[key]``."""
+    from pytorch_connectomics_tpu_torch.config import load_config
     from pytorch_connectomics_tpu_torch.data.preprocess import normalize_volume
     from pytorch_connectomics_tpu_torch.inference import InferenceManager
     from pytorch_connectomics_tpu_torch.models import build_model
 
-    cfg = load_model_config()
+    cfg = load_config(recipe, mode="test")
     cfg.inference.test_time_augmentation.enabled = False
     model = build_model(cfg.model, device=dev, seed=cfg.system.seed)
     manager = InferenceManager(cfg, model, dev)
-    name = f"syn{shape[0]}x{shape[1]}x{shape[2]}"
-    vol = normalize_volume(np.load(work / f"{name}_im.npy"))
+    name = name or f"syn{shape[0]}x{shape[1]}x{shape[2]}"
+    vol = normalize_volume(np.load(work / f"{name}_im.npy"), cfg.data.preprocessing.normalize)
     manager.predict(vol)  # warm: cuDNN plans, the cached blend normaliser
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -400,7 +433,7 @@ def phase_predict_profile(dev, work, shape, report):
     )[:6]
     for e in copies:
         log(f"  copy_ {dev_us(e) / 1e3:9.2f} ms  {e.count:6d}x  {str(e.input_shapes)[:110]}")
-    report["predict"] = dict(
+    report[key] = dict(
         shape=list(shape), seconds=secs, mvox_per_s=mvox, profiled_seconds=prof_secs, device_busy_seconds=busy,
         top_kernels=[dict(name=e.key, device_ms=dev_us(e) / 1e3, count=e.count) for e in top],
         top_copies=[dict(shapes=str(e.input_shapes), device_ms=dev_us(e) / 1e3, count=e.count) for e in copies],
@@ -671,6 +704,269 @@ def phase_cli_train_test(dwk, fb, dev, work, report):
     return train_counts
 
 
+def conv_bounds(n, cin, cout, es):
+    """Least times (ms) of one conv3d launch on n voxels, as (bytes term,
+    operations term): input and weight read once and output written once
+    over the HBM rate; 2 * 27 * Cin * Cout FLOP per voxel over the bf16
+    tensor-core rate (f32: the CUDA-core rate)."""
+    moved = n * (cin + cout) * es + 27 * cin * cout * es + cout * 4
+    flop = 2 * 27 * n * cin * cout
+    return dict(bytes=moved / PEAK_BYTES * 1e3, ops=flop / (PEAK_BF16_TC if es == 2 else PEAK_F32) * 1e3)
+
+
+def phase_conv3d(c3, dev, report):
+    log("== phase 9: conv3d kernel vs plain (batch 8, RSUNet on NucMM-Z) ==")
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        es = 2 if dtype == torch.bfloat16 else 4
+        for spatial, cin, cout, per_fwd in CONV_SHAPES:
+            rng = np.random.default_rng(100 * cin + cout)
+            x = torch.from_numpy(rng.standard_normal((NUCMM_BATCH, *spatial, cin), dtype=np.float32)).to(dev, dtype)
+            w = torch.from_numpy((rng.standard_normal((cout, cin, 3, 3, 3)) / np.sqrt(27 * cin)).astype(np.float32))
+            w = w.to(dev)
+            b = torch.from_numpy(rng.standard_normal(cout).astype(np.float32) * 0.1).to(dev)
+            wmat = c3.kernel_weight(w, dtype)  # built once per parameter, as the model does
+            got, want = c3.conv3d_3x3(x, w, b, wmat=wmat), c3.conv3d_3x3_plain(x, w, b)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            if es == 4:
+                # f32 sums in another order: 1e-5 of the summed magnitudes
+                mag = c3.conv3d_3x3_plain(x.abs(), w.abs()) + b.abs()
+                rel, tol = ((got - want).abs() / mag).max().item(), 1e-5
+                bad = rel > tol
+                del mag
+            else:
+                # both sum in f32, round, add the bias, round: two ulps at the largest output
+                rel, tol = None, 2.0 ** (math.floor(math.log2(want.float().abs().max().item())) - 6)
+                bad = err > tol
+            if bad:
+                fail(f"conv3d_3x3 {spatial} {cin}->{cout} {dtype}: error {err:.3g} (relative {rel}) over {tol:.3g}")
+            n = NUCMM_BATCH * math.prod(spatial)
+            xn = x.permute(0, 4, 1, 2, 3)  # channels_last_3d, as the yardstick takes it
+            wl, bl = w.to(dtype).contiguous(memory_format=torch.channels_last_3d), b.to(dtype)
+            reps = 10 if n * max(cin, cout) > 1e7 else 30
+            bnd = conv_bounds(n, cin, cout, es)
+            row = dict(
+                spatial=list(spatial), cin=cin, cout=cout, dtype=str(dtype).split(".")[-1],
+                launches_per_forward=per_fwd,
+                ms=cuda_ms(lambda: c3.conv3d_3x3(x, w, b, wmat=wmat), reps),
+                plain_ms=cuda_ms(lambda: c3.conv3d_3x3_plain(x, w, b), reps),
+                library_ms=cuda_ms(lambda: F.conv3d(xn, wl, bl, padding=1), reps),
+                bound_ms=max(bnd.values()), bound_parts=bnd, max_abs_err=err, max_rel_err=rel, tol=tol,
+            )
+            rows.append(row)
+            log(
+                f"{str(spatial):14s} {cin:2d}->{cout:2d} {row['dtype']:8s} {row['ms']:.4f} ms (plain "
+                f"{row['plain_ms']:.4f}, F.conv3d {row['library_ms']:.4f}, bound {row['bound_ms']:.4f} "
+                f"{max(bnd, key=bnd.get)}) err {err:.3g} <= {tol:.3g}"
+            )
+            del x, w, got, want, xn, wl
+    report["conv3d_rows"] = rows
+    return rows
+
+
+def nucmm_model(dev, dtype="bfloat16"):
+    """(RSUNet of the NucMM-Z recipe at full width, its window): seeded
+    init, with seeded nonzero conv biases (flax's init leaves them 0, and a
+    bias left out by a kernel must show)."""
+    from pytorch_connectomics_tpu_torch.config import load_config
+    from pytorch_connectomics_tpu_torch.models import build_model
+    from pytorch_connectomics_tpu_torch.models.rsunet import Conv
+
+    cfg = load_config(NUCMM, mode="test")
+    cfg.model.compute_dtype = dtype
+    model = build_model(cfg.model, device=dev, seed=0)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, Conv):
+                m.bias.copy_(0.5 * torch.randn(m.bias.shape, generator=g))
+    return model, tuple(cfg.inference.window.window_size)
+
+
+def rsunet_fault_probes(c3, model, x, ref):
+    """Max error against the sound plain path of the plain path with one
+    deliberate kernel-sized fault in every 3^3 conv: tap (0,0,0) dropped,
+    input channel 0 dropped, the bias not added, the halo shifted by one
+    voxel in x. The model-level limit has to reject each."""
+    plain = c3.conv3d_3x3_plain
+
+    def drop(w, idx):
+        w = w.clone()
+        w[idx] = 0
+        return w
+
+    faults = {
+        "tap (0,0,0) dropped": lambda x, w, b=None, layout="oidhw": plain(x, drop(w, (slice(None), slice(None), 0, 0, 0)), b),
+        "input channel 0 dropped": lambda x, w, b=None, layout="oidhw": plain(x, drop(w, (slice(None), 0)), b),
+        "bias not added": lambda x, w, b=None, layout="oidhw": plain(x, w, None),
+        "halo shifted by one in x": lambda x, w, b=None, layout="oidhw": plain(F.pad(x[:, :, :, 1:], (0, 0, 0, 1)), w, b),
+    }
+    probes = {}
+    for name, fn in faults.items():
+        c3.conv3d_3x3_plain = fn
+        try:
+            probes[name] = (model(x, plain=True) - ref).abs().max().item()
+        finally:
+            c3.conv3d_3x3_plain = plain
+    return probes
+
+
+def phase_rsunet(c3, dev, report):
+    log("== phase 10: RSUNet forward at full width, kernel vs plain ==")
+    model, window = nucmm_model(dev)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal((NUCMM_BATCH, *window, 1), dtype=np.float32))
+    x = x.to(dev)
+    per_forward = 1 + 2 * (2 * len(model.enc) + 1)  # the stem, two per residual block
+    with torch.inference_mode():
+        c3.reset_launch_counts()
+        out = model(x)
+        torch.cuda.synchronize()
+        launches = c3.conv3d_3x3.launches
+        if launches != per_forward:
+            fail(f"one RSUNet forward should launch conv3d_3x3 {per_forward} times, got {launches}")
+        if out.shape != (NUCMM_BATCH, *window, 3) or not torch.isfinite(out).all():
+            fail(f"RSUNet output not finite or of shape {tuple(out.shape)}")
+        ref = model(x, plain=True)
+        err, top = (out - ref).abs().max().item(), ref.abs().max().item()
+        tol = RSUNET_BF16_TOL * top
+        probes = rsunet_fault_probes(c3, model, x, ref)
+        for name, perr in probes.items():
+            log(f"fault probe ({name}): max error {perr:.4g} against the limit {tol:.4g}")
+        if err > tol:
+            fail(f"RSUNet bf16 kernel path vs plain: max error {err:.3g} > {tol:.3g} ({RSUNET_BF16_TOL:.0%} of max |ref|)")
+        if min(probes.values()) <= tol:
+            fail(f"the RSUNet limit {tol:.3g} lets a fault probe pass: {probes}")
+        ms = cuda_ms(lambda: model(x), reps=5, warmup=2)
+        plain_ms = cuda_ms(lambda: model(x, plain=True), reps=3, warmup=1)
+    log(f"bf16 batch {NUCMM_BATCH} of {window}: kernel path {ms:.2f} ms, plain path {plain_ms:.2f} ms per forward, max err {err:.4g} "
+        f"(max |ref| {top:.3g}); {launches} conv3d launches")
+    model32, _ = nucmm_model(dev, "float32")
+    with torch.inference_mode():
+        out32, ref32 = model32(x), model32(x, plain=True)
+    err32, top32 = (out32 - ref32).abs().max().item(), ref32.abs().max().item()
+    if err32 > RSUNET_F32_TOL * top32:
+        fail(f"RSUNet f32 kernel path vs plain: max error {err32:.3g} > {RSUNET_F32_TOL} of max |ref| {top32:.3g}")
+    log(f"f32 batch {NUCMM_BATCH}: max err {err32:.4g} (max |ref| {top32:.3g})")
+    report["rsunet"] = dict(
+        bf16_ms=ms, bf16_plain_ms=plain_ms, bf16_max_abs_err=err, bf16_max_abs_ref=top, bf16_tol=tol,
+        fault_probe_max_abs_err=probes, f32_max_abs_err=err32, f32_max_abs_ref=top32, launches_per_forward=launches,
+    )
+    del model, model32, out, ref, out32, ref32
+
+
+def phase_nucmm(c3, dev, work, report):
+    log("== phase 11: CLI --mode test of the NucMM-Z recipe ==")
+    import logging
+    import shutil
+
+    from pytorch_connectomics_tpu_torch.data.io import read_volume
+    from pytorch_connectomics_tpu_torch.data.synthetic import synthetic_em_task
+    from pytorch_connectomics_tpu_torch.models.rsunet import RSUNet
+    from pytorch_connectomics_tpu_torch.ops import native
+    from pytorch_connectomics_tpu_torch.runtime.cli import parse_args
+    from pytorch_connectomics_tpu_torch.runtime.dispatch import dispatch_runtime
+
+    shape = NUCMM_SHAPE
+    name = f"nuc{shape[0]}x{shape[1]}x{shape[2]}"
+    t0 = time.perf_counter()
+    img, lbl = synthetic_em_task("em2", shape, seed=3, device=dev)
+    gt, n_gt = native.connected_components(lbl > 0, 6)  # instance ground truth
+    np.save(work / f"{name}_im.npy", img)
+    np.save(work / f"{name}_label.npy", gt)
+    setup_s = time.perf_counter() - t0
+    del img, lbl, gt
+    out_dir = work / f"out_{name}"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    args = parse_args([
+        "--config", str(NUCMM), "--mode", "test", "--device", str(dev), "--output-dir", str(out_dir),
+        f"data.test.image={work / f'{name}_im.npy'}", f"data.test.label={work / f'{name}_label.npy'}",
+    ])
+    records = []  # the test pipeline's own timing and decode log lines
+
+    class Grab(logging.Handler):
+        def emit(self, record):
+            records.append(record)
+
+    forwards = [0]
+
+    def count(module, inputs):
+        if isinstance(module, RSUNet):
+            forwards[0] += 1
+
+    grab, pipe_log = Grab(), logging.getLogger("pytorch_connectomics_tpu_torch.runtime.test_pipeline")
+    pipe_log.addHandler(grab)
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(count)
+    c3.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        res = dispatch_runtime(args)
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+        pipe_log.removeHandler(grab)
+    secs = time.perf_counter() - t0
+    launches = c3.conv3d_3x3.launches
+    per_forward = report["rsunet"]["launches_per_forward"]
+    if launches <= 0 or launches != per_forward * forwards[0]:
+        fail(f"the NucMM-Z test leg should launch conv3d_3x3 {per_forward} times per forward: {launches} "
+             f"launches, {forwards[0]} forwards")
+    timing = next(r.args for r in records if str(r.msg).startswith("timing["))
+    dec_s, n_inst = next(r.args[1:] for r in records if str(r.msg).startswith("decode["))
+    n_inst = int(n_inst)
+    preds = sorted(p for p in out_dir.glob("*_prediction.*") if p.suffix in (".h5", ".npy"))
+    decs = sorted(p for p in out_dir.glob("*_decoded_*") if p.suffix in (".h5", ".npy"))
+    if not preds or not decs:
+        fail(f"the NucMM-Z test leg wrote no prediction or decoded volume: {sorted(out_dir.iterdir())}")
+    pred, decoded = read_volume(str(preds[0])), read_volume(str(decs[0]))
+    if pred.shape != (3, *shape) or not np.isfinite(pred).all() or pred[:2].min() < 0 or pred[:2].max() > 1 \
+            or np.abs(pred[2]).max() > 1:
+        fail(f"prediction {pred.shape}: not finite, or not sigmoid/sigmoid/tanh channels of shape (3, {shape})")
+    if decoded.shape != shape or decoded.dtype != np.uint32:
+        fail(f"decoded volume {decoded.shape} {decoded.dtype}, expected {shape} uint32")
+    metrics = res["metrics"][name]
+    if not {"instance_f1", "ap"} <= metrics.keys():
+        fail(f"no instance_f1/ap in {metrics}")
+    mvox = math.prod(shape) / secs / 1e6
+    _, read_s, pred_s, save_s, decode_s, eval_s = timing
+    log(
+        f"nucmm {name} on {torch.cuda.get_device_name(0)}: {secs:.2f} s end to end ({mvox:.3f} Mvox/s); "
+        f"read+normalise {read_s:.2f} s, predict {pred_s:.2f} s, save {save_s:.2f} s, decode {decode_s:.2f} s "
+        f"({n_inst} instances against {n_gt} in the ground truth), evaluate {eval_s:.2f} s; instance_f1 "
+        f"{metrics['instance_f1']:.4f}, ap {metrics['ap']:.4f} (random weights: these measure nothing); "
+        f"{forwards[0]} forwards, {launches} conv3d launches; volume and ground truth made in {setup_s:.1f} s"
+    )
+    report["nucmm"] = dict(
+        shape=list(shape), seconds=secs, mvox_per_s=mvox, read_s=read_s, predict_s=pred_s, save_s=save_s,
+        decode_s=decode_s, decode_logged_s=dec_s, evaluate_s=eval_s, instances=n_inst, gt_instances=n_gt,
+        metrics=metrics, forwards=forwards[0], launches=launches, setup_s=setup_s,
+        prediction=preds[0].name, decoded=decs[0].name,
+    )
+    del pred, decoded
+    return launches
+
+
+def conv3d_line_row(rows, launches):
+    """The conv3d kernel's entry of the kernels line, per RSUNet forward
+    (batch 8 of 64^3, bf16): each shape's times times its launches."""
+    bf16 = [r for r in rows if r["dtype"] == "bfloat16"]
+
+    def per_forward(key):
+        return sum(r[key] * r["launches_per_forward"] for r in bf16)
+
+    def bound_part(kind):
+        return sum(r["bound_parts"][kind] * r["launches_per_forward"] for r in bf16)
+
+    return dict(
+        name="conv3d_3x3", route="cuda", source="pytorch_connectomics_tpu_torch/ops/csrc/conv3d_3x3.cu",
+        replaces="pytorch_connectomics_tpu/ops/conv3d_pallas.py:84", launches=launches,
+        max_abs_err=max(r["max_abs_err"] for r in bf16), ms=per_forward("ms"), plain_ms=per_forward("plain_ms"),
+        bound_ms=per_forward("bound_ms"), bound_by="bytes" if bound_part("bytes") >= bound_part("ops") else "operations",
+        library_ms=per_forward("library_ms"),
+    )
+
+
 def kernel_line_rows(rows, main_counts, dw_rows, dw_counts):
     source = "pytorch_connectomics_tpu_torch/ops/csrc/mednext_block.cu"
     replaces = {
@@ -720,7 +1016,9 @@ def kernel_line_rows(rows, main_counts, dw_rows, dw_counts):
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
-    from pytorch_connectomics_tpu_torch.ops import build, depthwise as dwk, fused_block as fb
+    import threading
+
+    from pytorch_connectomics_tpu_torch.ops import build, conv3d as c3, depthwise as dwk, fused_block as fb, native
 
     report = {}
     smi = subprocess.run(
@@ -743,7 +1041,11 @@ def main() -> None:
 
     log("== phase 2: build ==")
     t0 = time.perf_counter()
+    host = threading.Thread(target=native.build)  # the host decode ops, g++ beside the nvcc builds
+    host.start()
     build.build()
+    host.join()
+    native.get_lib()
     report["build_seconds"] = time.perf_counter() - t0
     log(f"kernels built in {report['build_seconds']:.1f} s")
     for name, text in build.build_log.items():
@@ -766,9 +1068,16 @@ def main() -> None:
     phase_train_step(dwk, fb, dev, report)
     train_counts = phase_cli_train_test(dwk, fb, dev, work, report)
 
+    conv_rows = phase_conv3d(c3, dev, report)
+    phase_rsunet(c3, dev, report)
+    nucmm_launches = phase_nucmm(c3, dev, work, report)
+    phase_predict_profile(dev, work, NUCMM_SHAPE, report, recipe=NUCMM, name="nuc{}x{}x{}".format(*NUCMM_SHAPE),
+                          key="nucmm_predict")
+
     kernels = kernel_line_rows(rows, main_run["launches"], dw_rows, train_counts)
+    kernels.append(conv3d_line_row(conv_rows, nucmm_launches))
     report["kernels"] = kernels
-    (work / "chip_smoke.json").write_text(json.dumps(report, indent=2))
+    (work / "chip_smoke.json").write_text(json.dumps(report, indent=2, default=lambda o: o.item()))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

@@ -14,6 +14,7 @@ from .registry import get_architecture
 
 # architecture modules self-register on import
 from . import mednext as _mednext  # noqa: F401
+from . import rsunet as _rsunet  # noqa: F401
 
 
 def init_model(model: nn.Module, seed: int = 0) -> nn.Module:

@@ -1,4 +1,5 @@
-"""Weight bridge: a flax MedNeXt parameter tree -> the port's ``state_dict``.
+"""Weight bridge: a flax MedNeXt or RSUNet parameter tree -> the port's
+``state_dict``.
 
 The tree is the ``params`` collection that ``pytorch_connectomics_tpu``'s
 ``init_model`` or a training checkpoint holds, given as a nested dict of
@@ -23,6 +24,15 @@ expand, compress, residual), so in a transposed up block, whose spatial conv
 is ``ConvTranspose_0``, the expand conv is ``Conv_0``. With remat
 (``checkpoint_style: outside_block``) the blocks of a stage are named
 ``CheckpointMedNeXtBlock_n``.
+
+flax names the submodules of ``RSUNet`` by creation order too: the stem
+``ConvNormAct_0``; ``ResBlock_0..n`` (the n encoder levels, then the
+bottleneck); per decoder level k, from the deepest, a top-level 1x1x1
+``Conv_k`` and ``ResBlock_{n+1+k}``; and ``head``. Inside a ``ResBlock`` the
+1x1x1 skip conv, when the channel count changes, is created first and is
+``Conv_0``, so the second 3^3 conv is ``Conv_1`` with a skip and ``Conv_0``
+without one; ``ConvNormAct_0`` holds the first conv and ``Norm_0`` the
+block's last norm. Norms sit at ``.../Norm_0/GroupNorm_0/{scale,bias}``.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ import numpy as np
 import torch
 
 from .mednext import MedNeXt, MedNeXtBlock
+from .rsunet import ResBlock, RSUNet
 
 
 def load_flax_npz(path: Union[str, Path]) -> Dict[str, Any]:
@@ -101,8 +112,54 @@ def _block(fp: Mapping[str, Any], prefix: str, blk: MedNeXtBlock, sd: Dict[str, 
         sd[f"{prefix}{name}.bias"] = _t(fp[key]["bias"])
 
 
-def flax_to_state_dict(params: Mapping[str, Any], model: MedNeXt) -> Dict[str, torch.Tensor]:
-    """Map a flax MedNeXt ``params`` tree onto ``model``'s state_dict keys."""
+def _norm(fp: Mapping[str, Any], prefix: str, sd: Dict[str, torch.Tensor]) -> None:
+    gn = fp["Norm_0"]["GroupNorm_0"]
+    sd[prefix + "weight"] = _t(gn["scale"])
+    sd[prefix + "bias"] = _t(gn["bias"])
+
+
+def _conv_norm_act(fp: Mapping[str, Any], prefix: str, sd: Dict[str, torch.Tensor]) -> None:
+    sd[prefix + "conv.weight"] = conv_kernel(fp["Conv_0"]["kernel"])
+    sd[prefix + "conv.bias"] = _t(fp["Conv_0"]["bias"])
+    _norm(fp, prefix + "norm.", sd)
+
+
+def _res_block(fp: Mapping[str, Any], prefix: str, blk: ResBlock, sd: Dict[str, torch.Tensor]) -> None:
+    second = "Conv_0"
+    if blk.skip is not None:  # the skip conv was created first
+        sd[prefix + "skip.weight"] = linear_kernel(fp["Conv_0"]["kernel"])
+        sd[prefix + "skip.bias"] = _t(fp["Conv_0"]["bias"])
+        second = "Conv_1"
+    _conv_norm_act(fp["ConvNormAct_0"], prefix + "conv1.", sd)
+    sd[prefix + "conv2.weight"] = conv_kernel(fp[second]["kernel"])
+    sd[prefix + "conv2.bias"] = _t(fp[second]["bias"])
+    _norm(fp, prefix + "norm2.", sd)
+
+
+def rsunet_to_state_dict(params: Mapping[str, Any], model: RSUNet) -> Dict[str, torch.Tensor]:
+    """Map a flax RSUNet ``params`` tree onto ``model``'s state_dict keys."""
+    if "params" in params and "head" not in params:
+        params = params["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    n = len(model.enc)
+    _conv_norm_act(params["ConvNormAct_0"], "stem.", sd)
+    for i in range(n):
+        _res_block(params[f"ResBlock_{i}"], f"enc.{i}.", model.enc[i], sd)
+    _res_block(params[f"ResBlock_{n}"], "bottleneck.", model.bottleneck, sd)
+    for k, i in enumerate(reversed(range(n))):
+        sd[f"up.{i}.weight"] = linear_kernel(params[f"Conv_{k}"]["kernel"])
+        sd[f"up.{i}.bias"] = _t(params[f"Conv_{k}"]["bias"])
+        _res_block(params[f"ResBlock_{n + 1 + k}"], f"dec.{i}.", model.dec[i], sd)
+    sd["head.weight"] = linear_kernel(params["head"]["kernel"])
+    sd["head.bias"] = _t(params["head"]["bias"])
+    return sd
+
+
+def flax_to_state_dict(params: Mapping[str, Any], model: MedNeXt | RSUNet) -> Dict[str, torch.Tensor]:
+    """Map a flax MedNeXt or RSUNet ``params`` tree onto ``model``'s
+    state_dict keys."""
+    if isinstance(model, RSUNet):
+        return rsunet_to_state_dict(params, model)
     if "params" in params and "stem" not in params:
         params = params["params"]
     sd: Dict[str, torch.Tensor] = {}
@@ -132,7 +189,7 @@ def flax_to_state_dict(params: Mapping[str, Any], model: MedNeXt) -> Dict[str, t
     return sd
 
 
-def load_flax_params(model: MedNeXt, params: Union[str, Path, Mapping[str, Any]]) -> MedNeXt:
+def load_flax_params(model: MedNeXt | RSUNet, params: Union[str, Path, Mapping[str, Any]]) -> MedNeXt:
     """Load a flax tree (dict or ``.npz`` path) into ``model`` in place; every
     parameter of the model must be covered and every shape must match."""
     if not isinstance(params, Mapping):

@@ -32,26 +32,35 @@ def get_act(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
 
 
 class Norm(nn.Module):
-    """Per-channel GroupNorm over channels-last input (``group`` with one
-    group per channel, or ``instance``), flax semantics: float32 statistics,
+    """GroupNorm over channels-last input, flax semantics: float32
+    statistics over the spatial axes and the channels of each group,
     variance ``E[x^2] - E[x]^2`` clipped at 0, eps 1e-6, output in the input
-    dtype."""
+    dtype. ``groups`` follows JAX's ``Norm`` (``models/layers.py:50-53``):
+    ``min(groups, C)``, stepped down to a divisor of C; ``None`` (or kind
+    ``instance``) is one group per channel, as MedNeXt's blocks pass
+    ``groups=C``. ``batch`` maps to group, as in JAX."""
 
-    def __init__(self, channels: int, kind: str = "group", eps: float = 1e-6):
+    def __init__(self, channels: int, kind: str = "group", groups: int | None = None, eps: float = 1e-6):
         super().__init__()
-        if kind.lower() not in ("group", "instance", "batch"):
-            raise NotImplementedError(f"norm '{kind}' is not ported yet (group/instance only)")
-        self.eps = eps
+        kind = kind.lower()
+        if kind not in ("group", "instance", "batch"):
+            raise NotImplementedError(f"norm '{kind}' is not ported yet (group/instance/batch)")
+        g = channels if kind == "instance" or groups is None else min(groups, channels)
+        while channels % g:
+            g -= 1
+        self.groups, self.eps = g, eps
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        dims = tuple(range(1, x.dim() - 1))
+        c = x.shape[-1]
+        g, cg = self.groups, c // self.groups
+        xf = x.float().reshape(*x.shape[:-1], g, cg)
+        dims = tuple(range(1, x.dim() - 1)) + (x.dim(),)
         mean = xf.mean(dim=dims, keepdim=True)
         var = torch.clamp((xf * xf).mean(dim=dims, keepdim=True) - mean * mean, min=0.0)
-        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
-        return y.to(x.dtype)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight.reshape(g, cg)) + self.bias.reshape(g, cg)
+        return y.reshape(x.shape).to(x.dtype)
 
 
 def same_pads(n: int, k: int, s: int) -> Tuple[int, int]:
@@ -106,3 +115,17 @@ def conv_transpose3d_same(
         starts[2] : starts[2] + x.shape[3] * stride[2],
     ]
     return _cl(y)
+
+
+def downsample(x: torch.Tensor, factors: Sequence[int]) -> torch.Tensor:
+    """Max-pool with window = stride = ``factors``, VALID (JAX ``downsample``)."""
+    if all(int(f) == 1 for f in factors):
+        return x
+    return _cl(F.max_pool3d(_ncdhw(x), kernel_size=tuple(factors), stride=tuple(factors)))
+
+
+def upsample_trilinear(x: torch.Tensor, factors: Sequence[int]) -> torch.Tensor:
+    """``jax.image.resize(method="linear")`` by integer ``factors``: half-pixel
+    centres, edge samples clamped (``align_corners=False``), in x's dtype."""
+    size = tuple(n * int(f) for n, f in zip(x.shape[1:4], factors))
+    return _cl(F.interpolate(_ncdhw(x), size=size, mode="trilinear", align_corners=False))

@@ -28,6 +28,7 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"
 LIBRARIES: Dict[str, List[str]] = {
     "mednext_block": ["mednext_block.cu", "mednext_block.cuh"],
     "depthwise3x3": ["depthwise3x3.cu", "mednext_block.cuh"],
+    "conv3d_3x3": ["conv3d_3x3.cu", "mednext_block.cuh"],
 }
 
 _lock = threading.Lock()
@@ -118,3 +119,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.depthwise3x3_wgrad.restype = i
         lib.depthwise3x3_error_string.argtypes = [i]
         lib.depthwise3x3_error_string.restype = ctypes.c_char_p
+    elif name == "conv3d_3x3":
+        lib.conv3d_3x3_weight_rows.argtypes = [i, i]
+        lib.conv3d_3x3_weight_rows.restype = i
+        lib.conv3d_3x3_fwd.argtypes = [p, p, p, p] + [i] * 9 + [p]
+        lib.conv3d_3x3_fwd.restype = i
+        lib.conv3d_3x3_error_string.argtypes = [i]
+        lib.conv3d_3x3_error_string.restype = ctypes.c_char_p

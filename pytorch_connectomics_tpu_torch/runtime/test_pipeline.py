@@ -1,8 +1,9 @@
-"""Test pipeline: read -> normalise -> infer (+TTA) -> save -> evaluate per
-test volume. The port of the non-chunked, no-decode branch of
-``pytorch_connectomics_tpu/runtime/test_pipeline.py``; chunked inference,
-prediction-cache reuse, decoding, nnU-Net preprocessing, read-time scaling
-and test sharding are not ported yet and raise ``NotImplementedError``.
+"""Test pipeline: read -> normalise -> infer (+TTA) -> save -> decode ->
+evaluate per test volume. The port of the non-chunked branch of
+``pytorch_connectomics_tpu/runtime/test_pipeline.py`` with its
+non-streamed decode (``:233-260``); chunked inference, prediction-cache
+reuse, decode-only runs, nnU-Net preprocessing, read-time scaling and test
+sharding are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -19,9 +20,10 @@ from ..config.loader import config_hash
 from ..config.schema import Config
 from ..data.io import read_volume
 from ..data.preprocess import normalize_volume
+from ..decoding import run_decoding_stage
 from ..evaluation.stage import run_evaluation_stage
 from ..inference import InferenceManager, apply_prediction_transform, save_prediction
-from .output_naming import prediction_filename, prediction_tag, volume_name_from_path
+from .output_naming import decoded_filename, prediction_filename, prediction_tag, volume_name_from_path
 
 logger = logging.getLogger(__name__)
 
@@ -35,7 +37,7 @@ def _as_list(x):
 def _check_ported(cfg: Config) -> None:
     for flag, what in (
         (cfg.inference.chunked.enabled, "chunked inference"),
-        (cfg.decoding.enabled, "decoding"),
+        (cfg.decoding.enabled and cfg.decoding.load_prediction_path, "decode-only runs (load_prediction_path)"),
         (cfg.data.nnunet_preprocessing.enabled, "nnU-Net preprocessing"),
         (cfg.data.test.read_scale, "read-time scaling"),
         (cfg.data.data_transform.align_to_image, "align_to_image"),
@@ -81,7 +83,9 @@ def run_test_pipeline(
         prediction = manager.predict(vol)  # (Z,Y,X,C)
         t_pred = time.perf_counter()
         if cfg.inference.output.save_raw:
+            # channel-first and contiguous: np.save writes a strided view element by element
             stored = np.moveaxis(apply_prediction_transform(prediction, cfg.inference.output), -1, 0)
+            stored = np.ascontiguousarray(stored)
             written = save_prediction(
                 out_dir / prediction_filename(vol_name, tag), stored, cfg_hash, checkpoint or "", tag
             )
@@ -91,15 +95,24 @@ def run_test_pipeline(
         logger.info(
             "inference[%s]: %.1fs (%.2f Mvox/s)", vol_name, t_save - t0, voxels / max(t_save - t0, 1e-9) / 1e6
         )
+        decoded = None
+        if cfg.decoding.enabled and (cfg.decoding.steps or cfg.decoding.graph):
+            decoded = run_decoding_stage(np.moveaxis(prediction, -1, 0), cfg.decoding).astype(np.uint32)
+            logger.info("decode[%s]: %.1fs, %d instances", vol_name, time.perf_counter() - t_save,
+                        int(np.count_nonzero(np.bincount(decoded.ravel())[1:])))
+            dec_name = decoded_filename(vol_name, tag, decoding_cfg=cfg.decoding)
+            written = save_prediction(out_dir / dec_name, decoded, cfg_hash, checkpoint or "", tag)
+            logger.info("decoded[%s]: %s", vol_name, written)
+        t_decode = time.perf_counter()
         if cfg.evaluation.enabled and vi < len(labels):
             gt = read_volume(labels[vi], device=device)
             if cfg.data.test.transpose:
                 gt = np.transpose(gt, cfg.data.test.transpose)
-            all_metrics[vol_name] = run_evaluation_stage(prediction, gt, cfg.evaluation, out_dir, vol_name)
+            all_metrics[vol_name] = run_evaluation_stage(prediction, decoded, gt, cfg.evaluation, out_dir, vol_name)
         else:
             all_metrics[vol_name] = {}
         logger.info(
-            "timing[%s]: read+normalise %.3fs, predict %.3fs, save %.3fs, evaluate %.3fs", vol_name,
-            t_read - t0, t_pred - t_read, t_save - t_pred, time.perf_counter() - t_save,
+            "timing[%s]: read+normalise %.3fs, predict %.3fs, save %.3fs, decode %.3fs, evaluate %.3fs", vol_name,
+            t_read - t0, t_pred - t_read, t_save - t_pred, t_decode - t_save, time.perf_counter() - t_decode,
         )
     return all_metrics

@@ -3,6 +3,8 @@ volume against the JAX package's test pipeline on the same weights (the fast
 recipe cut to a tiny MedNeXt in f32, flip TTA over y/x). The JAX params go
 to the port as a flax-params .npz through ``--checkpoint``."""
 
+import json
+
 import jax
 import numpy as np
 import pytest
@@ -131,3 +133,49 @@ def test_cli_train_then_test_restores_the_checkpoint(tmp_path):
 
     init = build_model(load_config(SYNTH, overrides=over, mode="test").model, device="cpu", seed=42).state_dict()
     assert any(not torch.equal(init[k], v) for k, v in saved["model"].items())
+
+
+NUCMM = "tutorials/nuc_nucmm.yaml"
+TINY_NUCMM = [
+    "model.rsunet.width=[8,12]",
+    "optimization.precision=32",
+    "model.input_size=[16,16,16]",
+    "inference.window.window_size=[16,16,16]",
+    "inference.window.sw_batch_size=4",
+]
+
+
+def test_cli_nucmm_test_mode_matches_jax_pipeline(tmp_path):
+    """--mode test --device cpu of the NucMM-Z recipe (RSUNet, bcd decode,
+    instance metrics) cut to a tiny f32 RSUNet, against the JAX package's
+    test pipeline on the same flax weights and the same seeded volume: the
+    prediction within f32 tolerance, the decoded labels identical,
+    instance_f1 and ap reported. The tolerance, atol 1e-4 on probabilities:
+    the sums run in another order, and GroupNorm's fast variance E[x^2] -
+    E[x]^2 cancels on this input (mean 0.67, spread 0.14 after
+    normalisation), which magnifies those differences (the logits of one
+    window agree to 1.1e-5 of their largest magnitude; on zero-mean input
+    to 1.8e-6)."""
+    from scipy import ndimage
+
+    image, label = tmp_path / "nuc_im.npy", tmp_path / "nuc_label.npy"
+    np.save(image, read_volume("synthetic://em2/nuc_image?shape=24,48,48"))
+    np.save(label, ndimage.label(read_volume("synthetic://em2/nuc_label?shape=24,48,48") > 0)[0].astype(np.uint32))
+    over = TINY_NUCMM + [f"data.test.image={image}", f"data.test.label={label}"]
+    cfg = jax_load_config(NUCMM, overrides=over, mode="test")
+    model = jax_build(cfg.model)
+    params = jax.tree.map(np.asarray, jax_init(model, cfg.model, jax.random.PRNGKey(0)))["params"]
+    ckpt = tmp_path / "weights.npz"
+    np.savez(ckpt, **flatten_flax(params))
+    jax_run_test_pipeline(cfg, model, params, tmp_path / "jax", checkpoint=str(ckpt))
+    res = main(["--config", NUCMM, "--mode", "test", "--device", "cpu", "--checkpoint", str(ckpt),
+                "--output-dir", str(tmp_path / "port"), *over])
+    got = read_volume(str(tmp_path / "port" / "nuc_weights_prediction.h5"))
+    want = jax_read_volume(str(tmp_path / "jax" / "nuc_weights_prediction.h5"))
+    assert got.shape == want.shape == (3, 24, 48, 48)
+    np.testing.assert_allclose(got, want, atol=1e-4)
+    name = "nuc_weights_decoded_bcd_watershed_0.9-0.85-0.5.h5"
+    np.testing.assert_array_equal(read_volume(str(tmp_path / "port" / name)),
+                                  jax_read_volume(str(tmp_path / "jax" / name)))
+    metrics = json.loads((tmp_path / "port" / "metrics.json").read_text())["nuc"]
+    assert {"instance_f1", "ap"} <= metrics.keys() and metrics == res["metrics"]["nuc"]

@@ -88,3 +88,6 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-2000:]
     assert len(PORT_MODULES) >= 20
+    for m in ("ops.conv3d", "ops.native", "models.rsunet", "decoding.registry", "decoding.decoders",
+              "decoding.stage", "metrics.seg"):
+        assert "pytorch_connectomics_tpu_torch." + m in PORT_MODULES

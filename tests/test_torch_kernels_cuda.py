@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (the fused MedNeXt block pair and the training
-path's depthwise 3^3 conv and its weight gradient) against their plain
-PyTorch versions, on the card. Skipped where there is no CUDA device. This
+"""The port's CUDA kernels (the fused MedNeXt block pair, the training
+path's depthwise 3^3 conv and its weight gradient, and RSUNet's dense 3^3
+conv) against their plain PyTorch versions, on the card. Skipped where there is no CUDA device. This
 file imports no JAX, so it also runs with ``--noconftest`` on a machine
 without JAX:
 
@@ -180,3 +180,86 @@ def test_depthwise_never_falls_back(device):
     x = torch.zeros((1, 4, 4, 4, 16), device=device, requires_grad=True)
     with pytest.raises(RuntimeError, match="no backward pass"):
         dwk.depthwise3x3(x, torch.zeros((16, 1, 3, 3, 3), device=device))
+
+
+# ---------------------------------------------------------------------------
+# dense 3^3 conv (RSUNet)
+# ---------------------------------------------------------------------------
+
+from pytorch_connectomics_tpu_torch.ops import conv3d as c3  # noqa: E402
+
+# (B, Z, Y, X, Cin, Cout): every 3^3 conv of RSUNet on the NucMM-Z recipe's
+# 64^3 window at batch 2 (stem; levels 0-3), then ragged shapes: x and y
+# not multiples of the tile, odd and packed channel counts, Cout past one
+# 64-channel slice, Cin past 64
+CONV_SHAPES = [
+    (2, 64, 64, 64, 1, 28),
+    (2, 64, 64, 64, 28, 28),
+    (2, 32, 32, 32, 28, 36),
+    (2, 32, 32, 32, 36, 36),
+    (2, 16, 16, 16, 36, 48),
+    (2, 16, 16, 16, 48, 48),
+    (2, 8, 8, 8, 48, 64),
+    (2, 8, 8, 8, 64, 64),
+    (1, 5, 9, 33, 8, 8),
+    (3, 7, 5, 9, 3, 20),
+    (1, 4, 6, 10, 16, 100),
+    (1, 3, 5, 70, 96, 40),
+    (2, 1, 1, 1, 1, 1),
+]
+
+
+def _conv_inputs(shape, dtype, device, seed=3):
+    b, z, y, xs, cin, cout = shape
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((b, z, y, xs, cin), dtype=np.float32)).to(device, dtype)
+    w = torch.from_numpy(rng.standard_normal((cout, cin, 3, 3, 3)).astype(np.float32) / np.sqrt(27 * cin)).to(device)
+    bias = torch.from_numpy(rng.standard_normal(cout).astype(np.float32) * 0.1).to(device)
+    return x, w, bias
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", CONV_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_conv3d_kernel_matches_plain(device, shape, dtype):
+    x, w, bias = _conv_inputs(shape, dtype, device)
+    for bb in (bias, None):
+        got, want = c3.conv3d_3x3(x, w, bb), c3.conv3d_3x3_plain(x, w, bb)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape == (*shape[:4], shape[5]) and got.dtype == dtype
+        err = (got.float() - want.float()).abs().max().item()
+        if dtype == torch.float32:
+            # f32 sums in another order: 1e-5 of the summed magnitudes
+            mag = c3.conv3d_3x3_plain(x.abs(), w.abs()) + (0 if bb is None else bb.abs())
+            assert torch.all((got - want).abs() <= 1e-5 * mag + 1e-30), ((got - want).abs() / mag).max().item()
+        else:
+            # both sum in f32 and round (then add the bias and round again):
+            # a value can land an ulp apart at each rounding, two ulps at the
+            # output's largest magnitude
+            assert err <= _bf16_ulps(want, 2), (err, _bf16_ulps(want, 2))
+    wmat = c3.kernel_weight(w, dtype)
+    assert torch.equal(c3.conv3d_3x3(x, w, bias, wmat=wmat), c3.conv3d_3x3(x, w, bias))
+
+
+def test_conv3d_takes_the_jax_layout(device):
+    x, w, bias = _conv_inputs((1, 6, 7, 20, 28, 36), torch.bfloat16, device)
+    got = c3.conv3d_3x3(x, w.permute(2, 3, 4, 1, 0).contiguous(), bias, layout="dhwio")
+    assert torch.equal(got, c3.conv3d_3x3(x, w, bias))
+
+
+def test_conv3d_never_falls_back(device):
+    x, w, bias = _conv_inputs((1, 4, 4, 4, 16, 16), torch.float32, device)
+    with pytest.raises(TypeError):
+        c3.conv3d_3x3(x.half(), w)
+    with pytest.raises(ValueError):  # input channels disagree with the weight
+        c3.conv3d_3x3(x[..., :8].contiguous(), w)
+    with pytest.raises(ValueError):  # not contiguous
+        c3.conv3d_3x3(x.transpose(1, 2), w)
+    with pytest.raises(ValueError):  # a weight matrix in another dtype
+        c3.conv3d_3x3(x, w, wmat=c3.kernel_weight(w, torch.bfloat16))
+    with pytest.raises(RuntimeError, match="shape not supported"):  # a weight matrix short of rows
+        c3.conv3d_3x3(x, w, wmat=c3.kernel_weight(w, torch.float32)[:-16].contiguous())
+    wide = torch.zeros((16, 128, 3, 3, 3), device=device)
+    with pytest.raises(RuntimeError, match="shape not supported"):  # f32 weight slice beyond shared memory
+        c3.conv3d_3x3(torch.zeros((1, 2, 2, 2, 128), device=device), wide)
+    with pytest.raises(RuntimeError, match="no backward pass"):
+        c3.conv3d_3x3(x, w.clone().requires_grad_(True))

@@ -30,11 +30,11 @@ def test_evaluation_stage_matches_jax(layout, tmp_path):
         prob = np.moveaxis(prob, -1, 0)
     gt = (rng.random((5, 6, 7)) > 0.5).astype(np.uint8) * 3
     metrics = ["jaccard", "dice", "accuracy"]
-    got = compute_test_metrics(prob, gt, metrics)
+    got = compute_test_metrics(prob, None, gt, metrics)
     want = jax_compute_test_metrics(prob, None, gt, metrics)
     assert got.keys() == want.keys()
     for k in got:
         assert got[k] == pytest.approx(want[k], rel=1e-6)
-    res = run_evaluation_stage(prob, gt, EvaluationConfig(enabled=True, metrics=metrics), tmp_path, "vol")
+    res = run_evaluation_stage(prob, None, gt, EvaluationConfig(enabled=True, metrics=metrics), tmp_path, "vol")
     assert res == got and (tmp_path / "metrics.json").exists() and (tmp_path / "vol_metrics.txt").exists()
     assert JaxEvaluationConfig().enabled == EvaluationConfig().enabled
