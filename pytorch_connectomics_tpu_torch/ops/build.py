@@ -29,6 +29,8 @@ LIBRARIES: Dict[str, List[str]] = {
     "mednext_block": ["mednext_block.cu", "mednext_block.cuh"],
     "depthwise3x3": ["depthwise3x3.cu", "mednext_block.cuh"],
     "conv3d_3x3": ["conv3d_3x3.cu", "mednext_block.cuh"],
+    "fused_mlp": ["fused_mlp.cu", "mednext_block.cuh"],
+    "probes": ["probes.cu", "mednext_block.cuh"],
 }
 
 _lock = threading.Lock()
@@ -100,7 +102,7 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def _declare(name: str, lib: ctypes.CDLL) -> None:
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    p, i, f, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     if name == "mednext_block":
         lib.mednext_stats_parts.argtypes = [i, i, i, i, i, i]
         lib.mednext_stats_parts.restype = i
@@ -126,3 +128,17 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.conv3d_3x3_fwd.restype = i
         lib.conv3d_3x3_error_string.argtypes = [i]
         lib.conv3d_3x3_error_string.restype = ctypes.c_char_p
+    elif name == "fused_mlp":
+        lib.fused_mlp_fwd.argtypes = [p] * 6 + [i, q, i, i, i, q, q, p]
+        lib.fused_mlp_fwd.restype = i
+        lib.fused_mlp_error_string.argtypes = [i]
+        lib.fused_mlp_error_string.restype = ctypes.c_char_p
+    elif name == "probes":
+        lib.probes_fma_chain.argtypes = [p, p, p, i, q, i, p]
+        lib.probes_fma_chain.restype = i
+        lib.probes_fma27.argtypes = [p, p, p, i, q, p]
+        lib.probes_fma27.restype = i
+        lib.probes_lane_shift.argtypes = [p, p, i, q, i, i, i, p]
+        lib.probes_lane_shift.restype = i
+        lib.probes_error_string.argtypes = [i]
+        lib.probes_error_string.restype = ctypes.c_char_p

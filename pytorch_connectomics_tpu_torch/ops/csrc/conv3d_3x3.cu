@@ -65,7 +65,10 @@
 
 namespace conv3d {
 
+using mednext::cp_async;
 using mednext::from_f32;
+using mednext::ldsm_x4;
+using mednext::mma16816;
 using mednext::to_f32;
 
 constexpr int kThreads = 256;
@@ -111,38 +114,6 @@ __host__ __device__ inline Layout layout(const Geom& g, int es, bool mma) {
   l.steps = end > acc_end ? end : acc_end;
   l.total = l.steps + (mma ? (size_t)k_steps(g) * sizeof(int2) : 0);
   return l;
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async(void* smem_dst, const void* gmem_src, bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  const int src_bytes = valid ? N : 0;  // 0: zero-fill
-  if constexpr (N == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem_src), "r"(src_bytes));
-  } else if constexpr (N == 8) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(gmem_src), "r"(src_bytes));
-  } else {
-    static_assert(N == 4, "cp.async copies 4, 8 or 16 bytes");
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem_src), "r"(src_bytes));
-  }
-}
-
-// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8 (16-byte aligned); register i holds matrix i.
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-// c[16x8] += a[16x16] . b[16x8], bf16 in, f32 accumulate
-__device__ __forceinline__ void mma16816(float (&c)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Stage the (3, R+2, XS+2) neighbourhood of the tile at (b, z, y0, x0) into

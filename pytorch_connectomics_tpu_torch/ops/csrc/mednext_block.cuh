@@ -1,6 +1,7 @@
-// Device helpers shared by the MedNeXt block kernels (mednext_block.cu):
-// type conversion, tanh-GELU, and the haloed-tile staging + depthwise 3^3
-// stencil that both the statistics pass and the apply pass run.
+// Device helpers shared by the port's kernels: type conversion, tanh-GELU,
+// the tensor-core fragment helpers (cp.async, ldmatrix, mma.sync) of
+// conv3d_3x3.cu and fused_mlp.cu, and the haloed-tile staging + depthwise
+// 3^3 stencil that both passes of the MedNeXt block (mednext_block.cu) run.
 //
 // Layout: activations are channels-last, x[b][v][c] with v = (z*Y + y)*X + x
 // the flat voxel index inside one batch element. A tile is T consecutive flat
@@ -70,6 +71,52 @@ __device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src,
 }
 
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
+
+// Tensor-core fragments (conv3d_3x3.cu, fused_mlp.cu): cp.async copies of
+// 4, 8 or 16 bytes, ldmatrix and mma.sync m16n8k16 (bf16 in, f32 accumulate).
+
+template <int N>
+__device__ __forceinline__ void cp_async(void* smem_dst, const void* gmem_src, bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  const int src_bytes = valid ? N : 0;  // 0: zero-fill
+  if constexpr (N == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem_src), "r"(src_bytes));
+  } else if constexpr (N == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(gmem_src), "r"(src_bytes));
+  } else {
+    static_assert(N == 4, "cp.async copies 4, 8 or 16 bytes");
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem_src), "r"(src_bytes));
+  }
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8 (16-byte aligned); register i holds matrix i.
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// The same four matrices transposed: for B stored k-major (row k, n
+// contiguous), lane l gives row k = (l % 8) + 8 * ((l / 8) % 2) at column
+// 8 * (l / 16), and register i holds the mma B fragment of (k half i % 2,
+// n half i / 2).
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// c[16x8] += a[16x16] . b[16x8], bf16 in, f32 accumulate
+__device__ __forceinline__ void mma16816(float (&c)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 // Issue the copies of the three z-runs of tile [v0, v0+tile) into
 // halo[3][L][C]; the caller waits (cp_async_wait_all) and synchronises.

@@ -89,5 +89,5 @@ def test_port_imports_no_jax():
     assert res.returncode == 0, res.stderr[-2000:]
     assert len(PORT_MODULES) >= 20
     for m in ("ops.conv3d", "ops.native", "models.rsunet", "decoding.registry", "decoding.decoders",
-              "decoding.stage", "metrics.seg"):
+              "decoding.stage", "metrics.seg", "ops.fused_mlp", "ops.probes", "tools.microbench", "tools.probes"):
         assert "pytorch_connectomics_tpu_torch." + m in PORT_MODULES

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (the fused MedNeXt block pair, the training
-path's depthwise 3^3 conv and its weight gradient, and RSUNet's dense 3^3
-conv) against their plain PyTorch versions, on the card. Skipped where there is no CUDA device. This
+path's depthwise 3^3 conv and its weight gradient, RSUNet's dense 3^3 conv,
+the fused MLP with residual and the pointwise conv, and the probe kernels)
+against their plain PyTorch versions, on the card. Skipped where there is no CUDA device. This
 file imports no JAX, so it also runs with ``--noconftest`` on a machine
 without JAX:
 
@@ -263,3 +264,131 @@ def test_conv3d_never_falls_back(device):
         c3.conv3d_3x3(torch.zeros((1, 2, 2, 2, 128), device=device), wide)
     with pytest.raises(RuntimeError, match="no backward pass"):
         c3.conv3d_3x3(x, w.clone().requires_grad_(True))
+
+
+# ---------------------------------------------------------------------------
+# fused MLP with residual, pointwise conv, and the probe kernels
+# ---------------------------------------------------------------------------
+
+from pytorch_connectomics_tpu_torch.ops import fused_mlp as fm  # noqa: E402
+from pytorch_connectomics_tpu_torch.ops import probes  # noqa: E402
+
+# (M, C, E): MedNeXt-S's five widths at ragged row counts, a width past one
+# resident weight (streamed chunks), a chunk that does not divide E
+MLP_SHAPES = [(4099, 32, 64), (1000, 64, 128), (515, 128, 256), (300, 256, 512), (77, 512, 1024),
+              (200, 48, 80), (33, 1024, 64)]
+
+
+def _mlp_inputs(m, c, e, dtype, device, seed=4):
+    rng = np.random.default_rng(seed)
+
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device, dt)
+
+    return (t(rng.standard_normal((m, c)), dtype), t(rng.standard_normal((c, e)) / np.sqrt(c), dtype),
+            t(0.3 * rng.standard_normal(e)), t(rng.standard_normal((e, c)) / np.sqrt(e), dtype),
+            t(0.3 * rng.standard_normal(c)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", MLP_SHAPES, ids=lambda s: "M{}-C{}-E{}".format(*s))
+def test_fused_mlp_kernel_matches_plain(device, shape, dtype):
+    x, w1, b1, w2, b2 = _mlp_inputs(*shape, dtype, device)
+    got, want = fm.fused_mlp_residual(x, w1, b1, w2, b2), fm.fused_mlp_residual_plain(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert got.shape == x.shape and got.dtype == dtype
+    err = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        # f32 sums in another order and another tanh: 1e-5 of the summed magnitudes
+        h = torch.nn.functional.gelu(x @ w1 + b1, approximate="tanh")
+        mag = x.abs() + b2.abs() + (x.abs() @ w1.abs() + b1.abs() + h.abs()) @ w2.abs()
+        assert torch.all(err <= 1e-5 * mag), (err / mag).max().item()
+    else:
+        # the hidden activation and the output are rounded: two ulps at the largest output
+        assert err.max().item() <= _bf16_ulps(want, 2), (err.max().item(), _bf16_ulps(want, 2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 5, 7, 9, 32, 32), (3, 33, 16, 48), (1000, 64, 16)], ids=str)
+def test_pointwise_kernel_matches_plain(device, shape, dtype):
+    *lead, c, cout = shape
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((*lead, c), dtype=np.float32)).to(device, dtype)
+    w = torch.from_numpy((rng.standard_normal((cout, c)) / np.sqrt(c)).astype(np.float32)).to(device, dtype)
+    got, want = fm.pointwise(x, w), fm.pointwise_plain(x, w)
+    torch.cuda.synchronize()
+    assert got.shape == (*lead, cout) and got.dtype == dtype
+    err = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert torch.all(err <= 1e-6 * fm.pointwise_plain(x.abs(), w.abs()) + 1e-30)
+    else:
+        assert err.max().item() <= _bf16_ulps(want, 1)
+
+
+def test_fused_mlp_never_falls_back(device):
+    x, w1, b1, w2, b2 = _mlp_inputs(64, 32, 64, torch.float32, device)
+    with pytest.raises(TypeError):  # bf16 weights with f32 x
+        fm.fused_mlp_residual(x, w1.bfloat16(), b1, w2, b2)
+    with pytest.raises(TypeError):
+        fm.fused_mlp_residual(x.half(), w1.half(), b1, w2.half(), b2)
+    with pytest.raises(ValueError):  # widths not multiples of 16
+        fm.fused_mlp_residual(x[:, :24].contiguous(), w1[:24].contiguous(), b1, w2[:, :24].contiguous(), b2[:24])
+    with pytest.raises(ValueError):  # not contiguous
+        fm.pointwise(x.t(), torch.zeros((16, 64), device=device))
+    with pytest.raises(RuntimeError, match="shape not supported"):  # bf16 C past 1024
+        xb = torch.zeros((16, 2048), device=device, dtype=torch.bfloat16)
+        fm.fused_mlp_residual(xb, torch.zeros((2048, 16), device=device, dtype=torch.bfloat16),
+                              torch.zeros(16, device=device), torch.zeros((16, 2048), device=device, dtype=torch.bfloat16),
+                              torch.zeros(2048, device=device))
+    with pytest.raises(RuntimeError, match="no backward pass"):
+        fm.fused_mlp_residual(x, w1.clone().requires_grad_(True), b1, w2, b2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(256, 1024), (1000, 37)], ids=str)
+def test_fma_chain_kernel_matches_plain(device, shape, dtype):
+    a = torch.from_numpy(np.random.default_rng(6).standard_normal(shape, dtype=np.float32)).to(device, dtype)
+    got, want = probes.fma_chain(a, 256), probes.fma_chain_plain(a, 256)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, want)  # one rounding a step both ways
+    else:
+        # one fmaf a step; the plain version rounds through float64, which can
+        # differ at a float32 tie: a few ulps at the largest output
+        assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fma27_kernel_matches_plain(device, dtype):
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((5, 16, 389), dtype=np.float32)).to(device, dtype)
+    w = torch.from_numpy(rng.standard_normal(27).astype(np.float32) * 0.2).to(device)
+    got, want = probes.fma27(x, w), probes.fma27_plain(x, w)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, want)
+    else:
+        assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("lanes", [14592, 200, 37])
+def test_lane_shift_kernel_matches_plain(device, dtype, lanes):
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal((32, lanes), dtype=np.float32)).to(device, dtype)
+    for off in (0, 1, 5, 8, 128, -1, -128, lanes, -lanes - 3, 3 * lanes + 2):
+        for circ in (False, True):
+            assert torch.equal(probes.lane_shift(x, off, circ), probes.lane_shift_plain(x, off, circ)), (off, circ)
+
+
+def test_probes_never_fall_back(device):
+    a = torch.zeros((4, 16), device=device)
+    with pytest.raises(TypeError):
+        probes.fma_chain(a.half())
+    with pytest.raises(ValueError):
+        probes.fma_chain(a.t())
+    with pytest.raises(ValueError):
+        probes.fma27(a, torch.zeros(26, device=device))
+    with pytest.raises(TypeError):
+        probes.lane_shift(a.double(), 1)
