@@ -42,12 +42,14 @@ Phases (any failure exits non-zero; no phase catches its own failure):
               the predict step alone, timed and profiled
  12. probes   the measurement entry points (tools/microbench.py, tools/probes.py)
               once each, in-process, their kernels' launches counted from
-              zero; then the fused MLP with residual against its plain
-              version at MedNeXt-S's five widths (the fast recipe's batch-16
-              stage row counts, bf16 and f32) and the pointwise conv, FMA
-              chain, 27-tap FMA and lane shift against theirs at the probe
-              shapes, with times (kernel, plain, bound, library or the
-              unfused cuBLAS sequence); the card's measured ceilings
+              zero; each kernel record of theirs holds the kernel against
+              its plain version at the shape it ran, with times (kernel,
+              plain, bound, library), and any record that failed fails the
+              phase; the card's measured ceilings from those records; then
+              the fused MLP with residual against its plain version at
+              MedNeXt-S's five widths (the fast recipe's batch-16 stage row
+              counts, bf16 and f32), with times beside the unfused cuBLAS
+              sequence
  13. report   a {"kernels": [...]} line, then {"ok": true, "device": ...} last
 
 Imports torch and the port only. Details go to build/chip_smoke/chip_smoke.json.
@@ -66,15 +68,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+# the data-sheet peaks every bound divides by, and the one timer (CUDA events)
+from pytorch_connectomics_tpu_torch.tools import PEAK_BF16_TC, PEAK_BYTES, PEAK_F32, time_ms
+
 ROOT = Path(__file__).resolve().parent
-# peaks of one H100 SXM (NVIDIA data sheet, dense): HBM bytes/s, bf16
-# tensor-core FLOP/s, f32 CUDA-core FLOP/s
-PEAK_BYTES = 3.35e12
-PEAK_BF16_TC = 989e12
-PEAK_F32 = 67e12
-# packed bf16 FMA on the CUDA cores (Hopper architecture white paper, H100
-# SXM5, non-tensor BF16): the bound of the bf16 FMA-chain probe
-PEAK_BF16_CC = 133.8e12
 # (C, R, (Z, Y, X), blocks per forward) of the stride-1 MedNeXt-S blocks on
 # the fast recipe's (96, 128, 96) window after the (1, 2, 2) stem
 STAGES = [
@@ -135,20 +132,6 @@ def log(msg: str) -> None:
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
-
-
-def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Mean device time of ``fn()`` over ``reps`` back-to-back calls."""
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def block_params(rng, c, r, dev):
@@ -233,16 +216,16 @@ def phase_kernels(fb, dev, report):
             row = dict(
                 C=c, R=r, spatial=list(spatial), dtype=str(dtype).split(".")[-1], blocks_per_forward=per_fwd,
                 dw_stats=dict(
-                    ms=cuda_ms(lambda: fb.dw_stats(x, p["w_dw"]), reps),
-                    plain_ms=cuda_ms(lambda: fb.dw_stats_plain(x, p["w_dw"]), reps),
+                    ms=time_ms(lambda: fb.dw_stats(x, p["w_dw"]), reps),
+                    plain_ms=time_ms(lambda: fb.dw_stats_plain(x, p["w_dw"]), reps),
                     bound_ms=max(b_stats.values()), bound_parts=b_stats, library_ms=None,
                     max_abs_err=stats_abs, max_rel_err=stats_rel,
                 ),
                 fused_block_apply=dict(
-                    ms=cuda_ms(lambda: fb.fused_block_apply(x, want_stats, **p), reps),
-                    plain_ms=cuda_ms(lambda: fb.fused_block_apply_plain(x, want_stats, **p), reps),
+                    ms=time_ms(lambda: fb.fused_block_apply(x, want_stats, **p), reps),
+                    plain_ms=time_ms(lambda: fb.fused_block_apply_plain(x, want_stats, **p), reps),
                     bound_ms=max(b_apply.values()), bound_parts=b_apply,
-                    library_ms=cuda_ms(lambda: library_block(x, lib_p, fb.EPS), reps),
+                    library_ms=time_ms(lambda: library_block(x, lib_p, fb.EPS), reps),
                     max_abs_err=err, tol=tol,
                 ),
             )
@@ -288,8 +271,8 @@ def phase_model(fb, dev, report):
             log(f"fault probe ({name}): max error {perr:.4g} against the limit {tol:.4g}")
         if min(probes.values()) <= tol:
             fail(f"the model-level limit {tol:.3g} lets a fault probe pass: {probes}")
-        ms = cuda_ms(lambda: model(x), reps=3, warmup=1)
-        plain_ms = cuda_ms(lambda: model(x, plain=True), reps=3, warmup=1)
+        ms = time_ms(lambda: model(x), reps=3, warmup=1)
+        plain_ms = time_ms(lambda: model(x, plain=True), reps=3, warmup=1)
     log(f"bf16 batch 16: kernel path {ms:.2f} ms, plain path {plain_ms:.2f} ms, max err {err:.4g} (max |ref| {top:.3g})")
     # f32 model, batch 2, TF32 off: the kernels' arithmetic against plain
     cfg.model.compute_dtype = "float32"
@@ -510,21 +493,21 @@ def phase_depthwise(dwk, dev, report):
                 xn, dyn, wd, bd = x.permute(0, 4, 1, 2, 3), dy.permute(0, 4, 1, 2, 3), w.to(dtype), b.to(dtype)
                 b_fwd, b_wgrad = dw_bounds(n, c, es)
                 row["forward"].update(
-                    ms=cuda_ms(lambda: dwk.depthwise3x3(x, w, b), reps),
-                    plain_ms=cuda_ms(lambda: dwk.depthwise3x3_plain(x, w, b), reps),
-                    library_ms=cuda_ms(lambda: F.conv3d(xn, wd, bd, padding=1, groups=c), reps),
+                    ms=time_ms(lambda: dwk.depthwise3x3(x, w, b), reps),
+                    plain_ms=time_ms(lambda: dwk.depthwise3x3_plain(x, w, b), reps),
+                    library_ms=time_ms(lambda: F.conv3d(xn, wd, bd, padding=1, groups=c), reps),
                     bound_ms=max(b_fwd.values()), bound_parts=b_fwd,
                 )
                 row["input_grad"].update(
-                    ms=cuda_ms(lambda: dwk.depthwise3x3(dy, wf), reps),
-                    plain_ms=cuda_ms(lambda: dwk.depthwise3x3_plain(dy, wf), reps),
-                    library_ms=cuda_ms(lambda: torch.nn.grad.conv3d_input(xn.shape, wd, dyn, padding=1, groups=c), reps),
+                    ms=time_ms(lambda: dwk.depthwise3x3(dy, wf), reps),
+                    plain_ms=time_ms(lambda: dwk.depthwise3x3_plain(dy, wf), reps),
+                    library_ms=time_ms(lambda: torch.nn.grad.conv3d_input(xn.shape, wd, dyn, padding=1, groups=c), reps),
                     bound_ms=max(b_fwd.values()), bound_parts=b_fwd,
                 )
                 row["wgrad"].update(
-                    ms=cuda_ms(lambda: dwk.depthwise3x3_wgrad(x, dy), reps),
-                    plain_ms=cuda_ms(lambda: dwk.depthwise3x3_wgrad_plain(x, dy), reps),
-                    library_ms=cuda_ms(lambda: torch.nn.grad.conv3d_weight(xn, w.shape, dyn, padding=1, groups=c), reps),
+                    ms=time_ms(lambda: dwk.depthwise3x3_wgrad(x, dy), reps),
+                    plain_ms=time_ms(lambda: dwk.depthwise3x3_wgrad_plain(x, dy), reps),
+                    library_ms=time_ms(lambda: torch.nn.grad.conv3d_weight(xn, w.shape, dyn, padding=1, groups=c), reps),
                     bound_ms=max(b_wgrad.values()), bound_parts=b_wgrad,
                 )
                 rows.append(row)
@@ -760,9 +743,9 @@ def phase_conv3d(c3, dev, report):
             row = dict(
                 spatial=list(spatial), cin=cin, cout=cout, dtype=str(dtype).split(".")[-1],
                 launches_per_forward=per_fwd,
-                ms=cuda_ms(lambda: c3.conv3d_3x3(x, w, b, wmat=wmat), reps),
-                plain_ms=cuda_ms(lambda: c3.conv3d_3x3_plain(x, w, b), reps),
-                library_ms=cuda_ms(lambda: F.conv3d(xn, wl, bl, padding=1), reps),
+                ms=time_ms(lambda: c3.conv3d_3x3(x, w, b, wmat=wmat), reps),
+                plain_ms=time_ms(lambda: c3.conv3d_3x3_plain(x, w, b), reps),
+                library_ms=time_ms(lambda: F.conv3d(xn, wl, bl, padding=1), reps),
                 bound_ms=max(bnd.values()), bound_parts=bnd, max_abs_err=err, max_rel_err=rel, tol=tol,
             )
             rows.append(row)
@@ -848,8 +831,8 @@ def phase_rsunet(c3, dev, report):
             fail(f"RSUNet bf16 kernel path vs plain: max error {err:.3g} > {tol:.3g} ({RSUNET_BF16_TOL:.0%} of max |ref|)")
         if min(probes.values()) <= tol:
             fail(f"the RSUNet limit {tol:.3g} lets a fault probe pass: {probes}")
-        ms = cuda_ms(lambda: model(x), reps=5, warmup=2)
-        plain_ms = cuda_ms(lambda: model(x, plain=True), reps=3, warmup=1)
+        ms = time_ms(lambda: model(x), reps=5, warmup=2)
+        plain_ms = time_ms(lambda: model(x, plain=True), reps=3, warmup=1)
     log(f"bf16 batch {NUCMM_BATCH} of {window}: kernel path {ms:.2f} ms, plain path {plain_ms:.2f} ms per forward, max err {err:.4g} "
         f"(max |ref| {top:.3g}); {launches} conv3d launches")
     model32, _ = nucmm_model(dev, "float32")
@@ -958,25 +941,10 @@ def phase_nucmm(c3, dev, work, report):
     return launches
 
 
-def mlp_bounds(m, c, e, es):
-    """Least times (ms) of one fused MLP launch on m rows, as (bytes term,
-    operations term): x read and out written once, both weights once, the
-    biases in f32; the two products (4 m C E FLOP) on the bf16 tensor cores
-    or, in f32, with the GELU (10 FLOP a hidden value) on the CUDA cores."""
-    moved = 2 * m * c * es + 2 * c * e * es + (c + e) * 4
-    mlp, gelu = 4 * m * c * e, 10 * m * e
-    ops = max(gelu / PEAK_F32, mlp / PEAK_BF16_TC) if es == 2 else (mlp + gelu) / PEAK_F32
-    return dict(bytes=moved / PEAK_BYTES * 1e3, ops=ops * 1e3)
-
-
 def phase_probes(dev, work, report):
-    log("== phase 12: probes: the measurement entry points, then each new kernel vs plain ==")
-    from pytorch_connectomics_tpu_torch.ops import fused_mlp as fm
-    from pytorch_connectomics_tpu_torch.ops import probes as pk
-    from pytorch_connectomics_tpu_torch.tools import microbench, probes as probe_tool
-    from pytorch_connectomics_tpu_torch.tools import randn as seeded
-
-    from pytorch_connectomics_tpu_torch.ops import conv3d as c3, depthwise as dwk
+    log("== phase 12: probes: the measurement entry points, then the fused MLP at MedNeXt-S's widths ==")
+    from pytorch_connectomics_tpu_torch.ops import conv3d as c3, depthwise as dwk, fused_mlp as fm, probes as pk
+    from pytorch_connectomics_tpu_torch.tools import microbench, probes as probe_tool, randn as seeded
 
     # the new kernels, and the earlier ones the probes run (the depthwise
     # stencil and tap-matmul prototypes) on the entry points' path
@@ -990,11 +958,13 @@ def phase_probes(dev, work, report):
     counts = {k.__name__: k.launches for k in kernels}
     if any(v <= 0 for v in counts.values()):
         fail(f"the measurement entry points did not run through every kernel they probe: {counts}")
-    by_name = {r["name"]: r for r in records}
-    bad = [r["name"] for r in records if r.get("status", "OK") != "OK"
-           or not all(math.isfinite(v) and v > 0 for k, v in r.items() if isinstance(v, float))]
+    # each kernel record holds the kernel's output against its plain version
+    bad = [r["name"] for r in records if ("kernel" in r and r["status"] != "OK")
+           or not all(math.isfinite(v) for v in r.values() if isinstance(v, float))
+           or not all(r[k] > 0 for k in r if k.endswith("ms") and r[k] is not None)]
     if bad:
-        fail(f"measurement records failed or not finite and positive: {bad}")
+        fail(f"measurement records failed their check or are not finite and positive: {bad}")
+    by_name = {r["name"]: r for r in records}
     ceilings = dict(
         cublas_bf16_tflops=by_name["matmul_8192_bf16"]["tflops"],
         f32_tfma_s=by_name["fma_chain_f32_16384x4096"]["tfma_s"],
@@ -1003,6 +973,11 @@ def phase_probes(dev, work, report):
         copy_library_GBps=by_name["copy_1GiB_bf16"]["library_GBps"],
     )
     log(f"entry points ran in {tools_s:.1f} s; launches {counts}")
+    for r in records:
+        if "kernel" in r:
+            lib = "none" if r.get("library_ms") is None else f"{r['library_ms']:.4f}"
+            log(f"{r['name']:26s} {r['kernel']:18s} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library {lib}, "
+                f"bound {r['bound_ms']:.4f} {r['bound_by']}) err {r['max_abs_err']:.3g} (tol: {r['tol']})")
     log("measured ceilings: " + ", ".join(f"{k} {v:.2f}" for k, v in ceilings.items()))
 
     gen = torch.Generator(device=dev).manual_seed(12)
@@ -1038,145 +1013,45 @@ def phase_probes(dev, work, report):
                 return x + torch.addmm(b2d, h, w2)
 
             reps = 10 if m * c > 1e7 else 30
-            bnd = mlp_bounds(m, c, e, es)
             row = dict(
                 kernel="fused_mlp_residual", C=c, E=e, rows=m, dtype=str(dtype).split(".")[-1], blocks_per_forward=per_fwd,
-                ms=cuda_ms(lambda: fm.fused_mlp_residual(x, w1, b1, w2, b2), reps),
-                plain_ms=cuda_ms(lambda: fm.fused_mlp_residual_plain(x, w1, b1, w2, b2), reps),
-                unfused_library_ms=cuda_ms(unfused, reps), library_ms=None,
-                bound_ms=max(bnd.values()), bound_parts=bnd, max_abs_err=err.max().item(), max_rel_err=rel, tol=tol,
+                ms=time_ms(lambda: fm.fused_mlp_residual(x, w1, b1, w2, b2), reps),
+                plain_ms=time_ms(lambda: fm.fused_mlp_residual_plain(x, w1, b1, w2, b2), reps),
+                unfused_library_ms=time_ms(unfused, reps), **microbench.mlp_bound(m, c, e, es),
+                max_abs_err=err.max().item(), max_rel_err=rel, tol=tol,
             )
             rows.append(row)
             log(f"fused_mlp C={c:4d} E={e:5d} M={m:8d} {row['dtype']:8s} {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, "
                 f"unfused cuBLAS {row['unfused_library_ms']:.4f}, bound {row['bound_ms']:.4f} "
-                f"{max(bnd, key=bnd.get)}) err {row['max_abs_err']:.3g} <= {tol:.3g}")
+                f"{row['bound_by']}) err {row['max_abs_err']:.3g} <= {tol:.3g}")
             del x, got, want, err
-
-    # the pointwise conv 32 -> 32 at (8, 112^3), the probe shape
-    for dtype in (torch.bfloat16, torch.float32):
-        es = 2 if dtype == torch.bfloat16 else 4
-        x = seeded(gen, (8, 112, 112, 112, 32), dtype)
-        w = seeded(gen, (32, 32), dtype, 0.2)
-        got, want = fm.pointwise(x, w), fm.pointwise_plain(x, w)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        # f32: 1e-6 of the summed magnitudes; bf16: both round the f32 sum once, one ulp at the largest output
-        if es == 4:
-            tol_ok = bool(((got - want).abs() <= 1e-6 * fm.pointwise_plain(x.abs(), w.abs())).all())
-        else:
-            tol_ok = err <= 2.0 ** (math.floor(math.log2(want.float().abs().max().item())) - 7)
-        if not tol_ok:
-            fail(f"pointwise {dtype}: max error {err:.3g}")
-        n = x.numel() // 32
-        bnd = dict(bytes=(2 * n * 32 * es + 32 * 32 * es) / PEAK_BYTES * 1e3,
-                   ops=2 * n * 32 * 32 / (PEAK_BF16_TC if es == 2 else PEAK_F32) * 1e3)
-        rows.append(dict(
-            kernel="pointwise", shape=[8, 112, 112, 112, 32], cout=32, dtype=str(dtype).split(".")[-1],
-            ms=cuda_ms(lambda: fm.pointwise(x, w), 10), plain_ms=cuda_ms(lambda: fm.pointwise_plain(x, w), 10),
-            library_ms=cuda_ms(lambda: F.linear(x, w), 10), bound_ms=max(bnd.values()), bound_parts=bnd, max_abs_err=err,
-        ))
-        del x, got, want
-
-    # the FMA chain at the script's shape and at one that fills the card
-    for shape in ((256, 1024), (16384, 4096)):
-        for dtype in (torch.float32, torch.bfloat16):
-            es = 2 if dtype == torch.bfloat16 else 4
-            a = seeded(gen, shape, dtype)
-            got, want = pk.fma_chain(a, 256), pk.fma_chain_plain(a, 256)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            # bf16: one rounding a step both ways, exact; f32: fmaf against the
-            # float64 rounding of the plain version, a few ulps at a float32 tie
-            tol = 0.0 if es == 2 else 1e-6 * want.abs().max().item()
-            if err > tol:
-                fail(f"fma_chain {shape} {dtype}: max error {err:.3g} > {tol:.3g}")
-            n = a.numel()
-            bnd = dict(bytes=(2 * n * es + 256 * es) / PEAK_BYTES * 1e3,
-                       ops=2 * n * 256 / (PEAK_BF16_CC if es == 2 else PEAK_F32) * 1e3)
-            rows.append(dict(
-                kernel="fma_chain", shape=list(shape), inner=256, dtype=str(dtype).split(".")[-1],
-                ms=cuda_ms(lambda: pk.fma_chain(a, 256), 20), plain_ms=cuda_ms(lambda: pk.fma_chain_plain(a, 256), 2, 1),
-                library_ms=None, bound_ms=max(bnd.values()), bound_parts=bnd, max_abs_err=err, tol=tol,
-            ))
-            del a, got, want
-
-    # the 27-tap FMA at the microbench's shape
-    x = seeded(gen, (896, 128, 3584), torch.bfloat16)
-    w = seeded(gen, (27,), torch.float32, 0.2)
-    got, want = pk.fma27(x, w), pk.fma27_plain(x, w)
-    torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    if err > 0:  # one rounding of the same f32 chain (to within a float32 tie) lands on the same bf16
-        fail(f"fma27 bf16: max error {err:.3g}")
-    n = x.numel()
-    bnd = dict(bytes=(2 * n * 2 + 27 * 4) / PEAK_BYTES * 1e3, ops=54 * n / PEAK_F32 * 1e3)
-    rows.append(dict(
-        kernel="fma27", shape=[896, 128, 3584], dtype="bfloat16", ms=cuda_ms(lambda: pk.fma27(x, w), 10),
-        plain_ms=cuda_ms(lambda: pk.fma27_plain(x, w), 2, 1), library_ms=None, bound_ms=max(bnd.values()),
-        bound_parts=bnd, max_abs_err=err,
-    ))
-    del x, got, want
-
-    # the lane shift: every probe offset at (32, 14592), then the 1 GiB copy
-    for dtype in (torch.bfloat16, torch.float32):
-        a = seeded(gen, (32, 14592), dtype)
-        for off, circ in ((0, False), (5, True), (-128, False), (1, True), (-1, False)):
-            if not torch.equal(pk.lane_shift(a, off, circ), pk.lane_shift_plain(a, off, circ)):
-                fail(f"lane_shift offset {off} circular {circ} {dtype} differs from its plain version")
-    a = seeded(gen, (2**29 // 4096, 4096), torch.bfloat16)
-    dst = torch.empty_like(a)
-    if not torch.equal(pk.lane_shift(a, 0), a):
-        fail("lane_shift copy differs from its input")
-    bnd = dict(bytes=2 * a.numel() * 2 / PEAK_BYTES * 1e3, ops=0.0)
-    rows.append(dict(
-        kernel="lane_shift", shape=list(a.shape), offset=0, dtype="bfloat16", ms=cuda_ms(lambda: pk.lane_shift(a, 0), 10),
-        plain_ms=cuda_ms(lambda: pk.lane_shift_plain(a, 0, False), 10), library_ms=cuda_ms(lambda: dst.copy_(a), 10),
-        bound_ms=max(bnd.values()), bound_parts=bnd, max_abs_err=0.0,
-    ))
-    del a, dst
-    for r in rows[-8:]:
-        log(f"{r['kernel']:10s} {str(r.get('shape', '')):26s} {r['dtype']:8s} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
-            f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)}, bound "
-            f"{r['bound_ms']:.4f} {max(r['bound_parts'], key=r['bound_parts'].get)}) err {r['max_abs_err']:.3g}")
-    report["probes"] = dict(tools_seconds=tools_s, launches=counts, ceilings=ceilings, records=records, rows=rows)
-    return rows, counts
+    report["probes"] = dict(tools_seconds=tools_s, launches=counts, ceilings=ceilings, records=records,
+                            fused_mlp_widths=rows)
+    return records, counts
 
 
-def probe_line_rows(rows, counts):
-    """The new kernels' entries of the kernels line: the fused MLP per
-    MedNeXt-S forward's worth of its five widths (bf16, the blocks per
-    forward of each), the others at their probe shapes (the pointwise conv
-    and the 27-tap FMA in bf16, the FMA chain in f32 at the card-filling
-    shape, the lane shift as the 1 GiB copy)."""
+def probe_line_rows(records, counts):
+    """The new kernels' entries of the kernels line, each from the record of
+    the entry points' run at the shape it ran: the fused MLP at the
+    microbench's stage 0 (8 x 112^3 rows, 32 -> 64, bf16), the pointwise
+    conv 32 -> 32 in bf16, the FMA chain in f32 at the card-filling shape,
+    the 27-tap FMA, and the lane shift as the 1 GiB copy."""
     src = "pytorch_connectomics_tpu_torch/ops/csrc/"
-    mlp = [r for r in rows if r["kernel"] == "fused_mlp_residual" and r["dtype"] == "bfloat16"]
-
-    def per_forward(key):
-        return sum(r[key] * r["blocks_per_forward"] for r in mlp)
-
-    def bound_by(parts):
-        return "bytes" if parts["bytes"] >= parts["ops"] else "operations"
-
-    out = [dict(
-        name="fused_mlp_residual", route="cuda", source=src + "fused_mlp.cu",
-        replaces="pytorch_connectomics_tpu/ops/fused_mlp_pallas.py:54", launches=counts["fused_mlp_residual"],
-        max_abs_err=max(r["max_abs_err"] for r in mlp), ms=per_forward("ms"), plain_ms=per_forward("plain_ms"),
-        bound_ms=per_forward("bound_ms"),
-        bound_by=bound_by({k: sum(r["bound_parts"][k] * r["blocks_per_forward"] for r in mlp) for k in ("bytes", "ops")}),
-        library_ms=None, unfused_library_ms=per_forward("unfused_library_ms"),
-    )]
+    by_name = {r["name"]: r for r in records}
     picks = (
-        ("pointwise", "fused_mlp.cu", "scripts/tpu_bf16_experiments.py:181", dict(dtype="bfloat16")),
-        ("fma_chain", "probes.cu", "scripts/tpu_vpu_probe.py:58", dict(dtype="float32", shape=[16384, 4096])),
-        ("fma27", "probes.cu", "scripts/tpu_microbench.py:171", dict(dtype="bfloat16")),
-        ("lane_shift", "probes.cu", "scripts/tpu_bf16_experiments.py:66", dict(dtype="bfloat16")),
+        ("fused_mlp_residual", "fused_mlp.cu", "pytorch_connectomics_tpu/ops/fused_mlp_pallas.py:54", "fused_mlp_112c32"),
+        ("pointwise", "fused_mlp.cu", "scripts/tpu_bf16_experiments.py:181", "E3_pw_bf16"),
+        ("fma_chain", "probes.cu", "scripts/tpu_vpu_probe.py:58", "fma_chain_f32_16384x4096"),
+        ("fma27", "probes.cu", "scripts/tpu_microbench.py:171", "vpu_fma27_bf16"),
+        ("lane_shift", "probes.cu", "scripts/tpu_bf16_experiments.py:66", "copy_1GiB_bf16"),
     )
-    for name, file, replaces, where in picks:
-        r = next(r for r in rows if r["kernel"] == name and all(r.get(k) == v for k, v in where.items()))
+    out = []
+    for name, file, replaces, record in picks:
+        r = by_name[record]
         out.append(dict(
             name=name, route="cuda", source=src + file, replaces=replaces, launches=counts[name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=bound_by(r["bound_parts"]), library_ms=r["library_ms"],
+            bound_by=r["bound_by"], library_ms=r.get("library_ms"),
         ))
     return out
 
@@ -1309,12 +1184,12 @@ def main() -> None:
     phase_predict_profile(dev, work, NUCMM_SHAPE, report, recipe=NUCMM, name="nuc{}x{}x{}".format(*NUCMM_SHAPE),
                           key="nucmm_predict")
 
-    probe_rows, probe_counts = phase_probes(dev, work, report)
+    probe_records, probe_counts = phase_probes(dev, work, report)
 
     log("== phase 13: report ==")
     kernels = kernel_line_rows(rows, main_run["launches"], dw_rows, train_counts)
     kernels.append(conv3d_line_row(conv_rows, nucmm_launches))
-    kernels += probe_line_rows(probe_rows, probe_counts)
+    kernels += probe_line_rows(probe_records, probe_counts)
     report["total_seconds"] = time.perf_counter() - started
     log(f"chip_smoke ran in {report['total_seconds']:.1f} s")
     report["kernels"] = kernels

@@ -17,6 +17,9 @@ counterpart of ``scripts/tpu_microbench.py``, section by section:
    the port's kernel ``fma27``, FLOP and bytes counted as the script counts
    them.
 
+The records of the port's kernels hold each output against its plain
+version and carry its bound (see :mod:`..tools`).
+
 Run: ``python -m pytorch_connectomics_tpu_torch.tools.microbench [--device
 cpu] [--small] [--out-dir DIR]``; see :mod:`..tools`.
 """
@@ -33,11 +36,24 @@ import torch.nn.functional as F
 from ..config.schema import ModelConfig, build_dataclass
 from ..models import build_model
 from ..ops import depthwise, fused_mlp, probes
-from . import randn, rate, setup
+from . import PEAK_BF16_TC, bf16_ulps, bound, randn, rate, setup
 
 # (batch, spatial edge, channels) of MedNeXt-S's stages on 112^3 input
 STAGES = [(8, 112, 32), (8, 56, 64), (8, 28, 128), (8, 14, 256), (8, 7, 512)]
 SMALL_STAGES = [(1, 8, 32), (1, 4, 64), (1, 4, 128), (1, 2, 256), (1, 2, 512)]
+TWO_ULPS = "2 bf16 ulps at the largest |plain output|"
+
+
+def mlp_bound(m: int, c: int, e: int, es: int) -> dict:
+    """``bound`` of one fused MLP launch on m rows of element size es: x
+    read and the output written once, both weights once, the biases in f32;
+    the two products (4 m C E FLOP) on the bf16 tensor cores or, in f32,
+    with the GELU (10 FLOP a hidden value) on the CUDA cores."""
+    moved = 2 * m * c * es + 2 * c * e * es + (c + e) * 4
+    mlp, gelu = 4 * m * c * e, 10 * m * e
+    if es == 4:
+        return bound(moved, mlp + gelu)
+    return max(bound(moved, gelu), bound(moved, mlp, PEAK_BF16_TC), key=lambda b: b["bound_parts"]["ops"])
 
 
 def main(argv: Optional[List[str]] = None) -> List[Dict]:
@@ -59,12 +75,13 @@ def main(argv: Optional[List[str]] = None) -> List[Dict]:
         vox = b * s**3
         reps = 10 if vox * c > 1e7 else 30
         with torch.no_grad():
-            ms = rec.time_ms(lambda: depthwise.depthwise3x3(x, w), reps)
             lib = rec.time_ms(lambda: F.conv3d(xn, wl, padding=1, groups=c), reps)
-        rec.emit({
-            "name": f"dw3_{s}c{c}", "kernel": "depthwise3x3", "ms": ms, "tflops": rate(vox * c * 27 * 2, ms) / 1e12,
-            "GBps": rate(vox * c * 2 * 2, ms) / 1e9, "library": "F.conv3d(groups=C)", "library_ms": lib,
-        })
+            rec.kernel(
+                {"name": f"dw3_{s}c{c}", "kernel": "depthwise3x3", "shape": [b, s, s, s, c], "dtype": "bf16",
+                 "library": "F.conv3d(groups=C)", "library_ms": lib, **bound(2 * vox * c * 2 + 27 * c * 4, 54 * vox * c)},
+                lambda: depthwise.depthwise3x3(x, w), lambda: depthwise.depthwise3x3_plain(x, w), bf16_ulps, TWO_ULPS,
+                reps, per_s={"tflops": vox * c * 27 * 2 / 1e12, "GBps": vox * c * 2 * 2 / 1e9},
+            )
         del x, xn
 
     # 3. the pointwise pair at stage 0, then the fused kernel on the same widths
@@ -85,9 +102,19 @@ def main(argv: Optional[List[str]] = None) -> List[Dict]:
         ms = rec.time_ms(pair, 5)
         rec.emit({"name": f"pw_pair_{s}c{c}", "ms": ms, "tflops": rate(flops, ms) / 1e12,
                   "GBps": rate(vox * c * 2 * 2, ms) / 1e9})
-        ms = rec.time_ms(lambda: fused_mlp.fused_mlp_residual_ndhwc(x, w1, b1, w2, b2), 5)
-    rec.emit({"name": f"fused_mlp_{s}c{c}", "kernel": "fused_mlp_residual", "ms": ms,
-              "tflops": rate(flops, ms) / 1e12, "GBps": rate(vox * c * 2 * 2, ms) / 1e9})
+        b1d, b2d, xm = b1.to(x.dtype), b2.to(x.dtype), x.reshape(vox, c)
+
+        def unfused():  # the cuBLAS sequence: addmm, gelu, addmm, add
+            return xm + torch.addmm(b2d, F.gelu(torch.addmm(b1d, xm, w1), approximate="tanh"), w2)
+
+        rec.kernel(
+            {"name": f"fused_mlp_{s}c{c}", "kernel": "fused_mlp_residual", "rows": vox, "C": c, "E": r,
+             "dtype": "bf16", "unfused_library": "addmm, gelu, addmm, add",
+             "unfused_library_ms": rec.time_ms(unfused, 5), **mlp_bound(vox, c, r, 2)},
+            lambda: fused_mlp.fused_mlp_residual_ndhwc(x, w1, b1, w2, b2),
+            lambda: fused_mlp.fused_mlp_residual_plain(xm, w1, b1, w2, b2).reshape(x.shape), bf16_ulps, TWO_ULPS, 5,
+            per_s={"tflops": flops / 1e12, "GBps": vox * c * 2 * 2 / 1e9},
+        )
 
     # 4. per-channel GroupNorm at stage 0 (f32 statistics, output in x's dtype)
     g, beta = torch.ones(c, device=dev), torch.zeros(c, device=dev)
@@ -119,9 +146,13 @@ def main(argv: Optional[List[str]] = None) -> List[Dict]:
     xb = randn(gen, (nblk, yy, xc), torch.bfloat16)
     wts = randn(gen, (27,), scale=0.2)
     vals = nblk * yy * xc
-    ms = rec.time_ms(lambda: probes.fma27(xb, wts), 10)
-    rec.emit({"name": "vpu_fma27_bf16", "kernel": "fma27", "ms": ms, "tflops": rate(vals * 27 * 2, ms) / 1e12,
-              "GBps": rate(vals * 2 * 2, ms) / 1e9})
+    rec.kernel(
+        {"name": "vpu_fma27_bf16", "kernel": "fma27", "shape": [nblk, yy, xc], "dtype": "bf16",
+         **bound(vals * 2 * 2 + 27 * 4, vals * 27 * 2)},
+        lambda: probes.fma27(xb, wts), lambda: probes.fma27_plain(xb, wts), 0.0,
+        "exact: both round one f32 sum in tap order", 10, 2,
+        per_s={"tflops": vals * 27 * 2 / 1e12, "GBps": vals * 2 * 2 / 1e9},
+    )
     rec.save()
     return rec.records
 

@@ -24,6 +24,9 @@ are not carried over.
   ``pointwise``, GB/s (input read and output written), with ``F.linear``
   beside it.
 
+The records of the port's kernels hold each output against its plain
+version and carry its bound (see :mod:`..tools`).
+
 Run: ``python -m pytorch_connectomics_tpu_torch.tools.probes [--device cpu]
 [--small] [--out-dir DIR]``; see :mod:`..tools`.
 """
@@ -37,10 +40,11 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import conv3d, depthwise, fused_mlp, probes
-from . import randn, rate, setup
+from . import PEAK_BF16_CC, PEAK_BF16_TC, PEAK_F32, bf16_ulps, bound, randn, rate, setup
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 INNER = 256
+TWO_ULPS = "2 bf16 ulps at the largest |plain output|"
 
 
 def main(argv: Optional[List[str]] = None) -> List[Dict]:
@@ -51,10 +55,18 @@ def main(argv: Optional[List[str]] = None) -> List[Dict]:
     for shape in ((8, 128), (64, 128)) if small else ((256, 1024), (16384, 4096)):
         for name, dtype in DTYPES.items():
             a = randn(gen, shape, dtype)
-            n = a.numel()
-            ms = rec.time_ms(lambda: probes.fma_chain(a, INNER), 20)
-            rec.emit({"name": f"fma_chain_{name}_{shape[0]}x{shape[1]}", "kernel": "fma_chain", "ms": ms,
-                      "inner": INNER, "tfma_s": rate(n * INNER, ms) / 1e12})
+            n, es = a.numel(), a.element_size()
+            if dtype == torch.float32:  # fmaf against fma in float64 rounded to float32 a step
+                tol, rule = (lambda want: 1e-6 * want.abs().max().item()), "1e-6 of the largest |plain output|"
+            else:
+                tol, rule = 0.0, "exact: one rounding a step both ways"
+            rec.kernel(
+                {"name": f"fma_chain_{name}_{shape[0]}x{shape[1]}", "kernel": "fma_chain", "shape": list(shape),
+                 "dtype": name, "inner": INNER,
+                 **bound(2 * n * es + INNER * es, 2 * n * INNER, PEAK_F32 if es == 4 else PEAK_BF16_CC)},
+                lambda: probes.fma_chain(a, INNER), lambda: probes.fma_chain_plain(a, INNER), tol, rule, 20, 2,
+                per_s={"tfma_s": n * INNER / 1e12},
+            )
             del a
 
     # the depthwise stencil against the library's grouped conv
@@ -64,43 +76,50 @@ def main(argv: Optional[List[str]] = None) -> List[Dict]:
         x = randn(gen, (b, s, s, s, c), dtype)
         w = randn(gen, (c, 1, 3, 3, 3), scale=0.3)
         xn, wl = x.permute(0, 4, 1, 2, 3), w.to(dtype)
+        if dtype == torch.float32:  # FMA order against the summed magnitudes
+            tol = lambda want: 1e-5 * depthwise.depthwise3x3_plain(x.abs(), w.abs()).max().item()  # noqa: E731
+            rule = "1e-5 of the largest summed magnitude"
+        else:
+            tol, rule = bf16_ulps, TWO_ULPS
         with torch.no_grad():
-            ms = rec.time_ms(lambda: depthwise.depthwise3x3(x, w), 5)
             lib = rec.time_ms(lambda: F.conv3d(xn, wl, padding=1, groups=c), 5)
-        rec.emit({"name": f"dw_stencil_{name}", "kernel": "depthwise3x3", "ms": ms, "library": "F.conv3d(groups=C)",
-                  "library_ms": lib, "tfma_s": rate(27 * vox * c, ms) / 1e12})
+            rec.kernel(
+                {"name": f"dw_stencil_{name}", "kernel": "depthwise3x3", "shape": [b, s, s, s, c], "dtype": name,
+                 "library": "F.conv3d(groups=C)", "library_ms": lib,
+                 **bound(2 * vox * c * x.element_size() + 27 * c * 4, 54 * vox * c)},
+                lambda: depthwise.depthwise3x3(x, w), lambda: depthwise.depthwise3x3_plain(x, w), tol, rule, 5,
+                per_s={"tfma_s": 27 * vox * c / 1e12},
+            )
         del x, xn
 
-    # data movement: each TPU probe's function, checked against the plain version
+    # data movement: each TPU probe's function, exact against the plain version
     rows, lanes = (32, 384) if small else (32, 14592)
-    ops = [("E1_copy", 0, False), ("E1_roll5", 5, True), ("E1_slice128", -128, False), ("E1_scratch_roll1", 1, True)]
-    a = randn(gen, (rows, lanes), torch.bfloat16)
-    for name, off, circ in ops:
-        ok = torch.equal(probes.lane_shift(a, off, circ), probes.lane_shift_plain(a, off, circ))
-        ms = rec.time_ms(lambda: probes.lane_shift(a, off, circ), 20)
-        out = {"name": name, "kernel": "lane_shift", "shape": [rows, lanes], "dtype": "bf16", "offset": off,
-               "circular": circ, "status": "OK" if ok else "failed", "ms": ms}
+    ops = [("E1_copy", 0, False, "bf16"), ("E1_roll5", 5, True, "bf16"), ("E1_slice128", -128, False, "bf16"),
+           ("E1_scratch_roll1", 1, True, "bf16"), ("E1b_shift_f32", -1, False, "f32"),
+           ("E1b_shift_bf16", -1, False, "bf16")]
+    for name, off, circ, dtype in ops:
+        a = randn(gen, (rows, lanes), DTYPES[dtype])
+        out = {"name": name, "kernel": "lane_shift", "shape": [rows, lanes], "dtype": dtype,
+               "offset": off, "circular": circ, **bound(2 * a.numel() * a.element_size())}
         # one library call computes the copy and the roll; none the zero-filled shift
         if off == 0:
             out.update(library="Tensor.clone", library_ms=rec.time_ms(a.clone, 20))
         elif circ:
             out.update(library="torch.roll", library_ms=rec.time_ms(lambda: torch.roll(a, off, -1), 20))
-        rec.emit(out)
-    for name, dtype in DTYPES.items():
-        a = randn(gen, (rows, lanes), dtype)
-        ok = torch.equal(probes.lane_shift(a, -1), probes.lane_shift_plain(a, -1, False))
-        rec.emit({"name": f"E1b_shift_{name}", "kernel": "lane_shift", "shape": [rows, lanes], "offset": -1,
-                  "circular": False, "status": "OK" if ok else "failed",
-                  "ms": rec.time_ms(lambda: probes.lane_shift(a, -1), 20)})
+        rec.kernel(out, lambda: probes.lane_shift(a, off, circ), lambda: probes.lane_shift_plain(a, off, circ),
+                   0.0, "exact", 20)
     n = 4096 if small else 2**29  # bf16 values: 1 GiB
     big = randn(gen, (n // 4096, 4096), torch.bfloat16)
     dst = torch.empty_like(big)
     moved = 2 * big.numel() * 2
-    ms = rec.time_ms(lambda: probes.lane_shift(big, 0), 10)
     lib = rec.time_ms(lambda: dst.copy_(big), 10)
-    rec.emit({"name": "copy_1GiB_bf16" if not small else "copy_small_bf16", "kernel": "lane_shift", "ms": ms,
-              "GBps": rate(moved, ms) / 1e9, "library": "Tensor.copy_", "library_ms": lib,
-              "library_GBps": rate(moved, lib) / 1e9})
+    rec.kernel(
+        {"name": "copy_1GiB_bf16" if not small else "copy_small_bf16", "kernel": "lane_shift",
+         "shape": list(big.shape), "dtype": "bf16", "offset": 0, "circular": False, "library": "Tensor.copy_",
+         "library_ms": lib, "library_GBps": rate(moved, lib) / 1e9, **bound(moved)},
+        lambda: probes.lane_shift(big, 0), lambda: probes.lane_shift_plain(big, 0, False), 0.0, "exact", 10,
+        per_s={"GBps": moved / 1e9},
+    )
     del big, dst
 
     # E2: the tap-matmul conv 32 -> 64, first 32 channels kept
@@ -109,22 +128,46 @@ def main(argv: Optional[List[str]] = None) -> List[Dict]:
         x = randn(gen, (b, s, s, s, c), dtype)
         w = randn(gen, (r, c, 3, 3, 3), scale=0.05)
         wmat = conv3d.kernel_weight(w, dtype)
-        with torch.no_grad():  # f32 runs the CUDA-core check path, seconds a launch at this size
-            ms = rec.time_ms(lambda: conv3d.conv3d_3x3(x, w, wmat=wmat)[..., :c], 3 if dtype == torch.bfloat16 else 1, 1)
-        rec.emit({"name": f"E2_{name}", "kernel": "conv3d_3x3", "cin": c, "cout": r, "kept": c, "ms": ms,
-                  "tmac_s": rate(27 * r * c * vox, ms) / 1e12})
-        del x
+        xn, wl = x.permute(0, 4, 1, 2, 3), w.to(dtype).contiguous(memory_format=torch.channels_last_3d)
+        es = x.element_size()
+        if dtype == torch.float32:  # sums in another order: 1e-5 of each output's summed magnitudes
+            tol = lambda want: 1e-5 * conv3d.conv3d_3x3_plain(x.abs(), w.abs())[..., :c]  # noqa: E731
+            rule = "1e-5 of each output's summed magnitudes"
+        else:
+            tol, rule = bf16_ulps, TWO_ULPS
+        # f32 runs the CUDA-core check path, seconds a launch at this size
+        reps = 3 if dtype == torch.bfloat16 else 1
+        with torch.no_grad():
+            lib = rec.time_ms(lambda: F.conv3d(xn, wl, padding=1), reps, 1)
+            rec.kernel(
+                {"name": f"E2_{name}", "kernel": "conv3d_3x3", "shape": [b, s, s, s, c], "dtype": name, "cin": c,
+                 "cout": r, "kept": c, "library": "F.conv3d (all 64 channels)", "library_ms": lib,
+                 **bound(vox * (c + r) * es + 27 * c * r * es, 2 * 27 * vox * c * r, PEAK_BF16_TC if es == 2 else PEAK_F32)},
+                lambda: conv3d.conv3d_3x3(x, w, wmat=wmat)[..., :c], lambda: conv3d.conv3d_3x3_plain(x, w)[..., :c],
+                tol, rule, reps, 1, per_s={"tmac_s": 27 * r * c * vox / 1e12},
+            )
+        del x, xn
 
     # E3: the pointwise conv 32 -> 32
     for name, dtype in DTYPES.items():
         x = randn(gen, (b, s, s, s, c), dtype)
         w = randn(gen, (c, c), dtype, 0.2)
-        moved = 2 * x.numel() * x.element_size()
+        es = x.element_size()
+        moved = 2 * x.numel() * es
+        if dtype == torch.float32:  # sums in another order: 1e-6 of each output's summed magnitudes
+            tol = lambda want: 1e-6 * fused_mlp.pointwise_plain(x.abs(), w.abs())  # noqa: E731
+            rule = "1e-6 of each output's summed magnitudes"
+        else:  # both round the f32 sum once
+            tol, rule = (lambda want: bf16_ulps(want, 1)), "1 bf16 ulp at the largest |plain output|"
         with torch.no_grad():
-            ms = rec.time_ms(lambda: fused_mlp.pointwise(x, w), 5)
             lib = rec.time_ms(lambda: F.linear(x, w), 5)
-        rec.emit({"name": f"E3_pw_{name}", "kernel": "pointwise", "ms": ms, "GBps": rate(moved, ms) / 1e9,
-                  "library": "F.linear", "library_ms": lib, "library_GBps": rate(moved, lib) / 1e9})
+            rec.kernel(
+                {"name": f"E3_pw_{name}", "kernel": "pointwise", "shape": [b, s, s, s, c], "dtype": name, "cout": c,
+                 "library": "F.linear", "library_ms": lib, "library_GBps": rate(moved, lib) / 1e9,
+                 **bound(moved + c * c * es, 2 * vox * c * c, PEAK_BF16_TC if es == 2 else PEAK_F32)},
+                lambda: fused_mlp.pointwise(x, w), lambda: fused_mlp.pointwise_plain(x, w), tol, rule, 5,
+                per_s={"GBps": moved / 1e9},
+            )
         del x
     rec.save()
     return rec.records

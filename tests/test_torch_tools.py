@@ -1,8 +1,9 @@
 """The port's measurement entry points (``tools/microbench.py``,
 ``tools/probes.py``) run end to end on the CPU at their ``--small`` shapes:
 one well-formed JSON line per section, every record naming the CPU and the
-host clock, the same records in ``<out-dir>/<name>.jsonl``, and the
-data-movement probes agreeing with their plain versions. Without ``--device
+host clock, the same records in ``<out-dir>/<name>.jsonl``, and every record
+of a port kernel held against its plain version (status OK, with its error,
+its stated tolerance, the plain version's time and its bound). Without ``--device
 cpu`` and without a GPU they raise instead of running on the CPU."""
 
 import json
@@ -35,6 +36,11 @@ def test_tool_prints_every_section(tool, names, tmp_path, capsys):
             if key in r:
                 assert math.isfinite(r[key]) and r[key] > 0, (r["name"], key)
         assert r.get("status", "OK") == "OK", r
+        if "kernel" in r:
+            assert r["status"] == "OK" and r["tol"] and r["bound_by"] in ("bytes", "operations"), r
+            assert r["max_abs_err"] == 0.0, r  # on the CPU the wrapper runs the plain version itself
+            for key in ("plain_ms", "bound_ms"):
+                assert math.isfinite(r[key]) and r[key] > 0, (r["name"], key)
 
 
 def test_tools_refuse_to_run_on_cpu_unasked(tmp_path):
