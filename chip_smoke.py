@@ -1,6 +1,10 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases 9,10,12]
+
+With --phases, only phases 1-2 and the listed ones of 3-12 run, and the
+last line is the same {"ok": true, ...} object with the phases run; the
+kernels line needs every phase and is printed by a full run only.
 
 Phases (any failure exits non-zero; no phase catches its own failure):
   1. device   require CUDA; print the card's name and power limit
@@ -31,7 +35,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
               --checkpoint, which restores the train leg's last checkpoint
   9. conv3d   RSUNet's dense 3^3 conv kernel against its plain version at
               every shape of RSUNet on the NucMM-Z recipe (batch 8 of 64^3,
-              bf16 and f32), with times (kernel, plain, bound, F.conv3d)
+              bf16 and f32), with times (kernel, plain, bound, F.conv3d),
+              TFLOP/s and the ratio to F.conv3d
  10. rsunet   RSUNet at full width ([28,36,48,64], iso), seeded init: one
               (8, 64, 64, 64, 1) batch through the kernel and through the
               plain path, bf16 and f32; 15 launches per forward; four fault
@@ -748,12 +753,17 @@ def phase_conv3d(c3, dev, report):
                 library_ms=time_ms(lambda: F.conv3d(xn, wl, bl, padding=1), reps),
                 bound_ms=max(bnd.values()), bound_parts=bnd, max_abs_err=err, max_rel_err=rel, tol=tol,
             )
+            row["tflops"] = 2 * 27 * n * cin * cout / row["ms"] * 1e-9
+            row["vs_library"] = row["ms"] / row["library_ms"]
+            row["plan"] = c3.kernel_plan(tuple(x.shape), cout, dtype)
             rows.append(row)
             log(
                 f"{str(spatial):14s} {cin:2d}->{cout:2d} {row['dtype']:8s} {row['ms']:.4f} ms (plain "
                 f"{row['plain_ms']:.4f}, F.conv3d {row['library_ms']:.4f}, bound {row['bound_ms']:.4f} "
-                f"{max(bnd, key=bnd.get)}) err {err:.3g} <= {tol:.3g}"
+                f"{max(bnd, key=bnd.get)}) {row['tflops']:.1f} TFLOP/s, {row['vs_library']:.2f}x F.conv3d "
+                f"err {err:.3g} <= {tol:.3g}"
             )
+            log("    plan " + " ".join(f"{k}={v}" for k, v in row["plan"].items()))
             del x, w, got, want, xn, wl
     report["conv3d_rows"] = rows
     return rows
@@ -1122,7 +1132,20 @@ def kernel_line_rows(rows, main_counts, dw_rows, dw_counts):
     return kernels
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU and check it.")
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phases of 3-12 to run after the device and build phases (default: all)")
+    args = ap.parse_args(argv)
+    phases = None if args.phases is None else {int(p) for p in args.phases.split(",")}
+    if phases is not None and not phases <= set(range(3, 13)):
+        ap.error("--phases takes phases 3-12")
+
+    def want(n):
+        return phases is None or n in phases
+
     if not torch.cuda.is_available():
         fail("no CUDA device")
     started = time.perf_counter()
@@ -1160,42 +1183,58 @@ def main() -> None:
     log(f"kernels built in {report['build_seconds']:.1f} s")
     for name, text in build.build_log.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  {name}: {line.strip()}")
 
-    rows = phase_kernels(fb, dev, report)
-    phase_model(fb, dev, report)
-
-    log("== phase 5: CLI --mode test slice ==")
     work = ROOT / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
-    main_run = run_slice(fb, dev, (165, 1024, 768), False, work, seed=0)
-    tta_run = run_slice(fb, dev, (96, 256, 192), True, work, seed=1)
-    report["slice"] = [main_run, tta_run]
-    phase_predict_profile(dev, work, (165, 1024, 768), report)
+    if want(3):
+        rows = phase_kernels(fb, dev, report)
+    if want(4):
+        phase_model(fb, dev, report)
 
-    dw_rows = phase_depthwise(dwk, dev, report)
-    phase_train_step(dwk, fb, dev, report)
-    train_counts = phase_cli_train_test(dwk, fb, dev, work, report)
+    if want(5):
+        log("== phase 5: CLI --mode test slice ==")
+        main_run = run_slice(fb, dev, (165, 1024, 768), False, work, seed=0)
+        tta_run = run_slice(fb, dev, (96, 256, 192), True, work, seed=1)
+        report["slice"] = [main_run, tta_run]
+        phase_predict_profile(dev, work, (165, 1024, 768), report)
 
-    conv_rows = phase_conv3d(c3, dev, report)
-    phase_rsunet(c3, dev, report)
-    nucmm_launches = phase_nucmm(c3, dev, work, report)
-    phase_predict_profile(dev, work, NUCMM_SHAPE, report, recipe=NUCMM, name="nuc{}x{}x{}".format(*NUCMM_SHAPE),
-                          key="nucmm_predict")
+    if want(6):
+        dw_rows = phase_depthwise(dwk, dev, report)
+    if want(7):
+        phase_train_step(dwk, fb, dev, report)
+    if want(8):
+        train_counts = phase_cli_train_test(dwk, fb, dev, work, report)
 
-    probe_records, probe_counts = phase_probes(dev, work, report)
+    if want(9):
+        conv_rows = phase_conv3d(c3, dev, report)
+    if want(10):
+        phase_rsunet(c3, dev, report)
+    if want(11):
+        nucmm_launches = phase_nucmm(c3, dev, work, report)
+        phase_predict_profile(dev, work, NUCMM_SHAPE, report, recipe=NUCMM,
+                              name="nuc{}x{}x{}".format(*NUCMM_SHAPE), key="nucmm_predict")
+
+    if want(12):
+        probe_records, probe_counts = phase_probes(dev, work, report)
 
     log("== phase 13: report ==")
+    report["total_seconds"] = time.perf_counter() - started
+    log(f"chip_smoke ran in {report['total_seconds']:.1f} s")
+    device = {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}
+    if phases is not None:
+        (work / f"chip_smoke_phases_{'_'.join(map(str, sorted(phases)))}.json").write_text(
+            json.dumps(report, indent=2, default=lambda o: o.item()))
+        print(json.dumps({"ok": True, "device": device, "phases": sorted(phases)}))
+        return
     kernels = kernel_line_rows(rows, main_run["launches"], dw_rows, train_counts)
     kernels.append(conv3d_line_row(conv_rows, nucmm_launches))
     kernels += probe_line_rows(probe_records, probe_counts)
-    report["total_seconds"] = time.perf_counter() - started
-    log(f"chip_smoke ran in {report['total_seconds']:.1f} s")
     report["kernels"] = kernels
     (work / "chip_smoke.json").write_text(json.dumps(report, indent=2, default=lambda o: o.item()))
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    print(json.dumps({"ok": True, "device": device}))
 
 
 if __name__ == "__main__":

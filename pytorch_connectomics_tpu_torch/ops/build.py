@@ -124,6 +124,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "conv3d_3x3":
         lib.conv3d_3x3_weight_rows.argtypes = [i, i]
         lib.conv3d_3x3_weight_rows.restype = i
+        lib.conv3d_3x3_plan.argtypes = [i] * 7 + [p]
+        lib.conv3d_3x3_plan.restype = i
         lib.conv3d_3x3_fwd.argtypes = [p, p, p, p] + [i] * 9 + [p]
         lib.conv3d_3x3_fwd.restype = i
         lib.conv3d_3x3_error_string.argtypes = [i]

@@ -16,10 +16,13 @@ zero-padded as :func:`kernel_weight` describes; a caller that keeps a
 parameter builds that matrix once per parameter version and passes it as
 ``wmat`` (``models/rsunet.py``).
 
-The kernel keeps the weight of 16 output channels (``27 * Cin * 16``
-values) in shared memory next to the input tile, which bounds Cin: up to
-96 in float32 and 192 in bfloat16 (RSUNet's widths reach 64); a
-wider input raises.
+The kernel keeps the weight of at least 16 output channels (``27 * Cin *
+16`` values) in shared memory next to the input tile, which bounds Cin: up
+to 96 in float32 and 192 in bfloat16 (RSUNet's widths reach 64); a wider
+input raises. The bf16 tensor-core kernel keeps two input tiles where they
+fit beside the weight, so that the next tile's copies run under this
+tile's products, and gives each warp 32 or 64 voxels x 32 to 64 output
+channels; :func:`kernel_plan` reports the plan it takes for a shape.
 
 Given CPU tensors the wrapper runs the plain version; given CUDA tensors it
 launches the kernel or raises. It counts its launches in
@@ -28,6 +31,8 @@ on a tensor that requires grad, it raises.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -79,7 +84,8 @@ def kernel_weight(w: torch.Tensor, dtype: torch.dtype, layout: str = "oidhw") ->
     dy)*3 + dx):
 
     - bf16, Cin >= 8: ``27 * CP`` rows, row ``tap * CP + ci``, CP = Cin
-      rounded up to 16 (the tensor-core path takes 16 channels per step);
+      rounded up to 8 (the tensor-core path takes 8 channels of one tap per
+      half k-step), then zero rows up to a multiple of 16;
     - bf16, Cin < 8: ``KP`` rows, row ``tap * Cin + ci``, KP = 27 * Cin
       rounded up to 16 (taps and channels packed, as the stem's Cin = 1);
     - float32: ``27 * Cin`` rows, row ``tap * Cin + ci``.
@@ -89,14 +95,32 @@ def kernel_weight(w: torch.Tensor, dtype: torch.dtype, layout: str = "oidhw") ->
     cin, cout = wk.shape[3], wk.shape[4]
     np_ = _round_up(cout, 16)
     if dtype == torch.bfloat16 and cin >= 8:
-        cp = _round_up(cin, 16)
-        m = wk.new_zeros((27, cp, np_))
-        m[:, :cin, :cout] = wk.reshape(27, cin, cout)
-        return m.reshape(27 * cp, np_)
+        cp = _round_up(cin, 8)
+        m = wk.new_zeros((_round_up(27 * cp, 16), np_))
+        m[: 27 * cp].view(27, cp, np_)[:, :cin, :cout] = wk.reshape(27, cin, cout)
+        return m
     rows = _round_up(27 * cin, 16) if dtype == torch.bfloat16 else 27 * cin
     m = wk.new_zeros((rows, np_))
     m[: 27 * cin, :cout] = wk.reshape(27 * cin, cout)
     return m
+
+
+def kernel_plan(shape: tuple, cout: int, dtype: torch.dtype) -> dict:
+    """The plan the kernel takes for x of ``shape`` (B, Z, Y, X, Cin) and
+    ``cout`` output channels in ``dtype``: its tile (``xs`` x-voxels by
+    ``r`` rows), channel slice ``nb`` and ``slices``, for the tap-wise
+    kernel its warp tile (``warp_m`` voxels x ``warp_n`` channels), warps
+    (``warps_m`` x ``warps_n``) and halo buffers, its shared memory, and
+    which path (``taps``; ``packed`` for bf16 with Cin < 8; ``f32``).
+    Needs the built library (a machine with the CUDA toolkit); raises for a
+    shape the kernel does not take."""
+    lib = build.load("conv3d_3x3")
+    out = (ctypes.c_int * 11)()
+    b, z, y, xs, cin = shape
+    _check(lib.conv3d_3x3_plan(int(dtype == torch.bfloat16), b, z, y, xs, cin, cout, out), lib)
+    v = list(out)
+    return dict(xs=v[0], r=v[1], nb=v[2], slices=v[3], warp_m=16 * v[4], warp_n=8 * v[5], warps_m=v[6],
+                warps_n=v[7], buffers=v[8], smem_bytes=v[9], kernel=("taps", "packed", "f32")[v[10]])
 
 
 def _check(code: int, lib) -> None:

@@ -75,10 +75,11 @@ def test_conv3d_matches_jax(interpret_mode, case, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("cin", [1, 3, 8, 28])
+@pytest.mark.parametrize("cin", [1, 3, 8, 28, 36])
 def test_kernel_weight_layout(cin, dtype):
     """The weight matrix the CUDA kernel takes, multiplied the way the
-    kernel multiplies it (tap-wise over CP zero-padded channels, or one
+    kernel multiplies it (tap-wise over CP = Cin rounded up to 8 zero-padded
+    channels, then zero rows to a multiple of 16; or one
     packed patch matrix of 27 * Cin columns), gives the plain conv: the
     layout contract of ``csrc/conv3d_3x3.cu`` checked on the CPU."""
     cout = 20
@@ -90,8 +91,8 @@ def test_kernel_weight_layout(cin, dtype):
     xp = torch.nn.functional.pad(x.double(), (0, 0, 1, 1, 1, 1, 1, 1))
     taps = [xp[:, dz : dz + 3, dy : dy + 4, dx : dx + 5] for dz in range(3) for dy in range(3) for dx in range(3)]
     if dtype == torch.bfloat16 and cin >= 8:
-        cp_ = wmat.shape[0] // 27
-        assert cp_ % 16 == 0 and cp_ >= cin
+        cp_ = -(-cin // 8) * 8
+        assert wmat.shape[0] == -(-27 * cp_ // 16) * 16 and torch.all(wmat[27 * cp_ :] == 0)
         out = sum(torch.nn.functional.pad(t, (0, cp_ - cin)) @ wmat[i * cp_ : (i + 1) * cp_] for i, t in enumerate(taps))
     else:
         patch = torch.cat(taps, dim=-1)

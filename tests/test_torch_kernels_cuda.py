@@ -192,7 +192,10 @@ from pytorch_connectomics_tpu_torch.ops import conv3d as c3  # noqa: E402
 # (B, Z, Y, X, Cin, Cout): every 3^3 conv of RSUNet on the NucMM-Z recipe's
 # 64^3 window at batch 2 (stem; levels 0-3), then ragged shapes: x and y
 # not multiples of the tile, odd and packed channel counts, Cout past one
-# 64-channel slice, Cin past 64
+# 64-channel slice, Cin past 64; then many more tiles than blocks (each
+# block prefetches across several tiles), 7f's widths (32 -> 64) on a
+# ragged x tile, and y not a multiple of the tile's rows with Cout 36 and
+# 100 (not multiples of a warp's 32 channels)
 CONV_SHAPES = [
     (2, 64, 64, 64, 1, 28),
     (2, 64, 64, 64, 28, 28),
@@ -207,6 +210,15 @@ CONV_SHAPES = [
     (1, 4, 6, 10, 16, 100),
     (1, 3, 5, 70, 96, 40),
     (2, 1, 1, 1, 1, 1),
+    (3, 24, 40, 48, 16, 32),
+    (1, 6, 13, 112, 32, 64),
+    (1, 5, 13, 40, 36, 36),
+    (1, 4, 11, 24, 28, 100),
+]
+# bf16 only: Cin 192, the widest the kernel takes, whose weight slice leaves
+# room for one halo buffer only
+CONV_SHAPES_BF16 = [
+    (1, 3, 5, 20, 192, 24),
 ]
 
 
@@ -219,8 +231,12 @@ def _conv_inputs(shape, dtype, device, seed=3):
     return x, w, bias
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape", CONV_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize(
+    "shape,dtype",
+    [(s, d) for s in CONV_SHAPES for d in (torch.float32, torch.bfloat16)]
+    + [(s, torch.bfloat16) for s in CONV_SHAPES_BF16],
+    ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else {torch.float32: "f32", torch.bfloat16: "bf16"}[v],
+)
 def test_conv3d_kernel_matches_plain(device, shape, dtype):
     x, w, bias = _conv_inputs(shape, dtype, device)
     for bb in (bias, None):
@@ -239,6 +255,35 @@ def test_conv3d_kernel_matches_plain(device, shape, dtype):
             assert err <= _bf16_ulps(want, 2), (err, _bf16_ulps(want, 2))
     wmat = c3.kernel_weight(w, dtype)
     assert torch.equal(c3.conv3d_3x3(x, w, bias, wmat=wmat), c3.conv3d_3x3(x, w, bias))
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 32, 64, 28, 28), (1, 6, 13, 112, 32, 64), (1, 3, 5, 20, 192, 24)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_conv3d_two_launches_are_bit_identical(device, shape):
+    x, w, bias = _conv_inputs(shape, torch.bfloat16, device, seed=5)
+    wmat = c3.kernel_weight(w, torch.bfloat16)
+    first = c3.conv3d_3x3(x, w, bias, wmat=wmat)
+    assert torch.equal(first, c3.conv3d_3x3(x, w, bias, wmat=wmat))
+
+
+@pytest.mark.parametrize("shape", CONV_SHAPES[:8] + [(8, 112, 112, 112, 32, 64), (3, 24, 40, 48, 16, 32)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_conv3d_plan_uses_wide_warp_tiles(device, shape):
+    """bf16 with Cin >= 8 takes the tap-wise path, each warp owning at least
+    32 voxels x min(Np, 32) channels; a tile that leaves room beside the
+    weight slice for two halo buffers takes both."""
+    b, z, y, xs, cin, cout = shape
+    plan = c3.kernel_plan((b, z, y, xs, cin), cout, torch.bfloat16)
+    assert plan["kernel"] == ("packed" if cin < 8 else "taps")
+    assert plan["warp_m"] >= 32 and plan["warp_n"] >= min(-(-cout // 16) * 16, 32)
+    assert plan["xs"] * plan["r"] == plan["warp_m"] * plan["warps_m"]
+    if shape == (3, 24, 40, 48, 16, 32):
+        assert plan["buffers"] == 2
+
+
+def test_conv3d_plan_wide_input_takes_one_buffer(device):
+    plan = c3.kernel_plan((1, 3, 5, 20, 192), 24, torch.bfloat16)
+    assert plan["buffers"] == 1 and plan["smem_bytes"] <= 232448
 
 
 def test_conv3d_takes_the_jax_layout(device):
