@@ -986,8 +986,9 @@ def phase_probes(dev, work, report):
     for r in records:
         if "kernel" in r:
             lib = "none" if r.get("library_ms") is None else f"{r['library_ms']:.4f}"
+            on_host = f"; host {r['host_us']:.2f} us, library's {r['library_host_us']:.2f} us" if "host_us" in r else ""
             log(f"{r['name']:26s} {r['kernel']:18s} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library {lib}, "
-                f"bound {r['bound_ms']:.4f} {r['bound_by']}) err {r['max_abs_err']:.3g} (tol: {r['tol']})")
+                f"bound {r['bound_ms']:.4f} {r['bound_by']}{on_host}) err {r['max_abs_err']:.3g} (tol: {r['tol']})")
     log("measured ceilings: " + ", ".join(f"{k} {v:.2f}" for k, v in ceilings.items()))
 
     gen = torch.Generator(device=dev).manual_seed(12)

@@ -18,6 +18,8 @@ import threading
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -91,7 +93,11 @@ def build(names: Optional[Sequence[str]] = None) -> Dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library ``name``, built first if needed."""
+    """The loaded library ``name``, built first if needed. Once loaded it is
+    returned without taking the lock."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
@@ -99,6 +105,13 @@ def load(name: str) -> ctypes.CDLL:
             _declare(name, lib)
             _loaded[name] = lib
         return lib
+
+
+def stream(index: int) -> int:
+    """The raw handle of the current CUDA stream of device ``index``
+    (``Tensor.get_device()``), without building a torch.cuda.Stream object.
+    Only a CUDA build of torch has the call, so it is looked up here."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def _declare(name: str, lib: ctypes.CDLL) -> None:
@@ -131,8 +144,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.conv3d_3x3_error_string.argtypes = [i]
         lib.conv3d_3x3_error_string.restype = ctypes.c_char_p
     elif name == "fused_mlp":
-        lib.fused_mlp_fwd.argtypes = [p] * 6 + [i, q, i, i, i, q, q, p]
+        lib.fused_mlp_fwd.argtypes = [p] * 6 + [i, q, i, i, p]
         lib.fused_mlp_fwd.restype = i
+        lib.pointwise_fwd.argtypes = [p, p, p, i, q, i, i, p]
+        lib.pointwise_fwd.restype = i
         lib.fused_mlp_error_string.argtypes = [i]
         lib.fused_mlp_error_string.restype = ctypes.c_char_p
     elif name == "probes":

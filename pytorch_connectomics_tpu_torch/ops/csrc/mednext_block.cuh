@@ -24,6 +24,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+#include <mutex>
+
 namespace mednext {
 
 constexpr int kThreads = 256;        // threads per block, both kernels
@@ -72,6 +75,14 @@ __device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src,
 
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
 
+// Close the cp.async copies started since the last commit into one group;
+// wait until at most N groups are still in flight.
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 // Tensor-core fragments (conv3d_3x3.cu, fused_mlp.cu): cp.async copies of
 // 4, 8 or 16 bytes, ldmatrix and mma.sync m16n8k16 (bf16 in, f32 accumulate).
 
@@ -107,6 +118,17 @@ __device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(a));
+}
+
+// Four 8x8 bf16 matrices to shared memory, the inverse of ldsm_x4: lane l
+// gives the address of row l % 8 of matrix l / 8; register i holds row
+// l / 4, columns 2 (l % 4) and 2 (l % 4) + 1 of matrix i (the layout of an
+// mma accumulator pair).
+__device__ __forceinline__ void stsm_x4(void* p, unsigned r0, unsigned r1, unsigned r2, unsigned r3) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(a), "r"(r0), "r"(r1),
+               "r"(r2), "r"(r3)
+               : "memory");
 }
 
 // c[16x8] += a[16x16] . b[16x8], bf16 in, f32 accumulate
@@ -203,6 +225,60 @@ __device__ __forceinline__ void stencil2(const T* __restrict__ halo, const float
       }
     }
   }
+}
+
+// Host side: the SM count of the current device, asked once per device.
+inline int sm_count() {
+  static std::atomic<int> cache[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  int n = cache[dev].load(std::memory_order_relaxed);
+  if (n == 0) {
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n < 1) n = 132;
+    cache[dev].store(n, std::memory_order_relaxed);
+  }
+  return n;
+}
+
+// Host side: resident blocks per SM of kernel `fn` at `threads` threads and
+// `smem` bytes of dynamic shared memory, on the current device. A kernel's
+// first call on a device lets it take all 232,448 bytes there and prefer
+// shared memory to L1 (function attributes are per device); each (device,
+// kernel, threads, smem) is asked once and kept. 0, or a cudaError_t.
+inline int occupancy(const void* fn, int threads, size_t smem, int* occ) {
+  struct Entry {
+    int dev;
+    const void* fn;
+    int threads;
+    size_t smem;
+    int occ;
+  };
+  static std::mutex mu;
+  static Entry seen[128];
+  static int n = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  std::lock_guard<std::mutex> lock(mu);
+  bool set = false;
+  for (int i = 0; i < n; ++i) {
+    if (seen[i].dev != dev || seen[i].fn != fn) continue;
+    set = true;
+    if (seen[i].threads == threads && seen[i].smem == smem) {
+      *occ = seen[i].occ;
+      return 0;
+    }
+  }
+  if (!set) {
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return (int)e;
+  }
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(occ, fn, threads, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (n < 128) seen[n++] = Entry{dev, fn, threads, smem, *occ};
+  return 0;
 }
 
 }  // namespace mednext

@@ -21,7 +21,12 @@
 //   probes _probe_kernel (copy, roll, slice+pad) and _scratch_kernel of
 //   scripts/tpu_bf16_experiments.py:66,87 and _shift_kernel of
 //   scripts/tpu_bf16_experiments2.py:68. Offset 0 is a copy: the card's
-//   copy-bandwidth probe. Bound: bytes.
+//   copy-bandwidth probe. Bound: bytes. Every global access is a 16-byte
+//   piece, four a thread in flight per loop pass, 32-bit index math where
+//   the pieces allow, a grid of the resident blocks (occupancy and SM count
+//   asked once). An offset that is not a whole piece builds each output
+//   piece in registers from the two aligned source pieces it spans (funnel
+//   shifts). A row that is not whole pieces takes a scalar kernel.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (see ops/build.py). Plain C interface for ctypes.
@@ -34,10 +39,10 @@ constexpr int kThreads = 256;
 constexpr int kMaxInner = 4096;
 constexpr int kErrShape = 10001;
 
+using mednext::sm_count;
+
 inline unsigned grid_for(long long work) {
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess) cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long cap = (long long)sms * 16;  // enough resident blocks to fill every SM
+  const long long cap = (long long)sm_count() * 16;  // enough resident blocks to fill every SM
   const long long want = (work + kThreads - 1) / kThreads;
   return (unsigned)(want < 1 ? 1 : (want < cap ? want : cap));
 }
@@ -192,34 +197,75 @@ __device__ __forceinline__ int src_col(int i, int F, int offset, bool circular) 
   return s >= 0 && s < F ? s : -1;
 }
 
-// A thread writes one 16-byte piece of a row (F a multiple of the piece).
-// VLOAD: the offset is a multiple of the piece too, so the source is one
-// aligned 16-byte piece (or all zero fill); otherwise values are read one
-// by one.
-template <typename T, bool VLOAD>
-__global__ void __launch_bounds__(kThreads)
-    shift_vec(const T* __restrict__ x, T* __restrict__ out, long long rows, int F, int offset, int circular) {
-  constexpr int per = 16 / (int)sizeof(T);
-  const int pieces = F / per;
-  const long long total = rows * pieces;
-  for (long long v = blockIdx.x * (long long)kThreads + threadIdx.x; v < total; v += (long long)gridDim.x * kThreads) {
-    const long long r = v / pieces;
-    const int i0 = (int)(v - r * pieces) * per;
-    const T* row = x + r * F;
-    uint4 val;
-    if constexpr (VLOAD) {
-      const int s = src_col(i0, F, offset, circular);
-      val = s < 0 ? make_uint4(0u, 0u, 0u, 0u) : *reinterpret_cast<const uint4*>(row + s);
-    } else {
-      __align__(16) T buf[per];
+// F a multiple of the 16-byte piece: rows of `pieces` pieces. Output piece
+// p of a row takes its values from source pieces p - q - 1 (its last S
+// values) and p - q (its first per - S values), for an offset of q pieces
+// and S values; S == 0 takes piece p - q whole. Source pieces wrap around
+// the row (circular) or read as zero (zero fill) past its ends: the pieces
+// tile the row, so a piece is wholly inside it or wholly outside.
+constexpr int kUnroll = 4;  // pieces a thread moves per loop pass, all loads before the stores
+
+__device__ __forceinline__ uint4 load_piece(const uint4* p) { return __ldg(p); }
+__device__ __forceinline__ void store_piece(uint4* p, uint4 v) { *p = v; }
+
+__device__ __forceinline__ int src_piece(int s, int pieces, int circular) {
+  if (circular) return s < 0 ? s + pieces : (s >= pieces ? s - pieces : s);
+  return s >= 0 && s < pieces ? s : -1;
+}
+
+// The 16 bytes starting SB bytes before the end of `lo`: lo's last SB bytes,
+// then hi's first 16 - SB, as funnel shifts of 32-bit words.
+template <int SB>
+__device__ __forceinline__ uint4 splice(uint4 lo, uint4 hi) {
+  const unsigned w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  constexpr int start = 16 - SB, sw = start / 4, bs = start % 4;
+  unsigned o[4];
 #pragma unroll
-      for (int j = 0; j < per; ++j) {
-        const int s = src_col(i0 + j, F, offset, circular);
-        buf[j] = s < 0 ? mednext::from_f32<T>(0.f) : row[s];
+  for (int k = 0; k < 4; ++k) {
+    if constexpr (bs == 0)
+      o[k] = w[sw + k];
+    else
+      o[k] = __funnelshift_r(w[sw + k], w[sw + k + 1], 8 * bs);
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// FLAT: the copy (q == 0, S == 0), one flat run of pieces. I: the index
+// type, 32-bit where the piece count allows.
+template <int SB, bool FLAT, typename I>
+__global__ void __launch_bounds__(kThreads)
+    shift_pieces(const uint4* __restrict__ x, uint4* __restrict__ out, I total, int pieces, int q, int circular) {
+  const I stride = (I)gridDim.x * (kThreads * kUnroll);
+  for (I base = (I)blockIdx.x * (kThreads * kUnroll) + threadIdx.x; base < total; base += stride) {
+    uint4 lo[kUnroll], hi[kUnroll];
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) {
+      const I v = base + (I)(j * kThreads);
+      lo[j] = hi[j] = make_uint4(0u, 0u, 0u, 0u);
+      if (v >= total) continue;
+      if constexpr (FLAT) {
+        hi[j] = load_piece(x + v);
+      } else {
+        const I r = v / (I)pieces;
+        const int p = (int)(v - r * (I)pieces);
+        const uint4* row = x + r * (I)pieces;
+        const int b = src_piece(p - q, pieces, circular);
+        if (b >= 0) hi[j] = load_piece(row + b);
+        if constexpr (SB != 0) {
+          const int a = src_piece(p - q - 1, pieces, circular);
+          if (a >= 0) lo[j] = load_piece(row + a);
+        }
       }
-      val = *reinterpret_cast<const uint4*>(buf);
     }
-    *reinterpret_cast<uint4*>(out + r * F + i0) = val;
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) {
+      const I v = base + (I)(j * kThreads);
+      if (v >= total) continue;
+      if constexpr (SB == 0)
+        store_piece(out + v, hi[j]);
+      else
+        store_piece(out + v, splice<SB>(lo[j], hi[j]));
+    }
   }
 }
 
@@ -236,21 +282,50 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// A grid of the resident blocks of one shift_pieces instantiation.
+template <int SB, bool FLAT, typename I>
+int launch_pieces(const void* x, void* out, I total, int pieces, int q, int circular, cudaStream_t stream) {
+  int occ = 0;
+  const int e = mednext::occupancy(reinterpret_cast<const void*>(shift_pieces<SB, FLAT, I>), kThreads, 0, &occ);
+  if (e != 0) return e;
+  if (occ < 1) occ = 1;
+  const long long want = ((long long)total + kThreads * kUnroll - 1) / (kThreads * kUnroll);
+  const long long cap = (long long)sm_count() * occ;
+  const unsigned grid = (unsigned)(want < cap ? want : cap);
+  shift_pieces<SB, FLAT, I><<<grid, kThreads, 0, stream>>>(static_cast<const uint4*>(x), static_cast<uint4*>(out),
+                                                            total, pieces, q, circular);
+  return (int)cudaGetLastError();
+}
+
+template <typename I, int ES, int S = 0>
+int dispatch_pieces(int s, const void* x, void* out, I total, int pieces, int q, int circular, cudaStream_t stream) {
+  if constexpr (S * ES < 16) {
+    if (s != S) return dispatch_pieces<I, ES, S + 1>(s, x, out, total, pieces, q, circular, stream);
+    if constexpr (S == 0) {
+      if (q == 0) return launch_pieces<0, true, I>(x, out, total, pieces, q, circular, stream);
+    }
+    return launch_pieces<S * ES, false, I>(x, out, total, pieces, q, circular, stream);
+  } else {
+    return kErrShape;
+  }
+}
+
 template <typename T>
 int shift(const void* x, void* out, long long rows, int F, int offset, int circular, cudaStream_t stream) {
   constexpr int per = 16 / (int)sizeof(T);
-  const T* xt = static_cast<const T*>(x);
-  T* ot = static_cast<T*>(out);
-  if (F % per == 0) {
-    const long long work = rows * (F / per);
-    if (offset % per == 0)
-      shift_vec<T, true><<<grid_for(work), kThreads, 0, stream>>>(xt, ot, rows, F, offset, circular);
-    else
-      shift_vec<T, false><<<grid_for(work), kThreads, 0, stream>>>(xt, ot, rows, F, offset, circular);
-  } else {
-    shift_scalar<T><<<grid_for(rows * F), kThreads, 0, stream>>>(xt, ot, rows, F, offset, circular);
+  if (F % per != 0) {
+    shift_scalar<T><<<grid_for(rows * F), kThreads, 0, stream>>>(static_cast<const T*>(x), static_cast<T*>(out), rows,
+                                                                 F, offset, circular);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  const int pieces = F / per;
+  const int q = offset >= 0 ? offset / per : -((-offset + per - 1) / per);  // floor(offset / per)
+  const int s = offset - q * per;                                            // 0 <= s < per
+  const long long total = rows * pieces;
+  if (total < (1ll << 31))
+    return dispatch_pieces<unsigned, (int)sizeof(T)>(s, x, out, (unsigned)total, pieces, q, circular, stream);
+  return dispatch_pieces<unsigned long long, (int)sizeof(T)>(s, x, out, (unsigned long long)total, pieces, q, circular,
+                                                            stream);
 }
 
 }  // namespace probes

@@ -49,18 +49,22 @@ def _check(code: int, lib) -> None:
         raise RuntimeError(f"MedNeXt block kernel failed: {lib.mednext_error_string(code).decode()}")
 
 
-def _require(cond: bool, msg: str) -> None:
+def _require(cond: bool, msg: str, *args) -> None:
+    """Raise ``ValueError(msg)`` unless ``cond``; with ``args``, ``msg`` is a
+    format string filled in only when the check fails."""
     if not cond:
-        raise ValueError(msg)
+        raise ValueError(msg.format(*args) if args else msg)
 
 
 def refuse_grad(name: str, *tensors) -> None:
     """Raise when grad is enabled and any of ``tensors`` requires grad: the
     kernels write their outputs outside autograd."""
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{name} has no backward pass; call it under torch.no_grad() or torch.inference_mode()"
-        )
+    if torch.is_grad_enabled():
+        for t in tensors:
+            if t is not None and t.requires_grad:
+                raise RuntimeError(
+                    f"{name} has no backward pass; call it under torch.no_grad() or torch.inference_mode()"
+                )
 
 
 def _check_cuda_inputs(x: torch.Tensor, *others: torch.Tensor) -> None:

@@ -1,5 +1,5 @@
 """The fused pointwise MLP with residual, and the pointwise (1x1x1) conv, as
-one hand-written CUDA kernel (``csrc/fused_mlp.cu``) with a plain PyTorch
+hand-written CUDA kernels (``csrc/fused_mlp.cu``) with a plain PyTorch
 version of each beside it.
 
 - :func:`fused_mlp_residual` -> ``x + gelu_tanh(x @ w1 + b1) @ w2 + b2`` on
@@ -14,14 +14,16 @@ version of each beside it.
 - :func:`pointwise` -> ``x @ w.T`` for ``x (..., C)`` and ``w (Cout, C)``,
   accumulated in f32 and rounded to x's dtype, no bias: the function of the
   pointwise probes ``pw_cf`` of ``scripts/tpu_bf16_experiments.py:181`` and
-  ``scripts/tpu_bf16_experiments2.py:171``. It is the first product of the
-  same kernel, without bias and GELU.
+  ``scripts/tpu_bf16_experiments2.py:171``. Kernels of its own: float32 in
+  register tiles on the CUDA cores (one ``fmaf`` a term in k order, no
+  TF32), bfloat16 on the tensor cores.
 
 The weights must be in x's dtype (the JAX op would promote mixed dtypes,
 which is another function); the biases may be float32 or x's dtype and are
-used in float32. The kernel takes float32 or bfloat16 with C, E and Cout
-multiples of 16 (E up to any width: it walks the hidden units in chunks; C
-up to 1024 in bfloat16); the plain versions take any width.
+used in float32. The kernels take float32 or bfloat16 with C, E and Cout
+multiples of 16 (E and Cout up to any width: the hidden units are walked in
+chunks, the outputs in column blocks; C up to 1024 in bfloat16 and, in the
+pointwise conv, 1536 in float32); the plain versions take any width.
 
 Given CPU tensors a wrapper runs the plain version; given CUDA tensors it
 launches the kernel or raises. Each wrapper counts its launches in its
@@ -36,8 +38,6 @@ import torch.nn.functional as F
 
 from . import build
 from .fused_block import _dtype_code, _require, refuse_grad
-
-MLP, POINTWISE = 0, 1
 
 
 def _acc(t: torch.Tensor) -> torch.dtype:
@@ -70,15 +70,11 @@ def _check(code: int, lib) -> None:
         raise RuntimeError(f"fused MLP kernel failed: {lib.fused_mlp_error_string(code).decode()}")
 
 
-def _launch(x, w1, b1, w2, b2, out, mode, m, c, e, w1_sk, w1_sn):
-    _require(c % 16 == 0 and e % 16 == 0, f"widths must be multiples of 16, got {c} and {e}")
-    for t in (x, w1, out) + tuple(t for t in (b1, w2, b2) if t is not None):
+def _check_tensors(x, c, n, *ts):
+    _require(c % 16 == 0 and n % 16 == 0, "widths must be multiples of 16, got {} and {}", c, n)
+    for t in ts:
         _require(t.device == x.device, "all tensors must be on the device of x")
         _require(t.is_contiguous() and t.data_ptr() % 16 == 0, "tensors must be contiguous and 16-byte aligned")
-    lib = build.load("fused_mlp")
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    ptr = [None if t is None else t.data_ptr() for t in (x, w1, b1, w2, b2, out)]
-    _check(lib.fused_mlp_fwd(*ptr, _dtype_code(x), m, c, e, mode, w1_sk, w1_sn, stream), lib)
 
 
 def fused_mlp_residual(x, w1, b1, w2, b2):
@@ -94,9 +90,13 @@ def fused_mlp_residual(x, w1, b1, w2, b2):
     _check_weights(x, w1, w2)
     if x.device.type == "cpu":
         return fused_mlp_residual_plain(x, w1, b1, w2, b2)
-    _dtype_code(x)
+    code = _dtype_code(x)
     out = torch.empty_like(x)
-    _launch(x, w1, b1.float().contiguous(), w2, b2.float().contiguous(), out, MLP, m, c, e, e, 1)
+    b1, b2 = b1.float().contiguous(), b2.float().contiguous()
+    _check_tensors(x, c, e, x, w1, b1, w2, b2, out)
+    lib = build.load("fused_mlp")
+    ptr = [t.data_ptr() for t in (x, w1, b1, w2, b2, out)]
+    _check(lib.fused_mlp_fwd(*ptr, code, m, c, e, build.stream(x.get_device())), lib)
     fused_mlp_residual.launches += 1
     return out
 
@@ -117,13 +117,14 @@ def pointwise(x, w):
     _check_weights(x, w)
     if x.device.type == "cpu":
         return pointwise_plain(x, w)
-    _dtype_code(x)
+    code = _dtype_code(x)
     _require(x.is_contiguous(), "x must be contiguous (..., C)")
     cout = w.shape[0]
-    rows = x.reshape(-1, c)
     out = torch.empty((*x.shape[:-1], cout), device=x.device, dtype=x.dtype)
-    # the weight is W1 = w.T of the kernel's first product: element (k, n) at w[n, k]
-    _launch(rows, w, None, None, None, out, POINTWISE, rows.shape[0], c, cout, 1, c)
+    _check_tensors(x, c, cout, x, w, out)
+    lib = build.load("fused_mlp")
+    _check(lib.pointwise_fwd(x.data_ptr(), w.data_ptr(), out.data_ptr(), code, x.numel() // c, c, cout,
+                             build.stream(x.get_device())), lib)
     pointwise.launches += 1
     return out
 

@@ -49,9 +49,12 @@ def _check(code: int, lib) -> None:
 
 
 def _check_cuda(*ts: torch.Tensor) -> None:
+    dev = ts[0].get_device()
     for t in ts:
-        _require(t.device == ts[0].device, "all tensors must be on one device")
-        _require(t.is_contiguous() and t.data_ptr() % 16 == 0, "tensors must be contiguous and 16-byte aligned")
+        if t.get_device() != dev:
+            raise ValueError("all tensors must be on one device")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("tensors must be contiguous and 16-byte aligned")
 
 
 def _fma_f64(x64: torch.Tensor, m: float, acc: torch.Tensor) -> torch.Tensor:
@@ -171,18 +174,19 @@ def lane_shift(x: torch.Tensor, offset: int = 0, circular: bool = False) -> torc
     """``x``'s shape and dtype: ``x`` shifted by ``offset`` along its last
     axis (``out[..., i] = x[..., i - offset]``), circular or zero-filled."""
     refuse_grad("lane_shift", x)
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return lane_shift_plain(x, offset, circular)
     code = _dtype_code(x)
+    _require(x.dim() >= 1 and x.numel() >= 1, "x must be non-empty, got {}", x.shape)
     f = x.shape[-1]
-    _require(x.dim() >= 1 and f >= 1 and x.numel() >= 1, f"x must be non-empty, got {tuple(x.shape)}")
-    _require(f < 2**31, f"the last axis must be shorter than 2**31, got {f}")
+    _require(f < 2**31, "the last axis must be shorter than 2**31, got {}", f)
     offset = offset % f if circular else max(-f, min(f, offset))
     out = torch.empty_like(x)
     _check_cuda(x, out)
     lib = build.load("probes")
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.probes_lane_shift(x.data_ptr(), out.data_ptr(), code, x.numel() // f, f, offset, int(circular), stream)
+    rc = lib.probes_lane_shift(
+        x.data_ptr(), out.data_ptr(), code, x.numel() // f, f, offset, circular, build.stream(x.get_device())
+    )
     _check(rc, lib)
     lane_shift.launches += 1
     return out

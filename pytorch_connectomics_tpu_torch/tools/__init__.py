@@ -77,6 +77,9 @@ class Recorder:
     def time_ms(self, fn: Callable[[], object], reps: int = 10, warmup: int = 2) -> float:
         return time_ms(fn, reps, warmup, self.device)
 
+    def host_us(self, fn: Callable[[], object], n: int = 1000) -> float:
+        return host_us(fn, n, self.device)
+
     def kernel(self, rec: Dict, fn: Callable[[], torch.Tensor], plain: Callable[[], torch.Tensor], tol,
                rule: str, reps: int = 10, plain_reps: Optional[int] = None,
                per_s: Optional[Dict[str, float]] = None) -> Dict:
@@ -118,6 +121,25 @@ def time_ms(fn: Callable[[], object], reps: int = 10, warmup: int = 2, device: O
     end.record()
     torch.cuda.synchronize(device)
     return start.elapsed_time(end) / reps
+
+
+def host_us(fn: Callable[[], object], n: int = 1000, device: Optional[torch.device] = None) -> float:
+    """Host time of one call of ``fn`` in microseconds: the host clock over
+    ``n`` back-to-back calls with no synchronisation, then one (outside the
+    timed loop) to drain the queue. While the device keeps pace this is what
+    the caller's thread spends issuing a call; a device slower than the host
+    fills the launch queue and shows here instead."""
+    sync = device is not None and device.type == "cuda"
+    fn()
+    if sync:
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    if sync:
+        torch.cuda.synchronize(device)
+    return us
 
 
 def bound(moved: float, ops: float = 0.0, peak: float = PEAK_F32) -> Dict:

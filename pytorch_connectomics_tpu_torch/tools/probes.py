@@ -14,9 +14,12 @@ are not carried over.
 - ``E1_<op>``, ``E1b_shift_<dtype>``: the data-movement probes at (32,
   14592) through ``lane_shift`` (copy, roll by 5, zero-filled shift by 128,
   roll by 1, zero-filled shift by 1): OK or failed against the plain
-  version, with ``torch.roll`` and ``Tensor.clone`` timed beside the rolls
-  and the copy (no one library call shifts with zero fill). ``copy_1GiB_bf16``: ``lane_shift`` at offset 0 on 1 GiB, GB/s
-  (bytes read and written), with ``Tensor.copy_`` beside it.
+  version, with the one library call that computes each timed beside it
+  (``Tensor.clone``, ``torch.roll``, ``F.pad`` of a slice), and the host
+  time per call of both (``host_us``, ``library_host_us``: at this size a
+  call is host work). ``copy_1GiB_bf16`` and ``roll5_1GiB_bf16``:
+  ``lane_shift`` at offset 0 and as a roll by 5 on 1 GiB, GB/s (bytes read
+  and written), with ``Tensor.copy_`` and ``torch.roll`` beside them.
 - ``E2_<dtype>``: a 3^3 conv 32 -> 64 at (8, 112^3) through ``conv3d_3x3``,
   keeping the first 32 channels as the script does; T-MAC/s of the 27 taps
   x 64 x 32 MACs a voxel.
@@ -45,6 +48,35 @@ from . import PEAK_BF16_CC, PEAK_BF16_TC, PEAK_F32, bf16_ulps, bound, randn, rat
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 INNER = 256
 TWO_ULPS = "2 bf16 ulps at the largest |plain output|"
+
+
+def zero_shift(x: torch.Tensor, offset: int) -> torch.Tensor:
+    """``x`` shifted by ``offset`` along its last axis with zero fill, in one
+    library call: ``F.pad`` of the kept slice, the scripts' own
+    ``jnp.pad(a[:, k:])``. The yardstick of the zero-filled ``lane_shift``."""
+    if offset > 0:
+        return F.pad(x[..., : max(x.shape[-1] - offset, 0)], (min(offset, x.shape[-1]), 0))
+    k = min(-offset, x.shape[-1])
+    return F.pad(x[..., k:], (0, k))
+
+
+def shift_bytes(x: torch.Tensor, offset: int, circular: bool) -> int:
+    """Bytes a shift must move: every output written once, and the inputs
+    it keeps read once (a zero-filled shift by k drops k of each row)."""
+    f = x.shape[-1]
+    kept = f if circular else f - min(abs(offset), f)
+    return (x.numel() + x.numel() // f * kept) * x.element_size()
+
+
+def shift_library(x: torch.Tensor, offset: int, circular: bool):
+    """(name, call) of the one library call that computes ``lane_shift(x,
+    offset, circular)``: ``Tensor.clone`` for the copy, ``torch.roll`` for a
+    circular shift, ``F.pad`` of a slice for a zero-filled one."""
+    if offset == 0:
+        return "Tensor.clone", x.clone
+    if circular:
+        return "torch.roll", lambda: torch.roll(x, offset, -1)
+    return "F.pad", lambda: zero_shift(x, offset)
 
 
 def main(argv: Optional[List[str]] = None) -> List[Dict]:
@@ -92,34 +124,39 @@ def main(argv: Optional[List[str]] = None) -> List[Dict]:
             )
         del x, xn
 
-    # data movement: each TPU probe's function, exact against the plain version
+    # data movement: each TPU probe's function, exact against the plain
+    # version, beside the one library call that computes it; at this size a
+    # call is host work, so each record also carries the host time per call
     rows, lanes = (32, 384) if small else (32, 14592)
     ops = [("E1_copy", 0, False, "bf16"), ("E1_roll5", 5, True, "bf16"), ("E1_slice128", -128, False, "bf16"),
            ("E1_scratch_roll1", 1, True, "bf16"), ("E1b_shift_f32", -1, False, "f32"),
            ("E1b_shift_bf16", -1, False, "bf16")]
     for name, off, circ, dtype in ops:
         a = randn(gen, (rows, lanes), DTYPES[dtype])
+        library, lib_fn = shift_library(a, off, circ)
+        kern = lambda: probes.lane_shift(a, off, circ)  # noqa: E731
         out = {"name": name, "kernel": "lane_shift", "shape": [rows, lanes], "dtype": dtype,
-               "offset": off, "circular": circ, **bound(2 * a.numel() * a.element_size())}
-        # one library call computes the copy and the roll; none the zero-filled shift
-        if off == 0:
-            out.update(library="Tensor.clone", library_ms=rec.time_ms(a.clone, 20))
-        elif circ:
-            out.update(library="torch.roll", library_ms=rec.time_ms(lambda: torch.roll(a, off, -1), 20))
-        rec.kernel(out, lambda: probes.lane_shift(a, off, circ), lambda: probes.lane_shift_plain(a, off, circ),
-                   0.0, "exact", 20)
-    n = 4096 if small else 2**29  # bf16 values: 1 GiB
+               "offset": off, "circular": circ, **bound(shift_bytes(a, off, circ)),
+               "library": library, "library_ms": rec.time_ms(lib_fn, 200),
+               "host_us": rec.host_us(kern), "library_host_us": rec.host_us(lib_fn)}
+        rec.kernel(out, kern, lambda: probes.lane_shift_plain(a, off, circ), 0.0, "exact", 200, 20)
+    # 1 GiB of bf16: the copy (the card's copy bandwidth) and the roll by 5,
+    # whose offset is not a multiple of a 16-byte piece
+    n = 4096 if small else 2**29
     big = randn(gen, (n // 4096, 4096), torch.bfloat16)
     dst = torch.empty_like(big)
     moved = 2 * big.numel() * 2
-    lib = rec.time_ms(lambda: dst.copy_(big), 10)
-    rec.kernel(
-        {"name": "copy_1GiB_bf16" if not small else "copy_small_bf16", "kernel": "lane_shift",
-         "shape": list(big.shape), "dtype": "bf16", "offset": 0, "circular": False, "library": "Tensor.copy_",
-         "library_ms": lib, "library_GBps": rate(moved, lib) / 1e9, **bound(moved)},
-        lambda: probes.lane_shift(big, 0), lambda: probes.lane_shift_plain(big, 0, False), 0.0, "exact", 10,
-        per_s={"GBps": moved / 1e9},
-    )
+    size = "small" if small else "1GiB"
+    for name, off, library, lib_fn in (("copy", 0, "Tensor.copy_", lambda: dst.copy_(big)),
+                                       ("roll5", 5, "torch.roll", lambda: torch.roll(big, 5, -1))):
+        lib = rec.time_ms(lib_fn, 10)
+        rec.kernel(
+            {"name": f"{name}_{size}_bf16", "kernel": "lane_shift", "shape": list(big.shape), "dtype": "bf16",
+             "offset": off, "circular": off != 0, "library": library, "library_ms": lib,
+             "library_GBps": rate(moved, lib) / 1e9, **bound(moved)},
+            lambda: probes.lane_shift(big, off, off != 0), lambda: probes.lane_shift_plain(big, off, off != 0),
+            0.0, "exact", 10, per_s={"GBps": moved / 1e9},
+        )
     del big, dst
 
     # E2: the tap-matmul conv 32 -> 64, first 32 channels kept

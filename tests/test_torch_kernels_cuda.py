@@ -370,6 +370,30 @@ def test_pointwise_kernel_matches_plain(device, shape, dtype):
         assert err.max().item() <= _bf16_ulps(want, 1)
 
 
+# (C, Cout): the weight held in registers as mma fragments (bf16, C and Cout
+# up to 64) and read from shared memory (wider), with several column blocks
+PW_WIDTHS = [(16, 16), (32, 32), (64, 64), (32, 96), (128, 48), (1024, 16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("width", PW_WIDTHS, ids=lambda w: "C{}-Cout{}".format(*w))
+@pytest.mark.parametrize("rows", [1, 127, 129, 100003])
+def test_pointwise_kernel_rows_and_widths(device, rows, width, dtype):
+    c, cout = width
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal((rows, c), dtype=np.float32)).to(device, dtype)
+    w = torch.from_numpy((rng.standard_normal((cout, c)) / np.sqrt(c)).astype(np.float32)).to(device, dtype)
+    got, again, want = fm.pointwise(x, w), fm.pointwise(x, w), fm.pointwise_plain(x, w)
+    torch.cuda.synchronize()
+    assert got.shape == (rows, cout) and got.dtype == dtype
+    assert torch.equal(got, again)  # two launches bit-identical
+    err = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert torch.all(err <= 1e-6 * fm.pointwise_plain(x.abs(), w.abs()) + 1e-30)
+    else:
+        assert err.max().item() <= _bf16_ulps(want, 1)
+
+
 def test_fused_mlp_never_falls_back(device):
     x, w1, b1, w2, b2 = _mlp_inputs(64, 32, 64, torch.float32, device)
     with pytest.raises(TypeError):  # bf16 weights with f32 x
@@ -423,6 +447,17 @@ def test_fma27_kernel_matches_plain(device, dtype):
 def test_lane_shift_kernel_matches_plain(device, dtype, lanes):
     x = torch.from_numpy(np.random.default_rng(8).standard_normal((32, lanes), dtype=np.float32)).to(device, dtype)
     for off in (0, 1, 5, 8, 128, -1, -128, lanes, -lanes - 3, 3 * lanes + 2):
+        for circ in (False, True):
+            assert torch.equal(probes.lane_shift(x, off, circ), probes.lane_shift_plain(x, off, circ)), (off, circ)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(3, 2**20 + 8), (5, 4104)], ids=str)
+def test_lane_shift_unaligned_offsets_match_plain(device, dtype, shape):
+    """Offsets that are not whole 16-byte pieces: each output piece is built
+    from the two source pieces it spans, wrapped or zero-filled per piece."""
+    x = torch.from_numpy(np.random.default_rng(10).standard_normal(shape, dtype=np.float32)).to(device, dtype)
+    for off in (1, 5, 7, -3, -129):
         for circ in (False, True):
             assert torch.equal(probes.lane_shift(x, off, circ), probes.lane_shift_plain(x, off, circ)), (off, circ)
 
