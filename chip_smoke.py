@@ -11,7 +11,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
   2. build    compile the port's CUDA kernels from the sources in the checkout
   3. kernels  each kernel against its plain PyTorch version at every shape
               the fast recipe launches (batch 16, bf16 and f32), with times
-              (kernel, plain, bound, library yardstick) from CUDA events
+              (kernel, plain, bound, library yardstick) from CUDA events,
+              and the plan each kernel took there (band rows, segment,
+              ring, unit width, weight chunk; the card's shared memory,
+              blocks a SM, grid, registers)
   4. model    MedNeXt-S of the fast recipe at full width, seeded init: one
               (16, 96, 128, 96, 1) batch through the kernels and through the
               plain path; 18 launches of each kernel per forward
@@ -206,7 +209,7 @@ def phase_kernels(fb, dev, report):
             mag = fb.dw_stats_plain(x.abs(), p["w_dw"].abs())[:, :1] + want_stats[:, 1:]
             stats_abs = (stats - want_stats).abs().max().item()
             stats_rel = ((stats - want_stats).abs() / mag).max().item()
-            if stats_rel > 1e-5:
+            if not stats_rel <= 1e-5:  # written so that NaN fails
                 fail(f"dw_stats C={c} {dtype}: relative error {stats_rel:.3g} > 1e-5")
             err = (out.float() - want.float()).abs().max().item()
             # f32: FMA order. bf16: two bf16 ulps at the output's magnitude; the
@@ -214,7 +217,7 @@ def phase_kernels(fb, dev, report):
             # rounded to bf16 (u, h, the output) can land one ulp apart
             top = want.float().abs().max().item()
             tol = 2e-4 if es == 4 else 2.0 ** (math.floor(math.log2(max(top, 1.0))) - 6)
-            if err > tol:
+            if not err <= tol:
                 fail(f"fused_block_apply C={c} {dtype}: max error {err:.3g} > {tol:.3g}")
             reps = 20 if c >= 128 else 10
             b_stats, b_apply = bounds(c, r, spatial, es)
@@ -234,7 +237,11 @@ def phase_kernels(fb, dev, report):
                     max_abs_err=err, tol=tol,
                 ),
             )
+            # the plans the kernels took (ops/fused_block.py::kernel_plan) and the card's report of each
+            row["plan"] = fb.card_plan(tuple(x.shape), dtype, r)
             rows.append(row)
+            for name, k in row["plan"].items():
+                log(f"  plan {name}: " + ", ".join(f"{key} {val}" for key, val in k.items()))
             s, a = row["dw_stats"], row["fused_block_apply"]
             log(
                 f"C={c:4d} R={r:5d} {row['dtype']:8s} dw_stats {s['ms']:.4f} ms (plain {s['plain_ms']:.4f}, "

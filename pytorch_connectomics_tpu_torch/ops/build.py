@@ -117,12 +117,14 @@ def stream(index: int) -> int:
 def _declare(name: str, lib: ctypes.CDLL) -> None:
     p, i, f, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     if name == "mednext_block":
-        lib.mednext_stats_parts.argtypes = [i, i, i, i, i, i]
-        lib.mednext_stats_parts.restype = i
-        lib.mednext_dw_stats.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.mednext_ring_plan.argtypes = [i] * 14 + [p]
+        lib.mednext_ring_plan.restype = i
+        lib.mednext_dw_stats.argtypes = [p] * 4 + [i] * 10 + [p]
         lib.mednext_dw_stats.restype = i
-        lib.mednext_block_apply.argtypes = [p] * 10 + [i] * 8 + [f, p]
-        lib.mednext_block_apply.restype = i
+        lib.mednext_apply_bf16.argtypes = [p] * 10 + [i] * 12 + [f, p]
+        lib.mednext_apply_bf16.restype = i
+        lib.mednext_block_apply_f32.argtypes = [p] * 10 + [i] * 7 + [f, p]
+        lib.mednext_block_apply_f32.restype = i
         lib.mednext_error_string.argtypes = [i]
         lib.mednext_error_string.restype = ctypes.c_char_p
     elif name == "depthwise3x3":

@@ -5,38 +5,67 @@
 // Replaces the TPU kernels of pytorch_connectomics_tpu/ops/fused_block_pallas.py:
 //   dw_stats               (:148, body _stats_kernel :126)
 //   fused_block_apply_cf   (:238, body _apply_kernel :198; with fold_block_weights :294)
-// It ports what they compute, not their lane-padded "CF" layout.
+// It ports what they compute, not their lane-padded "CF" layout, and not the
+// folding of the depthwise taps into W1 (k^2 tap matmuls on the MXU): on
+// Hopper that would cost 27 * 2 * C * R tensor FLOP a voxel, more at C 32
+// than the whole byte bound, so the stencil stays on the CUDA cores.
+//
+// Both passes walk the volume the same way, with the numbers that
+// ops/fused_block.py::kernel_plan picks per shape:
+// - A work item is (b, a band of Ty rows of y with all of x, a segment of
+//   Sz slabs of z). Persistent blocks (SMs x resident blocks) take the items
+//   in turn and march each along z.
+// - A ring of slabs in shared memory holds the band's rows with their y and
+//   x halo, (Ty + 2) x XP voxels of C values, XP = 3 * ceil(X / 3) + 2. The
+//   next slab arrives by cp.async while the current one is computed. Rows,
+//   columns and slabs outside the volume are zero-filled when staged, which
+//   is SAME zero padding: the stencil has no mask. An input voxel is staged
+//   (Ty + 2) / Ty * (Sz + 2) / Sz times, mostly from L2.
+// - A thread owns a channel pair and runs of three consecutive x outputs
+//   of one band row, two runs at a time; each (dz, dy) row of five voxels
+//   it loads feeds all three outputs of a run (15 shared loads per three
+//   outputs, not 27 per output). The run
+//   length is odd, so the two half-warps of a 32-channel bf16 row fall on
+//   different banks. The channel count is a template argument for the
+//   widths MedNeXt uses, so every stencil load has a compile-time offset.
 //
 // 1. mednext_dw_stats: per-(b, c) [sum dw(x), sum dw(x)^2] over real voxels
-//    (dw without bias). These are the GroupNorm statistics of the block.
-//    Bound on an H100: it reads x once and does 27 FMAs per value, so it is
-//    bound by f32 CUDA-core operations at C = 32 in bf16 (8.2 GFLOP against
-//    0.30 GB at batch 16) and by bytes in f32. Design: each block stages the
-//    haloed tile in shared memory with cp.async (three coalesced z-runs,
-//    mednext_block.cuh), double-buffered across its grid-stride loop of
-//    tiles so the next tile's loads overlap this tile's stencil; a thread
-//    owns one channel pair and keeps its 54 taps and its sums in registers;
-//    the block writes one partial, and a second kernel sums the partials in
-//    a fixed order. No atomics, so the result is deterministic; the f32 sums
-//    differ from a plain reduction only by summation order.
+//    (dw without bias): the GroupNorm statistics of the block. Bound on an
+//    H100: 27 FMAs a value, f32 CUDA-core operations at C = 32 in bf16 (8.2
+//    GFLOP against 0.30 GB at batch 16). A ring of four slabs (slab z + 2
+//    staged under the stencil of z), or three where four do not fit (slab
+//    z + 2 staged after it); the 54 taps and the sums stay in registers; each
+//    item writes one partial and a second kernel sums an element's partials
+//    in a fixed order. No atomics: the result is the same on every launch.
 //
-// 2. mednext_block_apply: the whole block for a tile of T voxels. The stencil
-//    result is normalised with the per-(b, c) scale/shift folded from the
-//    statistics (eps, variance E[t^2] - E[t]^2 clipped at 0; b_dw cancels
-//    against the mean) into u[T][C] in shared memory. The hidden dimension R
-//    is walked in chunks of Rc: h = gelu_tanh(u . W1[r0:r0+Rc]^T + b1) in
-//    shared memory, then acc[T][Cout] += h . W2[:, r0:r0+Rc]^T. The residual
-//    (Cout == C) is added and the tile written once. The expanded activation
-//    never reaches device memory.
-//    Bound on an H100: at stage 0 (C = 32, R = 64) it moves 2 bytes in and
-//    2 out per value and does 4*C*R tensor-core FLOP per voxel, so bytes
-//    bound it; from C = 128 up the stencil's CUDA-core FMAs and the tensor-
-//    core work grow against the bytes. Design: bf16 inputs run both matmuls
-//    on tensor cores through WMMA 16x16x16 (bf16 in, f32 accumulate); f32
-//    inputs use plain FMAs in f32. The tile T is chosen per C so that
-//    T * C ~ 4096 (T = 128 at C = 32 down to 16 at C >= 256), which keeps the
-//    haloed tile and the matmul buffers (they share one region) well under
-//    the 227 KB a block may use.
+// 2. mednext_apply_bf16: the whole block, bf16. A ring of three slabs (the
+//    next slab's copies run under this step's matmuls; a fourth slot
+//    measured no faster). Per z step:
+//    - the stencil, normalised with the per-(b, c) scale/shift folded from
+//      the statistics (eps, variance E[t^2] - E[t]^2 clipped at 0; b_dw
+//      cancels against the mean), rounded to bf16 into the u tile
+//      [Ty * X rows][C] in shared memory (rows padded to 16);
+//    - a warp takes a unit (16 rows, CS output channels): for each 16 hidden
+//      units, h = u . W1^T on mma.sync m16n8k16 (A by ldmatrix, cached in
+//      registers for C <= 128), bias and tanh-GELU on the accumulators,
+//      which are repacked as the bf16 A fragment of out += h . W2^T: the
+//      hidden activation never leaves registers. W1 and W2 are staged in
+//      shared memory once per block where they fit; otherwise every block
+//      streams them in chunks of RC hidden units through one cp.async
+//      buffer that all its warps share (a chunk's barriers and wait cost
+//      more than its copies: two buffers of half the chunk were slower at
+//      every stage on the H100).
+//    - the epilogue adds b2 and the residual (read from the ring's centre
+//      slab), rounds to bf16, goes through a warp tile by stmatrix and out
+//      with 16-byte coalesced stores; the band's rows of one slab are one
+//      contiguous run of the output.
+//    Bound on an H100: at stage 0 (C 32, R 64) 2 bytes in and 2 out per
+//    value against 4 C R tensor FLOP a voxel: bytes, though the stencil's
+//    and GELU's CUDA-core work come close; from C 128 up the matmuls grow.
+//
+// 3. mednext_block_apply: the float32 check path, the first design kept as
+//    it was (one 16-128-voxel tile a block, three flat halo runs staged,
+//    masked stencil, scalar FMAs for both products).
 //
 // Both take f32 or bf16 inputs and accumulate in f32. Weights: w_dw (C, 27)
 // f32 (torch's (C, 1, 3, 3, 3)); W1 (R, C) and W2 (Cout, R) in the input
@@ -45,167 +74,668 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (see ops/build.py). Plain C interface for ctypes.
 
-#include <mma.h>
-
-#include <type_traits>
-
 #include "mednext_block.cuh"
 
 namespace mednext {
 
-constexpr int kErrShape = 10001;  // the shape needs more shared memory than a block has
+using bf16 = __nv_bfloat16;
+
+constexpr int kErrShape = 10001;  // a shape or plan the kernels do not take
 constexpr size_t kMaxSmem = 232448;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRun = 3;        // x outputs of a thread's run
+constexpr int kApplyRing = 3;  // slabs in the apply pass's ring
 
 __host__ __device__ __forceinline__ size_t align128(size_t n) { return (n + 127) & ~size_t(127); }
+
+// ---------------------------------------------------------------------------
+// the walk both ring kernels share
+// ---------------------------------------------------------------------------
+
+struct Ring {
+  int B, Z, Y, X, C;
+  int ty, seg;             // band rows, segment slabs
+  int nr;                  // slabs in the ring: 4 (slab z + 2 staged before the stencil of z) or 3 (after it)
+  int bands, segs, items;  // item = (b * segs + s) * bands + band
+  int nrx, xp;             // runs of a band row; slab row length in voxels, kRun * nrx + 2
+};
+
+inline Ring make_ring(int B, int Z, int Y, int X, int C, int ty, int seg, int nr) {
+  Ring g{B, Z, Y, X, C, ty, seg, nr, 0, 0, 0, 0, 0};
+  g.bands = (Y + ty - 1) / ty;
+  g.segs = (Z + seg - 1) / seg;
+  g.items = B * g.segs * g.bands;
+  g.nrx = (X + kRun - 1) / kRun;
+  g.xp = kRun * g.nrx + 2;
+  return g;
+}
+
+__host__ __device__ __forceinline__ size_t slab_elems(const Ring& g) { return (size_t)(g.ty + 2) * g.xp * g.C; }
+
+__device__ __forceinline__ void item_origin(const Ring& g, int item, int& b, int& y0, int& z0, int& z1) {
+  const int band = item % g.bands;
+  const int t = item / g.bands;
+  const int s = t % g.segs;
+  b = t / g.segs;
+  y0 = band * g.ty;
+  z0 = s * g.seg;
+  z1 = min(z0 + g.seg, g.Z);
+}
+
+// Issue the copies of slab z of the band at y0 into dst[ty + 2][xp][C]:
+// voxel (y0 - 1 + yy, xx - 1), zero where it lies outside the volume.
+template <typename T, int CT>
+__device__ __forceinline__ void stage_slab(const T* __restrict__ xb, T* __restrict__ dst, int z, int y0,
+                                           const Ring& g) {
+  constexpr int per = 16 / (int)sizeof(T);  // values a 16-byte copy
+  const int C = CT ? CT : g.C;
+  const int vec = C / per;
+  const int row = g.xp * vec;
+  const int total = (g.ty + 2) * row;
+  const bool zin = z >= 0 && z < g.Z;
+  for (int i = threadIdx.x; i < total; i += kThreads) {
+    const int yy = i / row, rem = i - yy * row;
+    const int xx = rem / vec, q = rem - xx * vec;
+    const int y = y0 - 1 + yy, xg = xx - 1;
+    const bool valid = zin && y >= 0 && y < g.Y && xg >= 0 && xg < g.X;
+    const T* src = valid ? xb + (((long long)z * g.Y + y) * g.X + xg) * C + q * per : xb;
+    cp_async16(dst + (size_t)i * per, src, valid);
+  }
+}
+
+// dw(x) without bias at three consecutive x outputs of a band row, for one
+// channel pair, NR runs at once (independent chains for the scheduler):
+// at[j] is the offset of the pair's value at run j's first output's
+// (-1, -1) neighbour inside a slab; s0..s2 the slabs of z - 1, z, z + 1;
+// rowlen the slab row stride. f32 accumulate, taps in the order dz, dy, dx.
+template <typename T, int CT, int NR>
+__device__ __forceinline__ void stencil_runs(const T* s0, const T* s1, const T* s2, const int (&at)[NR], int rowlen,
+                                             int C_, const float2 (&k)[27], float2 (&a)[NR][kRun]) {
+  const int C = CT ? CT : C_;
+#pragma unroll
+  for (int n = 0; n < NR; ++n)
+#pragma unroll
+    for (int j = 0; j < kRun; ++j) a[n][j] = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int dz = 0; dz < 3; ++dz) {
+    const T* s = dz == 0 ? s0 : dz == 1 ? s1 : s2;
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy) {
+      float2 v[NR][kRun + 2];
+#pragma unroll
+      for (int n = 0; n < NR; ++n)
+#pragma unroll
+        for (int i = 0; i < kRun + 2; ++i) v[n][i] = load2(s + at[n] + dy * rowlen + i * C);
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        const float2 kk = k[dz * 9 + dy * 3 + dx];
+#pragma unroll
+        for (int n = 0; n < NR; ++n)
+#pragma unroll
+          for (int j = 0; j < kRun; ++j) {
+            a[n][j].x = fmaf(kk.x, v[n][j + dx].x, a[n][j].x);
+            a[n][j].y = fmaf(kk.y, v[n][j + dx].y, a[n][j].y);
+          }
+      }
+    }
+  }
+}
+
+// A thread's place in the stencil: channel pairs p0, p0 + pt, ...; runs
+// slot, slot + tv, ... of the band's ty * nrx runs.
+struct Lanes {
+  int pt, tv, p0, slot;
+  bool active;
+};
+
+__device__ __forceinline__ Lanes lanes_of(int C) {
+  Lanes t;
+  const int P = C / 2;
+  t.pt = P < kThreads ? P : kThreads;
+  t.tv = kThreads / t.pt;
+  t.p0 = threadIdx.x % t.pt;
+  t.slot = threadIdx.x / t.pt;
+  t.active = t.slot < t.tv;
+  return t;
+}
+
+// the next run of a thread: `tv` runs on, as (row, run in the row)
+__device__ __forceinline__ void next_run(int tv, int nrx, int& ry, int& rx) {
+  rx += tv;
+  while (rx >= nrx) {
+    rx -= nrx;
+    ++ry;
+  }
+}
+
+// The stencil over a thread's runs (slot, slot + tv, ... of the band's
+// ty * nrx) for channel pair p, two runs at a time; emit(ry, rx, a) gets the
+// three outputs of run (row ry, x 3 rx).
+template <typename T, int CT, typename Emit>
+__device__ __forceinline__ void stencil_band(const T* s0, const T* s1, const T* s2, int p, const Lanes& ln,
+                                             const Ring& g, int C_, const float2 (&kw)[27], Emit emit) {
+  const int C = CT ? CT : C_;
+  const int runs = g.ty * g.nrx, rowlen = g.xp * C;
+  int ry = ln.slot / g.nrx, rx = ln.slot - ry * g.nrx;
+  int r = ln.slot;
+  for (; r + ln.tv < runs; r += 2 * ln.tv) {
+    int ry2 = ry, rx2 = rx;
+    next_run(ln.tv, g.nrx, ry2, rx2);
+    const int at[2] = {(ry * g.xp + kRun * rx) * C + 2 * p, (ry2 * g.xp + kRun * rx2) * C + 2 * p};
+    float2 a[2][kRun];
+    stencil_runs<T, CT, 2>(s0, s1, s2, at, rowlen, C, kw, a);
+    emit(ry, rx, a[0]);
+    emit(ry2, rx2, a[1]);
+    ry = ry2;
+    rx = rx2;
+    next_run(ln.tv, g.nrx, ry, rx);
+  }
+  if (r < runs) {
+    const int at[1] = {(ry * g.xp + kRun * rx) * C + 2 * p};
+    float2 a[1][kRun];
+    stencil_runs<T, CT, 1>(s0, s1, s2, at, rowlen, C, kw, a);
+    emit(ry, rx, a[0]);
+  }
+}
 
 // ---------------------------------------------------------------------------
 // statistics pass
 // ---------------------------------------------------------------------------
 
-template <typename T>
+template <typename T, int CT>
 __global__ void __launch_bounds__(kThreads, 2)
-    dw_stats_kernel(const T* __restrict__ x, const float* __restrict__ w, float* __restrict__ partial,
-                    Geom g, int tile, int tiles, int nbuf) {
+    ring_stats_kernel(const T* __restrict__ x, const float* __restrict__ w, float* __restrict__ partial, Ring g) {
   extern __shared__ __align__(128) unsigned char smem[];
-  T* buf[2];
-  buf[0] = reinterpret_cast<T*>(smem);
-  buf[1] = buf[0] + (nbuf > 1 ? 3 * halo_len(tile, g.X) * g.C : 0);
-  const int b = blockIdx.y;
-  const T* xb = x + (long long)b * g.N * g.C;
-  const int cp = g.C / 2;
-  const int pt = cp < kThreads ? cp : kThreads;  // threads across channel pairs
-  const int tv = kThreads / pt;                  // threads across voxels
-  const int tp = threadIdx.x % pt;
-  const int tt = threadIdx.x / pt;
-  const bool active = tt < tv;
-  float2 s[kMaxPairsPerThread], s2[kMaxPairsPerThread];
-#pragma unroll
-  for (int j = 0; j < kMaxPairsPerThread; ++j) s[j] = s2[j] = make_float2(0.f, 0.f);
+  constexpr int KPM = CT ? (CT / 2 + kThreads - 1) / kThreads : 2;  // channel pairs a thread
+  const int C = CT ? CT : g.C;
+  const size_t slab = slab_elems(g);
+  T* ring = reinterpret_cast<T*>(smem);
+  float* red = reinterpret_cast<float*>(smem + align128(g.nr * slab * sizeof(T)));
+  const Lanes ln = lanes_of(C);
+  const int P = C / 2;
+  float2 kw[27];
+  if (KPM == 1) load_taps(kw, w, ln.p0);
 
-  if ((int)blockIdx.x < tiles) stage_halo(xb, buf[0], blockIdx.x * tile, tile, g);
-  for (int ti = blockIdx.x, k = 0; ti < tiles; ti += gridDim.x, ++k) {
-    cp_async_wait_all();
-    __syncthreads();  // tile ti has landed; nobody reads the other buffer any more
-    const T* halo = buf[k & (nbuf - 1)];
-    const int next = ti + gridDim.x;
-    if (nbuf > 1 && next < tiles) stage_halo(xb, buf[(k + 1) & 1], next * tile, tile, g);
-    const int v0 = ti * tile;
-    if (active) {
+  for (int item = blockIdx.x; item < g.items; item += gridDim.x) {
+    int b, y0, z0, z1;
+    item_origin(g, item, b, y0, z0, z1);
+    const T* xb = x + (long long)b * g.Z * g.Y * g.X * C;
+    const int yv = min(g.ty, g.Y - y0);  // rows of the band inside the volume
+    float2 s[KPM], s2[KPM];
 #pragma unroll
-      for (int j = 0; j < kMaxPairsPerThread; ++j) {
-        const int p = tp + j * pt;
-        if (p >= cp) break;
-        float2 kw[27];
-        load_taps(kw, w, p);
-        for (int t0 = tt; t0 < tile; t0 += kVox * tv) {
-          int t[kVox];
-          TapMask m[kVox];
+    for (int j = 0; j < KPM; ++j) s[j] = s2[j] = make_float2(0.f, 0.f);
+    // slab z lives in slot (z - z0 + 1) % nr
+    for (int d = 0; d < 3; ++d) stage_slab<T, CT>(xb, ring + d * slab, z0 - 1 + d, y0, g);
+    cp_async_commit();
+    for (int z = z0; z < z1; ++z) {
+      cp_async_wait<0>();
+      __syncthreads();  // slab z + 1 has landed; with four slots, slab z - 2's slot is free
+      if (g.nr == 4 && z + 2 <= z1) stage_slab<T, CT>(xb, ring + ((z + 3 - z0) % 4) * slab, z + 2, y0, g);
+      cp_async_commit();
+      const T* s0 = ring + ((z - z0) % g.nr) * slab;
+      const T* s1 = ring + ((z - z0 + 1) % g.nr) * slab;
+      const T* sl2 = ring + ((z - z0 + 2) % g.nr) * slab;
+      if (ln.active) {
 #pragma unroll
-          for (int q = 0; q < kVox; ++q) {
-            t[q] = t0 + q * tv;
-            m[q] = tap_mask(t[q], v0, tile, g);
-          }
-          float2 a[kVox];
-          stencil2(halo, kw, t, m, p, tile, g, a);  // masked-out voxels give 0
+        for (int j = 0; j < KPM; ++j) {
+          const int p = ln.p0 + j * ln.pt;
+          if (p >= P) break;
+          if (KPM > 1) load_taps(kw, w, p);
+          float2 sj = s[j], s2j = s2[j];
+          stencil_band<T, CT>(s0, s1, sl2, p, ln, g, C, kw, [&](int ry, int rx, const float2(&a)[kRun]) {
+            if (ry < yv) {
 #pragma unroll
-          for (int q = 0; q < kVox; ++q) {
-            s[j].x += a[q].x;
-            s[j].y += a[q].y;
-            s2[j].x = fmaf(a[q].x, a[q].x, s2[j].x);
-            s2[j].y = fmaf(a[q].y, a[q].y, s2[j].y);
-          }
+              for (int q = 0; q < kRun; ++q) {
+                if (kRun * rx + q < g.X) {
+                  sj.x += a[q].x;
+                  sj.y += a[q].y;
+                  s2j.x = fmaf(a[q].x, a[q].x, s2j.x);
+                  s2j.y = fmaf(a[q].y, a[q].y, s2j.y);
+                }
+              }
+            }
+          });
+          s[j] = sj;
+          s2[j] = s2j;
+        }
+      }
+      if (g.nr == 3) {
+        __syncthreads();  // slab z - 1's slot is free
+        if (z + 2 <= z1) stage_slab<T, CT>(xb, ring + ((z + 3 - z0) % 3) * slab, z + 2, y0, g);
+        cp_async_commit();
+      }
+    }
+    // the item's partial, summed over the run slots in a fixed order: red[slot][2][C]
+    if (ln.active) {
+#pragma unroll
+      for (int j = 0; j < KPM; ++j) {
+        const int p = ln.p0 + j * ln.pt;
+        if (p < P) {
+          store2(red + (ln.slot * 2 + 0) * C + 2 * p, s[j].x, s[j].y);
+          store2(red + (ln.slot * 2 + 1) * C + 2 * p, s2[j].x, s2[j].y);
         }
       }
     }
-    if (nbuf == 1) {
-      __syncthreads();
-      if (next < tiles) stage_halo(xb, buf[0], next * tile, tile, g);
+    __syncthreads();
+    float* dst = partial + (long long)item * 2 * C;
+    for (int i = threadIdx.x; i < 2 * C; i += kThreads) {
+      const int k = i / C, c = i - k * C;
+      float acc = 0.f;
+      for (int r = 0; r < ln.tv; ++r) acc += red[(r * 2 + k) * C + c];
+      dst[i] = acc;
+    }
+    __syncthreads();  // red and the ring are rewritten by the next item
+  }
+}
+
+// out[b] = the sum of b's `parts` partials, in order: one thread an
+// element (grid: elements / kThreads x B), eight partials loaded ahead of
+// each eight additions
+__global__ void __launch_bounds__(kThreads)
+    stats_reduce_kernel(const float* __restrict__ partial, float* __restrict__ out, int parts, int C) {
+  const int b = blockIdx.y;
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= 2 * C) return;
+  const float* src = partial + (long long)b * parts * 2 * C + i;
+  float acc = 0.f;
+  int p = 0;
+  for (; p + 8 <= parts; p += 8) {
+    float v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = src[(long long)(p + k) * 2 * C];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc += v[k];
+  }
+  for (; p < parts; ++p) acc += src[(long long)p * 2 * C];
+  out[(long long)b * 2 * C + i] = acc;
+}
+
+// ---------------------------------------------------------------------------
+// apply pass, bf16
+// ---------------------------------------------------------------------------
+
+struct Mlp {
+  int R, Cout;
+  int cs, ns;         // output channels a unit; units across Cout
+  int mf;             // 16-row fragments of the u tile: ceil(ty * X / 16)
+  int rc;             // hidden units a weight chunk; rc == R: both weights resident
+  int units, rounds;  // units = mf * ns, rounds = ceil(units / kWarps)
+};
+
+inline Mlp make_mlp(const Ring& g, int R, int Cout, int cs, int rc) {
+  Mlp m{R, Cout, cs, Cout / cs, (g.ty * g.X + 15) / 16, rc, 0, 0};
+  m.units = m.mf * m.ns;
+  m.rounds = (m.units + kWarps - 1) / kWarps;
+  return m;
+}
+
+// Byte offsets of the apply kernel's shared memory, and its row strides
+// (elements). Strides are odd multiples of 16 bytes, so the 8 rows of an
+// ldmatrix or stmatrix phase fall on distinct banks.
+struct ApplyLayout {
+  int ldu, ldw1, ldw2, lds;
+  size_t u, w1, w2, stage, total;
+};
+
+__host__ __device__ inline ApplyLayout apply_layout(const Ring& g, const Mlp& m) {
+  ApplyLayout l;
+  l.ldu = g.C + 8;
+  l.ldw1 = g.C + 8;
+  l.ldw2 = m.rc + 8;
+  l.lds = m.cs + 8;
+  l.u = align128(kApplyRing * slab_elems(g) * 2);
+  l.w1 = l.u + align128((size_t)16 * m.mf * l.ldu * 2);
+  l.w2 = l.w1 + align128((size_t)m.rc * l.ldw1 * 2);
+  l.stage = l.w2 + align128((size_t)m.Cout * l.ldw2 * 2);
+  l.total = l.stage + align128((size_t)kWarps * 16 * l.lds * 2);
+  return l;
+}
+
+// Issue the copies of W1 rows [r0, r0 + rn) into w1s[rn][ldw1] and of W2
+// columns [r0, r0 + rn) into w2s[Cout][ldw2].
+__device__ __forceinline__ void stage_weights(const bf16* __restrict__ w1, const bf16* __restrict__ w2, bf16* w1s,
+                                              bf16* w2s, int r0, int rn, int C, const Mlp& m,
+                                              const ApplyLayout& l) {
+  const int v1 = C / 8;
+  for (int i = threadIdx.x; i < rn * v1; i += kThreads) {
+    const int r = i / v1, q = i - r * v1;
+    cp_async16(w1s + r * l.ldw1 + q * 8, w1 + (size_t)(r0 + r) * C + q * 8, true);
+  }
+  const int v2 = rn / 8;
+  for (int i = threadIdx.x; i < m.Cout * v2; i += kThreads) {
+    const int co = i / v2, q = i - co * v2;
+    cp_async16(w2s + co * l.ldw2 + q * 8, w2 + (size_t)co * m.R + r0 + q * 8, true);
+  }
+}
+
+// a float of the taps, loaded anew each time (volatile: the compiler keeps
+// the 54 taps out of registers across the matmuls)
+__device__ __forceinline__ float ldg_fresh(const float* p) {
+  float v;
+  asm volatile("ld.global.nc.f32 %0, [%1];\n" : "=f"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// NB blocks of 16 hidden units (rows rr, rr + 16, ... of this weight chunk;
+// hidden index r0 + rr of b1) for one warp's unit: h = u . W1^T on
+// mma.sync, its A fragments cached (af) or loaded from u (abase) and shared
+// by the NB blocks; bias and tanh-GELU on the accumulators, rounded to bf16
+// as the A fragment of acc += h . W2^T (rows gq and gq + 8, hidden 2 tq and
+// 8 + 2 tq of each 16). Without the cache, alternate k-steps go to two
+// chains of accumulators, summed at the end.
+template <int NB, int KA, int NP8, bool kCacheA>
+__device__ __forceinline__ void hidden_step(float (&acc)[NP8][4], const unsigned (&af)[KA][4], const bf16* abase,
+                                            const bf16* bw1, const bf16* bw2, const float* __restrict__ b1, int rr,
+                                            int r0, int C, const ApplyLayout& l, int tq) {
+  float h[NB][2][4];
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) h[n][t][q] = 0.f;
+  if constexpr (kCacheA) {
+#pragma unroll
+    for (int k = 0; k < KA; ++k) {
+#pragma unroll
+      for (int n = 0; n < NB; ++n) {
+        unsigned bb[4];
+        ldsm_x4(bb, bw1 + (rr + 16 * n) * l.ldw1 + k * 16);
+        mma16816(h[n][0], af[k], bb[0], bb[1]);
+        mma16816(h[n][1], af[k], bb[2], bb[3]);
+      }
+    }
+  } else {
+    float h2[NB][2][4];
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) h2[n][t][q] = 0.f;
+    for (int k = 0; k < C; k += 32) {
+      unsigned a[4];
+      ldsm_x4(a, abase + k);
+#pragma unroll
+      for (int n = 0; n < NB; ++n) {
+        unsigned bb[4];
+        ldsm_x4(bb, bw1 + (rr + 16 * n) * l.ldw1 + k);
+        mma16816(h[n][0], a, bb[0], bb[1]);
+        mma16816(h[n][1], a, bb[2], bb[3]);
+      }
+      if (k + 16 < C) {
+        ldsm_x4(a, abase + k + 16);
+#pragma unroll
+        for (int n = 0; n < NB; ++n) {
+          unsigned bb[4];
+          ldsm_x4(bb, bw1 + (rr + 16 * n) * l.ldw1 + k + 16);
+          mma16816(h2[n][0], a, bb[0], bb[1]);
+          mma16816(h2[n][1], a, bb[2], bb[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) h[n][t][q] += h2[n][t][q];
+  }
+#pragma unroll
+  for (int n = 0; n < NB; ++n) {
+    unsigned a2[4];
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const int col = r0 + rr + 16 * n + t * 8 + 2 * tq;
+      const float c0 = __ldg(b1 + col), c1 = __ldg(b1 + col + 1);
+      a2[2 * t] = pack_bf16(gelu_tanh_fast(h[n][t][0] + c0), gelu_tanh_fast(h[n][t][1] + c1));
+      a2[2 * t + 1] = pack_bf16(gelu_tanh_fast(h[n][t][2] + c0), gelu_tanh_fast(h[n][t][3] + c1));
+    }
+#pragma unroll
+    for (int j = 0; j < NP8 / 2; ++j) {
+      unsigned bb[4];
+      ldsm_x4(bb, bw2 + j * 16 * l.ldw2 + rr + 16 * n);
+      mma16816(acc[2 * j], a2, bb[0], bb[1]);
+      mma16816(acc[2 * j + 1], a2, bb[2], bb[3]);
     }
   }
-  // reduce over the voxel threads in a fixed order: red[tt][2][C]
-  __syncthreads();
-  float* red = reinterpret_cast<float*>(smem);
-  if (active) {
+}
+
+// CT: C at compile time (32, 64, 128) or 0; NP8: n8 tiles of a unit's
+// output channels (cs / 8). Two blocks a SM (128 registers a thread) where
+// the unit's accumulators and u's cached A fragments leave room.
+template <int CT>
+constexpr int apply_min_blocks(int np8) {
+  return np8 <= 8 && CT != 128 ? 2 : 1;
+}
+
+template <int CT, int NP8>
+__global__ void __launch_bounds__(kThreads, apply_min_blocks<CT>(NP8))
+    ring_apply_kernel(const bf16* __restrict__ x, const float* __restrict__ stats, const float* __restrict__ w_dw,
+                      const float* __restrict__ gamma, const float* __restrict__ beta, const bf16* __restrict__ w1,
+                      const float* __restrict__ b1, const bf16* __restrict__ w2, const float* __restrict__ b2,
+                      bf16* __restrict__ out, Ring g, Mlp m, float inv_n, float eps) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int KPM = CT ? (CT / 2 + kThreads - 1) / kThreads : 2;
+  constexpr bool kCacheA = CT > 0 && CT <= 128;  // u's A fragments of a unit in registers
+  constexpr int KA = kCacheA ? CT / 16 : 1;
+  const int C = CT ? CT : g.C;
+  const ApplyLayout l = apply_layout(g, m);
+  const size_t slab = slab_elems(g);
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  bf16* u = reinterpret_cast<bf16*>(smem + l.u);
+  bf16* w1s = reinterpret_cast<bf16*>(smem + l.w1);
+  bf16* w2s = reinterpret_cast<bf16*>(smem + l.w2);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  bf16* stg = reinterpret_cast<bf16*>(smem + l.stage) + warp * 16 * l.lds;
+  const bool resident = m.rc == m.R;
+  const Lanes ln = lanes_of(C);
+  const int P = C / 2;
+  const bool residual = m.Cout == C;
+
+  if (resident) stage_weights(w1, w2, w1s, w2s, 0, m.R, C, m, l);  // committed with the first item's slabs
+
+  for (int item = blockIdx.x; item < g.items; item += gridDim.x) {
+    int b, y0, z0, z1;
+    item_origin(g, item, b, y0, z0, z1);
+    const bf16* xb = x + (long long)b * g.Z * g.Y * g.X * C;
+    const int mv = min(g.ty, g.Y - y0) * g.X;  // rows of the u tile inside the volume
+    // GroupNorm folded into a scale and shift of the thread's channel pairs
+    float2 sc[KPM], sh[KPM];
 #pragma unroll
-    for (int j = 0; j < kMaxPairsPerThread; ++j) {
-      const int p = tp + j * pt;
-      if (p < cp) {
-        store2(red + (tt * 2 + 0) * g.C + 2 * p, s[j].x, s[j].y);
-        store2(red + (tt * 2 + 1) * g.C + 2 * p, s2[j].x, s2[j].y);
+    for (int j = 0; j < KPM; ++j) {
+      const int p = ln.p0 + j * ln.pt;
+      sc[j] = sh[j] = make_float2(0.f, 0.f);
+      if (p < P) {
+        float v[2][2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 2 * p + e;
+          const float mean = stats[((long long)b * 2 + 0) * C + c] * inv_n;
+          const float var = fmaxf(stats[((long long)b * 2 + 1) * C + c] * inv_n - mean * mean, 0.f);
+          const float scl = gamma[c] * rsqrtf(var + eps);
+          v[e][0] = scl;
+          v[e][1] = beta[c] - mean * scl;
+        }
+        sc[j] = make_float2(v[0][0], v[1][0]);
+        sh[j] = make_float2(v[0][1], v[1][1]);
+      }
+    }
+    // slab z lives in slot (z - z0 + 1) % kApplyRing
+    __syncthreads();  // the last item's epilogues have read the ring's centre slab
+    for (int d = 0; d < 3; ++d) stage_slab<bf16, CT>(xb, ring + d * slab, z0 - 1 + d, y0, g);
+    cp_async_commit();
+
+    for (int z = z0; z < z1; ++z) {
+      cp_async_wait<0>();
+      __syncthreads();  // slab z + 1 has landed; the u tile is free
+      const bf16* s0 = ring + ((z - z0) % kApplyRing) * slab;
+      const bf16* s1 = ring + ((z - z0 + 1) % kApplyRing) * slab;
+      const bf16* sl2 = ring + ((z - z0 + 2) % kApplyRing) * slab;
+      if (ln.active) {
+#pragma unroll
+        for (int j = 0; j < KPM; ++j) {
+          const int p = ln.p0 + j * ln.pt;
+          if (p >= P) break;
+          float2 kw[27];
+#pragma unroll
+          for (int i = 0; i < 27; ++i)
+            kw[i] = make_float2(ldg_fresh(w_dw + (2 * p) * 27 + i), ldg_fresh(w_dw + (2 * p + 1) * 27 + i));
+          const float2 scj = sc[j], shj = sh[j];
+          stencil_band<bf16, CT>(s0, s1, sl2, p, ln, g, C, kw, [&](int ry, int rx, const float2(&a)[kRun]) {
+#pragma unroll
+            for (int q = 0; q < kRun; ++q) {
+              const int xx = kRun * rx + q;
+              if (xx < g.X)
+                store2(u + (ry * g.X + xx) * l.ldu + 2 * p, fmaf(a[q].x, scj.x, shj.x), fmaf(a[q].y, scj.y, shj.y));
+            }
+          });
+        }
+      }
+      __syncthreads();  // the u tile is complete; slab z - 1's slot is free
+      if (z + 2 <= z1) stage_slab<bf16, CT>(xb, ring + ((z + 3 - z0) % kApplyRing) * slab, z + 2, y0, g);
+      cp_async_commit();
+      // phase: stencil continue
+      const bf16* res = s1 + (size_t)(g.xp + 1) * C;  // the centre slab at the band's (row 0, x 0)
+      const long long obase = (((long long)b * g.Z + z) * g.Y + y0) * g.X;
+
+      for (int round = 0; round < m.rounds; ++round) {
+        const int unit = round * kWarps + warp;
+        const bool have = unit < m.units;
+        const int mf = have ? unit % m.mf : 0;
+        const int n0 = have ? (unit / m.mf) * m.cs : 0;
+        float acc[NP8][4];
+#pragma unroll
+        for (int j = 0; j < NP8; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+        const bf16* abase = u + (mf * 16 + (lane & 15)) * l.ldu + (lane >> 4) * 8;
+        unsigned af[KA][4];
+        if (kCacheA && have) {
+#pragma unroll
+          for (int k = 0; k < KA; ++k) ldsm_x4(af[k], abase + k * 16);
+        }
+        const int nch = resident ? 1 : m.R / m.rc;
+        for (int ch = 0; ch < nch; ++ch) {
+          int r0 = 0, rn = m.R;
+          if (!resident) {
+            __syncthreads();  // everyone is done with chunk ch - 1
+            stage_weights(w1, w2, w1s, w2s, ch * m.rc, m.rc, C, m, l);
+            cp_async_commit();
+            cp_async_wait<0>();
+            __syncthreads();  // chunk ch has landed
+            r0 = ch * m.rc;
+            rn = m.rc;
+          }
+          if (have) {
+            const bf16* bw1 = w1s + ((lane & 7) + ((lane >> 4) << 3)) * l.ldw1 + ((lane >> 3) & 1) * 8;
+            const bf16* bw2 = w2s + (n0 + (lane & 7) + ((lane >> 4) << 3)) * l.ldw2 + ((lane >> 3) & 1) * 8;
+            if (rn % 32 == 0) {
+              for (int rr = 0; rr < rn; rr += 32)
+                hidden_step<2, KA, NP8, kCacheA>(acc, af, abase, bw1, bw2, b1, rr, r0, C, l, tq);
+            } else {
+              for (int rr = 0; rr < rn; rr += 16)
+                hidden_step<1, KA, NP8, kCacheA>(acc, af, abase, bw1, bw2, b1, rr, r0, C, l, tq);
+            }
+          }
+        }
+        if (!have) continue;
+        // phase: mlp continue
+        // epilogue: + b2 + residual, rounded to bf16, through the warp tile
+        int roff[2];
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int row = mf * 16 + gq + hf * 8;
+          const int ry = row / g.X;
+          roff[hf] = row < g.ty * g.X ? (ry * g.xp + row - ry * g.X) * C : -1;
+        }
+        unsigned pk[NP8][2];
+#pragma unroll
+        for (int j = 0; j < NP8; ++j) {
+          const int col = n0 + j * 8 + 2 * tq;
+          const float c0 = __ldg(b2 + col), c1 = __ldg(b2 + col + 1);
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            float o0 = acc[j][2 * hf] + c0, o1 = acc[j][2 * hf + 1] + c1;
+            if (residual && roff[hf] >= 0) {
+              const float2 rv = load2(res + roff[hf] + col);
+              o0 += rv.x;
+              o1 += rv.y;
+            }
+            pk[j][hf] = pack_bf16(o0, o1);
+          }
+        }
+        bf16* sp = stg + ((lane & 7) + ((lane >> 3) & 1) * 8) * l.lds + (lane >> 4) * 8;
+#pragma unroll
+        for (int j = 0; j < NP8; j += 2) stsm_x4(sp + j * 8, pk[j][0], pk[j][1], pk[j + 1][0], pk[j + 1][1]);
+        __syncwarp();
+        constexpr int pieces = NP8;  // 16-byte pieces of a unit's row (8 channels each)
+        for (int i = lane; i < 16 * pieces; i += 32) {
+          const int rw = i / pieces, pc = i - rw * pieces;
+          const int row = mf * 16 + rw;
+          if (row < mv)
+            *reinterpret_cast<uint4*>(out + (obase + row) * m.Cout + n0 + pc * 8) =
+                *reinterpret_cast<const uint4*>(stg + rw * l.lds + pc * 8);
+        }
+        __syncwarp();  // the warp tile is rewritten by the next unit
       }
     }
   }
-  __syncthreads();
-  float* dst = partial + ((long long)b * gridDim.x + blockIdx.x) * 2 * g.C;
-  for (int i = threadIdx.x; i < 2 * g.C; i += blockDim.x) {
-    const int k = i / g.C, c = i - k * g.C;
-    float acc = 0.f;
-    for (int r = 0; r < tv; ++r) acc += red[(r * 2 + k) * g.C + c];
-    dst[i] = acc;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-    stats_reduce_kernel(const float* __restrict__ partial, float* __restrict__ out, int parts, int C) {
-  const int b = blockIdx.x;
-  for (int i = threadIdx.x; i < 2 * C; i += blockDim.x) {
-    float acc = 0.f;
-    for (int p = 0; p < parts; ++p) acc += partial[((long long)b * parts + p) * 2 * C + i];
-    out[(long long)b * 2 * C + i] = acc;
-  }
 }
 
 // ---------------------------------------------------------------------------
-// apply pass
+// apply pass, float32: the first design, kept as the arithmetic check
 // ---------------------------------------------------------------------------
 
-// Row strides of the apply kernel's shared-memory matrices, padded 16 bytes
-// past the row length so that the 16 rows of
-// a WMMA fragment do not fall on the same banks.
-struct ApplyLayout {
+// Row strides of the f32 apply kernel's shared-memory matrices, padded 16
+// bytes past the row length.
+struct F32Layout {
   int ldu, ldhf, ldh, ldacc;
   size_t scale, u, region, hf, h, acc, total;
 };
 
-__host__ __device__ inline ApplyLayout apply_layout(int tile, int X, int C, int Rc, int Cout, int es) {
-  ApplyLayout l;
+__host__ __device__ inline F32Layout f32_layout(int tile, int X, int C, int Rc, int Cout) {
+  F32Layout l;
   l.ldu = C + 8;
   l.ldhf = Rc + 4;
   l.ldh = Rc + 8;
   l.ldacc = Cout + 4;
   l.scale = 0;
   l.u = align128(2 * (size_t)C * 4);
-  l.region = l.u + align128((size_t)tile * l.ldu * es);
-  const size_t halo = align128(3 * (size_t)halo_len(tile, X) * C * es);
+  l.region = l.u + align128((size_t)tile * l.ldu * 4);
+  const size_t halo = align128(3 * (size_t)halo_len(tile, X) * C * 4);
   l.hf = l.region;
   l.h = l.hf + align128((size_t)tile * l.ldhf * 4);
-  l.acc = l.h + align128((size_t)tile * l.ldh * es);
+  l.acc = l.h + align128((size_t)tile * l.ldh * 4);
   const size_t mlp = l.acc + align128((size_t)tile * l.ldacc * 4) - l.region;
   l.total = l.region + (halo > mlp ? halo : mlp);
   return l;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-    block_apply_kernel(const T* __restrict__ x, const float* __restrict__ stats,
-                       const float* __restrict__ w_dw, const float* __restrict__ gamma,
-                       const float* __restrict__ beta, const T* __restrict__ w1,
-                       const float* __restrict__ b1, const T* __restrict__ w2,
-                       const float* __restrict__ b2, T* __restrict__ out, Geom g, int R, int Rc,
-                       int Cout, int tile, float inv_n, float eps) {
+    f32_apply_kernel(const float* __restrict__ x, const float* __restrict__ stats, const float* __restrict__ w_dw,
+                     const float* __restrict__ gamma, const float* __restrict__ beta, const float* __restrict__ w1,
+                     const float* __restrict__ b1, const float* __restrict__ w2, const float* __restrict__ b2,
+                     float* __restrict__ out, Geom g, int R, int Rc, int Cout, int tile, float inv_n, float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const ApplyLayout l = apply_layout(tile, g.X, g.C, Rc, Cout, (int)sizeof(T));
+  const F32Layout l = f32_layout(tile, g.X, g.C, Rc, Cout);
   float* scale = reinterpret_cast<float*>(smem + l.scale);
   float* shift = scale + g.C;
-  T* u = reinterpret_cast<T*>(smem + l.u);
-  T* halo = reinterpret_cast<T*>(smem + l.region);
+  float* u = reinterpret_cast<float*>(smem + l.u);
+  float* halo = reinterpret_cast<float*>(smem + l.region);
   float* hf = reinterpret_cast<float*>(smem + l.hf);
-  T* h = reinterpret_cast<T*>(smem + l.h);
+  float* h = reinterpret_cast<float*>(smem + l.h);
   float* acc = reinterpret_cast<float*>(smem + l.acc);
 
   const int b = blockIdx.y;
   const int v0 = blockIdx.x * tile;
-  const T* xb = x + (long long)b * g.N * g.C;
+  const float* xb = x + (long long)b * g.N * g.C;
   const int C = g.C;
 
   // GroupNorm folded into a per-channel scale/shift of dw(x) (bias cancels)
@@ -255,73 +785,35 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int i = threadIdx.x; i < tile * l.ldacc; i += blockDim.x) acc[i] = 0.f;
   __syncthreads();
 
-  const int warp = threadIdx.x / 32;
-  const int n_warps = blockDim.x / 32;
   for (int r0 = 0; r0 < R; r0 += Rc) {
     // hf[T][Rc] = u[T][C] . W1[r0:r0+Rc, :]^T
-    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-      using namespace nvcuda;
-      const int nt = Rc / 16;
-      for (int tix = warp; tix < (tile / 16) * nt; tix += n_warps) {
-        const int m = tix / nt, n = tix - m * nt;
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> fc;
-        wmma::fill_fragment(fc, 0.f);
-        for (int k = 0; k < C; k += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
-          wmma::load_matrix_sync(fa, u + m * 16 * l.ldu + k, l.ldu);
-          wmma::load_matrix_sync(fb, w1 + (long long)(r0 + n * 16) * C + k, C);
-          wmma::mma_sync(fc, fa, fb, fc);
-        }
-        wmma::store_matrix_sync(hf + m * 16 * l.ldhf + n * 16, fc, l.ldhf, wmma::mem_row_major);
-      }
-    } else {
-      for (int i = threadIdx.x; i < tile * Rc; i += blockDim.x) {
-        const int t = i / Rc, r = i - t * Rc;
-        const T* ur = u + t * l.ldu;
-        const T* wr = w1 + (long long)(r0 + r) * C;
-        float a = 0.f;
-        for (int c = 0; c < C; ++c) a = fmaf(to_f32(ur[c]), to_f32(__ldg(wr + c)), a);
-        hf[t * l.ldhf + r] = a;
-      }
+    for (int i = threadIdx.x; i < tile * Rc; i += blockDim.x) {
+      const int t = i / Rc, r = i - t * Rc;
+      const float* ur = u + t * l.ldu;
+      const float* wr = w1 + (long long)(r0 + r) * C;
+      float a = 0.f;
+      for (int c = 0; c < C; ++c) a = fmaf(ur[c], __ldg(wr + c), a);
+      hf[t * l.ldhf + r] = a;
     }
     __syncthreads();
     for (int i = threadIdx.x; i < tile * Rc; i += blockDim.x) {
       const int t = i / Rc, r = i - t * Rc;
-      h[t * l.ldh + r] = from_f32<T>(gelu_tanh(hf[t * l.ldhf + r] + __ldg(b1 + r0 + r)));
+      h[t * l.ldh + r] = gelu_tanh(hf[t * l.ldhf + r] + __ldg(b1 + r0 + r));
     }
     __syncthreads();
     // acc[T][Cout] += h[T][Rc] . W2[:, r0:r0+Rc]^T
-    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-      using namespace nvcuda;
-      const int nt = Cout / 16;
-      for (int tix = warp; tix < (tile / 16) * nt; tix += n_warps) {
-        const int m = tix / nt, n = tix - m * nt;
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> fc;
-        wmma::load_matrix_sync(fc, acc + m * 16 * l.ldacc + n * 16, l.ldacc, wmma::mem_row_major);
-        for (int k = 0; k < Rc; k += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
-          wmma::load_matrix_sync(fa, h + m * 16 * l.ldh + k, l.ldh);
-          wmma::load_matrix_sync(fb, w2 + (long long)(n * 16) * R + r0 + k, R);
-          wmma::mma_sync(fc, fa, fb, fc);
-        }
-        wmma::store_matrix_sync(acc + m * 16 * l.ldacc + n * 16, fc, l.ldacc, wmma::mem_row_major);
-      }
-    } else {
-      for (int i = threadIdx.x; i < tile * Cout; i += blockDim.x) {
-        const int t = i / Cout, co = i - t * Cout;
-        const T* hr = h + t * l.ldh;
-        const T* wr = w2 + (long long)co * R + r0;
-        float a = acc[t * l.ldacc + co];
-        for (int r = 0; r < Rc; ++r) a = fmaf(to_f32(hr[r]), to_f32(__ldg(wr + r)), a);
-        acc[t * l.ldacc + co] = a;
-      }
+    for (int i = threadIdx.x; i < tile * Cout; i += blockDim.x) {
+      const int t = i / Cout, co = i - t * Cout;
+      const float* hr = h + t * l.ldh;
+      const float* wr = w2 + (long long)co * R + r0;
+      float a = acc[t * l.ldacc + co];
+      for (int r = 0; r < Rc; ++r) a = fmaf(hr[r], __ldg(wr + r), a);
+      acc[t * l.ldacc + co] = a;
     }
     __syncthreads();
   }
 
-  T* ob = out + (long long)b * g.N * Cout;
+  float* ob = out + (long long)b * g.N * Cout;
   for (int i = threadIdx.x; i < tile * Cout / 2; i += blockDim.x) {
     const int t = (2 * i) / Cout, co = 2 * i - t * Cout;
     const int v = v0 + t;
@@ -340,137 +832,192 @@ __global__ void __launch_bounds__(kThreads, 2)
 // host side
 // ---------------------------------------------------------------------------
 
-inline int first_tile(int C) {
+inline int f32_tile(int C, int X, int Rc, int Cout) {
   int t = 4096 / C;
   t = t > 128 ? 128 : t;
   t = (t / 16) * 16;
-  return t < 16 ? 16 : t;
-}
-
-inline size_t stats_smem(int tile, int X, int C, int es, int nbuf) {
-  const size_t halo = nbuf * 3 * (size_t)halo_len(tile, X) * C * es;
-  const int pt = C / 2 < kThreads ? C / 2 : kThreads;
-  const size_t red = (size_t)(kThreads / pt) * 2 * C * 4;
-  return halo > red ? halo : red;
-}
-
-// tile and buffer count of the statistics pass: double-buffered where two
-// tiles fit, else one buffer
-inline int stats_tile(int C, int X, int es, int* nbuf) {
-  for (int nb = 2; nb >= 1; --nb) {
-    int t = first_tile(C);
-    while (t > 16 && stats_smem(t, X, C, es, nb) > kMaxSmem) t -= 16;
-    if (stats_smem(t, X, C, es, nb) <= kMaxSmem || nb == 1) {
-      *nbuf = nb;
-      return t;
-    }
-  }
-  return 16;
-}
-
-inline int apply_tile(int C, int X, int Rc, int Cout, int es) {
-  int t = first_tile(C);
-  while (t > 16 && apply_layout(t, X, C, Rc, Cout, es).total > kMaxSmem) t -= 16;
+  t = t < 16 ? 16 : t;
+  while (t > 16 && f32_layout(t, X, C, Rc, Cout).total > kMaxSmem) t -= 16;
   return t;
 }
 
-inline int chunk_of(int R) { return R < 64 ? R : 64; }
-
-inline int stats_grid(int B, long long N, int C, int X, int es) {
-  int dev = 0, sms = 132, nbuf = 1;
-  if (cudaGetDevice(&dev) == cudaSuccess) cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int tile = stats_tile(C, X, es, &nbuf);
-  const long long tiles = (N + tile - 1) / tile;
-  long long want = (4LL * sms + B - 1) / B;
-  if (want < 1) want = 1;
-  return (int)(tiles < want ? tiles : want);
+inline size_t stats_smem(const Ring& g, int es) {
+  const int pt = g.C / 2 < kThreads ? g.C / 2 : kThreads;
+  return align128(g.nr * slab_elems(g) * es) + align128((size_t)(kThreads / pt) * 2 * g.C * 4);
 }
 
-template <typename K>
-inline int set_smem(K kernel, size_t bytes) {
-  if (bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return (int)e;
+using StatsKernel = void (*)(const void*, const float*, float*, Ring);
+using ApplyKernel = void (*)(const bf16*, const float*, const float*, const float*, const float*, const bf16*,
+                             const float*, const bf16*, const float*, bf16*, Ring, Mlp, float, float);
+
+template <typename T, int CT>
+StatsKernel stats_fn() {
+  void (*k)(const T*, const float*, float*, Ring) = ring_stats_kernel<T, CT>;
+  return reinterpret_cast<StatsKernel>(k);
+}
+
+// The statistics kernel for a width: C at compile time where MedNeXt uses it.
+template <typename T>
+StatsKernel stats_kernel(int C) {
+  switch (C) {
+    case 32: return stats_fn<T, 32>();
+    case 64: return stats_fn<T, 64>();
+    case 128: return stats_fn<T, 128>();
+    case 256: return stats_fn<T, 256>();
+    case 512: return stats_fn<T, 512>();
+    default: return stats_fn<T, 0>();
   }
-  return 0;
 }
 
-template <typename T>
-int run_dw_stats(const void* x, const void* w, void* partial, void* out, int B, int Z, int Y, int X, int C,
-                 int parts, cudaStream_t stream) {
-  if ((long long)Z * Y * X * C >= (1LL << 31)) return kErrShape;
-  const Geom g{Z, Y, X, C, Z * Y * X};
-  if (C > 2 * kMaxPairsPerThread * kThreads) return kErrShape;
-  const int es = (int)sizeof(T);
-  int nbuf = 1;
-  const int tile = stats_tile(C, X, es, &nbuf);
-  const size_t smem = stats_smem(tile, X, C, es, nbuf);
-  if (smem > kMaxSmem) return kErrShape;
-  const int tiles = (int)((g.N + tile - 1) / tile);
-  int err = set_smem(dw_stats_kernel<T>, smem);
-  if (err) return err;
-  dw_stats_kernel<T><<<dim3(parts, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(w), static_cast<float*>(partial), g, tile, tiles, nbuf);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  stats_reduce_kernel<<<B, kThreads, 0, stream>>>(static_cast<const float*>(partial), static_cast<float*>(out),
-                                                    parts, C);
-  return (int)cudaGetLastError();
+template <int CT>
+ApplyKernel apply_kernel_c(int cs) {
+  switch (cs) {
+    case 16: return ring_apply_kernel<CT, 2>;
+    case 32: return ring_apply_kernel<CT, 4>;
+    case 64: return ring_apply_kernel<CT, 8>;
+    case 128: return ring_apply_kernel<CT, 16>;
+    default: return nullptr;
+  }
 }
 
-template <typename T>
-int run_block_apply(const void* x, const void* stats, const void* w_dw, const void* gamma, const void* beta,
-                    const void* w1, const void* b1, const void* w2, const void* b2, void* out, int B, int Z,
-                    int Y, int X, int C, int R, int Cout, float eps, cudaStream_t stream) {
-  if ((long long)Z * Y * X * (C > Cout ? C : Cout) >= (1LL << 31)) return kErrShape;
-  const Geom g{Z, Y, X, C, Z * Y * X};
-  const int es = (int)sizeof(T);
-  const int Rc = chunk_of(R);
-  if (R % Rc || Rc % 16 || C % 16 || Cout % 16) return kErrShape;
-  const int tile = apply_tile(C, X, Rc, Cout, es);
-  const size_t smem = apply_layout(tile, X, C, Rc, Cout, es).total;
-  if (smem > kMaxSmem) return kErrShape;
-  int err = set_smem(block_apply_kernel<T>, smem);
-  if (err) return err;
-  const unsigned tiles = (unsigned)((g.N + tile - 1) / tile);
-  block_apply_kernel<T><<<dim3(tiles, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(stats), static_cast<const float*>(w_dw),
-      static_cast<const float*>(gamma), static_cast<const float*>(beta), static_cast<const T*>(w1),
-      static_cast<const float*>(b1), static_cast<const T*>(w2), static_cast<const float*>(b2),
-      static_cast<T*>(out), g, R, Rc, Cout, tile, 1.f / (float)g.N, eps);
-  return (int)cudaGetLastError();
+inline ApplyKernel apply_kernel(int C, int cs) {
+  switch (C) {
+    case 32: return apply_kernel_c<32>(cs);
+    case 64: return apply_kernel_c<64>(cs);
+    case 128: return apply_kernel_c<128>(cs);
+    default: return apply_kernel_c<0>(cs);
+  }
+}
+
+inline bool ring_ok(int B, int Z, int Y, int X, int C, int ty, int seg, int nr) {
+  return (nr == 3 || nr == 4) && B >= 1 && Z >= 1 && Y >= 1 && X >= 1 && C % 16 == 0 && C >= 16 && C <= 1024 && ty >= 1 && seg >= 1 &&
+         (long long)Z * Y * X * C < (1LL << 31) && (long long)B * ((Z + seg - 1) / seg) * ((Y + ty - 1) / ty) < (1LL << 31) &&
+         (long long)(ty + 2) * (3 * ((X + 2) / 3) + 2) * C < (1LL << 31);
+}
+
+inline bool mlp_ok(const Ring& g, int R, int Cout, int cs, int rc) {
+  return R >= 16 && R % 16 == 0 && Cout % 16 == 0 && Cout >= 16 && (cs == 16 || cs == 32 || cs == 64 || cs == 128) &&
+         Cout % cs == 0 && rc >= 16 && rc % 16 == 0 && R % rc == 0 && (long long)g.Z * g.Y * g.X * Cout < (1LL << 31);
 }
 
 }  // namespace mednext
 
 // dtype: 0 = float32, 1 = bfloat16. Every entry returns 0 or an error code
-// (a cudaError_t, or 10001 for a shape the kernels do not take).
+// (a cudaError_t, or 10001 for a shape or plan the kernels do not take).
 extern "C" {
 
-int mednext_stats_parts(int B, int Z, int Y, int X, int C, int dtype) {
-  return mednext::stats_grid(B, (long long)Z * Y * X, C, X, dtype ? 2 : 4);
+// The plan (ty, seg, ring slots; for the apply pass cs, rc) as the kernel takes it, on
+// the current device: out = [shared-memory bytes, work items, resident
+// blocks a SM, grid (SMs x resident blocks, at most the items), registers a
+// thread]. kind: 0 statistics, 1 apply (bf16), 2 apply (f32: its tiles
+// follow from the shape; ty and seg unused). The first call for a kernel on
+// a device lets it take all of the shared memory (mednext::occupancy), which
+// a launch then needs.
+int mednext_ring_plan(int kind, int dtype, int B, int Z, int Y, int X, int C, int R, int Cout, int ty, int seg,
+                      int nr, int cs, int rc, int* out) {
+  using namespace mednext;
+  if (kind != 0) nr = kApplyRing;
+  if (kind == 2) ty = seg = 1;
+  if (!ring_ok(B, Z, Y, X, C, ty, seg, nr)) return kErrShape;
+  Ring g = make_ring(B, Z, Y, X, C, ty, seg, nr);
+  const void* fn;
+  size_t smem;
+  if (kind == 2) {
+    const int Rc = R < 64 ? R : 64;
+    if (dtype || R < 16 || R % Rc || Rc % 16 || Cout % 16) return kErrShape;
+    const int tile = f32_tile(C, X, Rc, Cout);
+    fn = reinterpret_cast<const void*>(f32_apply_kernel);
+    smem = f32_layout(tile, X, C, Rc, Cout).total;
+    g.items = B * (int)(((long long)Z * Y * X + tile - 1) / tile);
+  } else if (kind == 0) {
+    fn = reinterpret_cast<const void*>(dtype ? stats_kernel<bf16>(C) : stats_kernel<float>(C));
+    smem = stats_smem(g, dtype ? 2 : 4);
+  } else {
+    if (!dtype || !mlp_ok(g, R, Cout, cs, rc)) return kErrShape;
+    fn = reinterpret_cast<const void*>(apply_kernel(C, cs));
+    smem = apply_layout(g, make_mlp(g, R, Cout, cs, rc)).total;
+  }
+  if (smem > kMaxSmem) return kErrShape;
+  int occ = 0;
+  const int e = occupancy(fn, kThreads, smem, &occ);
+  if (e) return e;
+  if (occ < 1) return kErrShape;
+  cudaFuncAttributes attr;
+  const cudaError_t ea = cudaFuncGetAttributes(&attr, fn);
+  if (ea != cudaSuccess) return (int)ea;
+  const long long grid = kind == 2 ? g.items : (long long)sm_count() * occ;
+  out[0] = (int)smem;
+  out[1] = g.items;
+  out[2] = occ;
+  out[3] = (int)(grid < g.items ? grid : g.items);
+  out[4] = attr.numRegs;
+  return 0;
 }
 
+// partial: (B * segs * bands, 2, C) float32 scratch; out (B, 2, C); nr: 4 or 3 ring slots.
 int mednext_dw_stats(const void* x, const void* w_dw, void* partial, void* out, int dtype, int B, int Z, int Y,
-                     int X, int C, int parts, void* stream) {
+                     int X, int C, int ty, int seg, int nr, int grid, void* stream) {
+  using namespace mednext;
+  if (!ring_ok(B, Z, Y, X, C, ty, seg, nr) || grid < 1) return kErrShape;
+  const Ring g = make_ring(B, Z, Y, X, C, ty, seg, nr);
+  const size_t smem = stats_smem(g, dtype ? 2 : 4);
+  if (smem > kMaxSmem) return kErrShape;
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype) return mednext::run_dw_stats<__nv_bfloat16>(x, w_dw, partial, out, B, Z, Y, X, C, parts, s);
-  return mednext::run_dw_stats<float>(x, w_dw, partial, out, B, Z, Y, X, C, parts, s);
+  const StatsKernel k = dtype ? stats_kernel<bf16>(C) : stats_kernel<float>(C);
+  const int blocks = grid < g.items ? grid : g.items;
+  k<<<blocks, kThreads, smem, s>>>(x, static_cast<const float*>(w_dw), static_cast<float*>(partial), g);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  stats_reduce_kernel<<<dim3((2 * C + kThreads - 1) / kThreads, B), kThreads, 0, s>>>(
+      static_cast<const float*>(partial), static_cast<float*>(out), g.segs * g.bands, C);
+  return (int)cudaGetLastError();
 }
 
-int mednext_block_apply(const void* x, const void* stats, const void* w_dw, const void* gamma, const void* beta,
-                        const void* w1, const void* b1, const void* w2, const void* b2, void* out, int dtype,
-                        int B, int Z, int Y, int X, int C, int R, int Cout, float eps, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (dtype)
-    return mednext::run_block_apply<__nv_bfloat16>(x, stats, w_dw, gamma, beta, w1, b1, w2, b2, out, B, Z, Y, X,
-                                                   C, R, Cout, eps, s);
-  return mednext::run_block_apply<float>(x, stats, w_dw, gamma, beta, w1, b1, w2, b2, out, B, Z, Y, X, C, R,
-                                         Cout, eps, s);
+int mednext_apply_bf16(const void* x, const void* stats, const void* w_dw, const void* gamma, const void* beta,
+                       const void* w1, const void* b1, const void* w2, const void* b2, void* out, int B, int Z, int Y,
+                       int X, int C, int R, int Cout, int ty, int seg, int cs, int rc, int grid, float eps,
+                       void* stream) {
+  using namespace mednext;
+  if (!ring_ok(B, Z, Y, X, C, ty, seg, kApplyRing) || grid < 1) return kErrShape;
+  const Ring g = make_ring(B, Z, Y, X, C, ty, seg, kApplyRing);
+  if (!mlp_ok(g, R, Cout, cs, rc)) return kErrShape;
+  const Mlp m = make_mlp(g, R, Cout, cs, rc);
+  const size_t smem = apply_layout(g, m).total;
+  if (smem > kMaxSmem) return kErrShape;
+  const ApplyKernel k = apply_kernel(C, cs);
+  const int blocks = grid < g.items ? grid : g.items;
+  k<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(stats), static_cast<const float*>(w_dw),
+      static_cast<const float*>(gamma), static_cast<const float*>(beta), static_cast<const bf16*>(w1),
+      static_cast<const float*>(b1), static_cast<const bf16*>(w2), static_cast<const float*>(b2),
+      static_cast<bf16*>(out), g, m, 1.f / ((float)Z * Y * X), eps);
+  return (int)cudaGetLastError();
+}
+
+// The float32 apply pass (its tiles follow from the shape; mednext_ring_plan
+// of kind 2 first, once per device).
+int mednext_block_apply_f32(const void* x, const void* stats, const void* w_dw, const void* gamma, const void* beta,
+                            const void* w1, const void* b1, const void* w2, const void* b2, void* out, int B, int Z,
+                            int Y, int X, int C, int R, int Cout, float eps, void* stream) {
+  using namespace mednext;
+  if ((long long)Z * Y * X * (C > Cout ? C : Cout) >= (1LL << 31)) return kErrShape;
+  const Geom g{Z, Y, X, C, Z * Y * X};
+  const int Rc = R < 64 ? R : 64;
+  if (R % Rc || Rc % 16 || C % 16 || Cout % 16) return kErrShape;
+  const int tile = f32_tile(C, X, Rc, Cout);
+  const size_t smem = f32_layout(tile, X, C, Rc, Cout).total;
+  if (smem > kMaxSmem) return kErrShape;
+  const unsigned tiles = (unsigned)((g.N + tile - 1) / tile);
+  f32_apply_kernel<<<dim3(tiles, B), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(stats), static_cast<const float*>(w_dw),
+      static_cast<const float*>(gamma), static_cast<const float*>(beta), static_cast<const float*>(w1),
+      static_cast<const float*>(b1), static_cast<const float*>(w2), static_cast<const float*>(b2),
+      static_cast<float*>(out), g, R, Rc, Cout, tile, 1.f / (float)g.N, eps);
+  return (int)cudaGetLastError();
 }
 
 const char* mednext_error_string(int code) {
-  if (code == mednext::kErrShape) return "shape not supported by the MedNeXt block kernels";
+  if (code == mednext::kErrShape) return "shape or plan not supported by the MedNeXt block kernels";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

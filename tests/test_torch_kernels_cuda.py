@@ -42,7 +42,8 @@ def _params(rng, c, r, cout, device):
 
 
 # (B, Z, Y, X, C, R, Cout): the stage shapes of MedNeXt-S on the fast recipe
-# at batch 2, plus ragged tiles and a channel-changing block
+# at batch 2, plus ragged tiles, a channel-changing block, and y, z and x
+# that no band, segment or run of three divides
 SHAPES = [
     (2, 96, 64, 48, 32, 64, 32),
     (2, 48, 32, 24, 64, 128, 64),
@@ -51,6 +52,8 @@ SHAPES = [
     (2, 6, 4, 3, 512, 1024, 512),
     (3, 5, 7, 9, 16, 32, 16),
     (1, 4, 6, 10, 32, 64, 48),
+    (2, 7, 10, 13, 32, 64, 32),
+    (1, 5, 7, 11, 64, 256, 64),
 ]
 
 
@@ -82,6 +85,72 @@ def test_kernels_match_plain(device, shape, dtype):
     stats_err = ((stats - want_stats).abs() / scale).max().item()
     print(f"{shape} {dtype}: stats rel err {stats_err:.3g}, apply max err {err:.3g} (tol {tol:.3g})")
     assert err <= tol, (err, tol, n)
+
+
+# ragged plans forced on the kernels: bands past the volume's y, segments
+# past its z, odd x, streamed weight chunks of 16, 32 and 64 hidden units,
+# units across Cout, and a width with no compile-time instance (48).
+# (B, Z, Y, X, C, R, Cout), statistics (ty, seg, ring slots), apply (ty, seg, cs, rc)
+FORCED = [
+    ((2, 7, 10, 13, 32, 64, 32), (4, 3, 4), (4, 3, 32, 64)),
+    ((1, 5, 7, 11, 64, 256, 64), (3, 2, 3), (3, 2, 32, 64)),
+    ((2, 5, 3, 4, 256, 512, 256), (2, 2, 4), (2, 3, 128, 32)),
+    ((1, 4, 5, 3, 48, 96, 48), (2, 3, 3), (5, 3, 16, 16)),
+]
+
+
+@pytest.mark.parametrize("case", FORCED, ids=lambda c: "x".join(map(str, c[0])))
+def test_forced_ragged_plans_match_plain(device, case):
+    (b, z, y, xs, c, r, cout), sp, ap = case
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((b, z, y, xs, c), dtype=np.float32)).to(device)
+    p = _params(rng, c, r, cout, device)
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = x.to(dtype)
+        want_stats = fb.dw_stats_plain(xd, p["w_dw"])
+        stats = fb.dw_stats(xd, p["w_dw"], plan=dict(zip(("ty", "seg", "ring"), sp)))
+        torch.cuda.synchronize()
+        scale = fb.dw_stats_plain(xd.abs(), p["w_dw"].abs())[:, :1].abs() + want_stats[:, 1:]
+        assert torch.all((stats - want_stats).abs() <= 1e-5 * scale + 1e-3), (dtype, sp)
+    xb = x.to(torch.bfloat16)
+    pb = dict(p, w1=p["w1"].to(torch.bfloat16), w2=p["w2"].to(torch.bfloat16))
+    want_stats = fb.dw_stats_plain(xb, p["w_dw"])
+    out = fb.fused_block_apply(xb, want_stats, **pb, plan=dict(zip(("ty", "seg", "cs", "rc"), ap)))
+    want = fb.fused_block_apply_plain(xb, want_stats, **pb)
+    torch.cuda.synchronize()
+    top = want.float().abs().max().item()
+    tol = 2.0 ** (np.floor(np.log2(max(top, 1.0))) - 6)
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= tol, (err, tol, ap)
+
+
+def test_dw_stats_is_bit_identical_across_launches(device):
+    rng = np.random.default_rng(4)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.from_numpy(rng.standard_normal((4, 24, 32, 24, 32), dtype=np.float32)).to(device, dtype)
+        w = torch.from_numpy(rng.standard_normal((32, 1, 3, 3, 3)).astype(np.float32)).to(device)
+        a, b = fb.dw_stats(x, w), fb.dw_stats(x, w)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+
+
+# (C, R, (Z, Y, X)) of the fast recipe's stride-1 stages, at batch 16
+FAST_STAGES = [(32, 64, (96, 64, 48)), (64, 128, (48, 32, 24)), (128, 256, (24, 16, 12)), (256, 512, (12, 8, 6)),
+               (512, 1024, (6, 4, 3))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_card_plan_matches_the_planner(device, dtype):
+    for c, r, spatial in FAST_STAGES:
+        shape = (16, *spatial, c)
+        plan = fb.card_plan(shape, dtype, r)
+        for name in ("dw_stats", "fused_block_apply"):
+            k = plan[name]
+            if "ty" not in k:
+                continue
+            assert k["card_smem_bytes"] == k["smem_bytes"] and k["card_items"] == k["items"], (shape, k)
+            assert k["blocks_per_sm"] >= 1 and 1 <= k["grid"] <= k["items"], (shape, k)
+        print(shape, dtype, plan)
 
 
 def test_cuda_tensor_never_falls_back(device):
