@@ -27,7 +27,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
               plain versions at every stride-1 stage shape of MedNeXt-S
               training (batch 8) on the synthetic and the Lucchi fast
               recipes, bf16 and f32, with times (kernel, plain, bound,
-              library yardstick); two weight-gradient runs bit-identical
+              library yardstick) and the plan each kernel took there
+              (band rows, segment, ring; the card's shared memory, blocks
+              a SM, grid, registers); two weight-gradient runs bit-identical
   7. train    one MedNeXt-S train step at the Lucchi fast recipe's training
               shape (batch 8 of 96^3, bf16, outside_block remat): loss and
               per-leaf gradients of the kernel path against the plain path,
@@ -95,16 +97,6 @@ BATCH = 16
 MODEL_BF16_TOL = 0.02
 RECIPE = ROOT / "tutorials" / "mito_lucchi_tpu_fast.yaml"
 SYNTH_RECIPE = ROOT / "tutorials" / "mito_synthetic_cli_fast_tpu.yaml"
-# ((Z, Y, X), C, blocks per step) of the stride-1 MedNeXt-S blocks in
-# training, after the (1, 2, 2) stem: the synthetic recipe's 64^3 patch and
-# the Lucchi fast recipe's 96^3 patch, both at batch 8
-TRAIN_BATCH = 8
-TRAIN_STAGES = {
-    "synthetic": [((64, 32, 32), 32, 4), ((32, 16, 16), 64, 4), ((16, 8, 8), 128, 4), ((8, 4, 4), 256, 4),
-                  ((4, 2, 2), 512, 2)],
-    "lucchi": [((96, 48, 48), 32, 4), ((48, 24, 24), 64, 4), ((24, 12, 12), 128, 4), ((12, 6, 6), 256, 4),
-               ((6, 3, 3), 512, 2)],
-}
 # limits of the bf16 train step's kernel path against its plain path: the
 # loss, relative; each gradient leaf, as the norm of the difference over the
 # leaf's norm (conv_bias leaves, zero in exact arithmetic because GroupNorm
@@ -461,11 +453,11 @@ def dw_bounds(n, c, es):
 def phase_depthwise(dwk, dev, report):
     log("== phase 6: depthwise kernels vs plain (batch 8) ==")
     rows = []
-    for recipe, stages in TRAIN_STAGES.items():
+    for recipe, stages in dwk.TRAIN_STAGES.items():
         for dtype in (torch.bfloat16, torch.float32):
             es = 2 if dtype == torch.bfloat16 else 4
             for spatial, c, per_step in stages:
-                shape = (TRAIN_BATCH, *spatial, c)
+                shape = (dwk.TRAIN_BATCH, *spatial, c)
                 n = math.prod(shape[:4])
                 rng = np.random.default_rng(c)
                 x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
@@ -475,16 +467,19 @@ def phase_depthwise(dwk, dev, report):
                 wf = w.flip((2, 3, 4))
                 row = dict(recipe=recipe, C=c, spatial=list(spatial), dtype=str(dtype).split(".")[-1],
                            blocks_per_step=per_step)
-                for name, args in (("forward", (x, w, b)), ("input_grad", (dy, wf, None))):
-                    got, want = dwk.depthwise3x3(*args), dwk.depthwise3x3_plain(*args)
+                # the input gradient: the kernel's mirror flag against the plain conv with flipped taps
+                for name, fn, args in (("forward", dwk.depthwise3x3, (x, w, b)),
+                                       ("input_grad", dwk.depthwise3x3_input_grad, (dy, w))):
+                    want_args = args if name == "forward" else (dy, wf, None)
+                    got, want = fn(*args), dwk.depthwise3x3_plain(*want_args)
                     torch.cuda.synchronize()
                     err = (got.float() - want.float()).abs().max().item()
                     # f32: FMA order against the summed magnitudes; bf16: both sum
                     # in f32 and round once, two ulps at the largest output
-                    mag = dwk.depthwise3x3_plain(args[0].float().abs(), args[1].abs()).abs().max().item()
+                    mag = dwk.depthwise3x3_plain(want_args[0].float().abs(), want_args[1].abs()).abs().max().item()
                     top = want.float().abs().max().item()
                     tol = 1e-5 * mag if es == 4 else 2.0 ** (math.floor(math.log2(max(top, 1e-30))) - 6)
-                    if err > tol:
+                    if not err <= tol:  # written so that NaN fails
                         fail(f"depthwise3x3 {name} {recipe} C={c} {dtype}: max error {err:.3g} > {tol:.3g}")
                     row[name] = dict(max_abs_err=err, tol=tol)
                     del got, want
@@ -497,7 +492,7 @@ def phase_depthwise(dwk, dev, report):
                     fail(f"depthwise3x3_wgrad {recipe} C={c} {dtype}: two runs differ")
                 # f32 sums of B*N products in another order, against the summed magnitudes
                 rel = max(((gw - ww).abs() / (mw + 1e-30)).max().item(), ((gb - wb).abs() / (mb + 1e-30)).max().item())
-                if rel > 1e-5:
+                if not rel <= 1e-5:
                     fail(f"depthwise3x3_wgrad {recipe} C={c} {dtype}: relative error {rel:.3g} > 1e-5")
                 row["wgrad"] = dict(max_abs_err=max((gw - ww).abs().max().item(), (gb - wb).abs().max().item()),
                                     max_rel_err=rel, bit_identical=True)
@@ -511,7 +506,7 @@ def phase_depthwise(dwk, dev, report):
                     bound_ms=max(b_fwd.values()), bound_parts=b_fwd,
                 )
                 row["input_grad"].update(
-                    ms=time_ms(lambda: dwk.depthwise3x3(dy, wf), reps),
+                    ms=time_ms(lambda: dwk.depthwise3x3_input_grad(dy, w), reps),
                     plain_ms=time_ms(lambda: dwk.depthwise3x3_plain(dy, wf), reps),
                     library_ms=time_ms(lambda: torch.nn.grad.conv3d_input(xn.shape, wd, dyn, padding=1, groups=c), reps),
                     bound_ms=max(b_fwd.values()), bound_parts=b_fwd,
@@ -522,7 +517,11 @@ def phase_depthwise(dwk, dev, report):
                     library_ms=time_ms(lambda: torch.nn.grad.conv3d_weight(xn, w.shape, dyn, padding=1, groups=c), reps),
                     bound_ms=max(b_wgrad.values()), bound_parts=b_wgrad,
                 )
+                # the plans the kernels took (ops/depthwise.py::kernel_plan) and the card's report of each
+                row["plan"] = dwk.card_plan(shape, dtype)
                 rows.append(row)
+                for name, k in row["plan"].items():
+                    log(f"  plan {name}: " + ", ".join(f"{key} {val}" for key, val in k.items()))
                 f, g, wg = row["forward"], row["input_grad"], row["wgrad"]
                 log(
                     f"{recipe:9s} C={c:3d} {row['dtype']:8s} fwd {f['ms']:.4f} ms (plain {f['plain_ms']:.4f}, bound "

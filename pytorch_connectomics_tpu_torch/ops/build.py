@@ -28,8 +28,8 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"
 # one entry per library: its sources (the first is compiled, the rest are
 # headers it includes and only enter the content hash)
 LIBRARIES: Dict[str, List[str]] = {
-    "mednext_block": ["mednext_block.cu", "mednext_block.cuh"],
-    "depthwise3x3": ["depthwise3x3.cu", "mednext_block.cuh"],
+    "mednext_block": ["mednext_block.cu", "ring.cuh", "mednext_block.cuh"],
+    "depthwise3x3": ["depthwise3x3.cu", "ring.cuh", "mednext_block.cuh"],
     "conv3d_3x3": ["conv3d_3x3.cu", "mednext_block.cuh"],
     "fused_mlp": ["fused_mlp.cu", "mednext_block.cuh"],
     "probes": ["probes.cu", "mednext_block.cuh"],
@@ -128,11 +128,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.mednext_error_string.argtypes = [i]
         lib.mednext_error_string.restype = ctypes.c_char_p
     elif name == "depthwise3x3":
-        lib.depthwise3x3_wgrad_parts.argtypes = [i, i, i, i, i, i]
-        lib.depthwise3x3_wgrad_parts.restype = i
-        lib.depthwise3x3_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+        lib.depthwise3x3_plan.argtypes = [i] * 10 + [p]
+        lib.depthwise3x3_plan.restype = i
+        lib.depthwise3x3_fwd.argtypes = [p] * 4 + [i] * 11 + [p]
         lib.depthwise3x3_fwd.restype = i
-        lib.depthwise3x3_wgrad.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.depthwise3x3_wgrad.argtypes = [p] * 4 + [i] * 10 + [p]
         lib.depthwise3x3_wgrad.restype = i
         lib.depthwise3x3_error_string.argtypes = [i]
         lib.depthwise3x3_error_string.restype = ctypes.c_char_p

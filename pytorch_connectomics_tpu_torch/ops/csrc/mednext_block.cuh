@@ -1,7 +1,8 @@
 // Device helpers shared by the port's kernels: type conversion, tanh-GELU,
 // the tensor-core fragment helpers (cp.async, ldmatrix, mma.sync) of
-// conv3d_3x3.cu and fused_mlp.cu, and the haloed-tile staging + depthwise
-// 3^3 stencil that both passes of the MedNeXt block (mednext_block.cu) run.
+// conv3d_3x3.cu and fused_mlp.cu, and the haloed-tile staging + masked
+// depthwise 3^3 stencil of the MedNeXt block's float32 apply check path
+// (mednext_block.cu; the ring kernels walk the slab ring of ring.cuh).
 //
 // Layout: activations are channels-last, x[b][v][c] with v = (z*Y + y)*X + x
 // the flat voxel index inside one batch element. A tile is T consecutive flat
@@ -178,10 +179,14 @@ __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
 }
 
 // the 27 taps of channels (2p, 2p+1); w is the depthwise kernel in torch
-// layout (C, 1, 3, 3, 3) = (C, 27)
-__device__ __forceinline__ void load_taps(float2 (&k)[27], const float* __restrict__ w, int p) {
+// layout (C, 1, 3, 3, 3) = (C, 27); mirrored (the depthwise conv's input
+// gradient), tap i is read from 26 - i
+__device__ __forceinline__ void load_taps(float2 (&k)[27], const float* __restrict__ w, int p, bool mirror = false) {
 #pragma unroll
-  for (int i = 0; i < 27; ++i) k[i] = make_float2(__ldg(w + (2 * p) * 27 + i), __ldg(w + (2 * p + 1) * 27 + i));
+  for (int i = 0; i < 27; ++i) {
+    const int t = mirror ? 26 - i : i;
+    k[i] = make_float2(__ldg(w + (2 * p) * 27 + t), __ldg(w + (2 * p + 1) * 27 + t));
+  }
 }
 
 // Voxels a thread runs through the stencil at once: independent

@@ -173,7 +173,9 @@ from pytorch_connectomics_tpu_torch.ops import depthwise as dwk  # noqa: E402
 
 # (B, Z, Y, X, C): the stride-1 stage shapes of MedNeXt-S training on the
 # Lucchi fast recipe's 96^3 patch after the (1, 2, 2) stem at batch 2, the
-# synthetic recipe's bottleneck, and ragged shapes
+# synthetic recipe's bottleneck, and ragged shapes: y, z and x that no band,
+# segment or run of three divides, x = 1, C 16, C 512, and C 272 and 400 (a
+# channel pair a thread with threads left over, which must store nothing)
 DW_SHAPES = [
     (2, 96, 48, 48, 32),
     (2, 48, 24, 24, 64),
@@ -183,6 +185,13 @@ DW_SHAPES = [
     (2, 4, 2, 2, 512),
     (3, 5, 7, 9, 16),
     (1, 3, 1, 2, 48),
+    (2, 7, 10, 13, 32),
+    (1, 9, 11, 5, 64),
+    (2, 5, 3, 1, 16),
+    (1, 3, 5, 7, 512),
+    (2, 11, 13, 4, 48),
+    (1, 3, 5, 7, 400),
+    (2, 4, 3, 5, 272),
 ]
 
 
@@ -221,6 +230,81 @@ def test_depthwise_kernels_match_plain(device, shape, dtype):
     assert torch.all((gw - ww).abs() <= 1e-5 * mw + 1e-6), ((gw - ww).abs() / mw).max().item()
     assert torch.all((gb - wb).abs() <= 1e-5 * mb + 1e-6), ((gb - wb).abs() / mb).max().item()
     assert torch.equal(gw, gw2) and torch.equal(gb, gb2)  # deterministic
+
+
+# ragged plans forced on the depthwise kernels: bands past the volume's y,
+# segments past its z, odd x, both ring sizes, widths with and without a
+# compile-time instance. (B, Z, Y, X, C), (ty, seg, ring slots)
+DW_FORCED = [
+    ((2, 7, 10, 13, 32), (4, 3, 4)),
+    ((1, 5, 7, 11, 64), (3, 2, 3)),
+    ((2, 5, 3, 4, 256), (2, 2, 4)),
+    ((1, 4, 5, 3, 48), (2, 3, 3)),
+    ((2, 3, 2, 2, 512), (3, 2, 3)),
+    ((1, 6, 9, 1, 16), (4, 4, 4)),
+    ((2, 4, 3, 5, 272), (2, 2, 3)),
+    ((1, 3, 5, 7, 400), (1, 2, 3)),
+]
+
+
+@pytest.mark.parametrize("case", DW_FORCED, ids=lambda c: "x".join(map(str, c[0])))
+def test_depthwise_forced_ragged_plans_match_plain(device, case):
+    shape, (ty, seg, ring) = case
+    c = shape[-1]
+    rng = np.random.default_rng(5)
+    w = torch.from_numpy(rng.standard_normal((c, 1, 3, 3, 3)).astype(np.float32) * 0.3).to(device)
+    b = torch.from_numpy(rng.standard_normal(c).astype(np.float32)).to(device)
+    plan = dict(ty=ty, seg=seg, ring=ring)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device, dtype)
+        dy = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device, dtype)
+        for got, args in ((dwk.run_fwd(x, w, b, plan=plan), (x, w, b)),
+                          (dwk.run_fwd(dy, w, mirror=True, plan=plan), (dy, w.flip((2, 3, 4)), None))):
+            want = dwk.depthwise3x3_plain(*args)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            mag = dwk.depthwise3x3_plain(args[0].float().abs(), args[1].abs()).abs().max().item()
+            tol = 1e-5 * mag if dtype == torch.float32 else _bf16_ulps(want, 2)
+            assert err <= tol, (dtype, plan, err, tol)
+        gw, gb = dwk.run_wgrad(x, dy, plan=plan)
+        gw2, gb2 = dwk.run_wgrad(x, dy, plan=plan)
+        ww, wb = dwk.depthwise3x3_wgrad_plain(x, dy)
+        mw, mb = dwk.depthwise3x3_wgrad_plain(x.float().abs(), dy.float().abs())
+        torch.cuda.synchronize()
+        assert torch.all((gw - ww).abs() <= 1e-5 * mw + 1e-6), ((gw - ww).abs() / mw).max().item()
+        assert torch.all((gb - wb).abs() <= 1e-5 * mb + 1e-6), ((gb - wb).abs() / mb).max().item()
+        assert torch.equal(gw, gw2) and torch.equal(gb, gb2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_depthwise_mirror_flag_equals_flipped_taps(device, dtype):
+    """The input gradient's mirror flag reads the taps the flip would give,
+    in the same order: bit-identical to the forward on flipped taps."""
+    rng = np.random.default_rng(6)
+    for shape in ((2, 9, 10, 11, 32), (1, 4, 5, 6, 48)):
+        c = shape[-1]
+        dy = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device, dtype)
+        w = torch.from_numpy(rng.standard_normal((c, 1, 3, 3, 3)).astype(np.float32)).to(device)
+        got = dwk.depthwise3x3_input_grad(dy, w)
+        want = dwk.depthwise3x3(dy, w.flip((2, 3, 4)))
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+# ((Z, Y, X), C) of the stride-1 training stages of both recipes
+DW_TRAIN = [(s, c) for stages in dwk.TRAIN_STAGES.values() for s, c, _ in stages]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_depthwise_card_plan_matches_the_planner(device, dtype):
+    for spatial, c in DW_TRAIN + [((112, 112, 112), 32)]:
+        shape = (dwk.TRAIN_BATCH, *spatial, c)
+        plan = dwk.card_plan(shape, dtype)
+        for name in dwk.KERNEL_NAMES:
+            k = plan[name]
+            assert k["card_smem_bytes"] == k["smem_bytes"] and k["card_items"] == k["items"], (shape, k)
+            assert k["blocks_per_sm"] >= 1 and 1 <= k["grid"] <= k["items"], (shape, k)
+        print(shape, dtype, plan)
 
 
 def test_depthwise_function_backward_matches_plain_autograd(device):
