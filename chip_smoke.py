@@ -54,12 +54,15 @@ Phases (any failure exits non-zero; no phase catches its own failure):
               once each, in-process, their kernels' launches counted from
               zero; each kernel record of theirs holds the kernel against
               its plain version at the shape it ran, with times (kernel,
-              plain, bound, library), and any record that failed fails the
-              phase; the card's measured ceilings from those records; then
-              the fused MLP with residual against its plain version at
-              MedNeXt-S's five widths (the fast recipe's batch-16 stage row
-              counts, bf16 and f32), with times beside the unfused cuBLAS
-              sequence
+              plain, bound, library; at the FMA chain's (256, 1024) also the
+              device time alone and the host us a call), and any record that
+              failed fails the phase; the card's measured ceilings from those
+              records; then the fused MLP with residual against its plain
+              version at MedNeXt-S's five widths (the fast recipe's batch-16
+              stage row counts, bf16 and f32): its plan (the planner's, with
+              the card's report), back-to-back and device-only times of the
+              kernel and of the unfused cuBLAS sequence, and the host us a
+              call
  13. report   a {"kernels": [...]} line, then {"ok": true, "device": ...} last
 
 Imports torch and the port only. Details go to build/chip_smoke/chip_smoke.json.
@@ -960,7 +963,7 @@ def phase_nucmm(c3, dev, work, report):
 def phase_probes(dev, work, report):
     log("== phase 12: probes: the measurement entry points, then the fused MLP at MedNeXt-S's widths ==")
     from pytorch_connectomics_tpu_torch.ops import conv3d as c3, depthwise as dwk, fused_mlp as fm, probes as pk
-    from pytorch_connectomics_tpu_torch.tools import microbench, probes as probe_tool, randn as seeded
+    from pytorch_connectomics_tpu_torch.tools import device_ms, host_us, microbench, probes as probe_tool, randn as seeded
 
     # the new kernels, and the earlier ones the probes run (the depthwise
     # stencil and tap-matmul prototypes) on the entry points' path
@@ -992,7 +995,9 @@ def phase_probes(dev, work, report):
     for r in records:
         if "kernel" in r:
             lib = "none" if r.get("library_ms") is None else f"{r['library_ms']:.4f}"
-            on_host = f"; host {r['host_us']:.2f} us, library's {r['library_host_us']:.2f} us" if "host_us" in r else ""
+            on_host = f"; host {r['host_us']:.2f} us" if "host_us" in r else ""
+            on_host += f", library's {r['library_host_us']:.2f} us" if "library_host_us" in r else ""
+            on_host += f"; device alone {r['device_ms']:.5f} ms" if r.get("device_ms") is not None else ""
             log(f"{r['name']:26s} {r['kernel']:18s} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library {lib}, "
                 f"bound {r['bound_ms']:.4f} {r['bound_by']}{on_host}) err {r['max_abs_err']:.3g} (tol: {r['tol']})")
     log("measured ceilings: " + ", ".join(f"{k} {v:.2f}" for k, v in ceilings.items()))
@@ -1030,17 +1035,24 @@ def phase_probes(dev, work, report):
                 return x + torch.addmm(b2d, h, w2)
 
             reps = 10 if m * c > 1e7 else 30
+            kern = lambda: fm.fused_mlp_residual(x, w1, b1, w2, b2)  # noqa: E731
+            # the plan the wrapper takes (the planner's, with the card's report)
+            plan = fm.card_plan(m, c, e, dtype) if hasattr(fm, "card_plan") else None
             row = dict(
                 kernel="fused_mlp_residual", C=c, E=e, rows=m, dtype=str(dtype).split(".")[-1], blocks_per_forward=per_fwd,
-                ms=time_ms(lambda: fm.fused_mlp_residual(x, w1, b1, w2, b2), reps),
+                plan=plan, ms=time_ms(kern, reps), device_ms=device_ms(kern, reps),
+                host_us=host_us(kern, 200, dev),
                 plain_ms=time_ms(lambda: fm.fused_mlp_residual_plain(x, w1, b1, w2, b2), reps),
-                unfused_library_ms=time_ms(unfused, reps), **microbench.mlp_bound(m, c, e, es),
-                max_abs_err=err.max().item(), max_rel_err=rel, tol=tol,
+                unfused_library_ms=time_ms(unfused, reps), unfused_library_device_ms=device_ms(unfused, reps),
+                **microbench.mlp_bound(m, c, e, es), max_abs_err=err.max().item(), max_rel_err=rel, tol=tol,
             )
             rows.append(row)
-            log(f"fused_mlp C={c:4d} E={e:5d} M={m:8d} {row['dtype']:8s} {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, "
-                f"unfused cuBLAS {row['unfused_library_ms']:.4f}, bound {row['bound_ms']:.4f} "
-                f"{row['bound_by']}) err {row['max_abs_err']:.3g} <= {tol:.3g}")
+            log(f"fused_mlp C={c:4d} E={e:5d} M={m:8d} {row['dtype']:8s} {row['ms']:.4f} ms, device {row['device_ms']:.4f}, "
+                f"host {row['host_us']:.1f} us (plain {row['plain_ms']:.4f}, unfused cuBLAS {row['unfused_library_ms']:.4f}, "
+                f"device {row['unfused_library_device_ms']:.4f}; bound {row['bound_ms']:.4f} {row['bound_by']}) "
+                f"err {row['max_abs_err']:.3g} <= {tol:.3g}")
+            if plan is not None:
+                log(f"  plan {json.dumps(plan)}")
             del x, got, want, err
     report["probes"] = dict(tools_seconds=tools_s, launches=counts, ceilings=ceilings, records=records,
                             fused_mlp_widths=rows)

@@ -146,8 +146,13 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.conv3d_3x3_error_string.argtypes = [i]
         lib.conv3d_3x3_error_string.restype = ctypes.c_char_p
     elif name == "fused_mlp":
-        lib.fused_mlp_fwd.argtypes = [p] * 6 + [i, q, i, i, p]
+        ip = ctypes.POINTER(i)
+        lib.fused_mlp_plan_fields.argtypes = []
+        lib.fused_mlp_plan_fields.restype = i
+        lib.fused_mlp_fwd.argtypes = [p] * 6 + [ip, q, p]
         lib.fused_mlp_fwd.restype = i
+        lib.fused_mlp_plan.argtypes = [ip, q, ip]
+        lib.fused_mlp_plan.restype = i
         lib.pointwise_fwd.argtypes = [p, p, p, i, q, i, i, p]
         lib.pointwise_fwd.restype = i
         lib.fused_mlp_error_string.argtypes = [i]

@@ -47,6 +47,39 @@ inline unsigned grid_for(long long work) {
   return (unsigned)(want < 1 ? 1 : (want < cap ? want : cap));
 }
 
+// A grid of kernel `fn`'s resident blocks (its occupancy, with its static
+// shared memory and no dynamic, and the SM count asked once per device), at
+// most one a kThreads items: fewer blocks than grid_for's cap where the
+// kernel's shared memory or registers limit its residency.
+inline int resident_grid(const void* fn, long long items, unsigned* grid) {
+  struct Entry {
+    int dev;
+    const void* fn;
+    int occ;
+  };
+  static std::mutex mu;
+  static Entry seen[16];
+  static int count = 0;
+  int dev = 0, occ = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    for (int i = 0; i < count && !occ; ++i)
+      if (seen[i].dev == dev && seen[i].fn == fn) occ = seen[i].occ;
+    if (!occ) {
+      const cudaError_t oe = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fn, kThreads, 0);
+      if (oe != cudaSuccess) return (int)oe;
+      if (occ < 1) occ = 1;
+      if (count < 16) seen[count++] = Entry{dev, fn, occ};
+    }
+  }
+  const long long want = (items + kThreads - 1) / kThreads;
+  const long long cap = (long long)sm_count() * occ;
+  *grid = (unsigned)(want < 1 ? 1 : (want < cap ? want : cap));
+  return 0;
+}
+
 // ---------------------------------------------------------------------------
 // fma_chain
 // ---------------------------------------------------------------------------
@@ -340,7 +373,11 @@ int probes_fma_chain(const void* a, const void* mul, void* out, int dtype, long 
   using namespace probes;
   if (n < 1 || inner < 1 || inner > kMaxInner) return kErrShape;
   auto s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = grid_for(n / (dtype ? 16 : 8) + 1);
+  unsigned grid = 0;
+  const int e = resident_grid(dtype ? reinterpret_cast<const void*>(fma_chain_bf16)
+                                    : reinterpret_cast<const void*>(fma_chain_f32),
+                              n / (dtype ? 16 : 8) + 1, &grid);
+  if (e != 0) return e;
   if (dtype)
     fma_chain_bf16<<<grid, kThreads, 0, s>>>(static_cast<const __nv_bfloat16*>(a),
                                              static_cast<const __nv_bfloat16*>(mul), static_cast<__nv_bfloat16*>(out),
@@ -356,7 +393,11 @@ int probes_fma27(const void* x, const void* w, void* out, int dtype, long long n
   using namespace probes;
   if (n < 1) return kErrShape;
   auto s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = grid_for(n / 8 + 1);
+  unsigned grid = 0;
+  const int e = resident_grid(dtype ? reinterpret_cast<const void*>(fma27_kernel<__nv_bfloat16>)
+                                    : reinterpret_cast<const void*>(fma27_kernel<float>),
+                              n / 8 + 1, &grid);
+  if (e != 0) return e;
   if (dtype)
     fma27_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(static_cast<const __nv_bfloat16*>(x),
                                                           static_cast<const float*>(w),

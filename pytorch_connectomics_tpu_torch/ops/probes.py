@@ -98,19 +98,20 @@ def fma_chain(a: torch.Tensor, inner: int = 256) -> torch.Tensor:
     """``a``'s shape and dtype: the FMA chain of ``inner`` steps; see the
     module doc."""
     refuse_grad("fma_chain", a)
-    _require(1 <= inner <= MAX_INNER, f"inner must be in [1, {MAX_INNER}], got {inner}")
+    _require(1 <= inner <= MAX_INNER, "inner must be in [1, {}], got {}", MAX_INNER, inner)
     # bf16: the kernel rounds a * m_i + acc once, the Pallas body a * m_i first;
     # the two agree while every m_i is 1.0
-    _require(a.dtype != torch.bfloat16 or inner <= BF16_MAX_INNER, f"bfloat16 takes at most {BF16_MAX_INNER} steps")
-    if a.device.type == "cpu":
+    _require(a.dtype != torch.bfloat16 or inner <= BF16_MAX_INNER, "bfloat16 takes at most {} steps", BF16_MAX_INNER)
+    if a.is_cpu:
         return fma_chain_plain(a, inner)
     code = _dtype_code(a)
     mul = multipliers(inner, a.dtype, a.device)
     out = torch.empty_like(a)
     _check_cuda(a, mul, out)
     lib = build.load("probes")
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    _check(lib.probes_fma_chain(a.data_ptr(), mul.data_ptr(), out.data_ptr(), code, a.numel(), inner, stream), lib)
+    rc = lib.probes_fma_chain(a.data_ptr(), mul.data_ptr(), out.data_ptr(), code, a.numel(), inner,
+                              build.stream(a.get_device()))
+    _check(rc, lib)
     fma_chain.launches += 1
     return out
 
@@ -135,16 +136,16 @@ def fma27(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x``'s shape and dtype: ``round(sum_t f32(x) * w[t])`` over the 27
     taps of ``w`` (27 values, used in float32); see the module doc."""
     refuse_grad("fma27", x, w)
-    _require(w.numel() == 27, f"w must hold 27 taps, got {tuple(w.shape)}")
-    if x.device.type == "cpu":
+    _require(w.numel() == 27, "w must hold 27 taps, got {}", w.shape)
+    if x.is_cpu:
         return fma27_plain(x, w)
     code = _dtype_code(x)
-    w32 = w.reshape(27).float().contiguous()
+    w32 = w if w.dtype == torch.float32 and w.is_contiguous() else w.float().contiguous()
     out = torch.empty_like(x)
     _check_cuda(x, w32, out)
     lib = build.load("probes")
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    _check(lib.probes_fma27(x.data_ptr(), w32.data_ptr(), out.data_ptr(), code, x.numel(), stream), lib)
+    _check(lib.probes_fma27(x.data_ptr(), w32.data_ptr(), out.data_ptr(), code, x.numel(), build.stream(x.get_device())),
+           lib)
     fma27.launches += 1
     return out
 

@@ -80,6 +80,11 @@ class Recorder:
     def host_us(self, fn: Callable[[], object], n: int = 1000) -> float:
         return host_us(fn, n, self.device)
 
+    def device_ms(self, fn: Callable[[], object], reps: int = 10) -> Optional[float]:
+        """:func:`device_ms` on the card; None on the CPU, which has no
+        device time apart from the host's."""
+        return device_ms(fn, reps) if self.device.type == "cuda" else None
+
     def kernel(self, rec: Dict, fn: Callable[[], torch.Tensor], plain: Callable[[], torch.Tensor], tol,
                rule: str, reps: int = 10, plain_reps: Optional[int] = None,
                per_s: Optional[Dict[str, float]] = None) -> Dict:
@@ -121,6 +126,33 @@ def time_ms(fn: Callable[[], object], reps: int = 10, warmup: int = 2, device: O
     end.record()
     torch.cuda.synchronize(device)
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn: Callable[[], object], reps: int = 10, warmup: int = 2) -> float:
+    """Mean device time of ``fn()``: ``reps`` calls captured back to back in
+    one CUDA graph, the graph replayed once to warm up and once between two
+    CUDA events. The host's work per call (Python, checks, the launch) is not
+    in it, so beside :func:`time_ms` it says whether a call is bound by the
+    host or by the device. ``fn`` must be capturable: no synchronisation, no
+    host read of device values (the warm-up calls outside the graph may set
+    up what a first call needs)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    del graph
+    return ms
 
 
 def host_us(fn: Callable[[], object], n: int = 1000, device: Optional[torch.device] = None) -> float:

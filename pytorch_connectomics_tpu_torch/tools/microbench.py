@@ -9,7 +9,8 @@ counterpart of ``scripts/tpu_microbench.py``, section by section:
 3. ``pw_pair_112c32``: the pointwise pair 32 -> 64 -> 32 at stage 0 as
    ``torch.matmul`` + tanh-GELU, as XLA runs it in the script; then
    ``fused_mlp_112c32``: the same products with biases and the residual in
-   the port's fused kernel ``fused_mlp_residual``.
+   the port's fused kernel ``fused_mlp_residual``, beside the unfused cuBLAS
+   sequence, each also timed on the device alone (one CUDA graph).
 4. ``gn_112c32``: the per-channel GroupNorm at stage 0.
 5. ``mednext_s_fwd_b8``: the port's MedNeXt-S (stock stem, bf16) forward at
    batch 8 of 112^3, and its rate in Mvox/s.
@@ -107,11 +108,13 @@ def main(argv: Optional[List[str]] = None) -> List[Dict]:
         def unfused():  # the cuBLAS sequence: addmm, gelu, addmm, add
             return xm + torch.addmm(b2d, F.gelu(torch.addmm(b1d, xm, w1), approximate="tanh"), w2)
 
+        fused = lambda: fused_mlp.fused_mlp_residual_ndhwc(x, w1, b1, w2, b2)  # noqa: E731
         rec.kernel(
             {"name": f"fused_mlp_{s}c{c}", "kernel": "fused_mlp_residual", "rows": vox, "C": c, "E": r,
              "dtype": "bf16", "unfused_library": "addmm, gelu, addmm, add",
-             "unfused_library_ms": rec.time_ms(unfused, 5), **mlp_bound(vox, c, r, 2)},
-            lambda: fused_mlp.fused_mlp_residual_ndhwc(x, w1, b1, w2, b2),
+             "unfused_library_ms": rec.time_ms(unfused, 5), "unfused_library_device_ms": rec.device_ms(unfused, 5),
+             "device_ms": rec.device_ms(fused, 5), **mlp_bound(vox, c, r, 2)},
+            fused,
             lambda: fused_mlp.fused_mlp_residual_plain(xm, w1, b1, w2, b2).reshape(x.shape), bf16_ulps, TWO_ULPS, 5,
             per_s={"tflops": flops / 1e12, "GBps": vox * c * 2 * 2 / 1e9},
         )

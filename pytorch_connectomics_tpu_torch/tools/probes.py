@@ -83,8 +83,10 @@ def main(argv: Optional[List[str]] = None) -> List[Dict]:
     args, dev, rec, gen = setup("probes", argv)
     small = args.small
 
-    # the FMA rate: the script's shape, then one that fills the card
-    for shape in ((8, 128), (64, 128)) if small else ((256, 1024), (16384, 4096)):
+    # the FMA rate: the script's shape, then one that fills the card; at the
+    # script's shape a call is short, so its record also carries the device
+    # time alone (one CUDA graph of the calls) and the host time per call
+    for i, shape in enumerate(((8, 128), (64, 128)) if small else ((256, 1024), (16384, 4096))):
         for name, dtype in DTYPES.items():
             a = randn(gen, shape, dtype)
             n, es = a.numel(), a.element_size()
@@ -92,11 +94,13 @@ def main(argv: Optional[List[str]] = None) -> List[Dict]:
                 tol, rule = (lambda want: 1e-6 * want.abs().max().item()), "1e-6 of the largest |plain output|"
             else:
                 tol, rule = 0.0, "exact: one rounding a step both ways"
+            kern = lambda: probes.fma_chain(a, INNER)  # noqa: E731
+            short = {} if i else {"device_ms": rec.device_ms(kern, 200), "host_us": rec.host_us(kern)}
             rec.kernel(
                 {"name": f"fma_chain_{name}_{shape[0]}x{shape[1]}", "kernel": "fma_chain", "shape": list(shape),
-                 "dtype": name, "inner": INNER,
+                 "dtype": name, "inner": INNER, **short,
                  **bound(2 * n * es + INNER * es, 2 * n * INNER, PEAK_F32 if es == 4 else PEAK_BF16_CC)},
-                lambda: probes.fma_chain(a, INNER), lambda: probes.fma_chain_plain(a, INNER), tol, rule, 20, 2,
+                kern, lambda: probes.fma_chain_plain(a, INNER), tol, rule, 20, 2,
                 per_s={"tfma_s": n * INNER / 1e12},
             )
             del a

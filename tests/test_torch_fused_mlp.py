@@ -7,6 +7,8 @@ largest magnitude (the hidden activation and the output are rounded to
 bf16, so a value can land an ulp apart at each rounding)."""
 
 import functools
+import importlib.util
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -55,8 +57,9 @@ def _bf16(a):
 
 
 # (M, C, E, Pallas block_rows): M a multiple of the row block, M ragged
-# against it, MedNeXt's expansion ratio 2 and a wider ratio
-CASES = [(64, 16, 32, 32), (37, 16, 48, 16), (50, 32, 64, 16), (9, 48, 192, 8)]
+# against it, MedNeXt's expansion ratio 2 and a wider ratio, and widths that
+# are not multiples of 16 (the kernel pads its weights to the plan's widths)
+CASES = [(64, 16, 32, 32), (37, 16, 48, 16), (50, 32, 64, 16), (9, 48, 192, 8), (40, 24, 40, 16), (9, 8, 24, 8)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -152,3 +155,100 @@ def test_pointwise_is_the_first_product(dtype):
         assert np.all(err <= 1e-6 * (np.abs(xr) @ np.abs(wr).T))
     else:
         assert np.all(err <= 2.0 ** (np.floor(np.log2(np.abs(want) + 1e-30)) - 7) + 1e-30)
+
+
+# ---------------------------------------------------------------------------
+# the planner (pure Python, the same on any machine)
+# ---------------------------------------------------------------------------
+
+# (M, C, E): MedNeXt-S's five widths at the fast recipe's batch-16 row counts,
+# and the microbench's stage 0 (8 x 112^3 rows)
+WIDTHS = [(4718592, 32, 64), (589824, 64, 128), (73728, 128, 256), (9216, 256, 512), (1152, 512, 1024),
+          (11239424, 32, 64)]
+SMS = 132
+# the SMs clusters of a size can reach (16-18 SMs a GPC: two clusters of 8 a
+# GPC, one of 16), as the planner's model takes them
+CLUSTER_SMS = {1: 132, 2: 132, 4: 128, 8: 128, 16: 112}
+DTYPES = [torch.bfloat16, torch.float32]
+
+
+def _card_shapes():
+    """(M, C, E) of the card tests' shape list and forced plans."""
+    spec = importlib.util.spec_from_file_location("card_tests", Path(__file__).with_name("test_torch_kernels_cuda.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.MLP_SHAPES, mod.FORCED
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
+@pytest.mark.parametrize("width", WIDTHS, ids=lambda w: "M{}-C{}-E{}".format(*w))
+def test_kernel_plan_fits_and_fills_the_card(width, dtype):
+    """The plan's shared memory fits a block; the weights' padded widths
+    cover C and E; its blocks give every SM of the card work (a cluster's
+    blocks count once a tile; the warp kernel's blocks hold eight 16-row
+    fragments)."""
+    m, c, e = width
+    p = tm.kernel_plan(m, c, e, dtype)
+    assert p["smem_bytes"] == tm.plan_smem(p) <= 232448
+    assert p["cq"] >= c and p["eq"] >= e
+    if dtype == torch.float32:
+        units, sms = p["tiles"] * (p["cq"] // p["cb"]), SMS
+    elif p["wk"]:
+        units, sms = -(-m // 16) // 8, SMS
+    else:
+        units, sms = p["tiles"] * p["cs"], CLUSTER_SMS[p["cs"]]
+    assert units >= sms, p
+
+
+@pytest.mark.parametrize("width", WIDTHS, ids=lambda w: "M{}-C{}-E{}".format(*w))
+def test_kernel_plan_clusters_split_e_once(width):
+    """bf16: a cluster of 1, 2, 4 or 8 blocks, and 16 only where 8 blocks
+    cannot keep their slices of W1 and W2 in shared memory; the blocks'
+    E-slices cover the padded E exactly once, each with real hidden units."""
+    m, c, e = width
+    p = tm.kernel_plan(m, c, e, torch.bfloat16)
+    assert p["cs"] in (1, 2, 4, 8, 16)
+    if p["cs"] == 16:
+        assert 4 * p["cq"] * p["eq"] // 8 > 232448, p
+    slices = [range(r * p["es"], (r + 1) * p["es"]) for r in range(p["cs"])]
+    assert sorted(i for s in slices for i in s) == list(range(p["eq"]))
+    assert all(s.start < e for s in slices)
+    assert p["es"] % p["ec"] == 0 and p["ec"] % 16 == 0
+
+
+def test_every_plan_fits_shared_memory():
+    """Every plan the planner offers at the five widths fits a block and
+    holds together: resident weights or a ring of two streamed chunks beside
+    two x slots, the warps' rows and columns, a cluster's tile rows."""
+    for m, c, e in WIDTHS:
+        for dtype in DTYPES:
+            for p in tm.plans(m, c, e, dtype):
+                assert p["smem_bytes"] == tm.plan_smem(p) <= 232448
+                if dtype == torch.float32:
+                    assert p["bm"] == 16 * p["rh"] * 256 // (4 * p["eh"]) and p["eq"] % p["eh"] == 0
+                    continue
+                assert p["mf"] * p["wn"] == 8 and p["bm"] == 16 * p["mf"]
+                assert p["npw"] * p["wn"] >= p["cq"] // 16 and p["npw"] <= p["np"]
+                assert p["nbuf"] == 1 and p["ec"] == p["es"] or p["nbuf"] == 2 and p["xr"] == 2
+                if p["cs"] > 1:
+                    assert p["np"] == 8 and p["bm"] >= p["cs"]
+
+
+def test_a_plan_exists_for_every_card_test_shape():
+    """Every (M, C, E) that the card tests run has a plan in both dtypes,
+    and every forced plan of theirs is one the planner offers."""
+    shapes, forced = _card_shapes()
+    for m, c, e in shapes:
+        for dtype in DTYPES:
+            assert tm.kernel_plan(m, c, e, dtype)["smem_bytes"] <= 232448
+    for m, c, e, dtype, want in forced:
+        assert any(all(p[k] == v for k, v in want.items()) for p in tm.plans(m, c, e, dtype)), (m, c, e, want)
+
+
+def test_kernel_plan_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(RuntimeError, match="shape not supported"):
+        tm.kernel_plan(16, 2048, 16, torch.bfloat16)
+    with pytest.raises(TypeError):
+        tm.kernel_plan(16, 32, 64, torch.float16)
+    with pytest.raises(ValueError):
+        tm.kernel_plan(0, 32, 64, torch.bfloat16)

@@ -472,9 +472,13 @@ from pytorch_connectomics_tpu_torch.ops import fused_mlp as fm  # noqa: E402
 from pytorch_connectomics_tpu_torch.ops import probes  # noqa: E402
 
 # (M, C, E): MedNeXt-S's five widths at ragged row counts, a width past one
-# resident weight (streamed chunks), a chunk that does not divide E
+# resident weight (streamed chunks), a chunk that does not divide E, widths
+# that are not multiples of 16 (padded weights; x rows of 48, 16 and 14
+# bytes in bf16), and the fast recipe's row counts at the two widths the
+# planner splits across clusters
 MLP_SHAPES = [(4099, 32, 64), (1000, 64, 128), (515, 128, 256), (300, 256, 512), (77, 512, 1024),
-              (200, 48, 80), (33, 1024, 64)]
+              (200, 48, 80), (33, 1024, 64), (200, 24, 40), (77, 8, 24), (50, 7, 13), (9216, 256, 512),
+              (1152, 512, 1024)]
 
 
 def _mlp_inputs(m, c, e, dtype, device, seed=4):
@@ -495,8 +499,12 @@ def test_fused_mlp_kernel_matches_plain(device, shape, dtype):
     got, want = fm.fused_mlp_residual(x, w1, b1, w2, b2), fm.fused_mlp_residual_plain(x, w1, b1, w2, b2)
     torch.cuda.synchronize()
     assert got.shape == x.shape and got.dtype == dtype
+    _check_mlp(got, want, x, w1, b1, w2, b2)
+
+
+def _check_mlp(got, want, x, w1, b1, w2, b2):
     err = (got.float() - want.float()).abs()
-    if dtype == torch.float32:
+    if got.dtype == torch.float32:
         # f32 sums in another order and another tanh: 1e-5 of the summed magnitudes
         h = torch.nn.functional.gelu(x @ w1 + b1, approximate="tanh")
         mag = x.abs() + b2.abs() + (x.abs() @ w1.abs() + b1.abs() + h.abs()) @ w2.abs()
@@ -504,6 +512,77 @@ def test_fused_mlp_kernel_matches_plain(device, shape, dtype):
     else:
         # the hidden activation and the output are rounded: two ulps at the largest output
         assert err.max().item() <= _bf16_ulps(want, 2), (err.max().item(), _bf16_ulps(want, 2))
+
+
+# (M, C, E, dtype, what the forced plan has): every kind of plan the kernel
+# takes, each forced through the wrapper's plan argument: the bf16 warp
+# kernel (ragged M, widths not multiples of 16 and odd, stores through its
+# tile or straight from the accumulators, C 128), the block
+# kernel with resident weights and with a ring of two streamed chunks,
+# clusters of 2, 4 (resident and streamed), 8 (resident and streamed) and
+# 16 blocks, a cluster at widths that are not multiples of 16; f32 resident
+# and read through L1, several column blocks, 16-row tiles
+FORCED = [
+    (4099, 32, 64, torch.bfloat16, dict(wk=1, de=0)),
+    (4099, 32, 64, torch.bfloat16, dict(wk=1, de=1)),
+    (1000, 64, 128, torch.bfloat16, dict(wk=1)),
+    (200, 24, 40, torch.bfloat16, dict(wk=1)),
+    (50, 7, 13, torch.bfloat16, dict(wk=1)),
+    (515, 128, 256, torch.bfloat16, dict(wk=1)),
+    (515, 128, 256, torch.bfloat16, dict(cs=1, wn=4, de=1)),
+    (515, 128, 256, torch.bfloat16, dict(cs=1, nbuf=1)),
+    (515, 128, 256, torch.bfloat16, dict(cs=1, nbuf=2)),
+    (515, 128, 256, torch.bfloat16, dict(cs=1, nbuf=2, ec=32)),
+    (300, 256, 512, torch.bfloat16, dict(cs=4, nbuf=1)),
+    (515, 128, 256, torch.bfloat16, dict(cs=2)),
+    (300, 256, 512, torch.bfloat16, dict(cs=4, nbuf=2)),
+    (300, 256, 512, torch.bfloat16, dict(cs=8, nbuf=1)),
+    (300, 256, 512, torch.bfloat16, dict(cs=8, nbuf=2)),
+    (77, 512, 1024, torch.bfloat16, dict(cs=16)),
+    (1001, 48, 80, torch.bfloat16, dict(cs=2, nbuf=1)),
+    (200, 24, 40, torch.bfloat16, dict(cs=2)),
+    (4099, 32, 64, torch.bfloat16, dict(wk=0, cs=1, nbuf=2, bm=32)),
+    (1000, 64, 128, torch.float32, dict(resident=1)),
+    (1000, 64, 128, torch.float32, dict(resident=0)),
+    (515, 128, 256, torch.float32, dict(cb=64)),
+    (77, 512, 1024, torch.float32, dict(bm=16, cb=128)),
+    (200, 24, 40, torch.float32, dict(bm=64)),
+]
+
+
+def _forced_plan(m, c, e, dtype, want):
+    return next(p for p in fm.plans(m, c, e, dtype) if all(p[k] == v for k, v in want.items()))
+
+
+@pytest.mark.parametrize("case", FORCED, ids=lambda f: "M{}-C{}-E{}-{}-{}".format(
+    *f[:3], str(f[3])[6:], "-".join(f"{k}{v}" for k, v in f[4].items())))
+def test_fused_mlp_forced_plans_match_plain(device, case):
+    """Each kind of plan against the plain version, and two launches of it
+    bit-identical (a cluster sums its blocks' partials in rank order)."""
+    m, c, e, dtype, want = case
+    plan = _forced_plan(m, c, e, dtype, want)
+    x, w1, b1, w2, b2 = _mlp_inputs(m, c, e, dtype, device)
+    got = fm.fused_mlp_residual(x, w1, b1, w2, b2, plan=plan)
+    again = fm.fused_mlp_residual(x, w1, b1, w2, b2, plan=plan)
+    want_out = fm.fused_mlp_residual_plain(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _check_mlp(got, want_out, x, w1, b1, w2, b2)
+
+
+@pytest.mark.parametrize("cs", [4, 8, 16])
+def test_fused_mlp_cluster_split_is_bit_identical(device, cs):
+    """At the fast recipe's C 256 and C 512 row counts, a plan that splits E
+    across a cluster of ``cs`` blocks gives the same bits in three launches,
+    and so does the planner's own plan."""
+    for m, c, e in ((9216, 256, 512), (1152, 512, 1024)):
+        plan = _forced_plan(m, c, e, torch.bfloat16, dict(cs=cs))
+        x, w1, b1, w2, b2 = _mlp_inputs(m, c, e, torch.bfloat16, device)
+        for p in (plan, None):
+            outs = [fm.fused_mlp_residual(x, w1, b1, w2, b2, plan=p) for _ in range(3)]
+            torch.cuda.synchronize()
+            assert all(torch.equal(outs[0], o) for o in outs[1:])
+        _check_mlp(outs[0], fm.fused_mlp_residual_plain(x, w1, b1, w2, b2), x, w1, b1, w2, b2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -553,8 +632,10 @@ def test_fused_mlp_never_falls_back(device):
         fm.fused_mlp_residual(x, w1.bfloat16(), b1, w2, b2)
     with pytest.raises(TypeError):
         fm.fused_mlp_residual(x.half(), w1.half(), b1, w2.half(), b2)
-    with pytest.raises(ValueError):  # widths not multiples of 16
-        fm.fused_mlp_residual(x[:, :24].contiguous(), w1[:24].contiguous(), b1, w2[:, :24].contiguous(), b2[:24])
+    # widths that are not multiples of 16: the kernel takes them (they raised before)
+    x24, w124, w224 = x[:, :24].contiguous(), w1[:24].contiguous(), w2[:, :24].contiguous()
+    got = fm.fused_mlp_residual(x24, w124, b1, w224, b2[:24])
+    _check_mlp(got, fm.fused_mlp_residual_plain(x24, w124, b1, w224, b2[:24]), x24, w124, b1, w224, b2[:24])
     with pytest.raises(ValueError):  # not contiguous
         fm.pointwise(x.t(), torch.zeros((16, 64), device=device))
     with pytest.raises(RuntimeError, match="shape not supported"):  # bf16 C past 1024
@@ -587,12 +668,39 @@ def test_fma27_kernel_matches_plain(device, dtype):
     x = torch.from_numpy(rng.standard_normal((5, 16, 389), dtype=np.float32)).to(device, dtype)
     w = torch.from_numpy(rng.standard_normal(27).astype(np.float32) * 0.2).to(device)
     got, want = probes.fma27(x, w), probes.fma27_plain(x, w)
+    # the taps as a (3, 3, 3) float32 tensor are used in place, and in another dtype converted
+    taps = probes.fma27(x, w.reshape(3, 3, 3)), probes.fma27(x, w.double())
     torch.cuda.synchronize()
     assert got.dtype == dtype
+    assert all(torch.equal(got, t) for t in taps)
     if dtype == torch.bfloat16:
         assert torch.equal(got, want)
     else:
         assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_probe_launches_on_the_current_stream(device, dtype):
+    """The FMA probes launch on the caller's current stream (the raw handle
+    of the shared launch path) and count one launch each; a CUDA graph
+    captures them."""
+    a = torch.from_numpy(np.random.default_rng(9).standard_normal((64, 128), dtype=np.float32)).to(device, dtype)
+    w = torch.full((27,), 0.5, device=device)
+    want_chain, want_27 = probes.fma_chain(a, 64), probes.fma27(a, w)
+    before = (probes.fma_chain.launches, probes.fma27.launches)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got_chain, got_27 = probes.fma_chain(a, 64), probes.fma27(a, w)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_chain, g_27 = probes.fma_chain(a, 64), probes.fma27(a, w)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert (probes.fma_chain.launches, probes.fma27.launches) == (before[0] + 2, before[1] + 2)
+    for got, want in ((got_chain, want_chain), (got_27, want_27), (g_chain, want_chain), (g_27, want_27)):
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
