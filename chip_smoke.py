@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--phases 9,10,12]
 
-With --phases, only phases 1-2 and the listed ones of 3-12 run, and the
+With --phases, only phases 1-2 and the listed ones of 3-13 run, and the
 last line is the same {"ok": true, ...} object with the phases run; the
 kernels line needs every phase and is printed by a full run only.
 
@@ -14,10 +14,20 @@ Phases (any failure exits non-zero; no phase catches its own failure):
               (kernel, plain, bound, library yardstick) from CUDA events,
               and the plan each kernel took there (band rows, segment,
               ring, unit width, weight chunk; the card's shared memory,
-              blocks a SM, grid, registers)
+              blocks a SM, grid, registers); then the pair at the stock
+              stem's 256-wide windows (MedNeXt-S and -L stage 0 and
+              bottleneck, x bands where whole rows do not fit or fit one
+              block a SM), against plain and timed, and timed also under
+              other plans (a forced plan of narrow x bands at stage 0, the
+              cost model's best of every band width, the best whole-row
+              plan); and
+              the pair's outputs at a fast-recipe stage bit-identical to the
+              tree before x bands (tools/ring_digest.py)
   4. model    MedNeXt-S of the fast recipe at full width, seeded init: one
               (16, 96, 128, 96, 1) batch through the kernels and through the
-              plain path; 18 launches of each kernel per forward
+              plain path; 18 launches of each kernel per forward; then
+              MedNeXt-S with the stock stem on a (2, 64, 256, 256, 1) batch,
+              kernels against plain under the same limit
   5. slice    the port's CLI, --mode test, in-process, on seeded synthetic
               .npy volumes: the Lucchi++ test geometry 165x1024x768 without
               TTA, then 96x256x192 with flip TTA (8 variants); then the
@@ -29,7 +39,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
               recipes, bf16 and f32, with times (kernel, plain, bound,
               library yardstick) and the plan each kernel took there
               (band rows, segment, ring; the card's shared memory, blocks
-              a SM, grid, registers); two weight-gradient runs bit-identical
+              a SM, grid, registers); two weight-gradient runs bit-identical;
+              then a 256-wide training patch's stage 0 and bottleneck (also
+              timed under x bands, as phase 3), and the outputs at a
+              Lucchi training stage bit-identical to the tree before x bands
   7. train    one MedNeXt-S train step at the Lucchi fast recipe's training
               shape (batch 8 of 96^3, bf16, outside_block remat): loss and
               per-leaf gradients of the kernel path against the plain path,
@@ -63,7 +76,15 @@ Phases (any failure exits non-zero; no phase catches its own failure):
               the card's report), back-to-back and device-only times of the
               kernel and of the unfused cuBLAS sequence, and the host us a
               call
- 13. report   a {"kernels": [...]} line, then {"ok": true, "device": ...} last
+ 13. recipe   the port's CLI on tutorials/mito_lucchi_tpu_fast.yaml as shipped
+              (MedNeXt-S, (1,2,2) stem, bf16, outside_block remat, batch 8
+              of 96^3, reject sampling, aug_strong on the host) on a seeded
+              synthetic 165x1024x768 volume: --mode train for 20 steps with
+              one sample thread, then with cfg.system.num_workers (steps/s,
+              the pipeline's host ms per batch, the trainer's wait for data
+              and its ms a step besides), then --mode test on a seeded
+              165x1024x768 test volume restoring the second checkpoint
+ 14. report   a {"kernels": [...]} line, then {"ok": true, "device": ...} last
 
 Imports torch and the port only. Details go to build/chip_smoke/chip_smoke.json.
 """
@@ -152,19 +173,19 @@ def block_params(rng, c, r, dev):
     )
 
 
-def bounds(c, r, spatial, es):
-    """Least times (ms) of one launch of each kernel at batch BATCH, split
+def bounds(c, r, spatial, es, batch=BATCH):
+    """Least times (ms) of one launch of each kernel at ``batch``, split
     into the bytes term (each input read once, each output written once,
     over the HBM rate) and the operations term (CUDA-core FLOP over the f32
     rate, tensor-core FLOP over the bf16 rate, whichever is larger)."""
-    n = BATCH * math.prod(spatial)
+    n = batch * math.prod(spatial)
     stencil = 2 * 27 * n * c
     stats = dict(
-        bytes=(n * c * es + 27 * c * 4 + BATCH * 2 * c * 4) / PEAK_BYTES * 1e3,
+        bytes=(n * c * es + 27 * c * 4 + batch * 2 * c * 4) / PEAK_BYTES * 1e3,
         ops=(stencil + 3 * n * c) / PEAK_F32 * 1e3,
     )
     mlp, gelu = 2 * n * 2 * c * r, 10 * n * r
-    apply_bytes = 2 * n * c * es + 27 * c * 4 + 2 * r * c * es + BATCH * 2 * c * 4
+    apply_bytes = 2 * n * c * es + 27 * c * 4 + 2 * r * c * es + batch * 2 * c * 4
     if es == 2:
         ops = max((stencil + gelu) / PEAK_F32, mlp / PEAK_BF16_TC)
     else:
@@ -246,7 +267,152 @@ def phase_kernels(fb, dev, report):
             )
             del x, p, lib_p, stats, want_stats, out, want
     report["kernel_rows"] = rows
+    report["wide_pair_rows"] = phase_wide_pair(fb, dev)
+    check_digests(dev, ("dw_stats", "fused_block_apply"), report)
     return rows
+
+
+# (window, B, (Z, Y, X), C, R) of the stride-1 MedNeXt stages on the stock
+# stem's 256-wide windows at the tutorials' inference batch: MedNeXt-S on
+# neuron_liconn_mit's (64, 256, 256) (the bottleneck's whole rows do not fit
+# shared memory: x bands) and MedNeXt-L on mitoem's (32, 256, 256) (R 4096
+# at the bottleneck, R 96 at stage 0)
+WIDE_STAGES = [
+    ("S 64x256x256", 2, (64, 256, 256), 32, 64),
+    ("S 64x256x256", 2, (4, 16, 16), 512, 1024),
+    ("L 32x256x256", 4, (32, 256, 256), 32, 96),
+    ("L 32x256x256", 4, (2, 16, 16), 512, 4096),
+]
+# plans of x bands narrower than the row (WIDE_TX), forced on the 256-wide
+# stage 0: statistics and depthwise (ty, seg, ring), the bf16 apply (ty,
+# seg, cs, rc)
+WIDE_TX = 48
+WIDE_RING_PLAN = dict(ty=2, seg=8, ring=3, tx=WIDE_TX)
+WIDE_APPLY_PLAN = dict(ty=2, seg=8, cs=32, rc=32, tx=WIDE_TX)
+
+
+def whole_rows(fb, plans, x):
+    """The best of ``plans`` (the planner's, best first) that takes whole
+    rows of ``x``, where the best of all bands x; else None."""
+    whole = fb.whole_row(x)
+    return None if plans[0]["tx"] == whole else next((p for p in plans if p["tx"] == whole), None)
+
+
+def plan_keys(plan):
+    """What a log and the report keep of a ring plan (None for none)."""
+    keys = ("ty", "tx", "seg", "ring", "cs", "rc", "items", "est_clk")
+    return None if plan is None else {k: plan[k] for k in keys if k in plan}
+
+
+def stats_error(fb, x, w_dw, stats, want_stats):
+    """dw_stats against its plain version: f32 sums in another order,
+    relative to the summed magnitudes (max abs, max rel)."""
+    mag = fb.dw_stats_plain(x.abs(), w_dw.abs())[:, :1] + want_stats[:, 1:]
+    return (stats - want_stats).abs().max().item(), ((stats - want_stats).abs() / mag).max().item()
+
+
+def apply_tol(want, es):
+    """f32: FMA order. bf16: two bf16 ulps at the output's magnitude."""
+    top = want.float().abs().max().item()
+    return 2e-4 if es == 4 else 2.0 ** (math.floor(math.log2(max(top, 1.0))) - 6)
+
+
+def phase_wide_pair(fb, dev):
+    """The pair at the 256-wide windows' stages (WIDE_STAGES), bf16 and f32,
+    against the plain versions with phase 3's tolerances, timed, with the
+    plans taken; also timed under other plans: at stage 0 a forced plan of
+    x bands WIDE_TX wide, the cost model's best of every band width
+    (``every_width``) where it differs from the planner's, and the best
+    whole-row plan where the planner bands x, so that a run shows whether
+    the planner's choice between bands and rows holds on the card."""
+    log("-- the pair at the stock stem's 256-wide windows --")
+    rows = []
+    for window, batch, spatial, c, r in WIDE_STAGES:
+        for dtype in (torch.bfloat16, torch.float32):
+            es = 2 if dtype == torch.bfloat16 else 4
+            rng = np.random.default_rng(c + r)
+            x = torch.from_numpy(rng.standard_normal((batch, *spatial, c), dtype=np.float32)).to(dev, dtype)
+            p = block_params(rng, c, r, dev)
+            p.update(w1=p["w1"].to(dtype), w2=p["w2"].to(dtype))
+            want_stats = fb.dw_stats_plain(x, p["w_dw"])
+            want = fb.fused_block_apply_plain(x, want_stats, **p)
+            tol = apply_tol(want, es)
+            shape = tuple(x.shape)
+            variants = [("planner", None, None)]
+            if spatial[2] > WIDE_TX:
+                variants.append((f"forced tx {WIDE_TX}", WIDE_RING_PLAN, WIDE_APPLY_PLAN if es == 2 else None))
+            s_plans, a_plans = fb.stats_plans(shape, dtype), fb.apply_plans(shape, r, c) if es == 2 else None
+            best = (fb.stats_plans(shape, dtype, every_width=True)[0],
+                    fb.apply_plans(shape, r, c, every_width=True)[0] if es == 2 else None)
+            if best != (s_plans[0], a_plans and a_plans[0]):
+                variants.append(("best of every width", *best))
+            rows_only = (whole_rows(fb, s_plans, spatial[2]), a_plans and whole_rows(fb, a_plans, spatial[2]))
+            if rows_only != (None, None):
+                variants.append(("best of whole rows", *rows_only))
+            reps = 5
+            row = None
+            for name, s_plan, a_plan in variants:
+                stats = fb.dw_stats(x, p["w_dw"], plan=s_plan)
+                out = fb.fused_block_apply(x, want_stats, **p, plan=a_plan)
+                torch.cuda.synchronize()
+                stats_abs, stats_rel = stats_error(fb, x, p["w_dw"], stats, want_stats)
+                err = (out.float() - want.float()).abs().max().item()
+                what = f"{window} C={c} R={r} {dtype}" + ("" if name == "planner" else f" {name}")
+                if not stats_rel <= 1e-5:  # written so that NaN fails
+                    fail(f"dw_stats {what}: relative error {stats_rel:.3g} > 1e-5")
+                if not err <= tol:
+                    fail(f"fused_block_apply {what}: max error {err:.3g} > {tol:.3g}")
+                s_ms = time_ms(lambda: fb.dw_stats(x, p["w_dw"], plan=s_plan), reps)
+                if name != "planner":
+                    # a kernel without a plan here (the float32 apply) is the planner's row's
+                    a_ms = None if a_plan is None else time_ms(
+                        lambda: fb.fused_block_apply(x, want_stats, **p, plan=a_plan), reps)
+                    band = dict(variant=name, dw_stats_ms=None if s_plan is None else s_ms, apply_ms=a_ms,
+                                dw_stats_plan=plan_keys(s_plan), apply_plan=plan_keys(a_plan))
+                    row["other_plans"].append(band)
+                    log(f"{what}: " + " | ".join(
+                        f"{k} {t:.4f} ms ({q})" for k, t, q in (("dw_stats", band["dw_stats_ms"], band["dw_stats_plan"]),
+                                                               ("apply", a_ms, band["apply_plan"])) if t is not None)
+                        + f"; the planner's {row['dw_stats']['ms']:.4f} | {row['fused_block_apply']['ms']:.4f} ms")
+                    continue
+                a_ms = time_ms(lambda: fb.fused_block_apply(x, want_stats, **p), reps)
+                b_stats, b_apply = bounds(c, r, spatial, es, batch)
+                row = dict(
+                    window=window, batch=batch, C=c, R=r, spatial=list(spatial), dtype=str(dtype).split(".")[-1],
+                    plan=fb.card_plan(shape, dtype, r), other_plans=[],
+                    dw_stats=dict(ms=s_ms, plain_ms=time_ms(lambda: fb.dw_stats_plain(x, p["w_dw"]), reps),
+                                  bound_ms=max(b_stats.values()), bound_parts=b_stats,
+                                  max_abs_err=stats_abs, max_rel_err=stats_rel),
+                    fused_block_apply=dict(ms=a_ms,
+                                           plain_ms=time_ms(lambda: fb.fused_block_apply_plain(x, want_stats, **p),
+                                                            reps),
+                                           bound_ms=max(b_apply.values()), bound_parts=b_apply,
+                                           max_abs_err=err, tol=tol),
+                )
+                rows.append(row)
+                for kname, k in row["plan"].items():
+                    log(f"  plan {kname}: " + ", ".join(f"{key} {val}" for key, val in k.items()))
+                sr, ar = row["dw_stats"], row["fused_block_apply"]
+                log(f"{what}: dw_stats {sr['ms']:.4f} ms (plain {sr['plain_ms']:.4f}, bound {sr['bound_ms']:.4f}, "
+                    f"rel err {stats_rel:.2g}) | apply {ar['ms']:.4f} ms (plain {ar['plain_ms']:.4f}, bound "
+                    f"{ar['bound_ms']:.4f}, err {err:.3g} <= {tol:.3g})")
+            del x, p, want_stats, want, stats, out
+            torch.cuda.empty_cache()
+    return rows
+
+
+def check_digests(dev, prefixes, report):
+    """The ring kernels at fixed seeded inputs against the digests of the
+    tree before the ring had x bands (tools/ring_digest.py): bit identity
+    where whole rows fit."""
+    from pytorch_connectomics_tpu_torch.tools import ring_digest
+
+    got = {k: v for k, v in ring_digest.digests(dev).items() if k.startswith(prefixes)}
+    want = {k: v for k, v in ring_digest.DIGESTS.items() if k.startswith(prefixes)}
+    report.setdefault("digests", {}).update(got)
+    if got != want:
+        fail(f"ring kernels' outputs differ from the tree before x bands: {got} != {want}")
+    log(f"bit-identical to the tree before x bands: {sorted(got)}")
 
 
 def phase_model(fb, dev, report):
@@ -297,7 +463,51 @@ def phase_model(fb, dev, report):
         bf16_tol=tol, fault_probe_max_abs_err=probes,
         f32_batch2_max_abs_err=err32, f32_max_abs_ref=top32, launches_per_forward=counts,
     )
-    del model, model32, out, ref
+    del model, model32, out, ref, out32, ref32
+    torch.cuda.empty_cache()
+    report["model"]["stock_stem_wide"] = wide_forward(fb, dev)
+
+
+# a window of neuron_liconn_mit's MedNeXt-S (stock stem), at its inference batch
+WIDE_WINDOW, WIDE_BATCH = (64, 256, 256), 2
+
+
+def wide_forward(fb, dev):
+    """MedNeXt-S bf16 with the stock stem on one (64, 256, 256) window,
+    batch 2: the fused kernels (x bands at the bottleneck) against the plain
+    path, under phase 4's model limit."""
+    from pytorch_connectomics_tpu_torch.models import build_model
+
+    cfg = load_model_config()
+    cfg.model.mednext.patchify_stem = False
+    cfg.model.input_size = list(WIDE_WINDOW)
+    model = build_model(cfg.model, device=dev, seed=0)
+    shape = (WIDE_BATCH, *WIDE_WINDOW, 1)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(shape, dtype=np.float32)).to(dev)
+    with torch.inference_mode():
+        fb.reset_launch_counts()
+        out = model(x)
+        torch.cuda.synchronize()
+        counts = {k.__name__: k.launches for k in fb.KERNELS}
+        if any(v != 18 for v in counts.values()):
+            fail(f"one stock-stem forward should launch each kernel 18 times, got {counts}")
+        ref = model(x, plain=True)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        top = ref.abs().max().item()
+        if not torch.isfinite(out).all() or out.shape != shape:
+            fail(f"stock-stem model output not finite or of shape {tuple(out.shape)}")
+        tol = MODEL_BF16_TOL * max(top, 1.0)
+        if not err <= tol:
+            fail(f"stock-stem model {shape}: kernel path vs plain max error {err:.3g} > {tol:.3g}")
+        ms = time_ms(lambda: model(x), reps=3, warmup=1)
+        plain_ms = time_ms(lambda: model(x, plain=True), reps=3, warmup=1)
+    log(f"MedNeXt-S stock stem bf16 {shape}: kernel path {ms:.2f} ms, plain path {plain_ms:.2f} ms, "
+        f"max err {err:.4g} <= {tol:.4g} (max |ref| {top:.3g}); launches {counts}")
+    del model, x, out, ref
+    torch.cuda.empty_cache()
+    return dict(shape=list(shape), ms=ms, plain_ms=plain_ms, max_abs_err=err, max_abs_ref=top, tol=tol,
+                launches_per_forward=counts)
 
 
 def fault_probes(model, x, ref):
@@ -534,6 +744,103 @@ def phase_depthwise(dwk, dev, report):
                 )
                 del x, dy, xn, dyn, gw, gb, gw2, gb2, ww, wb, mw, mb
     report["depthwise_rows"] = rows
+    report["wide_depthwise_rows"] = phase_wide_depthwise(dwk, dev)
+    check_digests(dev, ("depthwise3x3",), report)
+    return rows
+
+
+# ((Z, Y, X), C) of the stride-1 MedNeXt-S training stages on
+# neuron_liconn_mit's (64, 256, 256) patch (stock stem, batch 2): the 256-wide
+# stage 0 and the bottleneck (x bands in f32)
+WIDE_DW = [((64, 256, 256), 32), ((4, 16, 16), 512)]
+WIDE_DW_BATCH = 2
+
+
+def phase_wide_depthwise(dwk, dev):
+    """The depthwise kernels at WIDE_DW, bf16 and f32, against their plain
+    versions with phase 6's tolerances, timed, with the plans taken; also
+    timed under other plans, as :func:`phase_wide_pair`."""
+    from pytorch_connectomics_tpu_torch.ops import fused_block as fb
+
+    log("-- the depthwise kernels at a 256-wide training patch --")
+    rows = []
+    for spatial, c in WIDE_DW:
+        shape = (WIDE_DW_BATCH, *spatial, c)
+        n = math.prod(shape[:4])
+        for dtype in (torch.bfloat16, torch.float32):
+            es = 2 if dtype == torch.bfloat16 else 4
+            rng = np.random.default_rng(c + 1)
+            x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
+            dy = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
+            w = torch.from_numpy(rng.standard_normal((c, 1, 3, 3, 3)).astype(np.float32) * 0.3).to(dev)
+            b = torch.from_numpy(rng.standard_normal(c).astype(np.float32)).to(dev)
+            wf = w.flip((2, 3, 4))
+            want_f = dwk.depthwise3x3_plain(x, w, b)
+            want_g = dwk.depthwise3x3_plain(dy, wf)
+            ww, wb = dwk.depthwise3x3_wgrad_plain(x, dy)
+            mw, mb = dwk.depthwise3x3_wgrad_plain(x.float().abs(), dy.float().abs())
+            tols = []
+            for args, want in (((x, w), want_f), ((dy, wf), want_g)):
+                mag = dwk.depthwise3x3_plain(args[0].float().abs(), args[1].abs()).abs().max().item()
+                top = want.float().abs().max().item()
+                tols.append(1e-5 * mag if es == 4 else 2.0 ** (math.floor(math.log2(max(top, 1e-30))) - 6))
+            variants = [("planner", None, None)]
+            if spatial[2] > WIDE_TX:
+                variants.append((f"forced tx {WIDE_TX}", WIDE_RING_PLAN, WIDE_RING_PLAN))
+            found = [dwk.plans(kind, shape, dtype) for kind in (0, 1)]
+            best = tuple(dwk.plans(kind, shape, dtype, every_width=True)[0] for kind in (0, 1))
+            if best != tuple(f[0] for f in found):
+                variants.append(("best of every width", *best))
+            rows_only = tuple(whole_rows(fb, f, spatial[2]) for f in found)
+            if rows_only != (None, None):
+                variants.append(("best of whole rows", *rows_only))
+            reps = 5
+            row = None
+            for name, f_plan, g_plan in variants:
+                got_f = dwk.run_fwd(x, w, b, plan=f_plan)
+                got_g = dwk.run_fwd(dy, w, mirror=True, plan=f_plan)
+                gw, gb = dwk.run_wgrad(x, dy, plan=g_plan)
+                torch.cuda.synchronize()
+                errs = [(got_f.float() - want_f.float()).abs().max().item(),
+                        (got_g.float() - want_g.float()).abs().max().item()]
+                rel = max(((gw - ww).abs() / (mw + 1e-30)).max().item(), ((gb - wb).abs() / (mb + 1e-30)).max().item())
+                what = f"C={c} {shape} {dtype}" + ("" if name == "planner" else f" {name}")
+                for kname, err, tol in zip(("forward", "input_grad"), errs, tols):
+                    if not err <= tol:  # written so that NaN fails
+                        fail(f"depthwise3x3 {kname} {what}: max error {err:.3g} > {tol:.3g}")
+                if not rel <= 1e-5:
+                    fail(f"depthwise3x3_wgrad {what}: relative error {rel:.3g} > 1e-5")
+                f_ms = time_ms(lambda: dwk.run_fwd(x, w, b, plan=f_plan), reps)
+                g_ms = time_ms(lambda: dwk.run_wgrad(x, dy, plan=g_plan), reps)
+                if name != "planner":
+                    band = dict(variant=name, forward_ms=None if f_plan is None else f_ms,
+                                wgrad_ms=None if g_plan is None else g_ms,
+                                forward_plan=plan_keys(f_plan), wgrad_plan=plan_keys(g_plan))
+                    row["other_plans"].append(band)
+                    log(f"{what}: " + " | ".join(
+                        f"{k} {t:.4f} ms ({q})" for k, t, q in (("fwd", band["forward_ms"], band["forward_plan"]),
+                                                               ("wgrad", band["wgrad_ms"], band["wgrad_plan"]))
+                        if t is not None) + f"; the planner's {row['forward']['ms']:.4f} | {row['wgrad']['ms']:.4f} ms")
+                    continue
+                b_fwd, b_wgrad = dw_bounds(n, c, es)
+                row = dict(
+                    C=c, spatial=list(spatial), batch=WIDE_DW_BATCH, dtype=str(dtype).split(".")[-1],
+                    plan=dwk.card_plan(shape, dtype), other_plans=[],
+                    forward=dict(ms=f_ms, plain_ms=time_ms(lambda: dwk.depthwise3x3_plain(x, w, b), reps),
+                                 bound_ms=max(b_fwd.values()), bound_parts=b_fwd, max_abs_err=errs[0], tol=tols[0]),
+                    input_grad=dict(ms=time_ms(lambda: dwk.depthwise3x3_input_grad(dy, w), reps),
+                                    bound_ms=max(b_fwd.values()), max_abs_err=errs[1], tol=tols[1]),
+                    wgrad=dict(ms=g_ms, plain_ms=time_ms(lambda: dwk.depthwise3x3_wgrad_plain(x, dy), reps),
+                               bound_ms=max(b_wgrad.values()), bound_parts=b_wgrad, max_rel_err=rel),
+                )
+                rows.append(row)
+                for kname, k in row["plan"].items():
+                    log(f"  plan {kname}: " + ", ".join(f"{key} {val}" for key, val in k.items()))
+                f, g, wg = row["forward"], row["input_grad"], row["wgrad"]
+                log(f"{what}: fwd {f['ms']:.4f} ms (plain {f['plain_ms']:.4f}, bound {f['bound_ms']:.4f}) | dgrad "
+                    f"{g['ms']:.4f} | wgrad {wg['ms']:.4f} ms (plain {wg['plain_ms']:.4f}, bound {wg['bound_ms']:.4f})")
+            del x, dy, want_f, want_g, got_f, got_g, gw, gb, ww, wb, mw, mb
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -710,6 +1017,100 @@ def phase_cli_train_test(dwk, fb, dev, work, report):
                          losses=losses, train_launches=train_counts, test_launches=test_counts,
                          restored=restored, test_metrics=metrics)
     return train_counts
+
+
+# the fast recipe's training leg as shipped, cut to FAST_STEPS steps, on
+# seeded synthetic volumes of the Lucchi++ geometry
+FAST_STEPS = 20
+LUCCHI_SHAPE = (165, 1024, 768)
+
+
+def phase_fast_recipe(dwk, fb, dev, work, report):
+    log("== phase 13: the fast recipe trained as shipped through the CLI, then tested ==")
+    import shutil
+
+    from pytorch_connectomics_tpu_torch.config import load_config
+    from pytorch_connectomics_tpu_torch.runtime.cli import parse_args
+    from pytorch_connectomics_tpu_torch.runtime.dispatch import dispatch_runtime
+
+    run_root = work / "fast_recipe"
+    shutil.rmtree(run_root, ignore_errors=True)
+    shape = "shape={},{},{}".format(*LUCCHI_SHAPE)
+    over = [
+        f"data.train.image=synthetic://em2/lucchi_train_image?{shape}&seed=11",
+        f"data.train.label=synthetic://em2/lucchi_train_label?{shape}&seed=11",
+        f"data.test.image=synthetic://em2/lucchi_test_image?{shape}&seed=12",
+        f"data.test.label=synthetic://em2/lucchi_test_label?{shape}&seed=12",
+        f"optimization.n_steps_per_epoch={FAST_STEPS}", "optimization.max_epochs=1",
+        "monitor.logging.scalar.loss_every_n_steps=5",
+    ]
+    flags = ["--config", str(RECIPE), "--device", str(dev)]
+    cfg = load_config(RECIPE, overrides=over, mode="train")
+    aug, dl, m = cfg.data.augmentation, cfg.data.dataloader, cfg.model
+    shipped = (aug.enabled and not aug.on_device and aug.elastic and aug.cut_blur and dl.batch_size == 8
+               and list(dl.patch_size) == [96, 96, 96] and dl.reject_sampling.get("enabled")
+               and m.compute_dtype == "bfloat16" and m.mednext.checkpoint_style == "outside_block"
+               and m.mednext.patchify_stem and list(m.mednext.patchify_stride) == [1, 2, 2] and m.mednext.size == "S")
+    if not shipped:
+        fail("the fast recipe no longer trains MedNeXt-S bf16 (1,2,2) stem, remat, batch 8 of 96^3, aug_strong")
+    threads = cfg.system.num_workers
+
+    def train_leg(n):
+        """The train leg with ``n`` sample threads: its trainer stats, its
+        rate from step 5 on, its losses, its launches and its result."""
+        dwk.reset_launch_counts()
+        fb.reset_launch_counts()
+        leg_over = over + [f"system.num_workers={n}", f"save_path={run_root / f'threads{n}'}"]
+        res = dispatch_runtime(parse_args(flags + ["--mode", "train"] + leg_over))
+        torch.cuda.synchronize()
+        counts = {k.__name__: k.launches for k in dwk.KERNELS + fb.KERNELS}
+        if any(k.launches <= 0 for k in dwk.KERNELS):
+            fail(f"the fast recipe's train leg did not run through both depthwise kernels: {counts}")
+        recs = [json.loads(line) for line in (Path(res["run_dir"]) / "metrics.jsonl").read_text().splitlines()]
+        losses = [r["train_loss_total"] for r in recs if "train_loss_total" in r]
+        if len(losses) < 2 or not all(math.isfinite(v) for v in losses):
+            fail(f"fast recipe train leg losses missing or not finite: {losses}")
+        st = res["train_stats"]
+        if st["steps"] != FAST_STEPS or not res["checkpoint"]:
+            fail(f"fast recipe train leg: {st['steps']} steps, checkpoint {res['checkpoint']}")
+        # steps 6-20 (each logged rate covers the steps since the last log)
+        rates = [(r["step"], r["train_steps_per_sec"]) for r in recs if "train_steps_per_sec" in r]
+        late = [(s1 - s0, v) for (s0, _), (s1, v) in zip(rates, rates[1:]) if s0 >= 5]
+        stats = dict(threads=n, train_stats=st, steps_per_s=st["steps"] / st["seconds"],
+                     steady_steps_per_s=sum(k for k, _ in late) / sum(k / v for k, v in late),
+                     pipeline_host_ms_per_batch=st["pipeline_host_seconds"] / max(1, st["pipeline_batches"]) * 1e3,
+                     data_wait_ms_per_step=st["data_wait_seconds"] / st["steps"] * 1e3,
+                     step_ms=(st["seconds"] - st["data_wait_seconds"]) / st["steps"] * 1e3, losses=losses,
+                     launches=counts)
+        log(f"train leg (aug_strong on the host, {n} sample thread(s)): {st['steps']} steps in {st['seconds']:.2f} s "
+            f"({stats['steps_per_s']:.3f} steps/s, {stats['steady_steps_per_s']:.3f} from step 5), pipeline host "
+            f"{stats['pipeline_host_ms_per_batch']:.1f} ms per batch ({st['pipeline_batches']} batches), waited "
+            f"{stats['data_wait_ms_per_step']:.1f} ms a step for batches, {stats['step_ms']:.1f} ms a step besides; "
+            f"losses {losses[0]:.4f} -> {losses[-1]:.4f}; launches {counts}")
+        return stats, res
+
+    # one sample thread, then the resolved count, whose checkpoint the test leg restores
+    legs = {n: train_leg(n) for n in sorted({1, threads})}
+    leg, res = legs[threads]
+    fb.reset_launch_counts()
+    test_over = over + [f"save_path={run_root / f'threads{threads}'}"]
+    test_res = dispatch_runtime(parse_args(flags + ["--mode", "test"] + test_over))
+    torch.cuda.synchronize()
+    test_counts = {k.__name__: k.launches for k in fb.KERNELS}
+    restored = test_res.get("restored") or {}
+    if restored.get("checkpoint") != res["checkpoint"] or restored.get("step") != FAST_STEPS:
+        fail(f"the fast recipe's test leg did not restore {res['checkpoint']}: {restored}")
+    if any(v <= 0 for v in test_counts.values()):
+        fail(f"the fast recipe's test leg did not run through the fused kernels: {test_counts}")
+    metrics = next(iter(test_res["metrics"].values()))
+    if "jaccard" not in metrics or not math.isfinite(metrics["jaccard"]):
+        fail(f"fast recipe test leg metrics: {metrics}")
+    log(f"test leg restored {restored['checkpoint']} (step {restored['step']}, config hash matches: "
+        f"{restored.get('config_hash_matches')}, the recipe's train and test sections differ): jaccard "
+        f"{metrics['jaccard']:.4f} ({FAST_STEPS} steps: measures nothing); launches {test_counts}")
+    report["fast_recipe"] = dict(sample_threads=threads, legs={n: v[0] for n, v in legs.items()},
+                                 train_launches=leg["launches"], test_launches=test_counts, restored=restored,
+                                 test_metrics=metrics)
 
 
 def conv_bounds(n, cin, cout, es):
@@ -1156,11 +1557,11 @@ def main(argv=None) -> None:
 
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU and check it.")
     ap.add_argument("--phases", default=None,
-                    help="comma-separated phases of 3-12 to run after the device and build phases (default: all)")
+                    help="comma-separated phases of 3-13 to run after the device and build phases (default: all)")
     args = ap.parse_args(argv)
     phases = None if args.phases is None else {int(p) for p in args.phases.split(",")}
-    if phases is not None and not phases <= set(range(3, 13)):
-        ap.error("--phases takes phases 3-12")
+    if phases is not None and not phases <= set(range(3, 14)):
+        ap.error("--phases takes phases 3-13")
 
     def want(n):
         return phases is None or n in phases
@@ -1237,8 +1638,10 @@ def main(argv=None) -> None:
 
     if want(12):
         probe_records, probe_counts = phase_probes(dev, work, report)
+    if want(13):
+        phase_fast_recipe(dwk, fb, dev, work, report)
 
-    log("== phase 13: report ==")
+    log("== phase 14: report ==")
     report["total_seconds"] = time.perf_counter() - started
     log(f"chip_smoke ran in {report['total_seconds']:.1f} s")
     device = {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}

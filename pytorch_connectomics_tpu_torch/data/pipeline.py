@@ -9,28 +9,31 @@ volume gives bit-identical batches in both packages. Batches are stacked
 channels-last ``(N, Z, Y, X, C)`` float32 numpy arrays; the trainer moves
 them to the device.
 
-This slice ports the cached in-RAM dataset without host augmentation: a
-configured augmentation block, lazy (zarr) datasets, nnU-Net
-preprocessing, auxiliary label volumes, target context, read-time
-downscaling, paired data transforms, axis-range splits and per-channel
-target masks raise ``NotImplementedError``.
+A training pipeline augments each sample on the host after the crop and
+before the targets (:mod:`.augment`, the same draws from the same
+generator), and makes the samples of a batch in a pool of
+``cfg.system.num_workers`` threads; the batches do not depend on the
+thread count. This slice ports the cached in-RAM dataset: on-device
+augmentation, lazy (zarr) datasets, nnU-Net preprocessing, auxiliary label
+volumes, target context, read-time downscaling, paired data transforms,
+axis-range splits and per-channel target masks raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import queue
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
 from ..config.schema import Config, DatasetSplitConfig
+from .augment import build_augmentation_fn
 from .datasets import RejectConfig, VolumeDataset
 from .targets import build_target_fn
-
-_AUG_SWITCHES = ("profile", "enabled", "on_device")
 
 
 def _reject_from_cfg(block) -> Optional[RejectConfig]:
@@ -42,25 +45,6 @@ def _reject_from_cfg(block) -> Optional[RejectConfig]:
         max_attempts=int(block.get("max_attempts", 20)),
         prob=float(block.get("prob", 0.95)),
     )
-
-
-def check_augmentation(aug_cfg) -> None:
-    """Raise when the resolved augmentation config enables any block: host
-    and on-device augmentation are not ported yet, and a block must not be
-    skipped silently."""
-    if aug_cfg is None or not aug_cfg.enabled:
-        return
-    names = [f.name for f in dataclasses.fields(aug_cfg) if f.name not in _AUG_SWITCHES]
-    names += sorted(getattr(aug_cfg, "extra", None) or {})
-    on = []
-    for name in names:
-        block = getattr(aug_cfg, name, None)
-        if block is None:
-            block = (getattr(aug_cfg, "extra", None) or {}).get(name)
-        if block and (not isinstance(block, dict) or block.get("enabled", True)):
-            on.append(name)
-    if on:
-        raise NotImplementedError(f"augmentation is not ported yet: {', '.join(on)}")
 
 
 def build_dataset(cfg: Config, split_cfg: DatasetSplitConfig, train: bool = True, device=None) -> VolumeDataset:
@@ -102,34 +86,53 @@ def make_train_val_datasets(cfg: Config, device=None):
 
 
 class PatchPipeline:
-    """Assembles batches: sample -> target generation -> NDHWC stack."""
+    """Assembles batches: sample -> augment (training only) -> target
+    generation -> NDHWC stack, the samples of a batch in a pool of
+    ``num_threads`` threads."""
 
-    def __init__(self, dataset, batch_size: int, seed: int = 0, target_cfg=None, prefetch: int = 2, train: bool = True):
+    def __init__(self, dataset, batch_size: int, seed: int = 0, augment_cfg=None, target_cfg=None,
+                 num_threads: int = 4, prefetch: int = 2, train: bool = True):
         self.dataset = dataset
         self.batch_size = int(batch_size)
         self.seed = seed
         self.train = train
+        self.augment = build_augmentation_fn(augment_cfg if train else None,
+                                             sample_other=lambda rng: self.dataset.sample(rng))
         self.target_fn = build_target_fn(target_cfg)
         if getattr(dataset, "has_unlabeled", False):
             raise NotImplementedError("per-channel target masks of unlabeled (-1) voxels are not ported yet")
+        self.num_threads = max(1, int(num_threads))
         self.prefetch = prefetch
-        # host time spent making batches, and their count
+        self._pool: Optional[ThreadPoolExecutor] = None
+        # host time spent making batches (wall clock, the pool's threads
+        # together), and their count
         self.host_seconds = 0.0
         self.batches = 0
 
     def _make_sample(self, step: int, slot: int) -> Dict[str, np.ndarray]:
         rng = np.random.default_rng(np.random.SeedSequence([self.seed, 0 if self.train else 1, step, slot]))
         s = self.dataset.sample(rng)
+        if self.augment is not None:
+            s = self.augment(s, rng)
         if self.target_fn is not None and "label" in s:
             s["label"] = self.target_fn(s["label"])
         return s
 
     def make_batch(self, step: int) -> Dict[str, np.ndarray]:
         t0 = time.perf_counter()
-        batch = self.collate([self._make_sample(step, i) for i in range(self.batch_size)])
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(self.num_threads, thread_name_prefix="patch")
+        samples = list(self._pool.map(lambda slot: self._make_sample(step, slot), range(self.batch_size)))
+        batch = self.collate(samples)
         self.host_seconds += time.perf_counter() - t0
         self.batches += 1
         return batch
+
+    def close(self) -> None:
+        """Stop the sample threads (a later batch starts them again)."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+            self._pool = None
 
     @staticmethod
     def collate(samples: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
@@ -179,21 +182,26 @@ class PatchPipeline:
         finally:
             stop.set()
             t.join(timeout=10)
+            self.close()
 
 
 def build_pipelines(cfg: Config, device=None):
-    """Config -> (train PatchPipeline, val PatchPipeline or None)."""
-    check_augmentation(cfg.data.augmentation)
+    """Config -> (train PatchPipeline, val PatchPipeline or None). The train
+    pipeline augments on the host; augmentation configured to run on the
+    device raises, since it is not ported yet."""
+    aug = cfg.data.augmentation
+    if aug.on_device and build_augmentation_fn(aug) is not None:
+        raise NotImplementedError("on-device augmentation is not ported yet")
     train_ds, val_ds = make_train_val_datasets(cfg, device)
     dl = cfg.data.dataloader
     train_pipe = PatchPipeline(
-        train_ds, dl.batch_size, seed=cfg.system.seed, target_cfg=cfg.data.label_transform,
-        prefetch=dl.prefetch, train=True,
+        train_ds, dl.batch_size, seed=cfg.system.seed, augment_cfg=aug, target_cfg=cfg.data.label_transform,
+        num_threads=cfg.system.num_workers, prefetch=dl.prefetch, train=True,
     )
     val_pipe = None
     if val_ds is not None:
         val_pipe = PatchPipeline(
             val_ds, dl.val_batch_size or dl.batch_size, seed=cfg.system.seed,
-            target_cfg=cfg.data.label_transform, prefetch=1, train=False,
+            target_cfg=cfg.data.label_transform, num_threads=1, prefetch=1, train=False,
         )
     return train_pipe, val_pipe

@@ -22,9 +22,9 @@
 //    bound it.
 //
 // Design: both kernels walk the z-marching slab ring of ring.cuh with the
-// numbers ops/depthwise.py::kernel_plan picks per shape (band rows ty,
-// segment seg, 3 or 4 ring slots). Persistent blocks take the work items
-// (b, band, segment) in turn; the next slab arrives by cp.async under the
+// numbers ops/depthwise.py::kernel_plan picks per shape (band rows ty, band
+// columns tx, segment seg, 3 or 4 ring slots). Persistent blocks take the
+// work items (b, segment, y band, x band) in turn; the next slab arrives by cp.async under the
 // current slab's stencil; slabs are zero-filled outside the volume, so no
 // tap is masked. A thread owns one channel pair (C <= 512) and runs of three
 // x outputs of a band row, with the pair's 54 taps in registers for all of
@@ -88,38 +88,39 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 
   for (int item = blockIdx.x; item < g.items; item += gridDim.x) {
-    int b, y0, z0, z1;
-    item_origin(g, item, b, y0, z0, z1);
+    int b, y0, x0, z0, z1;
+    item_origin(g, item, b, y0, x0, z0, z1);
     const long long vol = (long long)g.Z * g.Y * g.X * C;
     const T* xb = x + b * vol;
     const int yv = min(g.ty, g.Y - y0);  // rows of the band inside the volume
+    const int xv = min(g.tw, g.X - x0);  // its columns inside the volume
     __syncthreads();  // the last item's stencil is done with the ring
     // slab z lives in slot (z - z0 + 1) % nr
-    for (int d = 0; d < 3; ++d) stage_slab<T, CT>(xb, ring + d * slab, z0 - 1 + d, y0, g);
+    for (int d = 0; d < 3; ++d) stage_slab<T, CT>(xb, ring + d * slab, z0 - 1 + d, y0, x0, g);
     cp_async_commit();
     for (int z = z0; z < z1; ++z) {
       cp_async_wait<0>();
       __syncthreads();  // slab z + 1 has landed; with four slots, slab z - 2's slot is free
-      if (g.nr == 4 && z + 2 <= z1) stage_slab<T, CT>(xb, ring + ((z + 3 - z0) % 4) * slab, z + 2, y0, g);
+      if (g.nr == 4 && z + 2 <= z1) stage_slab<T, CT>(xb, ring + ((z + 3 - z0) % 4) * slab, z + 2, y0, x0, g);
       cp_async_commit();
       const T* s0 = ring + ((z - z0) % g.nr) * slab;
       const T* s1 = ring + ((z - z0 + 1) % g.nr) * slab;
       const T* s2 = ring + ((z - z0 + 2) % g.nr) * slab;
       if (ln.active) {
-        T* ob = out + b * vol + (((long long)z * g.Y + y0) * g.X) * C + 2 * p;
+        T* ob = out + b * vol + (((long long)z * g.Y + y0) * g.X + x0) * C + 2 * p;
         stencil_band<T, CT>(s0, s1, s2, p, ln, g, C, kw, [&](int ry, int rx, const float2(&a)[kRun]) {
           if (ry < yv) {
 #pragma unroll
             for (int q = 0; q < kRun; ++q) {
               const int xx = kRun * rx + q;
-              if (xx < g.X) store2(ob + ((long long)ry * g.X + xx) * C, a[q].x + bb.x, a[q].y + bb.y);
+              if (xx < xv) store2(ob + ((long long)ry * g.X + xx) * C, a[q].x + bb.x, a[q].y + bb.y);
             }
           }
         });
       }
       if (g.nr == 3) {
         __syncthreads();  // slab z - 1's slot is free
-        if (z + 2 <= z1) stage_slab<T, CT>(xb, ring + ((z + 3 - z0) % 3) * slab, z + 2, y0, g);
+        if (z + 2 <= z1) stage_slab<T, CT>(xb, ring + ((z + 3 - z0) % 3) * slab, z + 2, y0, x0, g);
         cp_async_commit();
       }
     }
@@ -130,14 +131,14 @@ __global__ void __launch_bounds__(kThreads, 2)
 // weight and bias gradient
 // ---------------------------------------------------------------------------
 
-// voxels of a dy slab row: the band row's runs of three
+// voxels of a dy slab row: the band row's runs of three (tx)
 __host__ __device__ __forceinline__ int dy_row(const Ring& g) { return kRun * g.nrx; }
 
 // slots of the dy ring: 2 beside four x slots, 1 beside three
 __host__ __device__ __forceinline__ int dy_slots(const Ring& g) { return g.nr - 2; }
 
 // Shared memory of the weight gradient: the x ring, then the dy ring of
-// dy_slots slabs [ty][3 nrx][C]; once an item is done, its run slots' sums
+// dy_slots slabs [ty][tx][C]; once an item is done, its run slots' sums
 // red[tv][kRows][C] (float) alias the start of it. red is not needed when
 // one slot covers the band (tv == 1: C > 256, where the threads past the
 // C / 2 pairs are inactive).
@@ -157,10 +158,10 @@ __host__ __device__ inline WgradLayout wgrad_layout(const Ring& g, int es) {
   return l;
 }
 
-// Issue the copies of dy at slab z's band outputs into dst[ty][3 nrx][C]:
-// voxel (y0 + yy, xx), zero where it lies outside the volume.
+// Issue the copies of dy at slab z's band outputs into dst[ty][tx][C]:
+// voxel (y0 + yy, x0 + xx), zero where it lies outside the volume.
 template <typename T, int CT>
-__device__ __forceinline__ void stage_dy(const T* __restrict__ db, T* __restrict__ dst, int z, int y0,
+__device__ __forceinline__ void stage_dy(const T* __restrict__ db, T* __restrict__ dst, int z, int y0, int x0,
                                          const Ring& g) {
   constexpr int per = 16 / (int)sizeof(T);
   const int C = CT ? CT : g.C;
@@ -170,9 +171,9 @@ __device__ __forceinline__ void stage_dy(const T* __restrict__ db, T* __restrict
   for (int i = threadIdx.x; i < total; i += kThreads) {
     const int yy = i / row, rem = i - yy * row;
     const int xx = rem / vec, q = rem - xx * vec;
-    const int y = y0 + yy;
-    const bool valid = y < g.Y && xx < g.X;
-    const T* src = valid ? db + (((long long)z * g.Y + y) * g.X + xx) * C + q * per : db;
+    const int y = y0 + yy, xg = x0 + xx;
+    const bool valid = y < g.Y && xg < g.X;
+    const T* src = valid ? db + (((long long)z * g.Y + y) * g.X + xg) * C + q * per : db;
     cp_async16(dst + (size_t)i * per, src, valid);
   }
 }
@@ -227,8 +228,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int runs = g.ty * g.nrx, rowlen = g.xp * C;
 
   for (int item = blockIdx.x; item < g.items; item += gridDim.x) {
-    int b, y0, z0, z1;
-    item_origin(g, item, b, y0, z0, z1);
+    int b, y0, x0, z0, z1;
+    item_origin(g, item, b, y0, x0, z0, z1);
     const long long vol = (long long)g.Z * g.Y * g.X * C;
     const T* xb = x + b * vol;
     const T* db = dy + b * vol;
@@ -237,15 +238,15 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int k = 0; k < kRows; ++k) acc[k] = make_float2(0.f, 0.f);
     __syncthreads();  // the last item's reduction is done with red (the ring)
     // x slab z lives in slot (z - z0 + 1) % nr, dy slab z in slot (z - z0) % (nr - 2)
-    for (int d = 0; d < 3; ++d) stage_slab<T, CT>(xb, ring + d * slab, z0 - 1 + d, y0, g);
-    stage_dy<T, CT>(db, dring, z0, y0, g);
+    for (int d = 0; d < 3; ++d) stage_slab<T, CT>(xb, ring + d * slab, z0 - 1 + d, y0, x0, g);
+    stage_dy<T, CT>(db, dring, z0, y0, x0, g);
     cp_async_commit();
     for (int z = z0; z < z1; ++z) {
       cp_async_wait<0>();
       __syncthreads();  // x slab z + 1 and dy slab z have landed; with four slots, those of x z - 2 and dy z - 1 are free
       if (g.nr == 4) {
-        if (z + 2 <= z1) stage_slab<T, CT>(xb, ring + ((z + 3 - z0) % 4) * slab, z + 2, y0, g);
-        if (z + 1 < z1) stage_dy<T, CT>(db, dring + ((z + 1 - z0) % 2) * dslab, z + 1, y0, g);
+        if (z + 2 <= z1) stage_slab<T, CT>(xb, ring + ((z + 3 - z0) % 4) * slab, z + 2, y0, x0, g);
+        if (z + 1 < z1) stage_dy<T, CT>(db, dring + ((z + 1 - z0) % 2) * dslab, z + 1, y0, x0, g);
       }
       cp_async_commit();
       const T* s0 = ring + ((z - z0) % g.nr) * slab;
@@ -264,8 +265,8 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
       if (g.nr == 3) {
         __syncthreads();  // the slot of x z - 1 and the dy slot are free
-        if (z + 2 <= z1) stage_slab<T, CT>(xb, ring + ((z + 3 - z0) % 3) * slab, z + 2, y0, g);
-        if (z + 1 < z1) stage_dy<T, CT>(db, dring, z + 1, y0, g);
+        if (z + 2 <= z1) stage_slab<T, CT>(xb, ring + ((z + 3 - z0) % 3) * slab, z + 2, y0, x0, g);
+        if (z + 1 < z1) stage_dy<T, CT>(db, dring, z + 1, y0, x0, g);
         cp_async_commit();
       }
     }
@@ -371,8 +372,8 @@ WgradKernel wgrad_kernel(int C) {
   }
 }
 
-inline bool plan_ok(int B, int Z, int Y, int X, int C, int ty, int seg, int nr) {
-  return ring_ok(B, Z, Y, X, C, ty, seg, nr) && C <= kMaxC;
+inline bool plan_ok(int B, int Z, int Y, int X, int C, int ty, int tx, int seg, int nr) {
+  return ring_ok(B, Z, Y, X, C, ty, tx, seg, nr) && C <= kMaxC;
 }
 
 // kind 0: forward / input gradient, 1: weight gradient
@@ -391,16 +392,17 @@ inline size_t smem_of(int kind, const Ring& g, int es) {
 // (a cudaError_t, or 10001 for a shape or plan the kernels do not take).
 extern "C" {
 
-// The plan (band rows ty, segment seg, ring slots nr) of kernel `kind` (0
+// The plan (band rows ty, band columns tx, segment seg, ring slots nr) of kernel `kind` (0
 // forward / input gradient, 1 weight gradient) as the card takes it, on the
 // current device: out = [shared-memory bytes, work items, resident blocks a
 // SM, grid (SMs x resident blocks, at most the items), registers a thread].
 // The first call for a kernel on a device lets it take all of the shared
 // memory (mednext::occupancy), which a launch then needs.
-int depthwise3x3_plan(int kind, int dtype, int B, int Z, int Y, int X, int C, int ty, int seg, int nr, int* out) {
+int depthwise3x3_plan(int kind, int dtype, int B, int Z, int Y, int X, int C, int ty, int tx, int seg, int nr,
+                      int* out) {
   using namespace dwconv;
-  if ((kind != 0 && kind != 1) || !plan_ok(B, Z, Y, X, C, ty, seg, nr)) return kErrShape;
-  const Ring g = make_ring(B, Z, Y, X, C, ty, seg, nr);
+  if ((kind != 0 && kind != 1) || !plan_ok(B, Z, Y, X, C, ty, tx, seg, nr)) return kErrShape;
+  const Ring g = make_ring(B, Z, Y, X, C, ty, tx, seg, nr);
   const size_t smem = smem_of(kind, g, dtype ? 2 : 4);
   if (smem > kMaxSmem) return kErrShape;
   const void* fn = kernel_of(kind, dtype, C);
@@ -422,10 +424,10 @@ int depthwise3x3_plan(int kind, int dtype, int B, int Z, int Y, int X, int C, in
 
 // mirror != 0: tap t reads w[c][26 - t] (the input gradient)
 int depthwise3x3_fwd(const void* x, const void* w, const void* bias, void* out, int dtype, int B, int Z, int Y,
-                     int X, int C, int ty, int seg, int nr, int grid, int mirror, void* stream) {
+                     int X, int C, int ty, int tx, int seg, int nr, int grid, int mirror, void* stream) {
   using namespace dwconv;
-  if (!plan_ok(B, Z, Y, X, C, ty, seg, nr) || grid < 1) return kErrShape;
-  const Ring g = make_ring(B, Z, Y, X, C, ty, seg, nr);
+  if (!plan_ok(B, Z, Y, X, C, ty, tx, seg, nr) || grid < 1) return kErrShape;
+  const Ring g = make_ring(B, Z, Y, X, C, ty, tx, seg, nr);
   const size_t smem = fwd_smem(g, dtype ? 2 : 4);
   if (smem > kMaxSmem) return kErrShape;
   const FwdKernel k = dtype ? fwd_kernel<bf16>(C) : fwd_kernel<float>(C);
@@ -438,10 +440,10 @@ int depthwise3x3_fwd(const void* x, const void* w, const void* bias, void* out, 
 // partial: (items, 28, C) float32 scratch; out: 28 C float32, dw as (C, 27)
 // then db (C)
 int depthwise3x3_wgrad(const void* x, const void* dy, void* partial, void* out, int dtype, int B, int Z, int Y,
-                       int X, int C, int ty, int seg, int nr, int grid, void* stream) {
+                       int X, int C, int ty, int tx, int seg, int nr, int grid, void* stream) {
   using namespace dwconv;
-  if (!plan_ok(B, Z, Y, X, C, ty, seg, nr) || grid < 1) return kErrShape;
-  const Ring g = make_ring(B, Z, Y, X, C, ty, seg, nr);
+  if (!plan_ok(B, Z, Y, X, C, ty, tx, seg, nr) || grid < 1) return kErrShape;
+  const Ring g = make_ring(B, Z, Y, X, C, ty, tx, seg, nr);
   const size_t smem = wgrad_layout(g, dtype ? 2 : 4).total;
   if (smem > kMaxSmem) return kErrShape;
   auto s = static_cast<cudaStream_t>(stream);

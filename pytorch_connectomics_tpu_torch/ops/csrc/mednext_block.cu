@@ -13,11 +13,13 @@
 // Both passes walk the volume the same way (the slab ring of ring.cuh,
 // which depthwise3x3.cu shares), with the numbers that
 // ops/fused_block.py::kernel_plan picks per shape:
-// - A work item is (b, a band of Ty rows of y with all of x, a segment of
-//   Sz slabs of z). Persistent blocks (SMs x resident blocks) take the items
-//   in turn and march each along z.
-// - A ring of slabs in shared memory holds the band's rows with their y and
-//   x halo, (Ty + 2) x XP voxels of C values, XP = 3 * ceil(X / 3) + 2. The
+// - A work item is (b, a segment of Sz slabs of z, a band of Ty rows of y,
+//   a band of Tx columns of x: the whole row wherever it leaves room for two
+//   blocks on an SM). Persistent
+//   blocks (SMs x resident blocks) take the items in turn and march each
+//   along z.
+// - A ring of slabs in shared memory holds the band with its y and x halo,
+//   (Ty + 2) x (Tx + 2) voxels of C values. The
 //   next slab arrives by cp.async while the current one is computed. Rows,
 //   columns and slabs outside the volume are zero-filled when staged, which
 //   is SAME zero padding: the stencil has no mask. An input voxel is staged
@@ -45,7 +47,8 @@
 //    - the stencil, normalised with the per-(b, c) scale/shift folded from
 //      the statistics (eps, variance E[t^2] - E[t]^2 clipped at 0; b_dw
 //      cancels against the mean), rounded to bf16 into the u tile
-//      [Ty * X rows][C] in shared memory (rows padded to 16);
+//      [Ty * TW rows][C] in shared memory (TW = min(Tx, X); rows padded to
+//      16);
 //    - a warp takes a unit (16 rows, CS output channels): for each 16 hidden
 //      units, h = u . W1^T on mma.sync m16n8k16 (A by ldmatrix, cached in
 //      registers for C <= 128), bias and tanh-GELU on the accumulators,
@@ -58,15 +61,16 @@
 //      every stage on the H100).
 //    - the epilogue adds b2 and the residual (read from the ring's centre
 //      slab), rounds to bf16, goes through a warp tile by stmatrix and out
-//      with 16-byte coalesced stores; the band's rows of one slab are one
-//      contiguous run of the output.
+//      with 16-byte coalesced stores; with whole rows the band's rows of one
+//      slab are one contiguous run of the output.
 //    Bound on an H100: at stage 0 (C 32, R 64) 2 bytes in and 2 out per
 //    value against 4 C R tensor FLOP a voxel: bytes, though the stencil's
 //    and GELU's CUDA-core work come close; from C 128 up the matmuls grow.
 //
-// 3. mednext_block_apply: the float32 check path, the first design kept as
-//    it was (one 16-128-voxel tile a block, three flat halo runs staged,
-//    masked stencil, scalar FMAs for both products).
+// 3. mednext_block_apply: the float32 check path, the first design (one
+//    8-128-voxel tile a block, masked stencil, scalar FMAs for both
+//    products); its halo is three flat runs, or nine runs of one row each
+//    where those are smaller (wide rows), so shared memory bounds no X.
 //
 // Both take f32 or bf16 inputs and accumulate in f32. Weights: w_dw (C, 27)
 // f32 (torch's (C, 1, 3, 3, 3)); W1 (R, C) and W2 (Cout, R) in the input
@@ -105,20 +109,21 @@ __global__ void __launch_bounds__(kThreads, 2)
   if (KPM == 1) load_taps(kw, w, ln.p0);
 
   for (int item = blockIdx.x; item < g.items; item += gridDim.x) {
-    int b, y0, z0, z1;
-    item_origin(g, item, b, y0, z0, z1);
+    int b, y0, x0, z0, z1;
+    item_origin(g, item, b, y0, x0, z0, z1);
     const T* xb = x + (long long)b * g.Z * g.Y * g.X * C;
     const int yv = min(g.ty, g.Y - y0);  // rows of the band inside the volume
+    const int xv = min(g.tw, g.X - x0);  // its columns inside the volume
     float2 s[KPM], s2[KPM];
 #pragma unroll
     for (int j = 0; j < KPM; ++j) s[j] = s2[j] = make_float2(0.f, 0.f);
     // slab z lives in slot (z - z0 + 1) % nr
-    for (int d = 0; d < 3; ++d) stage_slab<T, CT>(xb, ring + d * slab, z0 - 1 + d, y0, g);
+    for (int d = 0; d < 3; ++d) stage_slab<T, CT>(xb, ring + d * slab, z0 - 1 + d, y0, x0, g);
     cp_async_commit();
     for (int z = z0; z < z1; ++z) {
       cp_async_wait<0>();
       __syncthreads();  // slab z + 1 has landed; with four slots, slab z - 2's slot is free
-      if (g.nr == 4 && z + 2 <= z1) stage_slab<T, CT>(xb, ring + ((z + 3 - z0) % 4) * slab, z + 2, y0, g);
+      if (g.nr == 4 && z + 2 <= z1) stage_slab<T, CT>(xb, ring + ((z + 3 - z0) % 4) * slab, z + 2, y0, x0, g);
       cp_async_commit();
       const T* s0 = ring + ((z - z0) % g.nr) * slab;
       const T* s1 = ring + ((z - z0 + 1) % g.nr) * slab;
@@ -134,7 +139,7 @@ __global__ void __launch_bounds__(kThreads, 2)
             if (ry < yv) {
 #pragma unroll
               for (int q = 0; q < kRun; ++q) {
-                if (kRun * rx + q < g.X) {
+                if (kRun * rx + q < xv) {
                   sj.x += a[q].x;
                   sj.y += a[q].y;
                   s2j.x = fmaf(a[q].x, a[q].x, s2j.x);
@@ -149,7 +154,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
       if (g.nr == 3) {
         __syncthreads();  // slab z - 1's slot is free
-        if (z + 2 <= z1) stage_slab<T, CT>(xb, ring + ((z + 3 - z0) % 3) * slab, z + 2, y0, g);
+        if (z + 2 <= z1) stage_slab<T, CT>(xb, ring + ((z + 3 - z0) % 3) * slab, z + 2, y0, x0, g);
         cp_async_commit();
       }
     }
@@ -205,13 +210,13 @@ __global__ void __launch_bounds__(kThreads)
 struct Mlp {
   int R, Cout;
   int cs, ns;         // output channels a unit; units across Cout
-  int mf;             // 16-row fragments of the u tile: ceil(ty * X / 16)
+  int mf;             // 16-row fragments of the u tile: ceil(ty * tw / 16)
   int rc;             // hidden units a weight chunk; rc == R: both weights resident
   int units, rounds;  // units = mf * ns, rounds = ceil(units / kWarps)
 };
 
 inline Mlp make_mlp(const Ring& g, int R, int Cout, int cs, int rc) {
-  Mlp m{R, Cout, cs, Cout / cs, (g.ty * g.X + 15) / 16, rc, 0, 0};
+  Mlp m{R, Cout, cs, Cout / cs, (g.ty * g.tw + 15) / 16, rc, 0, 0};
   m.units = m.mf * m.ns;
   m.rounds = (m.units + kWarps - 1) / kWarps;
   return m;
@@ -390,10 +395,10 @@ __global__ void __launch_bounds__(kThreads, apply_min_blocks<CT>(NP8))
   if (resident) stage_weights(w1, w2, w1s, w2s, 0, m.R, C, m, l);  // committed with the first item's slabs
 
   for (int item = blockIdx.x; item < g.items; item += gridDim.x) {
-    int b, y0, z0, z1;
-    item_origin(g, item, b, y0, z0, z1);
+    int b, y0, x0, z0, z1;
+    item_origin(g, item, b, y0, x0, z0, z1);
     const bf16* xb = x + (long long)b * g.Z * g.Y * g.X * C;
-    const int mv = min(g.ty, g.Y - y0) * g.X;  // rows of the u tile inside the volume
+    const int yv = min(g.ty, g.Y - y0), xv = min(g.tw, g.X - x0);  // the band's rows, columns inside the volume
     // GroupNorm folded into a scale and shift of the thread's channel pairs
     float2 sc[KPM], sh[KPM];
 #pragma unroll
@@ -417,7 +422,7 @@ __global__ void __launch_bounds__(kThreads, apply_min_blocks<CT>(NP8))
     }
     // slab z lives in slot (z - z0 + 1) % kApplyRing
     __syncthreads();  // the last item's epilogues have read the ring's centre slab
-    for (int d = 0; d < 3; ++d) stage_slab<bf16, CT>(xb, ring + d * slab, z0 - 1 + d, y0, g);
+    for (int d = 0; d < 3; ++d) stage_slab<bf16, CT>(xb, ring + d * slab, z0 - 1 + d, y0, x0, g);
     cp_async_commit();
 
     for (int z = z0; z < z1; ++z) {
@@ -440,18 +445,18 @@ __global__ void __launch_bounds__(kThreads, apply_min_blocks<CT>(NP8))
 #pragma unroll
             for (int q = 0; q < kRun; ++q) {
               const int xx = kRun * rx + q;
-              if (xx < g.X)
-                store2(u + (ry * g.X + xx) * l.ldu + 2 * p, fmaf(a[q].x, scj.x, shj.x), fmaf(a[q].y, scj.y, shj.y));
+              if (xx < g.tw)
+                store2(u + (ry * g.tw + xx) * l.ldu + 2 * p, fmaf(a[q].x, scj.x, shj.x), fmaf(a[q].y, scj.y, shj.y));
             }
           });
         }
       }
       __syncthreads();  // the u tile is complete; slab z - 1's slot is free
-      if (z + 2 <= z1) stage_slab<bf16, CT>(xb, ring + ((z + 3 - z0) % kApplyRing) * slab, z + 2, y0, g);
+      if (z + 2 <= z1) stage_slab<bf16, CT>(xb, ring + ((z + 3 - z0) % kApplyRing) * slab, z + 2, y0, x0, g);
       cp_async_commit();
       // phase: stencil continue
       const bf16* res = s1 + (size_t)(g.xp + 1) * C;  // the centre slab at the band's (row 0, x 0)
-      const long long obase = (((long long)b * g.Z + z) * g.Y + y0) * g.X;
+      const long long obase = (((long long)b * g.Z + z) * g.Y + y0) * g.X + x0;
 
       for (int round = 0; round < m.rounds; ++round) {
         const int unit = round * kWarps + warp;
@@ -500,8 +505,8 @@ __global__ void __launch_bounds__(kThreads, apply_min_blocks<CT>(NP8))
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
           const int row = mf * 16 + gq + hf * 8;
-          const int ry = row / g.X;
-          roff[hf] = row < g.ty * g.X ? (ry * g.xp + row - ry * g.X) * C : -1;
+          const int ry = row / g.tw;
+          roff[hf] = row < g.ty * g.tw ? (ry * g.xp + row - ry * g.tw) * C : -1;
         }
         unsigned pk[NP8][2];
 #pragma unroll
@@ -527,8 +532,9 @@ __global__ void __launch_bounds__(kThreads, apply_min_blocks<CT>(NP8))
         for (int i = lane; i < 16 * pieces; i += 32) {
           const int rw = i / pieces, pc = i - rw * pieces;
           const int row = mf * 16 + rw;
-          if (row < mv)
-            *reinterpret_cast<uint4*>(out + (obase + row) * m.Cout + n0 + pc * 8) =
+          const int ry = row / g.tw, xl = row - ry * g.tw;  // u row = band row ry, column xl
+          if (ry < yv && xl < xv)
+            *reinterpret_cast<uint4*>(out + (obase + (long long)ry * g.X + xl) * m.Cout + n0 + pc * 8) =
                 *reinterpret_cast<const uint4*>(stg + rw * l.lds + pc * 8);
         }
         __syncwarp();  // the warp tile is rewritten by the next unit
@@ -549,6 +555,7 @@ struct F32Layout {
 };
 
 __host__ __device__ inline F32Layout f32_layout(int tile, int X, int C, int Rc, int Cout) {
+  const Halo hl = halo_of(tile, X);
   F32Layout l;
   l.ldu = C + 8;
   l.ldhf = Rc + 4;
@@ -557,7 +564,7 @@ __host__ __device__ inline F32Layout f32_layout(int tile, int X, int C, int Rc, 
   l.scale = 0;
   l.u = align128(2 * (size_t)C * 4);
   l.region = l.u + align128((size_t)tile * l.ldu * 4);
-  const size_t halo = align128(3 * (size_t)halo_len(tile, X) * C * 4);
+  const size_t halo = align128((size_t)hl.runs * hl.L * C * 4);
   l.hf = l.region;
   l.h = l.hf + align128((size_t)tile * l.ldhf * 4);
   l.acc = l.h + align128((size_t)tile * l.ldh * 4);
@@ -686,7 +693,18 @@ inline int f32_tile(int C, int X, int Rc, int Cout) {
   t = (t / 16) * 16;
   t = t < 16 ? 16 : t;
   while (t > 16 && f32_layout(t, X, C, Rc, Cout).total > kMaxSmem) t -= 16;
+  if (f32_layout(t, X, C, Rc, Cout).total > kMaxSmem) t = 8;  // nine runs of 10 voxels: C up to 640
   return t;
+}
+
+// hidden units a chunk of the float32 apply: all of R up to 64, else the
+// largest of 64, 48, 32, 16 that divides R (the sums run over R in order
+// whatever the chunk)
+inline int f32_rc(int R) {
+  if (R <= 64) return R;
+  for (int rc = 64; rc > 16; rc -= 16)
+    if (R % rc == 0) return rc;
+  return 16;
 }
 
 inline size_t stats_smem(const Ring& g, int es) {
@@ -748,25 +766,28 @@ inline bool mlp_ok(const Ring& g, int R, int Cout, int cs, int rc) {
 // (a cudaError_t, or 10001 for a shape or plan the kernels do not take).
 extern "C" {
 
-// The plan (ty, seg, ring slots; for the apply pass cs, rc) as the kernel takes it, on
+// The plan (ty, tx, seg, ring slots; for the apply pass cs, rc) as the kernel takes it, on
 // the current device: out = [shared-memory bytes, work items, resident
 // blocks a SM, grid (SMs x resident blocks, at most the items), registers a
 // thread]. kind: 0 statistics, 1 apply (bf16), 2 apply (f32: its tiles
-// follow from the shape; ty and seg unused). The first call for a kernel on
+// follow from the shape; ty, tx and seg unused). The first call for a kernel on
 // a device lets it take all of the shared memory (mednext::occupancy), which
 // a launch then needs.
-int mednext_ring_plan(int kind, int dtype, int B, int Z, int Y, int X, int C, int R, int Cout, int ty, int seg,
-                      int nr, int cs, int rc, int* out) {
+int mednext_ring_plan(int kind, int dtype, int B, int Z, int Y, int X, int C, int R, int Cout, int ty, int tx,
+                      int seg, int nr, int cs, int rc, int* out) {
   using namespace mednext;
   if (kind != 0) nr = kApplyRing;
-  if (kind == 2) ty = seg = 1;
-  if (!ring_ok(B, Z, Y, X, C, ty, seg, nr)) return kErrShape;
-  Ring g = make_ring(B, Z, Y, X, C, ty, seg, nr);
+  if (kind == 2) {
+    ty = seg = 1;
+    tx = kRun * ((X + kRun - 1) / kRun);
+  }
+  if (!ring_ok(B, Z, Y, X, C, ty, tx, seg, nr)) return kErrShape;
+  Ring g = make_ring(B, Z, Y, X, C, ty, tx, seg, nr);
   const void* fn;
   size_t smem;
   if (kind == 2) {
-    const int Rc = R < 64 ? R : 64;
-    if (dtype || R < 16 || R % Rc || Rc % 16 || Cout % 16) return kErrShape;
+    const int Rc = f32_rc(R);
+    if (dtype || R < 16 || R % 16 || Cout % 16) return kErrShape;
     const int tile = f32_tile(C, X, Rc, Cout);
     fn = reinterpret_cast<const void*>(f32_apply_kernel);
     smem = f32_layout(tile, X, C, Rc, Cout).total;
@@ -796,12 +817,12 @@ int mednext_ring_plan(int kind, int dtype, int B, int Z, int Y, int X, int C, in
   return 0;
 }
 
-// partial: (B * segs * bands, 2, C) float32 scratch; out (B, 2, C); nr: 4 or 3 ring slots.
+// partial: (B * segs * bands * xbands, 2, C) float32 scratch; out (B, 2, C); nr: 4 or 3 ring slots.
 int mednext_dw_stats(const void* x, const void* w_dw, void* partial, void* out, int dtype, int B, int Z, int Y,
-                     int X, int C, int ty, int seg, int nr, int grid, void* stream) {
+                     int X, int C, int ty, int tx, int seg, int nr, int grid, void* stream) {
   using namespace mednext;
-  if (!ring_ok(B, Z, Y, X, C, ty, seg, nr) || grid < 1) return kErrShape;
-  const Ring g = make_ring(B, Z, Y, X, C, ty, seg, nr);
+  if (!ring_ok(B, Z, Y, X, C, ty, tx, seg, nr) || grid < 1) return kErrShape;
+  const Ring g = make_ring(B, Z, Y, X, C, ty, tx, seg, nr);
   const size_t smem = stats_smem(g, dtype ? 2 : 4);
   if (smem > kMaxSmem) return kErrShape;
   auto s = static_cast<cudaStream_t>(stream);
@@ -811,17 +832,17 @@ int mednext_dw_stats(const void* x, const void* w_dw, void* partial, void* out, 
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   stats_reduce_kernel<<<dim3((2 * C + kThreads - 1) / kThreads, B), kThreads, 0, s>>>(
-      static_cast<const float*>(partial), static_cast<float*>(out), g.segs * g.bands, C);
+      static_cast<const float*>(partial), static_cast<float*>(out), g.segs * g.bands * g.xbands, C);
   return (int)cudaGetLastError();
 }
 
 int mednext_apply_bf16(const void* x, const void* stats, const void* w_dw, const void* gamma, const void* beta,
                        const void* w1, const void* b1, const void* w2, const void* b2, void* out, int B, int Z, int Y,
-                       int X, int C, int R, int Cout, int ty, int seg, int cs, int rc, int grid, float eps,
-                       void* stream) {
+                       int X, int C, int R, int Cout, int ty, int tx, int seg, int cs, int rc, int grid,
+                       float eps, void* stream) {
   using namespace mednext;
-  if (!ring_ok(B, Z, Y, X, C, ty, seg, kApplyRing) || grid < 1) return kErrShape;
-  const Ring g = make_ring(B, Z, Y, X, C, ty, seg, kApplyRing);
+  if (!ring_ok(B, Z, Y, X, C, ty, tx, seg, kApplyRing) || grid < 1) return kErrShape;
+  const Ring g = make_ring(B, Z, Y, X, C, ty, tx, seg, kApplyRing);
   if (!mlp_ok(g, R, Cout, cs, rc)) return kErrShape;
   const Mlp m = make_mlp(g, R, Cout, cs, rc);
   const size_t smem = apply_layout(g, m).total;
@@ -844,8 +865,8 @@ int mednext_block_apply_f32(const void* x, const void* stats, const void* w_dw, 
   using namespace mednext;
   if ((long long)Z * Y * X * (C > Cout ? C : Cout) >= (1LL << 31)) return kErrShape;
   const Geom g{Z, Y, X, C, Z * Y * X};
-  const int Rc = R < 64 ? R : 64;
-  if (R % Rc || Rc % 16 || C % 16 || Cout % 16) return kErrShape;
+  const int Rc = f32_rc(R);
+  if (R < 16 || R % 16 || C % 16 || Cout % 16) return kErrShape;
   const int tile = f32_tile(C, X, Rc, Cout);
   const size_t smem = f32_layout(tile, X, C, Rc, Cout).total;
   if (smem > kMaxSmem) return kErrShape;

@@ -9,9 +9,12 @@
 // voxels [v0, v0+T). Its 3^3 neighbourhood lies inside three contiguous flat
 // runs, one per z-offset dz in {-1,0,1}:
 //     [v0 + dz*Y*X - X - 1,  v0 + T + dz*Y*X + X + 1)
-// so staging a tile is three coalesced copies of (T + 2X + 2) voxel rows of
-// C values, issued as asynchronous 16-byte copies (cp.async) so that all of
-// them are in flight at once. A run index that falls outside the volume is
+// or inside nine runs of T + 2 voxels, one per (dz, dy):
+//     [v0 + dz*Y*X + dy*X - 1,  v0 + T + dz*Y*X + dy*X + 1)
+// whichever is smaller (the nine runs where X > T + 2, so that no row width
+// outgrows shared memory). Staging a tile is coalesced copies of those runs
+// of C values, issued as asynchronous 16-byte copies (cp.async) so that all
+// of them are in flight at once. A run index that falls outside the volume is
 // zero-filled; a neighbour that is outside the volume only through y or x
 // wrap-around is masked by its coordinates in the stencil, which gives exact
 // SAME zero padding.
@@ -76,7 +79,16 @@ __device__ __forceinline__ float gelu_tanh_fast(float v) {
   return 0.5f * v * (1.f + t);
 }
 
-__host__ __device__ __forceinline__ int halo_len(int tile, int X) { return tile + 2 * X + 2; }
+// The halo of a tile: `runs` runs of L voxels; tap (dz, dy, dx) of tile voxel
+// t lies in run dz (3 runs) or 3 dz + dy (9 runs) at t + dy * ys + dx.
+struct Halo {
+  int runs, L, ys;
+};
+
+__host__ __device__ __forceinline__ Halo halo_of(int tile, int X) {
+  if (3 * (tile + 2 * X + 2) <= 9 * (tile + 2)) return Halo{3, tile + 2 * X + 2, X};
+  return Halo{9, tile + 2, 0};
+}
 
 __device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src, bool valid) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
@@ -151,23 +163,25 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const unsigned (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Issue the copies of the three z-runs of tile [v0, v0+tile) into
-// halo[3][L][C]; the caller waits (cp_async_wait_all) and synchronises.
+// Issue the copies of the runs of tile [v0, v0+tile) (halo_of) into
+// halo[runs][L][C]; the caller waits (cp_async_wait_all) and synchronises.
 // Requires C * sizeof(T) % 16 == 0 and a 16-byte aligned x.
 template <typename T>
 __device__ __forceinline__ void stage_halo(const T* __restrict__ xb, T* __restrict__ halo, int v0, int tile,
                                            const Geom& g) {
-  const int L = halo_len(tile, g.X);
+  const Halo h = halo_of(tile, g.X);
+  const int L = h.L;
   constexpr int per = 16 / (int)sizeof(T);  // values per 16-byte copy
   const int vec = g.C / per;
   const int YX = g.Y * g.X;
-  const int total = 3 * L * vec;
+  const int total = h.runs * L * vec;
   for (int i = threadIdx.x; i < total; i += blockDim.x) {
     const int d = i / (L * vec);
     const int rem = i - d * L * vec;
     const int vox = rem / vec;
     const int q = rem - vox * vec;
-    const int flat = v0 + (d - 1) * YX - g.X - 1 + vox;
+    const int dz = h.runs == 3 ? d : d / 3, dy = h.runs == 3 ? 0 : d - 3 * dz;
+    const int flat = v0 + (dz - 1) * YX + (dy - 1) * g.X - 1 + vox;
     const bool valid = flat >= 0 && flat < g.N;
     cp_async16(halo + (d * L + vox) * g.C + q * per, xb + (valid ? (long long)flat * g.C + q * per : 0), valid);
   }
@@ -217,7 +231,7 @@ template <typename T>
 __device__ __forceinline__ void stencil2(const T* __restrict__ halo, const float2 (&k)[27], const int (&t)[kVox],
                                          const TapMask (&m)[kVox], int p, int tile, const Geom& g,
                                          float2 (&acc)[kVox]) {
-  const int L = halo_len(tile, g.X);
+  const Halo hl = halo_of(tile, g.X);
   const T* h = halo + 2 * p;
 #pragma unroll
   for (int j = 0; j < kVox; ++j) acc[j] = make_float2(0.f, 0.f);
@@ -231,8 +245,8 @@ __device__ __forceinline__ void stencil2(const T* __restrict__ halo, const float
 #pragma unroll
         for (int j = 0; j < kVox; ++j) {
           if ((m[j].z >> dz) & (m[j].y >> dy) & (m[j].x >> dx) & 1u) {
-            // tap (dz-1, dy-1, dx-1) sits at run dz, row t + (dy-1)*X + (dx-1) + X + 1
-            const float2 v = load2(h + (dz * L + t[j] + (dy - 1) * g.X + dx + g.X) * g.C);
+            const int run = hl.runs == 3 ? dz : 3 * dz + dy;
+            const float2 v = load2(h + (run * hl.L + t[j] + dy * hl.ys + dx) * g.C);
             acc[j].x = fmaf(kk.x, v.x, acc[j].x);
             acc[j].y = fmaf(kk.y, v.y, acc[j].y);
           }

@@ -1,13 +1,16 @@
 // The z-marching slab ring that the MedNeXt block pair (mednext_block.cu)
 // and the training path's depthwise kernels (depthwise3x3.cu) share.
 //
-// A work item is (b, a band of ty rows of y with all of x, a segment of seg
-// slabs of z), numbered (b * segs + s) * bands + band. Persistent blocks take
-// the items in turn and march each along z. A ring of 3 or 4 slabs in shared
-// memory holds the band's rows with their y and x halo, (ty + 2) x xp voxels
-// of C values, xp = 3 * ceil(X / 3) + 2; rows, columns and slabs outside the
-// volume are zero-filled when staged (SAME zero padding, no mask in the
-// stencil). A thread owns a channel pair and runs of kRun = 3 consecutive x
+// A work item is (b, a segment of seg slabs of z, a band of ty rows of y, a
+// band of tx columns of x), numbered ((b * segs + s) * bands + band) *
+// xbands + xband. tx is a multiple of kRun; 3 * ceil(X / 3) is the whole row
+// (one x band, the numbering of a ring without x bands), which the planners
+// take wherever it fits; narrower bands lift the bound that shared memory
+// would put on X * C. Persistent blocks take the items in turn and march each
+// along z. A ring of 3 or 4 slabs in shared memory holds the band with its y
+// and x halo, (ty + 2) x xp voxels of C values, xp = tx + 2; rows, columns
+// and slabs outside the volume are zero-filled when staged (SAME zero
+// padding, no mask in the stencil). A thread owns a channel pair and runs of kRun = 3 consecutive x
 // outputs of one band row; each (dz, dy) row of five voxels it loads feeds
 // all three outputs of a run. The channel count CT is a template argument
 // (0: the runtime C), so every stencil load has a compile-time offset.
@@ -23,38 +26,44 @@ __host__ __device__ __forceinline__ size_t align128(size_t n) { return (n + 127)
 
 struct Ring {
   int B, Z, Y, X, C;
-  int ty, seg;             // band rows, segment slabs
-  int nr;                  // slabs in the ring: 4 (slab z + 2 staged before the stencil of z) or 3 (after it)
-  int bands, segs, items;  // item = (b * segs + s) * bands + band
-  int nrx, xp;             // runs of a band row; slab row length in voxels, kRun * nrx + 2
+  int ty, tx, seg;                 // band rows, band columns (a multiple of kRun), segment slabs
+  int nr;                          // slabs in the ring: 4 (slab z + 2 staged before the stencil of z) or 3 (after it)
+  int bands, xbands, segs, items;  // item = ((b * segs + s) * bands + band) * xbands + xband
+  int nrx, xp;                     // runs of a band row, tx / kRun; slab row length in voxels, tx + 2
+  int tw;                          // output columns of a band row, min(tx, X)
 };
 
-inline Ring make_ring(int B, int Z, int Y, int X, int C, int ty, int seg, int nr) {
-  Ring g{B, Z, Y, X, C, ty, seg, nr, 0, 0, 0, 0, 0};
+inline Ring make_ring(int B, int Z, int Y, int X, int C, int ty, int tx, int seg, int nr) {
+  Ring g{B, Z, Y, X, C, ty, tx, seg, nr, 0, 0, 0, 0, 0, 0, 0};
   g.bands = (Y + ty - 1) / ty;
+  g.xbands = (X + tx - 1) / tx;
   g.segs = (Z + seg - 1) / seg;
-  g.items = B * g.segs * g.bands;
-  g.nrx = (X + kRun - 1) / kRun;
-  g.xp = kRun * g.nrx + 2;
+  g.items = B * g.segs * g.bands * g.xbands;
+  g.nrx = tx / kRun;
+  g.xp = tx + 2;
+  g.tw = tx < X ? tx : X;
   return g;
 }
 
 __host__ __device__ __forceinline__ size_t slab_elems(const Ring& g) { return (size_t)(g.ty + 2) * g.xp * g.C; }
 
-__device__ __forceinline__ void item_origin(const Ring& g, int item, int& b, int& y0, int& z0, int& z1) {
-  const int band = item % g.bands;
-  const int t = item / g.bands;
+__device__ __forceinline__ void item_origin(const Ring& g, int item, int& b, int& y0, int& x0, int& z0, int& z1) {
+  const int xband = item % g.xbands;
+  const int t0 = item / g.xbands;
+  const int band = t0 % g.bands;
+  const int t = t0 / g.bands;
   const int s = t % g.segs;
   b = t / g.segs;
   y0 = band * g.ty;
+  x0 = xband * g.tx;
   z0 = s * g.seg;
   z1 = min(z0 + g.seg, g.Z);
 }
 
-// Issue the copies of slab z of the band at y0 into dst[ty + 2][xp][C]:
-// voxel (y0 - 1 + yy, xx - 1), zero where it lies outside the volume.
+// Issue the copies of slab z of the band at (y0, x0) into dst[ty + 2][xp][C]:
+// voxel (y0 - 1 + yy, x0 - 1 + xx), zero where it lies outside the volume.
 template <typename T, int CT>
-__device__ __forceinline__ void stage_slab(const T* __restrict__ xb, T* __restrict__ dst, int z, int y0,
+__device__ __forceinline__ void stage_slab(const T* __restrict__ xb, T* __restrict__ dst, int z, int y0, int x0,
                                            const Ring& g) {
   constexpr int per = 16 / (int)sizeof(T);  // values a 16-byte copy
   const int C = CT ? CT : g.C;
@@ -65,7 +74,7 @@ __device__ __forceinline__ void stage_slab(const T* __restrict__ xb, T* __restri
   for (int i = threadIdx.x; i < total; i += kThreads) {
     const int yy = i / row, rem = i - yy * row;
     const int xx = rem / vec, q = rem - xx * vec;
-    const int y = y0 - 1 + yy, xg = xx - 1;
+    const int y = y0 - 1 + yy, xg = x0 - 1 + xx;
     const bool valid = zin && y >= 0 && y < g.Y && xg >= 0 && xg < g.X;
     const T* src = valid ? xb + (((long long)z * g.Y + y) * g.X + xg) * C + q * per : xb;
     cp_async16(dst + (size_t)i * per, src, valid);
@@ -139,7 +148,7 @@ __device__ __forceinline__ void next_run(int tv, int nrx, int& ry, int& rx) {
 
 // The stencil over a thread's runs (slot, slot + tv, ... of the band's
 // ty * nrx) for channel pair p, two runs at a time; emit(ry, rx, a) gets the
-// three outputs of run (row ry, x 3 rx).
+// three outputs of run (row ry, x 3 rx of the band).
 template <typename T, int CT, typename Emit>
 __device__ __forceinline__ void stencil_band(const T* s0, const T* s1, const T* s2, int p, const Lanes& ln,
                                              const Ring& g, int C_, const float2 (&kw)[27], Emit emit) {
@@ -167,10 +176,12 @@ __device__ __forceinline__ void stencil_band(const T* s0, const T* s1, const T* 
   }
 }
 
-inline bool ring_ok(int B, int Z, int Y, int X, int C, int ty, int seg, int nr) {
-  return (nr == 3 || nr == 4) && B >= 1 && Z >= 1 && Y >= 1 && X >= 1 && C % 16 == 0 && C >= 16 && C <= 1024 && ty >= 1 && seg >= 1 &&
-         (long long)Z * Y * X * C < (1LL << 31) && (long long)B * ((Z + seg - 1) / seg) * ((Y + ty - 1) / ty) < (1LL << 31) &&
-         (long long)(ty + 2) * (3 * ((X + 2) / 3) + 2) * C < (1LL << 31);
+inline bool ring_ok(int B, int Z, int Y, int X, int C, int ty, int tx, int seg, int nr) {
+  return (nr == 3 || nr == 4) && B >= 1 && Z >= 1 && Y >= 1 && X >= 1 && C % 16 == 0 && C >= 16 && C <= 1024 && ty >= 1 &&
+         seg >= 1 && tx >= kRun && tx % kRun == 0 && tx <= kRun * ((X + kRun - 1) / kRun) &&
+         (long long)Z * Y * X * C < (1LL << 31) &&
+         (long long)B * ((Z + seg - 1) / seg) * ((Y + ty - 1) / ty) * ((X + tx - 1) / tx) < (1LL << 31) &&
+         (long long)(ty + 2) * (tx + 2) * C < (1LL << 31);
 }
 
 }  // namespace mednext

@@ -17,12 +17,13 @@ training path, forward and backward, as two hand-written CUDA kernels
 - :class:`DepthwiseConv3x3Function` ties them into autograd: its backward
   returns ``(dx, dw, db)`` from the two kernels.
 
-Both kernels march bands of y rows along segments of z through the slab ring
-that the fused MedNeXt block pair uses (``csrc/ring.cuh``): persistent
-blocks, the next slab staged under the current one's stencil, a thread per
-channel pair and runs of three x outputs. :func:`kernel_plan` picks the band
-rows, segment length and ring slots of each kernel per shape, with the
-pair's geometry and stencil cost model (:mod:`.fused_block`);
+Both kernels march bands of y rows and x columns along segments of z
+through the slab ring that the fused MedNeXt block pair uses
+(``csrc/ring.cuh``): persistent blocks, the next slab staged under the
+current one's stencil, a thread per channel pair and runs of three x
+outputs. :func:`kernel_plan` picks the band rows, band columns (whole rows
+wherever they leave an SM room for two blocks), segment length and ring slots of each kernel per shape,
+with the pair's geometry and stencil cost model (:mod:`.fused_block`);
 :func:`card_plan` adds what the card reports for those plans.
 
 Activations are channels-last ``(B, Z, Y, X, C)``, contiguous, float32 or
@@ -43,8 +44,8 @@ import torch.nn.functional as F
 
 from . import build
 from .fused_block import (
-    MAX_SMEM, RUN, SMS, THREADS, _align, _check_cuda_inputs, _dtype_code, _require, _resident, _sizes,
-    _stencil_clk, _waves_time, refuse_grad, ring_geometry,
+    MAX_SMEM, SMS, THREADS, _align, _check_cuda_inputs, _dtype_code, _require, _resident, _search, _sizes,
+    _stencil_clk, _tx, _waves_time, refuse_grad, ring_geometry,
 )
 
 MAX_CHANNELS = 512
@@ -90,62 +91,68 @@ def _check(code: int, lib) -> None:
 
 
 # ---------------------------------------------------------------------------
-# the plan: band rows, segment length, ring slots
+# the plan: band rows, band columns, segment length, ring slots
 # ---------------------------------------------------------------------------
 
 
-def fwd_smem(shape, es: int, ty: int, ring: int) -> int:
+def fwd_smem(shape, es: int, ty: int, ring: int, tx: Optional[int] = None) -> int:
     """Shared memory of the forward kernel: its ring of ``ring`` slabs
     (``fwd_smem`` of the source)."""
-    return _align(ring * ring_geometry(shape, ty, 1)["slab"] * es)
+    return _align(ring * ring_geometry(shape, ty, 1, tx)["slab"] * es)
 
 
-def wgrad_smem(shape, es: int, ty: int, ring: int) -> int:
+def wgrad_smem(shape, es: int, ty: int, ring: int, tx: Optional[int] = None) -> int:
     """Shared memory of the weight-gradient kernel (``wgrad_layout`` of the
     source): the x ring and the dy ring of slabs of the band's outputs (two
     beside four x slots, one beside three), or the run slots' float sums of
     an item where those are larger (they alias the rings once the item is
     done; none when one slot covers the band, at C above 256)."""
     c = shape[-1]
-    g = ring_geometry(shape, ty, 1)
-    rings = _align(ring * g["slab"] * es) + _align((ring - 2) * ty * RUN * g["nrx"] * c * es)
+    g = ring_geometry(shape, ty, 1, tx)
+    rings = _align(ring * g["slab"] * es) + _align((ring - 2) * ty * g["tx"] * c * es)
     tv = THREADS // min(c // 2, THREADS)
     return max(rings, _align(tv * ROWS * c * 4) if tv > 1 else 0)
 
 
-def plans(kind: int, shape: Tuple[int, ...], dtype: torch.dtype) -> List[Dict]:
+def plans(kind: int, shape: Tuple[int, ...], dtype: torch.dtype, every_width: bool = False) -> List[Dict]:
     """Every plan of kernel ``kind`` (0: forward / input gradient, 1: weight
     gradient) that fits, for x of ``shape`` in ``dtype``, fastest first by
     the cost model (``est_clk``): the pair's model of a slab step (its
     stencil and staging) and of blocks that share an SM sharing its time,
     plus the forward's stores, or the weight gradient's longer stencil, its
     dy slabs and its partials; an item's fixed cost; a block alone on its
-    SM slower."""
+    SM slower. X bands narrower than the row as ``fused_block._search``
+    allows."""
     es = 2 if dtype == torch.bfloat16 else 4
     b, z, y, x, c = shape
-    out = []
-    for ring in (4, 3):
-        for ty in _sizes(y):
-            smem = (fwd_smem if kind == 0 else wgrad_smem)(shape, es, ty, ring)
-            occ = _resident(smem, 2)
-            if smem > MAX_SMEM or occ < 1:
-                continue
-            for seg in _sizes(z):
-                g = ring_geometry(shape, ty, seg)
-                step = _stencil_clk(g, c, es)
-                outs = ty * g["nrx"] * RUN * c
-                if kind == 0:
-                    step += outs * STORE_INSTR / 128
-                    fixed = ITEM_CLK
-                else:
-                    step = step * WGRAD_STENCIL + outs * es / 16 * 12 / 128
-                    fixed = ITEM_CLK + PARTIAL_CLK
-                share = min(occ, -(-g["items"] // SMS))
-                cost = _waves_time(g["items"], occ, (min(seg, z) * step + fixed) * share)
-                if occ > 1 and share < 2:  # (_waves_time counts occ == 1)
-                    cost *= LONE
-                out.append(dict(kernel=KERNEL_NAMES[kind], ty=ty, seg=seg, ring=ring, smem_bytes=smem,
-                                items=g["items"], est_clk=round(cost)))
+
+    def plans_at(tx):
+        out = []
+        for ring in (4, 3):
+            for ty in _sizes(y):
+                smem = (fwd_smem if kind == 0 else wgrad_smem)(shape, es, ty, ring, tx)
+                occ = _resident(smem, 2)
+                if smem > MAX_SMEM or occ < 1:
+                    continue
+                for seg in _sizes(z):
+                    g = ring_geometry(shape, ty, seg, tx)
+                    step = _stencil_clk(g, c, es)
+                    outs = ty * tx * c
+                    if kind == 0:
+                        step += outs * STORE_INSTR / 128
+                        fixed = ITEM_CLK
+                    else:
+                        step = step * WGRAD_STENCIL + outs * es / 16 * 12 / 128
+                        fixed = ITEM_CLK + PARTIAL_CLK
+                    share = min(occ, -(-g["items"] // SMS))
+                    cost = _waves_time(g["items"], occ, (min(seg, z) * step + fixed) * share)
+                    if occ > 1 and share < 2:  # (_waves_time counts occ == 1)
+                        cost *= LONE
+                    out.append(dict(kernel=KERNEL_NAMES[kind], ty=ty, tx=tx, seg=seg, ring=ring, smem_bytes=smem,
+                                    items=g["items"], est_clk=round(cost)))
+        return out
+
+    out = _search(x, plans_at, every_width)
     _require(bool(out), "no {} plan fits shared memory for {}", KERNEL_NAMES[kind], shape)
     return sorted(out, key=lambda p: (p["est_clk"], p["smem_bytes"]))
 
@@ -165,8 +172,8 @@ def card_report(kind: int, shape, dtype: torch.dtype, plan: Dict, device: int) -
     lib = build.load("depthwise3x3")
     out = (ctypes.c_int * 5)()
     with torch.cuda.device(device):
-        _check(lib.depthwise3x3_plan(kind, int(dtype == torch.bfloat16), *shape, plan["ty"], plan["seg"],
-                                     plan["ring"], out), lib)
+        _check(lib.depthwise3x3_plan(kind, int(dtype == torch.bfloat16), *shape, plan["ty"], _tx(plan, shape[3]),
+                                     plan["seg"], plan["ring"], out), lib)
     return dict(card_smem_bytes=out[0], card_items=out[1], blocks_per_sm=out[2], grid=out[3], registers=out[4])
 
 
@@ -204,7 +211,7 @@ def _plan_and_grid(kind: int, x: torch.Tensor, plan: Optional[Dict]) -> tuple:
         plan, grid, _ = _card_plan(kind, x.shape, x.dtype, dev)
         return plan, grid, plan["items"], dev
     rep = card_report(kind, tuple(x.shape), x.dtype, plan, dev)
-    return plan, rep["grid"], rep["card_items"], dev
+    return plan, plan.get("grid") or rep["grid"], rep["card_items"], dev
 
 
 def _check_x(x: torch.Tensor, *others: torch.Tensor) -> int:
@@ -235,7 +242,8 @@ def run_fwd(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None, 
             plan: Optional[Dict] = None) -> torch.Tensor:
     """Launch the forward kernel on CUDA tensors: :func:`depthwise3x3`, or
     with ``mirror`` the taps read mirrored in z, y and x (the input
-    gradient). ``plan`` (``ty``, ``seg``, ``ring``) replaces the planner's."""
+    gradient). ``plan`` (``ty``, ``seg``, ``ring``, and ``tx``, by default
+    whole rows) replaces the planner's."""
     c = x.shape[-1]
     _require(w.numel() == 27 * c, "w must hold (C, 1, 3, 3, 3) = ({}, 1, 3, 3, 3), got {}", c, w.shape)
     if w.dtype != torch.float32 or not w.is_contiguous():
@@ -253,7 +261,7 @@ def run_fwd(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None, 
     out = torch.empty_like(x)
     rc = lib.depthwise3x3_fwd(
         x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(), code, b, z, y, xs, c,
-        plan["ty"], plan["seg"], plan["ring"], grid, int(mirror), build.stream(dev),
+        plan["ty"], _tx(plan, xs), plan["seg"], plan["ring"], grid, int(mirror), build.stream(dev),
     )
     _check(rc, lib)
     depthwise3x3.launches += 1
@@ -303,8 +311,10 @@ def depthwise3x3_wgrad_plain(x: torch.Tensor, dy: torch.Tensor) -> tuple[torch.T
 
 def run_wgrad(x: torch.Tensor, dy: torch.Tensor, plan: Optional[Dict] = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the weight-gradient kernels on CUDA tensors:
-    :func:`depthwise3x3_wgrad`. ``plan`` (``ty``, ``seg``, ``ring``) replaces
-    the planner's."""
+    :func:`depthwise3x3_wgrad`. ``plan`` (``ty``, ``seg``, ``ring``, and
+    ``tx``, by default whole rows) replaces the planner's, and its ``grid``,
+    if given, the number of persistent blocks (the result does not depend
+    on it)."""
     _require(dy.shape == x.shape and dy.dtype == x.dtype, "dy must have x's shape and dtype")
     code = _check_x(x, dy)
     _require(dy.data_ptr() % 16 == 0, "dy must be 16-byte aligned")
@@ -317,7 +327,7 @@ def run_wgrad(x: torch.Tensor, dy: torch.Tensor, plan: Optional[Dict] = None) ->
     partial = torch.empty(ROWS * c * items, device=x.device, dtype=torch.float32)
     rc = lib.depthwise3x3_wgrad(
         x.data_ptr(), dy.data_ptr(), partial.data_ptr(), out.data_ptr(), code, b, z, y, xs, c,
-        plan["ty"], plan["seg"], plan["ring"], grid, build.stream(dev),
+        plan["ty"], _tx(plan, xs), plan["seg"], plan["ring"], grid, build.stream(dev),
     )
     _check(rc, lib)
     depthwise3x3_wgrad.launches += 1

@@ -18,12 +18,13 @@ and ``w2`` in x's dtype (the caller casts them once, not per call) and the
 other parameters in float32.
 
 Both kernels (``dw_stats`` in both dtypes, ``fused_block_apply`` in bf16)
-march bands of y rows along segments of z through a ring of slabs in shared
-memory; :func:`kernel_plan` picks the band rows, the segment length, the
-output channels of a warp's unit and the weight chunk per shape, from a
-cost model of the card, and :func:`card_plan` adds what the card reports
-for that plan. The float32 apply pass is the first design's kernel, kept
-as the arithmetic check.
+march bands of y rows and x columns along segments of z through a ring of
+slabs in shared memory; :func:`kernel_plan` picks the band rows, the band
+columns (the whole row wherever it leaves an SM room for two blocks, else
+the cost model's best of every band width), the segment length, the output channels of a warp's unit and the
+weight chunk per shape, from a cost model of the card, and :func:`card_plan`
+adds what the card reports for that plan. The float32 apply pass is the
+first design's kernel, kept as the arithmetic check.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises. Each wrapper counts its kernel launches in
@@ -103,7 +104,7 @@ def _check_cuda_inputs(x: torch.Tensor, *others: torch.Tensor) -> None:
 
 
 # ---------------------------------------------------------------------------
-# the plan: band rows, segment length, unit width, weight chunk
+# the plan: band rows, band columns, segment length, unit width, weight chunk
 # ---------------------------------------------------------------------------
 
 
@@ -111,32 +112,68 @@ def _align(n: int) -> int:
     return (n + 127) & ~127
 
 
-def ring_geometry(shape: Tuple[int, ...], ty: int, seg: int) -> Dict[str, int]:
-    """The walk of both kernels for x of ``shape`` (B, Z, Y, X, C): bands of
-    ``ty`` rows, segments of ``seg`` slabs; an item is (b, segment, band),
-    numbered ``(b * segs + s) * bands + band``; a slab row holds ``xp``
-    voxels (the row's runs of three and one halo voxel each side)."""
+def whole_row(x: int) -> int:
+    """The band width of whole rows of ``x`` voxels: its runs of three."""
+    return RUN * -(-x // RUN)
+
+
+def band_widths(x: int) -> List[int]:
+    """The band widths the planners try, widest first: the whole row, then
+    the row split into n bands of as near equal runs as whole runs allow."""
+    n = -(-x // RUN)
+    return sorted({RUN * -(-n // k) for k in range(1, n + 1)}, reverse=True)
+
+
+def _tx(plan: Dict, x: int) -> int:
+    """A plan's band width; a plan without one takes whole rows."""
+    return plan.get("tx") or whole_row(x)
+
+
+def ring_geometry(shape: Tuple[int, ...], ty: int, seg: int, tx: Optional[int] = None) -> Dict[str, int]:
+    """The walk of the ring kernels for x of ``shape`` (B, Z, Y, X, C): bands
+    of ``ty`` rows and ``tx`` columns (a multiple of three; by default the
+    whole row), segments of ``seg`` slabs; an item is (b, segment, y band, x
+    band), numbered ``((b * segs + s) * bands + band) * xbands + xband``; a
+    slab row holds ``xp`` voxels (the band's runs of three and one halo voxel
+    each side), a band row ``tw`` outputs."""
     b, z, y, x, c = shape
-    bands, segs, nrx = -(-y // ty), -(-z // seg), -(-x // RUN)
-    return dict(ty=ty, seg=seg, bands=bands, segs=segs, items=b * segs * bands, nrx=nrx, xp=RUN * nrx + 2,
-                slab=(ty + 2) * (RUN * nrx + 2) * c)
+    tx = whole_row(x) if tx is None else tx
+    bands, xbands, segs = -(-y // ty), -(-x // tx), -(-z // seg)
+    return dict(ty=ty, tx=tx, seg=seg, bands=bands, xbands=xbands, segs=segs, items=b * segs * bands * xbands,
+                nrx=tx // RUN, xp=tx + 2, tw=min(tx, x), slab=(ty + 2) * (tx + 2) * c)
 
 
-def stats_smem(shape, es: int, ty: int, ring: int = 4) -> int:
+def _search(x: int, plans_at, every_width: bool = False) -> List[Dict]:
+    """``plans_at(tx)`` for whole rows; and for every narrower band width
+    where none fits, where every one fits only one block on an SM (a row
+    so wide that its slabs fill shared memory: bands of one or two rows,
+    their y halo staged two or three times over, whose x bands an H100
+    runs 1.1-1.4x faster at the 256-wide stage 0), or with ``every_width``
+    (the sweeps). Where whole rows leave room for two blocks they stay, so
+    those shapes keep the plans and outputs of the ring before x bands."""
+    widths = band_widths(x)
+    found = plans_at(widths[0])
+    if every_width or all(_resident(p["smem_bytes"], 2) < 2 for p in found):
+        found += [p for tx in widths[1:] for p in plans_at(tx)]
+    return found
+
+
+def stats_smem(shape, es: int, ty: int, ring: int = 4, tx: Optional[int] = None) -> int:
     """Shared memory of the statistics kernel: its ring of ``ring`` slabs
     and the per-slot sums it reduces (``stats_smem`` of the source)."""
     c = shape[-1]
     pt = min(c // 2, THREADS)
-    return _align(ring * ring_geometry(shape, ty, 1)["slab"] * es) + _align((THREADS // pt) * 2 * c * 4)
+    return _align(ring * ring_geometry(shape, ty, 1, tx)["slab"] * es) + _align((THREADS // pt) * 2 * c * 4)
 
 
-def apply_smem(shape, r: int, cout: int, ty: int, cs: int, rc: int) -> int:
+def apply_smem(shape, r: int, cout: int, ty: int, cs: int, rc: int, tx: Optional[int] = None) -> int:
     """Shared memory of the bf16 apply kernel (``apply_layout`` of the
     source): a ring of three slabs, the u tile, the weights (whole, or a
     chunk of ``rc`` hidden units), the warps' output tiles."""
-    c, x = shape[-1], shape[3]
-    mf = -(-ty * x // 16)
-    return (_align(APPLY_RING * ring_geometry(shape, ty, 1)["slab"] * 2) + _align(16 * mf * (c + 8) * 2)
+    c = shape[-1]
+    g = ring_geometry(shape, ty, 1, tx)
+    mf = -(-ty * g["tw"] // 16)
+    return (_align(APPLY_RING * g["slab"] * 2) + _align(16 * mf * (c + 8) * 2)
             + _align(rc * (c + 8) * 2) + _align(cout * (rc + 8) * 2) + _align(WARPS * 16 * (cs + 8) * 2))
 
 
@@ -160,32 +197,38 @@ def _stencil_clk(g: Dict[str, int], c: int, es: int) -> float:
     50 thread instructions an output value in bf16 (15 shared loads and their
     conversions, 27 FMAs per three outputs of a pair), 40 in f32, and 12 a
     16-byte copy; 128 thread instructions a cycle."""
-    outs = g["ty"] * g["nrx"] * RUN * c
-    copies = g["slab"] * es / 16
+    outs = g["ty"] * g["tx"] * c
+    copies = g["slab"] * es / 16  # the halo columns an x band re-stages included
     return (outs * (50 if es == 2 else 40) + copies * 12) / 128
 
 
-def stats_plans(shape: Tuple[int, ...], dtype: torch.dtype) -> List[Dict]:
+def stats_plans(shape: Tuple[int, ...], dtype: torch.dtype, every_width: bool = False) -> List[Dict]:
     """Every plan of the statistics kernel that fits, for x of ``shape`` in
-    ``dtype``, fastest first by the cost model (``est_clk``)."""
+    ``dtype``, fastest first by the cost model (``est_clk``); x bands
+    narrower than the row as :func:`_search` allows."""
     es = 2 if dtype == torch.bfloat16 else 4
-    plans = []
-    for ring in (4, 3):
-        for ty in _sizes(shape[2]):
-            smem = stats_smem(shape, es, ty, ring)
-            occ = _resident(smem, 2)
-            if smem > MAX_SMEM or occ < 1:
-                continue
-            for seg in _sizes(shape[1]):
-                g = ring_geometry(shape, ty, seg)
-                # three slots expose the copies of each slab (one more barrier a
-                # step). Blocks that share an SM share its time, fixed costs
-                # included (the card's timings: 192 short items take 1.5x 96)
-                step = _stencil_clk(g, shape[-1], es) * (1.0 if ring == 4 else 1.15)
-                share = min(occ, -(-g["items"] // SMS))
-                cost = _waves_time(g["items"], occ, (min(seg, shape[1]) * step + ITEM_CLK) * share)
-                plans.append(dict(kernel="ring_stats", ty=ty, seg=seg, ring=ring, smem_bytes=smem,
-                                  items=g["items"], parts=g["segs"] * g["bands"], est_clk=round(cost)))
+
+    def plans_at(tx):
+        plans = []
+        for ring in (4, 3):
+            for ty in _sizes(shape[2]):
+                smem = stats_smem(shape, es, ty, ring, tx)
+                occ = _resident(smem, 2)
+                if smem > MAX_SMEM or occ < 1:
+                    continue
+                for seg in _sizes(shape[1]):
+                    g = ring_geometry(shape, ty, seg, tx)
+                    # three slots expose the copies of each slab (one more barrier a
+                    # step). Blocks that share an SM share its time, fixed costs
+                    # included (the card's timings: 192 short items take 1.5x 96)
+                    step = _stencil_clk(g, shape[-1], es) * (1.0 if ring == 4 else 1.15)
+                    share = min(occ, -(-g["items"] // SMS))
+                    cost = _waves_time(g["items"], occ, (min(seg, shape[1]) * step + ITEM_CLK) * share)
+                    plans.append(dict(kernel="ring_stats", ty=ty, tx=tx, seg=seg, ring=ring, smem_bytes=smem,
+                                      items=g["items"], parts=g["items"] // shape[0], est_clk=round(cost)))
+        return plans
+
+    plans = _search(shape[3], plans_at, every_width)
     _require(bool(plans), "no statistics plan fits shared memory for {}", shape)
     return sorted(plans, key=lambda p: p["est_clk"])
 
@@ -199,23 +242,30 @@ def _unit_widths(cout: int):
     return [cs for cs in (128, 64, 32, 16) if cout % cs == 0]
 
 
-def apply_plans(shape: Tuple[int, ...], r: int, cout: int) -> List[Dict]:
+def apply_plans(shape: Tuple[int, ...], r: int, cout: int, every_width: bool = False) -> List[Dict]:
     """Every plan of the bf16 apply kernel that fits, for x of ``shape``, R
     hidden units and ``cout`` outputs, fastest first by the cost model: band
-    rows, segment length, output channels a warp's unit (``cs``), hidden
-    units a weight chunk (``rc``, R when both weights stay resident in
-    shared memory)."""
+    rows and columns, segment length, output channels a warp's unit
+    (``cs``), hidden units a weight chunk (``rc``, R when both weights stay
+    resident in shared memory); x bands narrower than the row as
+    :func:`_search` allows."""
+    plans = _search(shape[3], lambda tx: _apply_plans_at(shape, r, cout, tx), every_width)
+    _require(bool(plans), "no apply plan fits shared memory for {} (R {}, Cout {})", shape, r, cout)
+    return sorted(plans, key=lambda p: (p["est_clk"], p["smem_bytes"]))
+
+
+def _apply_plans_at(shape, r: int, cout: int, tx: int) -> List[Dict]:
     b, z, y, x, c = shape
     plans = []
     for cs in _unit_widths(cout):
         cap = 2 if cs <= 64 and c != 128 else 1  # __launch_bounds__ of the kernel (apply_min_blocks)
         for rc in [r] + [n for n in (64, 32, 16) if n < r and r % n == 0]:
             for ty in _sizes(y):
-                smem = apply_smem(shape, r, cout, ty, cs, rc)
+                smem = apply_smem(shape, r, cout, ty, cs, rc, tx)
                 occ = _resident(smem, cap)
                 if smem > MAX_SMEM or occ < 1:
                     continue
-                mf = -(-ty * x // 16)
+                mf = -(-ty * min(tx, x) // 16)
                 units = mf * (cout // cs)
                 rounds = -(-units // WARPS)
                 # per 16 hidden units a unit takes 8 GELUs a thread (~10
@@ -231,20 +281,26 @@ def apply_plans(shape: Tuple[int, ...], r: int, cout: int) -> List[Dict]:
                 chain = 3 * rounds * (r / 16) * ((c / 16) * 32 / ((2 if c <= 128 else 4) * pairs) + 60 + cs / 4)
                 chunks = 0 if rc == r else rounds * (r // rc) * CHUNK_CLK
                 for seg in _sizes(z):
-                    g = ring_geometry(shape, ty, seg)
+                    g = ring_geometry(shape, ty, seg, tx)
                     step = occ * _stencil_clk(g, c, 2) + max(occ * issue, chain) + chunks + STEP_CLK
                     item = min(seg, z) * step + ITEM_CLK
                     cost = _waves_time(g["items"], occ, item)
-                    plans.append(dict(kernel="ring_apply", ty=ty, seg=seg, ring=APPLY_RING, cs=cs, ns=cout // cs,
-                                      mf=mf, units=units, rounds=rounds, rc=rc, resident=rc == r,
+                    plans.append(dict(kernel="ring_apply", ty=ty, tx=tx, seg=seg, ring=APPLY_RING, cs=cs,
+                                      ns=cout // cs, mf=mf, units=units, rounds=rounds, rc=rc, resident=rc == r,
                                       smem_bytes=smem, items=g["items"], est_clk=round(cost)))
-    _require(bool(plans), "no apply plan fits shared memory for {} (R {}, Cout {})", shape, r, cout)
-    return sorted(plans, key=lambda p: (p["est_clk"], p["smem_bytes"]))
+    return plans
 
 
 def apply_plan(shape: Tuple[int, ...], r: int, cout: int) -> Dict:
     """The bf16 apply kernel's plan: the first of :func:`apply_plans`."""
     return apply_plans(shape, r, cout)[0]
+
+
+def f32_chunk(r: int) -> int:
+    """Hidden units a chunk of the float32 apply (``f32_rc`` of the source):
+    all of R up to 64, else the largest of 64, 48, 32, 16 that divides R. Its
+    sums run over R in order whatever the chunk."""
+    return r if r <= 64 else next(n for n in (64, 48, 32, 16) if r % n == 0)
 
 
 def kernel_plan(shape: Tuple[int, ...], dtype: torch.dtype, r: Optional[int] = None,
@@ -256,7 +312,7 @@ def kernel_plan(shape: Tuple[int, ...], dtype: torch.dtype, r: Optional[int] = N
     if r is not None:
         cout = cout or shape[-1]
         plan["fused_block_apply"] = (apply_plan(tuple(shape), r, cout) if dtype == torch.bfloat16
-                                     else dict(kernel="f32_check"))
+                                     else dict(kernel="f32_check", rc=f32_chunk(r)))
     return plan
 
 
@@ -270,8 +326,8 @@ def card_report(kind: int, shape, dtype: torch.dtype, plan: Dict, device: int, r
     out = (ctypes.c_int * 5)()
     with torch.cuda.device(device):
         _check(lib.mednext_ring_plan(kind, int(dtype == torch.bfloat16), *shape, r, cout, plan.get("ty", 1),
-                                     plan.get("seg", 1), plan.get("ring", 3), plan.get("cs", 0), plan.get("rc", 0),
-                                     out), lib)
+                                     _tx(plan, shape[3]), plan.get("seg", 1), plan.get("ring", 3), plan.get("cs", 0),
+                                     plan.get("rc", 0), out), lib)
     return dict(card_smem_bytes=out[0], card_items=out[1], blocks_per_sm=out[2], grid=out[3], registers=out[4])
 
 
@@ -287,7 +343,7 @@ def _card_plan(kind: int, shape, dtype: torch.dtype, device: int, r: int = 0, co
     if hit is not None:
         return hit
     plan = (stats_plan(shape, dtype) if kind == 0 else apply_plan(shape, r, cout) if kind == 1
-            else dict(kernel="f32_check"))
+            else dict(kernel="f32_check", rc=f32_chunk(r)))
     rep = card_report(kind, shape, dtype, plan, device, r, cout)
     if kind < 2 and (rep["card_smem_bytes"] != plan["smem_bytes"] or rep["card_items"] != plan["items"]):
         raise RuntimeError(f"the card's report {rep} disagrees with the planner's {plan}")
@@ -324,7 +380,9 @@ def dw_stats_plain(x: torch.Tensor, w_dw: torch.Tensor) -> torch.Tensor:
 
 def dw_stats(x: torch.Tensor, w_dw: torch.Tensor, plan: Optional[Dict] = None) -> torch.Tensor:
     """(B, 2, C) float32 GroupNorm statistics of dw(x); see the module doc.
-    ``plan`` (``ty``, ``seg``, ``ring``) replaces the planner's on the card."""
+    ``plan`` (``ty``, ``seg``, ``ring``, and ``tx``, by default whole rows)
+    replaces the planner's on the card, and its ``grid``, if given, the
+    number of persistent blocks (the result does not depend on it)."""
     refuse_grad("dw_stats", x, w_dw)
     if x.is_cpu:
         return dw_stats_plain(x, w_dw)
@@ -339,13 +397,15 @@ def dw_stats(x: torch.Tensor, w_dw: torch.Tensor, plan: Optional[Dict] = None) -
     if plan is None:
         plan, grid, _ = _card_plan(0, x.shape, x.dtype, dev)
     else:
-        grid = card_report(0, x.shape, x.dtype, plan, dev)["grid"]
+        rep = card_report(0, x.shape, x.dtype, plan, dev)  # also lets the kernel take its shared memory
+        grid = plan.get("grid") or rep["grid"]
     n = b * 2 * c
-    parts = -(-z // plan["seg"]) * -(-y // plan["ty"])
+    tx = _tx(plan, xs)
+    parts = -(-z // plan["seg"]) * -(-y // plan["ty"]) * -(-xs // tx)
     buf = torch.empty(n * (parts + 1), device=x.device, dtype=torch.float32)
     out = buf[:n].view(b, 2, c)
     rc = lib.mednext_dw_stats(x.data_ptr(), w.data_ptr(), buf.data_ptr() + 4 * n, buf.data_ptr(), code, b, z, y, xs,
-                              c, plan["ty"], plan["seg"], plan["ring"], grid, build.stream(dev))
+                              c, plan["ty"], tx, plan["seg"], plan["ring"], grid, build.stream(dev))
     _check(rc, lib)
     dw_stats.launches += 1
     return out
@@ -388,7 +448,8 @@ def fused_block_apply(
 ) -> torch.Tensor:
     """(B, Z, Y, X, Cout) in x's dtype: the whole block given
     :func:`dw_stats` of x; see the module doc. ``plan`` (``ty``, ``seg``,
-    ``cs``, ``rc``) replaces the planner's for bf16 on the card."""
+    ``cs``, ``rc``, and ``tx``, by default whole rows) replaces the
+    planner's for bf16 on the card."""
     refuse_grad("fused_block_apply", x, stats, w_dw, gamma, beta, w1, b1, w2, b2)
     if x.is_cpu:
         return fused_block_apply_plain(x, stats, w_dw, gamma, beta, w1, b1, w2, b2, eps)
@@ -397,7 +458,7 @@ def fused_block_apply(
     r, cout = w1.shape[0], w2.shape[0]
     _require(w1.shape == (r, c), "w1 must be (R, C) = (*, {}), got {}", c, w1.shape)
     _require(w2.shape == (cout, r), "w2 must be (Cout, R) = (*, {}), got {}", r, w2.shape)
-    _require(r % 16 == 0 and (code == 1 or r <= 64 or r % 64 == 0), "hidden width {} not supported", r)
+    _require(r % 16 == 0, "hidden width {} not supported", r)
     _require(cout % 16 == 0, "output channels must be a multiple of 16, got {}", cout)
     _require(w1.dtype == x.dtype and w2.dtype == x.dtype, "w1 and w2 must be {} like x", x.dtype)
     w_dw = w_dw.reshape(c, 27)
@@ -416,8 +477,8 @@ def fused_block_apply(
             plan, grid, _ = _card_plan(1, x.shape, x.dtype, dev, r, cout)
         else:
             grid = card_report(1, x.shape, x.dtype, plan, dev, r, cout)["grid"]
-        rc = lib.mednext_apply_bf16(*args, b, z, y, xs, c, r, cout, plan["ty"], plan["seg"], plan["cs"], plan["rc"],
-                                    grid, ctypes.c_float(eps), build.stream(dev))
+        rc = lib.mednext_apply_bf16(*args, b, z, y, xs, c, r, cout, plan["ty"], _tx(plan, xs), plan["seg"],
+                                    plan["cs"], plan["rc"], grid, ctypes.c_float(eps), build.stream(dev))
     else:
         _card_plan(2, x.shape, x.dtype, dev, r, cout)  # once: lets the kernel take its shared memory
         rc = lib.mednext_block_apply_f32(*args, b, z, y, xs, c, r, cout, ctypes.c_float(eps), build.stream(dev))

@@ -208,14 +208,14 @@ def sweep(rec: Recorder, c: int, r: int, spatial, dev, n: int, reps: int) -> Non
             same = bool(torch.equal(fb.dw_stats(xd, p["w_dw"], plan=plan), ref))
             ms = time_ms(lambda: fb.dw_stats(xd, p["w_dw"], plan=plan), reps, 2)
             rec.emit(dict(name=f"sweep_dw_stats_c{c}_{str(dtype)[6:]}_{i}", kernel="dw_stats", C=c, dtype=str(dtype)[6:],
-                          plan={k: plan[k] for k in ("ty", "seg", "ring", "items", "smem_bytes", "est_clk")},
+                          plan={k: plan[k] for k in ("ty", "tx", "seg", "ring", "items", "smem_bytes", "est_clk")},
                           same_as_planner=same, ms=ms))
     ref = fb.fused_block_apply(x, stats, **p)
     for i, plan in enumerate(varied(fb.apply_plans(shape, r, c), ("ty", "cs", "rc"), n)):
         same = bool(torch.equal(fb.fused_block_apply(x, stats, **p, plan=plan), ref))
         ms = time_ms(lambda: fb.fused_block_apply(x, stats, **p, plan=plan), reps, 2)
         rec.emit(dict(name=f"sweep_apply_c{c}_{i}", kernel="fused_block_apply", C=c, dtype="bfloat16",
-                      plan={k: plan[k] for k in ("ty", "seg", "cs", "rc", "units", "items", "smem_bytes",
+                      plan={k: plan[k] for k in ("ty", "tx", "seg", "cs", "rc", "units", "items", "smem_bytes",
                                                  "est_clk")}, same_as_planner=same, ms=ms))
 
 

@@ -135,6 +135,47 @@ def test_cli_train_then_test_restores_the_checkpoint(tmp_path):
     assert any(not torch.equal(init[k], v) for k, v in saved["model"].items())
 
 
+def test_cli_fast_recipe_trains_as_shipped_then_tests(tmp_path):
+    """--mode train of the Lucchi fast recipe with its shipped augmentation
+    (``aug_strong`` on the host) and reject sampling, on synthetic volumes,
+    a narrow model and two steps; then --mode test restores its last
+    checkpoint. The fast recipe's train and test sections differ, so the
+    test leg's config hash differs from the train leg's."""
+    import json
+
+    over = [
+        "model.mednext.size=custom", "model.mednext.base_channels=8", "model.mednext.exp_ratio=2",
+        "model.mednext.block_counts=[1,1,1,1,1,1,1,1,1]", "optimization.precision=32",
+        "model.input_size=[16,32,32]", "inference.window.window_size=[16,32,32]",
+        "inference.window.sw_batch_size=2", "inference.test_time_augmentation.enabled=false",
+        f"save_path={tmp_path / 'runs'}",
+        "data.train.image=synthetic://em2/fast_train_image?shape=16,48,48",
+        "data.train.label=synthetic://em2/fast_train_label?shape=16,48,48",
+        "data.test.image=synthetic://em2/fast_test_image?shape=16,40,36",
+        "data.test.label=synthetic://em2/fast_test_label?shape=16,40,36",
+        "data.dataloader.batch_size=2", "data.dataloader.patch_size=[16,32,32]",
+        "optimization.n_steps_per_epoch=2", "optimization.max_epochs=1",
+        "monitor.logging.scalar.loss_every_n_steps=1",
+    ]
+    from pytorch_connectomics_tpu_torch.config import load_config
+
+    cfg = load_config(FAST, overrides=over, mode="train")
+    aug = cfg.data.augmentation  # aug_strong, expanded
+    assert aug.enabled and not aug.on_device and aug.elastic["enabled"] and aug.cut_blur["enabled"]
+    assert cfg.data.dataloader.reject_sampling["enabled"]
+    res = main(["--config", FAST, "--mode", "train", "--device", "cpu", *over])
+    run_dir = tmp_path / "runs" / res["run_dir"].split("/")[-1]
+    assert res["train_stats"]["steps"] == 2 and res["train_stats"]["pipeline_batches"] >= 2
+    recs = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["train_loss_total"] for r in recs if "train_loss_total" in r]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    last = run_dir / "checkpoints" / "last"
+    assert res["checkpoint"] == str(last)
+    test = main(["--config", FAST, "--mode", "test", "--device", "cpu", *over])
+    assert test["restored"]["checkpoint"] == str(last) and test["restored"]["step"] == 2
+    assert 0 <= test["metrics"]["synthetic"]["jaccard"] <= 1
+
+
 NUCMM = "tutorials/nuc_nucmm.yaml"
 TINY_NUCMM = [
     "model.rsunet.width=[8,12]",

@@ -81,9 +81,29 @@ def test_patch_pipeline_bit_identical_to_jax(tmp_path):
     batches.close()
 
 
-def test_configured_augmentation_raises():
-    cfg = load_config(SYNTH, overrides=["data.augmentation.flip={enabled: true, prob: 0.5}"], mode="train")
-    with pytest.raises(NotImplementedError, match="augmentation is not ported yet: flip"):
+def test_configured_augmentation_raises(tmp_path):
+    """Host augmentation is ported: a configured flip block no longer raises
+    but builds a pipeline whose batches are JAX's (every transform and the
+    profiles: tests/test_torch_augment.py). Only augmentation configured to
+    run on the device still raises."""
+    rng = np.random.default_rng(4)
+    np.save(tmp_path / "im.npy", rng.integers(0, 256, (12, 40, 40), dtype=np.uint8))
+    np.save(tmp_path / "lb.npy", (rng.random((12, 40, 40)) > 0.9).astype(np.uint32))
+    over = ["data.augmentation.flip={enabled: true, prob: 0.5}", f"data.train.image={tmp_path / 'im.npy'}",
+            f"data.train.label={tmp_path / 'lb.npy'}", "data.dataloader.patch_size=[8,16,16]",
+            "data.dataloader.batch_size=2"]
+    cfg, jcfg = load_config(SYNTH, overrides=over, mode="train"), jax_load_config(SYNTH, overrides=over, mode="train")
+    ours, _ = build_pipelines(cfg, "cpu")
+    ref = JaxPatchPipeline(jax_build_dataset(jcfg, jcfg.data.train), 2, seed=jcfg.system.seed,
+                           augment_cfg=jcfg.data.augmentation, target_cfg=jcfg.data.label_transform)
+    assert ours.augment is not None
+    for step in (0, 3):
+        got, want = ours.make_batch(step), ref.make_batch(step)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
+    ours.close()
+    cfg = load_config(SYNTH, overrides=over + ["data.augmentation.on_device=true"], mode="train")
+    with pytest.raises(NotImplementedError, match="on-device augmentation is not ported yet"):
         build_pipelines(cfg, "cpu")
 
 

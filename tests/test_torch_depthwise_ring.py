@@ -2,8 +2,8 @@
 slab ring of ``csrc/ring.cuh``) emulated in PyTorch on the CPU, and the
 planner that sizes it (``ops/depthwise.py::kernel_plan``).
 
-The emulation walks the work items (b, segment, band) in the kernels'
-order, stages slabs of x with zero-filled halos into ring slots (and, for
+The emulation walks the work items (b, segment, y band, x band) in the
+kernels' order, stages slabs of x with zero-filled halos into ring slots (and, for
 the weight gradient, slabs of dy at the band's outputs, zero outside the
 volume, into a ring of two slots beside four x slots, one beside three),
 runs the stencil over runs of three x outputs, stores only the band's
@@ -29,55 +29,45 @@ from pytorch_connectomics_tpu.ops import depthwise_pallas as dp
 from pytorch_connectomics_tpu_torch.ops import depthwise as dw
 from pytorch_connectomics_tpu_torch.ops import fused_block as fb
 from pytorch_connectomics_tpu_torch.tools import microbench
+from test_torch_fused_block import TUTORIAL_WINDOWS, _stage, _window_id, check_tiling, item_origin, mednext_stages
 
 
-def _stage(xf, b, z, y0, g):
-    """Slab z of the band at y0: (ty + 2, xp, C), zero outside the volume."""
-    _, zs, ys, xs, c = xf.shape
-    slab = torch.zeros(g["ty"] + 2, g["xp"], c)
-    if 0 <= z < zs:
-        lo, hi = max(y0 - 1, 0), min(y0 + g["ty"] + 1, ys)
-        slab[lo - (y0 - 1) : hi - (y0 - 1), 1 : 1 + xs] = xf[b, z, lo:hi]
-    return slab
-
-
-def _stage_dy(df, b, z, y0, g):
-    """The dy slab of the band's outputs at z: (ty, 3 nrx, C), zero outside."""
+def _stage_dy(df, b, z, y0, x0, g):
+    """The dy slab of the band's outputs at z: (ty, tx, C), zero outside."""
     _, _, ys, xs, c = df.shape
-    slab = torch.zeros(g["ty"], dw.RUN * g["nrx"], c)
-    hi = min(y0 + g["ty"], ys)
-    slab[: hi - y0, :xs] = df[b, z, y0:hi]
+    slab = torch.zeros(g["ty"], g["tx"], c)
+    hi, xhi = min(y0 + g["ty"], ys), min(x0 + g["tx"], xs)
+    slab[: hi - y0, : xhi - x0] = df[b, z, y0:hi, x0:xhi]
     return slab
 
 
 def _walk(x, plan, dy=None):
-    """Yield (item, b, y0, z, x slabs of z - 1 .. z + 1, dy slab of z, g) in
-    the kernels' order: x slab z in ring slot (z - z0 + 1) % ring, staged
+    """Yield (item, b, y0, x0, z, x slabs of z - 1 .. z + 1, dy slab of z, g)
+    in the kernels' order: x slab z in ring slot (z - z0 + 1) % ring, staged
     two steps ahead; dy slab z in slot (z - z0) % (ring - 2), staged one
     step ahead."""
     ring = plan["ring"]
-    g = fb.ring_geometry(x.shape, plan["ty"], plan["seg"])
+    g = fb.ring_geometry(x.shape, plan["ty"], plan["seg"], plan.get("tx"))
     xf = x.float()
     df = None if dy is None else dy.float()
     for item in range(g["items"]):
-        band, t = item % g["bands"], item // g["bands"]
-        s, b = t % g["segs"], t // g["segs"]
-        y0, z0 = band * g["ty"], s * g["seg"]
+        b, s, band, xband = item_origin(g, item)
+        y0, x0, z0 = band * g["ty"], xband * g["tx"], s * g["seg"]
         z1 = min(z0 + g["seg"], x.shape[1])
         slots = [None] * ring
         dslots = [None] * (ring - 2)
         for d in range(3):
-            slots[d] = _stage(xf, b, z0 - 1 + d, y0, g)
+            slots[d] = _stage(xf, b, z0 - 1 + d, y0, x0, g)
         if df is not None:
-            dslots[0] = _stage_dy(df, b, z0, y0, g)
+            dslots[0] = _stage_dy(df, b, z0, y0, x0, g)
         for z in range(z0, z1):
             cur = [slots[(z - z0 + d) % ring] for d in range(3)]
             dcur = None if df is None else dslots[(z - z0) % (ring - 2)]
-            yield item, b, y0, z, cur, dcur, g
+            yield item, b, y0, x0, z, cur, dcur, g
             if z + 2 <= z1:
-                slots[(z + 3 - z0) % ring] = _stage(xf, b, z + 2, y0, g)
+                slots[(z + 3 - z0) % ring] = _stage(xf, b, z + 2, y0, x0, g)
             if df is not None and z + 1 < z1:
-                dslots[(z + 1 - z0) % (ring - 2)] = _stage_dy(df, b, z + 1, y0, g)
+                dslots[(z + 1 - z0) % (ring - 2)] = _stage_dy(df, b, z + 1, y0, x0, g)
 
 
 def emulate_fwd(x, w, bias, plan, mirror=False):
@@ -89,15 +79,15 @@ def emulate_fwd(x, w, bias, plan, mirror=False):
         taps = taps.flip(1)
     bb = torch.zeros(c) if bias is None else bias.float()
     out = torch.full(x.shape, float("nan"), dtype=x.dtype)
-    for _, b, y0, z, slabs, _, g in _walk(x, plan):
-        ty, wd = g["ty"], dw.RUN * g["nrx"]
+    for _, b, y0, x0, z, slabs, _, g in _walk(x, plan):
+        ty, wd = g["ty"], g["tx"]
         acc = torch.zeros(ty, wd, c)
         for dz, s in enumerate(slabs):
             for dy in range(3):
                 for dx in range(3):
                     acc = acc + taps[:, dz * 9 + dy * 3 + dx] * s[dy : dy + ty, dx : dx + wd]
-        yv = min(ty, ys - y0)
-        out[b, z, y0 : y0 + yv] = (acc[:yv, :xs] + bb).to(x.dtype)
+        yv, xv = min(ty, ys - y0), min(g["tw"], xs - x0)
+        out[b, z, y0 : y0 + yv, x0 : x0 + xv] = (acc[:yv, :xv] + bb).to(x.dtype)
     return out
 
 
@@ -119,17 +109,17 @@ def emulate_wgrad(x, dy, plan):
     Returns (dw (C, 1, 3, 3, 3), db (C,))."""
     c = x.shape[-1]
     lanes, tv = _lanes(c)
-    g0 = fb.ring_geometry(x.shape, plan["ty"], plan["seg"])
+    g0 = fb.ring_geometry(x.shape, plan["ty"], plan["seg"], plan.get("tx"))
     partial = torch.zeros(g0["items"], dw.ROWS, c)
-    for item, _, _, _, slabs, d, g in _walk(x, plan, dy):
+    for item, _, _, _, _, slabs, d, g in _walk(x, plan, dy):
         ty, nrx = g["ty"], g["nrx"]
         runs = torch.zeros(ty * nrx, dw.ROWS, c)
         for dz, s in enumerate(slabs):
             for dyy in range(3):
                 for dx in range(3):
-                    prod = s[dyy : dyy + ty, dx : dx + dw.RUN * nrx] * d  # (ty, 3 nrx, C)
-                    runs[:, dz * 9 + dyy * 3 + dx] = prod.reshape(ty * nrx, dw.RUN, c).sum(1)
-        runs[:, 27] = d.reshape(ty * nrx, dw.RUN, c).sum(1)
+                    prod = s[dyy : dyy + ty, dx : dx + fb.RUN * nrx] * d  # (ty, 3 nrx, C)
+                    runs[:, dz * 9 + dyy * 3 + dx] = prod.reshape(ty * nrx, fb.RUN, c).sum(1)
+        runs[:, 27] = d.reshape(ty * nrx, fb.RUN, c).sum(1)
         slots = torch.zeros(tv, dw.ROWS, c).index_add_(0, torch.arange(ty * nrx) % tv, runs)
         if tv == 1:
             stores = torch.zeros(c // 2, dtype=torch.int64)
@@ -150,15 +140,19 @@ def emulate_wgrad(x, dy, plan):
     return out[:27].t().reshape(c, 1, 3, 3, 3), out[27]
 
 
-# (x shape, ty, seg, ring slots): y not a multiple of ty, z not of seg, x not
-# of 3, x = 1, batch 2, a band taller than the volume, one slab a segment,
-# one slot a band with threads left over (C 272)
+# (x shape, ty, seg, ring slots[, tx]): y not a multiple of ty, z not of seg,
+# x not of 3, x = 1, batch 2, a band taller than the volume, one slab a
+# segment, one slot a band with threads left over (C 272); bands of x that
+# do not divide X, one a single run, with both ring sizes
 RING_CASES = [
     ((2, 5, 7, 10, 16), 3, 2, 4),
     ((1, 4, 5, 1, 32), 2, 3, 3),
     ((2, 3, 4, 5, 48), 8, 1, 4),
     ((2, 6, 2, 2, 32), 1, 4, 3),
     ((2, 4, 3, 5, 272), 2, 2, 3),
+    ((2, 5, 6, 13, 16), 4, 2, 4, 6),
+    ((1, 4, 3, 11, 32), 2, 3, 3, 3),
+    ((2, 3, 5, 8, 272), 2, 2, 4, 6),
 ]
 
 
@@ -182,9 +176,9 @@ def _fwd_tol(x, w, want):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", RING_CASES, ids=lambda c: "x".join(map(str, c[0])))
 def test_emulated_forward_matches_plain(case, dtype):
-    shape, ty, seg, ring = case
+    shape, ty, seg, ring = case[:4]
     x, dy, w, b = _inputs(shape, dtype, 1)
-    plan = dict(ty=ty, seg=seg, ring=ring)
+    plan = dict(ty=ty, seg=seg, ring=ring, tx=case[4] if len(case) > 4 else None)
     for args, mirror, ref in (((x, w, b), False, (x, w, b)), ((dy, w, None), True, (dy, w.flip((2, 3, 4)), None))):
         got = emulate_fwd(*args, plan, mirror=mirror)
         want = dw.depthwise3x3_plain(*ref)
@@ -197,9 +191,9 @@ def test_emulated_forward_matches_plain(case, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", RING_CASES, ids=lambda c: "x".join(map(str, c[0])))
 def test_emulated_wgrad_matches_plain(case, dtype):
-    shape, ty, seg, ring = case
+    shape, ty, seg, ring = case[:4]
     x, dy, _, _ = _inputs(shape, dtype, 2)
-    gw, gb = emulate_wgrad(x, dy, dict(ty=ty, seg=seg, ring=ring))
+    gw, gb = emulate_wgrad(x, dy, dict(ty=ty, seg=seg, ring=ring, tx=case[4] if len(case) > 4 else None))
     ww, wb = dw.depthwise3x3_wgrad_plain(x, dy)
     mw, mb = dw.depthwise3x3_wgrad_plain(x.float().abs(), dy.float().abs())
     assert torch.all((gw - ww).abs() <= 1e-5 * mw + 1e-6), ((gw - ww).abs() / mw).max().item()
@@ -224,7 +218,8 @@ def test_emulated_forward_matches_pallas(interpret_mode):
     want = np.asarray(dp.depthwise3x3_pallas(jnp.asarray(x.numpy()), _flax_w(w), jnp.asarray(b.numpy()),
                                              block=(4, 4, 16)))
     tol = _fwd_tol(x, w, torch.from_numpy(want))
-    for plan in (dw.kernel_plan(shape, torch.float32)["depthwise3x3"], dict(ty=4, seg=4, ring=3)):
+    for plan in (dw.kernel_plan(shape, torch.float32)["depthwise3x3"], dict(ty=4, seg=4, ring=3),
+                 dict(ty=2, seg=3, ring=4, tx=6)):
         got = emulate_fwd(x, w, b, plan).numpy()
         np.testing.assert_allclose(got, want, rtol=0, atol=tol)
 
@@ -244,13 +239,13 @@ def test_emulated_gradients_match_jax_vjp():
 
     _, vjp = jax.vjp(conv, jnp.asarray(x.numpy()), _flax_w(w), jnp.asarray(b.numpy()))
     jdx, jdw, jdb = (np.asarray(a) for a in vjp(jnp.asarray(dy.numpy())))
-    plan = dict(ty=3, seg=2, ring=4)
-    dx = emulate_fwd(dy, w, None, plan, mirror=True).numpy()
-    np.testing.assert_allclose(dx, jdx, rtol=1e-5, atol=1e-5 * np.abs(jdx).max())
-    gw, gb = emulate_wgrad(x, dy, plan)
-    np.testing.assert_allclose(gw.numpy(), np.transpose(jdw, (4, 3, 0, 1, 2)), rtol=1e-5,
-                               atol=1e-5 * np.abs(jdw).max())
-    np.testing.assert_allclose(gb.numpy(), jdb, rtol=1e-5, atol=1e-5 * np.abs(jdb).max())
+    for plan in (dict(ty=3, seg=2, ring=4), dict(ty=3, seg=2, ring=3, tx=3)):
+        dx = emulate_fwd(dy, w, None, plan, mirror=True).numpy()
+        np.testing.assert_allclose(dx, jdx, rtol=1e-5, atol=1e-5 * np.abs(jdx).max())
+        gw, gb = emulate_wgrad(x, dy, plan)
+        np.testing.assert_allclose(gw.numpy(), np.transpose(jdw, (4, 3, 0, 1, 2)), rtol=1e-5,
+                                   atol=1e-5 * np.abs(jdw).max())
+        np.testing.assert_allclose(gb.numpy(), jdb, rtol=1e-5, atol=1e-5 * np.abs(jdb).max())
 
 
 # ---------------------------------------------------------------------------
@@ -267,10 +262,11 @@ TRAIN_SHAPES = [(dw.TRAIN_BATCH, *s, c) for stages in dw.TRAIN_STAGES.values() f
 def _check_plan(shape, dtype, kind, p):
     es = 2 if dtype == torch.bfloat16 else 4
     assert p["smem_bytes"] <= fb.MAX_SMEM, (shape, p)
-    g = fb.ring_geometry(shape, p["ty"], p["seg"])
+    g = fb.ring_geometry(shape, p["ty"], p["seg"], p["tx"])
     assert g["items"] == p["items"], (shape, p)
-    assert g["bands"] * p["ty"] >= shape[2] and g["segs"] * p["seg"] >= shape[1] and g["xp"] >= shape[3] + 2
-    smem = (dw.fwd_smem if kind == 0 else dw.wgrad_smem)(shape, es, p["ty"], p["ring"])
+    assert g["bands"] * p["ty"] >= shape[2] and g["segs"] * p["seg"] >= shape[1]
+    assert g["xbands"] * p["tx"] >= shape[3] and g["xp"] == p["tx"] + 2
+    smem = (dw.fwd_smem if kind == 0 else dw.wgrad_smem)(shape, es, p["ty"], p["ring"], p["tx"])
     assert p["smem_bytes"] == smem and p["ring"] in (3, 4)
 
 
@@ -284,10 +280,54 @@ def test_planner_covers_the_training_shapes(shape, dtype):
         _check_plan(shape, dtype, kind, plan[name])
 
 
+# The plans (ty, seg, ring) the planner took before the ring had x bands, at
+# the training shapes of both recipes (batch 8): forward and weight gradient
+# in bf16, then in f32. Whole rows fit there, so they stay.
+TRAIN_PLANS = {
+    (64, 32, 32, 32): ((8, 8, 3), (8, 8, 3), (4, 16, 3), (4, 16, 3)),
+    (32, 16, 16, 64): ((8, 2, 3), (8, 2, 3), (4, 4, 3), (4, 4, 3)),
+    (16, 8, 8, 128): ((4, 1, 3), (4, 1, 3), (4, 1, 3), (8, 1, 3)),
+    (8, 4, 4, 256): ((1, 1, 3), (2, 1, 3), (2, 1, 3), (2, 1, 3)),
+    (4, 2, 2, 512): ((1, 1, 3), (1, 1, 3), (1, 1, 3), (1, 1, 3)),
+    (96, 48, 48, 32): ((8, 2, 3), (4, 4, 3), (4, 4, 3), (2, 8, 3)),
+    (48, 24, 24, 64): ((4, 1, 3), (4, 2, 3), (2, 2, 3), (2, 4, 3)),
+    (24, 12, 12, 128): ((2, 1, 3), (12, 2, 3), (2, 1, 3), (1, 24, 3)),
+    (12, 6, 6, 256): ((6, 1, 3), (6, 1, 3), (6, 1, 3), (2, 2, 3)),
+    (6, 3, 3, 512): ((2, 1, 3), (2, 1, 3), (2, 1, 3), (2, 1, 3)),
+}
+
+
+@pytest.mark.parametrize("key", list(TRAIN_PLANS), ids=lambda k: "x".join(map(str, k)))
+def test_planner_keeps_the_whole_row_plans(key):
+    shape = (dw.TRAIN_BATCH, *key)
+    got = [dw.plans(kind, shape, dtype)[0] for dtype in (torch.bfloat16, torch.float32) for kind in (0, 1)]
+    assert [(p["ty"], p["seg"], p["ring"]) for p in got] == list(TRAIN_PLANS[key])
+    assert all(p["tx"] == fb.whole_row(key[2]) for p in got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("window", TUTORIAL_WINDOWS, ids=_window_id)
+def test_planner_covers_every_tutorial_stage(window, dtype):
+    """Both kernels find a plan at every stride-1 stage of MedNeXt on the
+    tutorials' windows (batch 2), within shared memory, whose items tile the
+    volume; x bands narrower than the row only where no whole-row plan
+    leaves an SM room for two blocks (``fused_block._search``)."""
+    for spatial, c, _ in mednext_stages(*window):
+        shape = (2, *spatial, c)
+        for kind in (0, 1):
+            found = dw.plans(kind, shape, dtype)
+            _check_plan(shape, dtype, kind, found[0])
+            check_tiling(shape, found[0])
+            whole = [p for p in found if p["tx"] == fb.whole_row(spatial[2])]
+            if len(whole) < len(found):
+                assert all(fb._resident(p["smem_bytes"], 2) < 2 for p in whole), (shape, kind)
+
+
 def test_planner_takes_every_width():
     """Every width the wrappers take (C a multiple of 16 up to 512) has a
-    plan of both kernels in both dtypes at X 2 and 3 (a ring slab holds
-    whole rows of x)."""
+    plan of both kernels in both dtypes at X 2 and 3 (the fast recipe's
+    narrowest rows); wider rows take x bands where whole ones do not fit
+    (``test_planner_covers_every_tutorial_stage``)."""
     for c in range(16, dw.MAX_CHANNELS + 1, 16):
         for xs in (2, 3):
             shape = (2, 3, 3, xs, c)

@@ -43,7 +43,11 @@ def _params(rng, c, r, cout, device):
 
 # (B, Z, Y, X, C, R, Cout): the stage shapes of MedNeXt-S on the fast recipe
 # at batch 2, plus ragged tiles, a channel-changing block, and y, z and x
-# that no band, segment or run of three divides
+# that no band, segment or run of three divides; then the stock stem's wide
+# windows, whose planners band x where whole rows do not fit: the
+# bottleneck of a (64, 256, 256) window (MedNeXt-S, R 1024) and of a
+# (32, 256, 256) one (MedNeXt-L, R 4096), a 256-wide stage 0 (C 32) of each
+# (MedNeXt-L's with R 96)
 SHAPES = [
     (2, 96, 64, 48, 32, 64, 32),
     (2, 48, 32, 24, 64, 128, 64),
@@ -54,6 +58,10 @@ SHAPES = [
     (1, 4, 6, 10, 32, 64, 48),
     (2, 7, 10, 13, 32, 64, 32),
     (1, 5, 7, 11, 64, 256, 64),
+    (1, 4, 16, 16, 512, 1024, 512),
+    (1, 2, 16, 16, 512, 4096, 512),
+    (1, 8, 24, 256, 32, 64, 32),
+    (1, 4, 16, 256, 32, 96, 32),
 ]
 
 
@@ -89,13 +97,19 @@ def test_kernels_match_plain(device, shape, dtype):
 
 # ragged plans forced on the kernels: bands past the volume's y, segments
 # past its z, odd x, streamed weight chunks of 16, 32 and 64 hidden units,
-# units across Cout, and a width with no compile-time instance (48).
-# (B, Z, Y, X, C, R, Cout), statistics (ty, seg, ring slots), apply (ty, seg, cs, rc)
+# units across Cout, and a width with no compile-time instance (48); bands
+# of x narrower than the row (tx) that do not divide it, one a single run,
+# with a channel-changing block, at C 512 and at a 256-wide row.
+# (B, Z, Y, X, C, R, Cout), statistics (ty, seg, ring slots[, tx]), apply (ty, seg, cs, rc[, tx])
 FORCED = [
     ((2, 7, 10, 13, 32, 64, 32), (4, 3, 4), (4, 3, 32, 64)),
     ((1, 5, 7, 11, 64, 256, 64), (3, 2, 3), (3, 2, 32, 64)),
     ((2, 5, 3, 4, 256, 512, 256), (2, 2, 4), (2, 3, 128, 32)),
     ((1, 4, 5, 3, 48, 96, 48), (2, 3, 3), (5, 3, 16, 16)),
+    ((2, 5, 6, 40, 32, 64, 32), (2, 2, 4, 12), (3, 2, 32, 64, 9)),
+    ((1, 4, 5, 17, 64, 256, 48), (3, 2, 3, 6), (2, 3, 16, 32, 3)),
+    ((1, 3, 4, 16, 512, 1024, 512), (1, 2, 3, 9), (1, 2, 128, 32, 9)),
+    ((1, 3, 8, 256, 32, 64, 32), (4, 2, 4, 48), (2, 3, 32, 64, 66)),
 ]
 
 
@@ -108,14 +122,14 @@ def test_forced_ragged_plans_match_plain(device, case):
     for dtype in (torch.float32, torch.bfloat16):
         xd = x.to(dtype)
         want_stats = fb.dw_stats_plain(xd, p["w_dw"])
-        stats = fb.dw_stats(xd, p["w_dw"], plan=dict(zip(("ty", "seg", "ring"), sp)))
+        stats = fb.dw_stats(xd, p["w_dw"], plan=dict(zip(("ty", "seg", "ring", "tx"), sp)))
         torch.cuda.synchronize()
         scale = fb.dw_stats_plain(xd.abs(), p["w_dw"].abs())[:, :1].abs() + want_stats[:, 1:]
         assert torch.all((stats - want_stats).abs() <= 1e-5 * scale + 1e-3), (dtype, sp)
     xb = x.to(torch.bfloat16)
     pb = dict(p, w1=p["w1"].to(torch.bfloat16), w2=p["w2"].to(torch.bfloat16))
     want_stats = fb.dw_stats_plain(xb, p["w_dw"])
-    out = fb.fused_block_apply(xb, want_stats, **pb, plan=dict(zip(("ty", "seg", "cs", "rc"), ap)))
+    out = fb.fused_block_apply(xb, want_stats, **pb, plan=dict(zip(("ty", "seg", "cs", "rc", "tx"), ap)))
     want = fb.fused_block_apply_plain(xb, want_stats, **pb)
     torch.cuda.synchronize()
     top = want.float().abs().max().item()
@@ -132,6 +146,34 @@ def test_dw_stats_is_bit_identical_across_launches(device):
         a, b = fb.dw_stats(x, w), fb.dw_stats(x, w)
         torch.cuda.synchronize()
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ring_sums_do_not_depend_on_the_grid(device, dtype):
+    """dw_stats and the depthwise weight gradient write one partial an item
+    and sum them in a fixed order: three launches of one plan (whole rows,
+    and x bands) with 1, 7 and the card's number of persistent blocks give
+    bit-identical results."""
+    rng = np.random.default_rng(8)
+    shape = (2, 6, 9, 40, 64)
+    x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device, dtype)
+    dy = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device, dtype)
+    w = torch.from_numpy(rng.standard_normal((64, 1, 3, 3, 3)).astype(np.float32)).to(device)
+    for base in (dict(ty=2, seg=3, ring=4), dict(ty=2, seg=3, ring=3, tx=9)):
+        stats = [fb.dw_stats(x, w, plan=dict(base, grid=g)) for g in (1, 7, None)]
+        grads = [dwk.run_wgrad(x, dy, plan=dict(base, grid=g)) for g in (1, 7, None)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(stats[0], s) for s in stats[1:]), base
+        assert all(torch.equal(grads[0][k], g[k]) for g in grads[1:] for k in (0, 1)), base
+
+
+def test_ring_kernels_match_the_tree_before_x_bands(device):
+    """At shapes whose whole rows fit, the planners keep their plans and the
+    kernels their arithmetic: the outputs' digests equal those of the tree
+    before the ring had x bands (``tools/ring_digest.py``)."""
+    from pytorch_connectomics_tpu_torch.tools import ring_digest
+
+    assert ring_digest.digests(device) == ring_digest.DIGESTS
 
 
 # (C, R, (Z, Y, X)) of the fast recipe's stride-1 stages, at batch 16
@@ -175,7 +217,9 @@ from pytorch_connectomics_tpu_torch.ops import depthwise as dwk  # noqa: E402
 # Lucchi fast recipe's 96^3 patch after the (1, 2, 2) stem at batch 2, the
 # synthetic recipe's bottleneck, and ragged shapes: y, z and x that no band,
 # segment or run of three divides, x = 1, C 16, C 512, and C 272 and 400 (a
-# channel pair a thread with threads left over, which must store nothing)
+# channel pair a thread with threads left over, which must store nothing);
+# then the stock stem's wide windows: the bottleneck of a (64, 256, 256)
+# window (C 512, x bands in f32) and a 256-wide stage 0 (C 32)
 DW_SHAPES = [
     (2, 96, 48, 48, 32),
     (2, 48, 24, 24, 64),
@@ -192,6 +236,8 @@ DW_SHAPES = [
     (2, 11, 13, 4, 48),
     (1, 3, 5, 7, 400),
     (2, 4, 3, 5, 272),
+    (1, 4, 16, 16, 512),
+    (1, 8, 24, 256, 32),
 ]
 
 
@@ -234,7 +280,9 @@ def test_depthwise_kernels_match_plain(device, shape, dtype):
 
 # ragged plans forced on the depthwise kernels: bands past the volume's y,
 # segments past its z, odd x, both ring sizes, widths with and without a
-# compile-time instance. (B, Z, Y, X, C), (ty, seg, ring slots)
+# compile-time instance; bands of x narrower than the row that do not
+# divide it, one a single run, with threads left over (C 272), at a
+# 256-wide row. (B, Z, Y, X, C), (ty, seg, ring slots[, tx])
 DW_FORCED = [
     ((2, 7, 10, 13, 32), (4, 3, 4)),
     ((1, 5, 7, 11, 64), (3, 2, 3)),
@@ -244,17 +292,21 @@ DW_FORCED = [
     ((1, 6, 9, 1, 16), (4, 4, 4)),
     ((2, 4, 3, 5, 272), (2, 2, 3)),
     ((1, 3, 5, 7, 400), (1, 2, 3)),
+    ((2, 5, 6, 40, 32), (2, 2, 4, 12)),
+    ((1, 4, 5, 17, 272), (2, 2, 3, 6)),
+    ((2, 3, 4, 11, 64), (3, 2, 4, 3)),
+    ((1, 3, 8, 256, 32), (4, 2, 3, 66)),
 ]
 
 
 @pytest.mark.parametrize("case", DW_FORCED, ids=lambda c: "x".join(map(str, c[0])))
 def test_depthwise_forced_ragged_plans_match_plain(device, case):
-    shape, (ty, seg, ring) = case
+    shape, sp = case
     c = shape[-1]
     rng = np.random.default_rng(5)
     w = torch.from_numpy(rng.standard_normal((c, 1, 3, 3, 3)).astype(np.float32) * 0.3).to(device)
     b = torch.from_numpy(rng.standard_normal(c).astype(np.float32)).to(device)
-    plan = dict(ty=ty, seg=seg, ring=ring)
+    plan = dict(zip(("ty", "seg", "ring", "tx"), sp))
     for dtype in (torch.float32, torch.bfloat16):
         x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device, dtype)
         dy = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device, dtype)
