@@ -1,8 +1,8 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--phases 9,10,12]
+    python3 chip_smoke.py [--phases 9,10,12] [--phases instance]
 
-With --phases, only phases 1-2 and the listed ones of 3-13 run, and the
+With --phases, only phases 1-2 and the listed ones of 3-14 run, and the
 last line is the same {"ok": true, ...} object with the phases run; the
 kernels line needs every phase and is printed by a full run only.
 
@@ -84,7 +84,21 @@ Phases (any failure exits non-zero; no phase catches its own failure):
               the pipeline's host ms per batch, the trainer's wait for data
               and its ms a step besides), then --mode test on a seeded
               165x1024x768 test volume restoring the second checkpoint
- 14. report   a {"kernels": [...]} line, then {"ok": true, "device": ...} last
+ 14. instance the affinity instance chain of
+              tutorials/synthetic_instance_tune_tpu.yaml (MedNeXt-S, stock
+              stem, bf16, 3 affinity channels, batch 8 of 32x64x64): the
+              block pair (bf16, f32) and the depthwise kernels (forward,
+              input gradient, weight gradient; bf16, f32) against their
+              plain versions at its stride-1 stage shapes, timed, with their
+              plans; its forward, kernel path against plain (18 launches of
+              each pair kernel); then through the CLI on the recipe's seeded
+              synthetic://instance volumes, as shipped: --mode train (2
+              epochs of 150 steps), --mode tune on volume A (24 TPE trials of
+              waterz against VOI), --mode tune-test --best-params on the
+              held-out volume B, and the same params on an untrained model's
+              prediction of B; fails unless the trained VOI on B is below the
+              untrained one's
+ 15. report   a {"kernels": [...]} line, then {"ok": true, "device": ...} last
 
 Imports torch and the port only. Details go to build/chip_smoke/chip_smoke.json.
 """
@@ -92,6 +106,7 @@ Imports torch and the port only. Details go to build/chip_smoke/chip_smoke.json.
 from __future__ import annotations
 
 import json
+import logging
 import math
 import subprocess
 import sys
@@ -204,68 +219,73 @@ def library_block(x, p, eps):
     return x + F.linear(h, p["w2"], p["b2"])
 
 
+def pair_row(fb, dev, c, r, spatial, per_fwd, dtype, batch=BATCH):
+    """The block pair at one stage: each kernel against its plain version
+    (stated tolerances; fails the run beyond them), timed beside its plain
+    version, its bound and the library yardstick, with the plan it took."""
+    es = 2 if dtype == torch.bfloat16 else 4
+    rng = np.random.default_rng(c)
+    x = torch.from_numpy(rng.standard_normal((batch, *spatial, c), dtype=np.float32)).to(dev, dtype)
+    p = block_params(rng, c, r, dev)
+    # cast once, as the model does: the timed windows hold the launches only
+    p.update(w1=p["w1"].to(dtype), w2=p["w2"].to(dtype))
+    lib_p = {k: v.to(dtype) for k, v in p.items()}
+    stats = fb.dw_stats(x, p["w_dw"])
+    want_stats = fb.dw_stats_plain(x, p["w_dw"])
+    out = fb.fused_block_apply(x, want_stats, **p)
+    want = fb.fused_block_apply_plain(x, want_stats, **p)
+    torch.cuda.synchronize()
+    # statistics: f32 sums in another order, relative to the summed magnitudes
+    mag = fb.dw_stats_plain(x.abs(), p["w_dw"].abs())[:, :1] + want_stats[:, 1:]
+    stats_abs = (stats - want_stats).abs().max().item()
+    stats_rel = ((stats - want_stats).abs() / mag).max().item()
+    if not stats_rel <= 1e-5:  # written so that NaN fails
+        fail(f"dw_stats C={c} {dtype}: relative error {stats_rel:.3g} > 1e-5")
+    err = (out.float() - want.float()).abs().max().item()
+    # f32: FMA order. bf16: two bf16 ulps at the output's magnitude; the
+    # kernel and the plain version sum in another order, so a value
+    # rounded to bf16 (u, h, the output) can land one ulp apart
+    top = want.float().abs().max().item()
+    tol = 2e-4 if es == 4 else 2.0 ** (math.floor(math.log2(max(top, 1.0))) - 6)
+    if not err <= tol:
+        fail(f"fused_block_apply C={c} {dtype}: max error {err:.3g} > {tol:.3g}")
+    reps = 20 if c >= 128 else 10
+    b_stats, b_apply = bounds(c, r, spatial, es, batch)
+    row = dict(
+        C=c, R=r, spatial=list(spatial), dtype=str(dtype).split(".")[-1], blocks_per_forward=per_fwd,
+        dw_stats=dict(
+            ms=time_ms(lambda: fb.dw_stats(x, p["w_dw"]), reps),
+            plain_ms=time_ms(lambda: fb.dw_stats_plain(x, p["w_dw"]), reps),
+            bound_ms=max(b_stats.values()), bound_parts=b_stats, library_ms=None,
+            max_abs_err=stats_abs, max_rel_err=stats_rel,
+        ),
+        fused_block_apply=dict(
+            ms=time_ms(lambda: fb.fused_block_apply(x, want_stats, **p), reps),
+            plain_ms=time_ms(lambda: fb.fused_block_apply_plain(x, want_stats, **p), reps),
+            bound_ms=max(b_apply.values()), bound_parts=b_apply,
+            library_ms=time_ms(lambda: library_block(x, lib_p, fb.EPS), reps),
+            max_abs_err=err, tol=tol,
+        ),
+    )
+    # the plans the kernels took (ops/fused_block.py::kernel_plan) and the card's report of each
+    row["plan"] = fb.card_plan(tuple(x.shape), dtype, r)
+    for name, k in row["plan"].items():
+        log(f"  plan {name}: " + ", ".join(f"{key} {val}" for key, val in k.items()))
+    s, a = row["dw_stats"], row["fused_block_apply"]
+    log(
+        f"C={c:4d} R={r:5d} {row['dtype']:8s} dw_stats {s['ms']:.4f} ms (plain {s['plain_ms']:.4f}, "
+        f"bound {s['bound_ms']:.4f}, rel err {stats_rel:.2g}) | apply {a['ms']:.4f} ms (plain "
+        f"{a['plain_ms']:.4f}, bound {a['bound_ms']:.4f}, library {a['library_ms']:.4f}, "
+        f"err {err:.3g} <= {tol:.3g})"
+    )
+    del x, p, lib_p, stats, want_stats, out, want
+    return row
+
+
 def phase_kernels(fb, dev, report):
     log("== phase 3: kernels vs plain (batch 16) ==")
-    rows = []
-    for dtype in (torch.bfloat16, torch.float32):
-        es = 2 if dtype == torch.bfloat16 else 4
-        for c, r, spatial, per_fwd in STAGES:
-            rng = np.random.default_rng(c)
-            x = torch.from_numpy(rng.standard_normal((BATCH, *spatial, c), dtype=np.float32)).to(dev, dtype)
-            p = block_params(rng, c, r, dev)
-            # cast once, as the model does: the timed windows hold the launches only
-            p.update(w1=p["w1"].to(dtype), w2=p["w2"].to(dtype))
-            lib_p = {k: v.to(dtype) for k, v in p.items()}
-            stats = fb.dw_stats(x, p["w_dw"])
-            want_stats = fb.dw_stats_plain(x, p["w_dw"])
-            out = fb.fused_block_apply(x, want_stats, **p)
-            want = fb.fused_block_apply_plain(x, want_stats, **p)
-            torch.cuda.synchronize()
-            # statistics: f32 sums in another order, relative to the summed magnitudes
-            mag = fb.dw_stats_plain(x.abs(), p["w_dw"].abs())[:, :1] + want_stats[:, 1:]
-            stats_abs = (stats - want_stats).abs().max().item()
-            stats_rel = ((stats - want_stats).abs() / mag).max().item()
-            if not stats_rel <= 1e-5:  # written so that NaN fails
-                fail(f"dw_stats C={c} {dtype}: relative error {stats_rel:.3g} > 1e-5")
-            err = (out.float() - want.float()).abs().max().item()
-            # f32: FMA order. bf16: two bf16 ulps at the output's magnitude; the
-            # kernel and the plain version sum in another order, so a value
-            # rounded to bf16 (u, h, the output) can land one ulp apart
-            top = want.float().abs().max().item()
-            tol = 2e-4 if es == 4 else 2.0 ** (math.floor(math.log2(max(top, 1.0))) - 6)
-            if not err <= tol:
-                fail(f"fused_block_apply C={c} {dtype}: max error {err:.3g} > {tol:.3g}")
-            reps = 20 if c >= 128 else 10
-            b_stats, b_apply = bounds(c, r, spatial, es)
-            row = dict(
-                C=c, R=r, spatial=list(spatial), dtype=str(dtype).split(".")[-1], blocks_per_forward=per_fwd,
-                dw_stats=dict(
-                    ms=time_ms(lambda: fb.dw_stats(x, p["w_dw"]), reps),
-                    plain_ms=time_ms(lambda: fb.dw_stats_plain(x, p["w_dw"]), reps),
-                    bound_ms=max(b_stats.values()), bound_parts=b_stats, library_ms=None,
-                    max_abs_err=stats_abs, max_rel_err=stats_rel,
-                ),
-                fused_block_apply=dict(
-                    ms=time_ms(lambda: fb.fused_block_apply(x, want_stats, **p), reps),
-                    plain_ms=time_ms(lambda: fb.fused_block_apply_plain(x, want_stats, **p), reps),
-                    bound_ms=max(b_apply.values()), bound_parts=b_apply,
-                    library_ms=time_ms(lambda: library_block(x, lib_p, fb.EPS), reps),
-                    max_abs_err=err, tol=tol,
-                ),
-            )
-            # the plans the kernels took (ops/fused_block.py::kernel_plan) and the card's report of each
-            row["plan"] = fb.card_plan(tuple(x.shape), dtype, r)
-            rows.append(row)
-            for name, k in row["plan"].items():
-                log(f"  plan {name}: " + ", ".join(f"{key} {val}" for key, val in k.items()))
-            s, a = row["dw_stats"], row["fused_block_apply"]
-            log(
-                f"C={c:4d} R={r:5d} {row['dtype']:8s} dw_stats {s['ms']:.4f} ms (plain {s['plain_ms']:.4f}, "
-                f"bound {s['bound_ms']:.4f}, rel err {stats_rel:.2g}) | apply {a['ms']:.4f} ms (plain "
-                f"{a['plain_ms']:.4f}, bound {a['bound_ms']:.4f}, library {a['library_ms']:.4f}, "
-                f"err {err:.3g} <= {tol:.3g})"
-            )
-            del x, p, lib_p, stats, want_stats, out, want
+    rows = [pair_row(fb, dev, c, r, spatial, per_fwd, dtype)
+            for dtype in (torch.bfloat16, torch.float32) for c, r, spatial, per_fwd in STAGES]
     report["kernel_rows"] = rows
     report["wide_pair_rows"] = phase_wide_pair(fb, dev)
     check_digests(dev, ("dw_stats", "fused_block_apply"), report)
@@ -663,86 +683,93 @@ def dw_bounds(n, c, es):
     return fwd, wgrad
 
 
+def depthwise_row(dwk, dev, recipe, spatial, c, per_step, dtype, batch):
+    """The depthwise kernels at one training stage (forward, input gradient
+    with mirrored taps, weight gradient twice, bit-identical), each against
+    its plain version (stated tolerances; fails the run beyond them), timed
+    beside its plain version, its bound and the library yardstick, with the
+    plans they took."""
+    es = 2 if dtype == torch.bfloat16 else 4
+    shape = (batch, *spatial, c)
+    n = math.prod(shape[:4])
+    rng = np.random.default_rng(c)
+    x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
+    dy = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
+    w = torch.from_numpy(rng.standard_normal((c, 1, 3, 3, 3)).astype(np.float32) * 0.3).to(dev)
+    b = torch.from_numpy(rng.standard_normal(c).astype(np.float32)).to(dev)
+    wf = w.flip((2, 3, 4))
+    row = dict(recipe=recipe, C=c, spatial=list(spatial), dtype=str(dtype).split(".")[-1],
+               blocks_per_step=per_step)
+    # the input gradient: the kernel's mirror flag against the plain conv with flipped taps
+    for name, fn, args in (("forward", dwk.depthwise3x3, (x, w, b)),
+                           ("input_grad", dwk.depthwise3x3_input_grad, (dy, w))):
+        want_args = args if name == "forward" else (dy, wf, None)
+        got, want = fn(*args), dwk.depthwise3x3_plain(*want_args)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        # f32: FMA order against the summed magnitudes; bf16: both sum
+        # in f32 and round once, two ulps at the largest output
+        mag = dwk.depthwise3x3_plain(want_args[0].float().abs(), want_args[1].abs()).abs().max().item()
+        top = want.float().abs().max().item()
+        tol = 1e-5 * mag if es == 4 else 2.0 ** (math.floor(math.log2(max(top, 1e-30))) - 6)
+        if not err <= tol:  # written so that NaN fails
+            fail(f"depthwise3x3 {name} {recipe} C={c} {dtype}: max error {err:.3g} > {tol:.3g}")
+        row[name] = dict(max_abs_err=err, tol=tol)
+        del got, want
+    gw, gb = dwk.depthwise3x3_wgrad(x, dy)
+    gw2, gb2 = dwk.depthwise3x3_wgrad(x, dy)
+    ww, wb = dwk.depthwise3x3_wgrad_plain(x, dy)
+    mw, mb = dwk.depthwise3x3_wgrad_plain(x.float().abs(), dy.float().abs())
+    torch.cuda.synchronize()
+    if not (torch.equal(gw, gw2) and torch.equal(gb, gb2)):
+        fail(f"depthwise3x3_wgrad {recipe} C={c} {dtype}: two runs differ")
+    # f32 sums of B*N products in another order, against the summed magnitudes
+    rel = max(((gw - ww).abs() / (mw + 1e-30)).max().item(), ((gb - wb).abs() / (mb + 1e-30)).max().item())
+    if not rel <= 1e-5:
+        fail(f"depthwise3x3_wgrad {recipe} C={c} {dtype}: relative error {rel:.3g} > 1e-5")
+    row["wgrad"] = dict(max_abs_err=max((gw - ww).abs().max().item(), (gb - wb).abs().max().item()),
+                        max_rel_err=rel, bit_identical=True)
+    reps = 10 if n * c > 1e7 else 30
+    xn, dyn, wd, bd = x.permute(0, 4, 1, 2, 3), dy.permute(0, 4, 1, 2, 3), w.to(dtype), b.to(dtype)
+    b_fwd, b_wgrad = dw_bounds(n, c, es)
+    row["forward"].update(
+        ms=time_ms(lambda: dwk.depthwise3x3(x, w, b), reps),
+        plain_ms=time_ms(lambda: dwk.depthwise3x3_plain(x, w, b), reps),
+        library_ms=time_ms(lambda: F.conv3d(xn, wd, bd, padding=1, groups=c), reps),
+        bound_ms=max(b_fwd.values()), bound_parts=b_fwd,
+    )
+    row["input_grad"].update(
+        ms=time_ms(lambda: dwk.depthwise3x3_input_grad(dy, w), reps),
+        plain_ms=time_ms(lambda: dwk.depthwise3x3_plain(dy, wf), reps),
+        library_ms=time_ms(lambda: torch.nn.grad.conv3d_input(xn.shape, wd, dyn, padding=1, groups=c), reps),
+        bound_ms=max(b_fwd.values()), bound_parts=b_fwd,
+    )
+    row["wgrad"].update(
+        ms=time_ms(lambda: dwk.depthwise3x3_wgrad(x, dy), reps),
+        plain_ms=time_ms(lambda: dwk.depthwise3x3_wgrad_plain(x, dy), reps),
+        library_ms=time_ms(lambda: torch.nn.grad.conv3d_weight(xn, w.shape, dyn, padding=1, groups=c), reps),
+        bound_ms=max(b_wgrad.values()), bound_parts=b_wgrad,
+    )
+    # the plans the kernels took (ops/depthwise.py::kernel_plan) and the card's report of each
+    row["plan"] = dwk.card_plan(shape, dtype)
+    for name, k in row["plan"].items():
+        log(f"  plan {name}: " + ", ".join(f"{key} {val}" for key, val in k.items()))
+    f, g, wg = row["forward"], row["input_grad"], row["wgrad"]
+    log(
+        f"{recipe:9s} C={c:3d} {row['dtype']:8s} fwd {f['ms']:.4f} ms (plain {f['plain_ms']:.4f}, bound "
+        f"{f['bound_ms']:.4f}, library {f['library_ms']:.4f}, err {f['max_abs_err']:.3g}) | dgrad "
+        f"{g['ms']:.4f} (library {g['library_ms']:.4f}) | wgrad {wg['ms']:.4f} ms (plain "
+        f"{wg['plain_ms']:.4f}, bound {wg['bound_ms']:.4f}, library {wg['library_ms']:.4f}, rel err {rel:.2g})"
+    )
+    del x, dy, xn, dyn, gw, gb, gw2, gb2, ww, wb, mw, mb
+    return row
+
+
 def phase_depthwise(dwk, dev, report):
     log("== phase 6: depthwise kernels vs plain (batch 8) ==")
-    rows = []
-    for recipe, stages in dwk.TRAIN_STAGES.items():
-        for dtype in (torch.bfloat16, torch.float32):
-            es = 2 if dtype == torch.bfloat16 else 4
-            for spatial, c, per_step in stages:
-                shape = (dwk.TRAIN_BATCH, *spatial, c)
-                n = math.prod(shape[:4])
-                rng = np.random.default_rng(c)
-                x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
-                dy = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
-                w = torch.from_numpy(rng.standard_normal((c, 1, 3, 3, 3)).astype(np.float32) * 0.3).to(dev)
-                b = torch.from_numpy(rng.standard_normal(c).astype(np.float32)).to(dev)
-                wf = w.flip((2, 3, 4))
-                row = dict(recipe=recipe, C=c, spatial=list(spatial), dtype=str(dtype).split(".")[-1],
-                           blocks_per_step=per_step)
-                # the input gradient: the kernel's mirror flag against the plain conv with flipped taps
-                for name, fn, args in (("forward", dwk.depthwise3x3, (x, w, b)),
-                                       ("input_grad", dwk.depthwise3x3_input_grad, (dy, w))):
-                    want_args = args if name == "forward" else (dy, wf, None)
-                    got, want = fn(*args), dwk.depthwise3x3_plain(*want_args)
-                    torch.cuda.synchronize()
-                    err = (got.float() - want.float()).abs().max().item()
-                    # f32: FMA order against the summed magnitudes; bf16: both sum
-                    # in f32 and round once, two ulps at the largest output
-                    mag = dwk.depthwise3x3_plain(want_args[0].float().abs(), want_args[1].abs()).abs().max().item()
-                    top = want.float().abs().max().item()
-                    tol = 1e-5 * mag if es == 4 else 2.0 ** (math.floor(math.log2(max(top, 1e-30))) - 6)
-                    if not err <= tol:  # written so that NaN fails
-                        fail(f"depthwise3x3 {name} {recipe} C={c} {dtype}: max error {err:.3g} > {tol:.3g}")
-                    row[name] = dict(max_abs_err=err, tol=tol)
-                    del got, want
-                gw, gb = dwk.depthwise3x3_wgrad(x, dy)
-                gw2, gb2 = dwk.depthwise3x3_wgrad(x, dy)
-                ww, wb = dwk.depthwise3x3_wgrad_plain(x, dy)
-                mw, mb = dwk.depthwise3x3_wgrad_plain(x.float().abs(), dy.float().abs())
-                torch.cuda.synchronize()
-                if not (torch.equal(gw, gw2) and torch.equal(gb, gb2)):
-                    fail(f"depthwise3x3_wgrad {recipe} C={c} {dtype}: two runs differ")
-                # f32 sums of B*N products in another order, against the summed magnitudes
-                rel = max(((gw - ww).abs() / (mw + 1e-30)).max().item(), ((gb - wb).abs() / (mb + 1e-30)).max().item())
-                if not rel <= 1e-5:
-                    fail(f"depthwise3x3_wgrad {recipe} C={c} {dtype}: relative error {rel:.3g} > 1e-5")
-                row["wgrad"] = dict(max_abs_err=max((gw - ww).abs().max().item(), (gb - wb).abs().max().item()),
-                                    max_rel_err=rel, bit_identical=True)
-                reps = 10 if n * c > 1e7 else 30
-                xn, dyn, wd, bd = x.permute(0, 4, 1, 2, 3), dy.permute(0, 4, 1, 2, 3), w.to(dtype), b.to(dtype)
-                b_fwd, b_wgrad = dw_bounds(n, c, es)
-                row["forward"].update(
-                    ms=time_ms(lambda: dwk.depthwise3x3(x, w, b), reps),
-                    plain_ms=time_ms(lambda: dwk.depthwise3x3_plain(x, w, b), reps),
-                    library_ms=time_ms(lambda: F.conv3d(xn, wd, bd, padding=1, groups=c), reps),
-                    bound_ms=max(b_fwd.values()), bound_parts=b_fwd,
-                )
-                row["input_grad"].update(
-                    ms=time_ms(lambda: dwk.depthwise3x3_input_grad(dy, w), reps),
-                    plain_ms=time_ms(lambda: dwk.depthwise3x3_plain(dy, wf), reps),
-                    library_ms=time_ms(lambda: torch.nn.grad.conv3d_input(xn.shape, wd, dyn, padding=1, groups=c), reps),
-                    bound_ms=max(b_fwd.values()), bound_parts=b_fwd,
-                )
-                row["wgrad"].update(
-                    ms=time_ms(lambda: dwk.depthwise3x3_wgrad(x, dy), reps),
-                    plain_ms=time_ms(lambda: dwk.depthwise3x3_wgrad_plain(x, dy), reps),
-                    library_ms=time_ms(lambda: torch.nn.grad.conv3d_weight(xn, w.shape, dyn, padding=1, groups=c), reps),
-                    bound_ms=max(b_wgrad.values()), bound_parts=b_wgrad,
-                )
-                # the plans the kernels took (ops/depthwise.py::kernel_plan) and the card's report of each
-                row["plan"] = dwk.card_plan(shape, dtype)
-                rows.append(row)
-                for name, k in row["plan"].items():
-                    log(f"  plan {name}: " + ", ".join(f"{key} {val}" for key, val in k.items()))
-                f, g, wg = row["forward"], row["input_grad"], row["wgrad"]
-                log(
-                    f"{recipe:9s} C={c:3d} {row['dtype']:8s} fwd {f['ms']:.4f} ms (plain {f['plain_ms']:.4f}, bound "
-                    f"{f['bound_ms']:.4f}, library {f['library_ms']:.4f}, err {f['max_abs_err']:.3g}) | dgrad "
-                    f"{g['ms']:.4f} (library {g['library_ms']:.4f}) | wgrad {wg['ms']:.4f} ms (plain "
-                    f"{wg['plain_ms']:.4f}, bound {wg['bound_ms']:.4f}, library {wg['library_ms']:.4f}, rel err {rel:.2g})"
-                )
-                del x, dy, xn, dyn, gw, gb, gw2, gb2, ww, wb, mw, mb
+    rows = [depthwise_row(dwk, dev, recipe, spatial, c, per_step, dtype, dwk.TRAIN_BATCH)
+            for recipe, stages in dwk.TRAIN_STAGES.items() for dtype in (torch.bfloat16, torch.float32)
+            for spatial, c, per_step in stages]
     report["depthwise_rows"] = rows
     report["wide_depthwise_rows"] = phase_wide_depthwise(dwk, dev)
     check_digests(dev, ("depthwise3x3",), report)
@@ -1111,6 +1138,173 @@ def phase_fast_recipe(dwk, fb, dev, work, report):
     report["fast_recipe"] = dict(sample_threads=threads, legs={n: v[0] for n, v in legs.items()},
                                  train_launches=leg["launches"], test_launches=test_counts, restored=restored,
                                  test_metrics=metrics)
+
+
+# the synthetic instance tune recipe (MedNeXt-S, stock stem, bf16, 3 affinity
+# channels, batch 8 of (32, 64, 64)) and the (C, R, (Z, Y, X), blocks per
+# forward or train step) of its stride-1 blocks
+INSTANCE = ROOT / "tutorials" / "synthetic_instance_tune_tpu.yaml"
+INSTANCE_BATCH = 8
+INSTANCE_STAGES = [
+    (32, 64, (32, 64, 64), 4),
+    (64, 128, (16, 32, 32), 4),
+    (128, 256, (8, 16, 16), 4),
+    (256, 512, (4, 8, 8), 4),
+    (512, 1024, (2, 4, 4), 2),
+]
+
+
+class LogRecords(logging.Handler):
+    """Keeps the port's log records whose message starts with one of
+    ``prefixes``, for the numbers they carry in ``args``."""
+
+    def __init__(self, prefixes):
+        super().__init__()
+        self.prefixes, self.records = prefixes, []
+
+    def emit(self, record):
+        if isinstance(record.msg, str) and record.msg.startswith(self.prefixes):
+            self.records.append(record)
+
+    def take(self, prefix):
+        got = [r.args for r in self.records if r.msg.startswith(prefix)]
+        self.records = [r for r in self.records if not r.msg.startswith(prefix)]
+        return got
+
+
+def phase_instance(dwk, fb, dev, work, report):
+    log("== phase 14: the affinity instance chain: kernels at its shapes, model, CLI train -> tune -> tune-test ==")
+    import shutil
+
+    import yaml
+
+    from pytorch_connectomics_tpu_torch.config import load_config
+    from pytorch_connectomics_tpu_torch.data.io import read_volume
+    from pytorch_connectomics_tpu_torch.models import build_model
+    from pytorch_connectomics_tpu_torch.runtime.cli import parse_args
+    from pytorch_connectomics_tpu_torch.runtime.dispatch import dispatch_runtime
+
+    out = report["instance"] = {}
+    # (a) the kernels of this path at its stride-1 stage shapes (batch 8)
+    out["pair_rows"] = [pair_row(fb, dev, c, r, spatial, per, dtype, INSTANCE_BATCH)
+                        for dtype in (torch.bfloat16, torch.float32) for c, r, spatial, per in INSTANCE_STAGES]
+    out["depthwise_rows"] = [depthwise_row(dwk, dev, "instance", spatial, c, per, dtype, INSTANCE_BATCH)
+                             for dtype in (torch.bfloat16, torch.float32) for c, _, spatial, per in INSTANCE_STAGES]
+    # (b) the 3-channel MedNeXt-S forward, kernel path against plain
+    cfg = load_config(INSTANCE, mode="test")
+    model = build_model(cfg.model, device=dev, seed=0)
+    x = torch.from_numpy(np.random.default_rng(2).random((INSTANCE_BATCH, 32, 64, 64, 1), dtype=np.float32)).to(dev)
+    with torch.inference_mode():
+        fb.reset_launch_counts()
+        y = model(x)
+        torch.cuda.synchronize()
+        counts = {k.__name__: k.launches for k in fb.KERNELS}
+        if any(v != 18 for v in counts.values()):
+            fail(f"one forward should launch each kernel 18 times, got {counts}")
+        ref = model(x, plain=True)
+        err, top = (y - ref).abs().max().item(), ref.abs().max().item()
+        tol = MODEL_BF16_TOL * max(top, 1.0)
+        if not torch.isfinite(y).all() or y.shape != (INSTANCE_BATCH, 32, 64, 64, 3) or not err <= tol:
+            fail(f"instance model {tuple(y.shape)}: kernel path vs plain max error {err:.3g} (limit {tol:.3g})")
+        ms = time_ms(lambda: model(x), reps=5, warmup=1)
+        plain_ms = time_ms(lambda: model(x, plain=True), reps=5, warmup=1)
+    out["model"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, max_abs_ref=top, tol=tol,
+                        launches_per_forward=counts)
+    log(f"MedNeXt-S, 3 affinity channels, bf16 batch 8 of 32x64x64: kernel path {ms:.2f} ms, plain path {plain_ms:.2f} "
+        f"ms, max err {err:.4g} <= {tol:.4g}")
+    del model, x, y, ref
+    torch.cuda.empty_cache()
+
+    # (c) the recipe's three CLI legs as shipped; (d) the tuned params on an
+    # untrained model's prediction of B as the control
+    run_root, control_root = work / "instance", work / "instance_control"
+    for d in (run_root, control_root):
+        shutil.rmtree(d, ignore_errors=True)
+    vol_b = yaml.safe_load(INSTANCE.read_text())["test"]["data"]["test"]
+    held_out = [f"data.test.image={vol_b['image']}", f"data.test.label={vol_b['label']}"]
+    flags = ["--config", str(INSTANCE), "--device", str(dev)]
+    logs = LogRecords(("timing[", "trial %d/%d"))
+    port_log = logging.getLogger("pytorch_connectomics_tpu_torch")
+    port_log.addHandler(logs)
+    try:
+        dwk.reset_launch_counts()
+        fb.reset_launch_counts()
+        train = dispatch_runtime(parse_args(flags + ["--mode", "train", f"save_path={run_root}"]))
+        torch.cuda.synchronize()
+        train_counts = {k.__name__: k.launches for k in dwk.KERNELS + fb.KERNELS}
+        if any(k.launches <= 0 for k in dwk.KERNELS):
+            fail(f"the instance train leg did not run through both depthwise kernels: {train_counts}")
+        st = train["train_stats"]
+        recs = [json.loads(line) for line in (Path(train["run_dir"]) / "metrics.jsonl").read_text().splitlines()]
+        losses = [r["train_loss_total"] for r in recs if "train_loss_total" in r]
+        if st["steps"] != 300 or not train["checkpoint"] or not all(math.isfinite(v) for v in losses):
+            fail(f"instance train leg: {st['steps']} steps, checkpoint {train['checkpoint']}, losses {losses}")
+        train_stats = dict(
+            train_stats=st, steps_per_s=st["steps"] / st["seconds"], step_ms=st["seconds"] / st["steps"] * 1e3,
+            data_wait_ms_per_step=st["data_wait_seconds"] / st["steps"] * 1e3,
+            pipeline_host_ms_per_batch=st["pipeline_host_seconds"] / max(1, st["pipeline_batches"]) * 1e3,
+            losses=losses, launches=train_counts,
+        )
+        log(f"train leg: {st['steps']} steps in {st['seconds']:.2f} s ({train_stats['steps_per_s']:.3f} steps/s, "
+            f"{train_stats['step_ms']:.1f} ms a step, {train_stats['data_wait_ms_per_step']:.1f} of it waiting for "
+            f"batches; pipeline {train_stats['pipeline_host_ms_per_batch']:.1f} ms a batch); losses "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}; launches {train_counts}")
+
+        def leg(mode, root, extra):
+            fb.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = dispatch_runtime(parse_args(flags + ["--mode", mode] + extra + [f"save_path={root}"]))
+            torch.cuda.synchronize()
+            res["seconds"] = time.perf_counter() - t0
+            res["launches"] = {k.__name__: k.launches for k in fb.KERNELS}
+            if any(v <= 0 for v in res["launches"].values()):
+                fail(f"the {mode} leg did not run through the fused kernels: {res['launches']}")
+            return res
+
+        tune = leg("tune", run_root, [])
+        if (tune.get("restored") or {}).get("checkpoint") != train["checkpoint"]:
+            fail(f"the tune leg did not restore {train['checkpoint']}: {tune.get('restored')}")
+        study = yaml.safe_load(Path(tune["best_params"]).read_text())
+        trials = [a[4] for a in logs.take("trial %d/%d")]
+        (tune_timing,) = logs.take("timing[")
+        if len(trials) != 24 or sum(t["state"] == "complete" for t in study["trials"]) < 1:
+            fail(f"the tune leg ran {len(trials)} trials: {study['trials']}")
+        test = leg("tune-test", run_root, ["--best-params", tune["best_params"], *held_out])
+        (test_timing,) = logs.take("timing[")
+        control = leg("tune-test", control_root, ["--best-params", tune["best_params"], *held_out])
+        logs.take("timing[")
+    finally:
+        port_log.removeHandler(logs)
+    if control.get("restored"):
+        fail(f"the control restored a checkpoint: {control['restored']}")
+    pred = read_volume(str(next(f for f in Path(test["run_dir"]).iterdir()
+                                if f.name.endswith(("_prediction.h5", "_prediction.npy")))))
+    if pred.shape != (3, 32, 128, 128) or not np.isfinite(pred).all() or pred.min() < 0 or pred.max() > 1:
+        fail(f"tune-test prediction {pred.shape} not finite in [0, 1] of shape (3, 32, 128, 128)")
+    scores, control_scores = (next(iter(r["metrics"].values())) for r in (test, control))
+    for sc in (scores, control_scores):
+        if not ({"voi", "adapted_rand"} <= set(sc) and all(math.isfinite(v) for v in sc.values())):
+            fail(f"tune-test metrics: {sc}")
+    # the chain learns on the card: the trained model's held-out VOI below the untrained one's
+    if not scores["voi"] < control_scores["voi"]:
+        fail(f"held-out VOI {scores['voi']:.4f} (trained) is not below {control_scores['voi']:.4f} (untrained)")
+    names = ("read+normalise", "predict", "save", "decode", "evaluate")
+    out.update(
+        train=train_stats,
+        tune=dict(seconds=tune["seconds"], timing=dict(zip(names, tune_timing[1:])), trial_seconds=trials,
+                  mean_trial_seconds=sum(trials) / len(trials), best_params=study["best_params"],
+                  best_voi_a=study["best_value"], launches=tune["launches"]),
+        tune_test=dict(seconds=test["seconds"], timing=dict(zip(names, test_timing[1:])), metrics_b=scores,
+                       launches=test["launches"]),
+        control=dict(metrics_b=control_scores, launches=control["launches"]),
+    )
+    log(f"tune leg (volume A, {len(trials)} trials): {tune['seconds']:.2f} s, predict {tune_timing[2]:.3f} s, "
+        f"{out['tune']['mean_trial_seconds']:.3f} s a trial; best VOI {study['best_value']:.4f} with "
+        f"{study['best_params']}; launches {tune['launches']}")
+    log(f"tune-test leg (held-out volume B): {test['seconds']:.2f} s, predict {test_timing[2]:.3f} s, decode "
+        f"{test_timing[4]:.3f} s, evaluate {test_timing[5]:.3f} s; VOI {scores['voi']:.4f}, adapted Rand "
+        f"{scores['adapted_rand']:.4f}; untrained control VOI {control_scores['voi']:.4f}, adapted Rand "
+        f"{control_scores['adapted_rand']:.4f}")
 
 
 def conv_bounds(n, cin, cout, es):
@@ -1557,11 +1751,17 @@ def main(argv=None) -> None:
 
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU and check it.")
     ap.add_argument("--phases", default=None,
-                    help="comma-separated phases of 3-13 to run after the device and build phases (default: all)")
+                    help="comma-separated phases of 3-14 (14 also as 'instance') to run after the device and build "
+                    "phases (default: all)")
     args = ap.parse_args(argv)
-    phases = None if args.phases is None else {int(p) for p in args.phases.split(",")}
-    if phases is not None and not phases <= set(range(3, 14)):
-        ap.error("--phases takes phases 3-13")
+    phases = None
+    if args.phases is not None:
+        try:
+            phases = {14 if p == "instance" else int(p) for p in args.phases.split(",")}
+        except ValueError:
+            ap.error("--phases takes phases 3-14")
+    if phases is not None and not phases <= set(range(3, 15)):
+        ap.error("--phases takes phases 3-14")
 
     def want(n):
         return phases is None or n in phases
@@ -1640,8 +1840,10 @@ def main(argv=None) -> None:
         probe_records, probe_counts = phase_probes(dev, work, report)
     if want(13):
         phase_fast_recipe(dwk, fb, dev, work, report)
+    if want(14):
+        phase_instance(dwk, fb, dev, work, report)
 
-    log("== phase 14: report ==")
+    log("== phase 15: report ==")
     report["total_seconds"] = time.perf_counter() - started
     log(f"chip_smoke ran in {report['total_seconds']:.1f} s")
     device = {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}

@@ -84,7 +84,7 @@ def parse_synthetic_url(path: str):
     return task, name, tuple(shape), seed, cells, elong
 
 
-# generated (image, label) pairs by (task, shape, seed): the image and label
+# generated (image, label) pairs by (task, shape, seed, cells, elongation): the image and label
 # URLs of one task come from one generation
 _SYNTH_CACHE: Dict[Tuple, Tuple[np.ndarray, np.ndarray]] = {}
 _SYNTH_LOCK = threading.Lock()
@@ -95,15 +95,15 @@ def synthetic_task_volume(path: str, device=None) -> np.ndarray:
     generated on ``device`` (default the CPU) by :mod:`.synthetic`."""
     from .synthetic import synthetic_em_task
 
-    task, name, shape, seed, _, _ = parse_synthetic_url(path)
-    if task not in ("em", "em2"):
-        raise NotImplementedError(f"synthetic task '{task}' is not ported yet (em and em2 only)")
-    key = (task, shape, seed)
+    task, name, shape, seed, cells, elong = parse_synthetic_url(path)
+    if task not in ("em", "em2", "instance"):
+        raise NotImplementedError(f"synthetic task '{task}' is not ported yet (em, em2 and instance)")
+    key = (task, shape, seed, cells, elong)
     with _SYNTH_LOCK:
         if key not in _SYNTH_CACHE:
             if len(_SYNTH_CACHE) >= 8:
                 _SYNTH_CACHE.pop(next(iter(_SYNTH_CACHE)))
-            _SYNTH_CACHE[key] = synthetic_em_task(task, shape, seed, device)
+            _SYNTH_CACHE[key] = synthetic_em_task(task, shape, seed, device, cells=cells, elongation=elong)
         img, lbl = _SYNTH_CACHE[key]
     return lbl if any(t in name.lower() for t in _LABEL_TAGS) else img
 

@@ -13,11 +13,12 @@ A training pipeline augments each sample on the host after the crop and
 before the targets (:mod:`.augment`, the same draws from the same
 generator), and makes the samples of a batch in a pool of
 ``cfg.system.num_workers`` threads; the batches do not depend on the
-thread count. This slice ports the cached in-RAM dataset: on-device
+thread count. Where a label volume carries ``-1`` (unlabeled) voxels, each
+sample also gets the per-channel validity mask of its targets, multiplied
+into its ``mask``. This slice ports the cached in-RAM dataset: on-device
 augmentation, lazy (zarr) datasets, nnU-Net preprocessing, auxiliary label
-volumes, target context, read-time downscaling, paired data transforms,
-axis-range splits and per-channel target masks raise
-``NotImplementedError``.
+volumes, target context, read-time downscaling, paired data transforms and
+axis-range splits raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from ..config.schema import Config, DatasetSplitConfig
 from .augment import build_augmentation_fn
 from .datasets import RejectConfig, VolumeDataset
 from .targets import build_target_fn
+from .targets.build import build_target_mask_fn
 
 
 def _reject_from_cfg(block) -> Optional[RejectConfig]:
@@ -99,8 +101,8 @@ class PatchPipeline:
         self.augment = build_augmentation_fn(augment_cfg if train else None,
                                              sample_other=lambda rng: self.dataset.sample(rng))
         self.target_fn = build_target_fn(target_cfg)
-        if getattr(dataset, "has_unlabeled", False):
-            raise NotImplementedError("per-channel target masks of unlabeled (-1) voxels are not ported yet")
+        # decided once per dataset, so every sample of a batch has the same keys
+        self.target_mask_fn = build_target_mask_fn(target_cfg) if getattr(dataset, "has_unlabeled", False) else None
         self.num_threads = max(1, int(num_threads))
         self.prefetch = prefetch
         self._pool: Optional[ThreadPoolExecutor] = None
@@ -115,7 +117,11 @@ class PatchPipeline:
         if self.augment is not None:
             s = self.augment(s, rng)
         if self.target_fn is not None and "label" in s:
-            s["label"] = self.target_fn(s["label"])
+            raw_seg = s["label"]
+            s["label"] = self.target_fn(raw_seg)
+            if self.target_mask_fn is not None:
+                tm = self.target_mask_fn(raw_seg)
+                s["mask"] = s["mask"] * tm if "mask" in s else tm
         return s
 
     def make_batch(self, step: int) -> Dict[str, np.ndarray]:

@@ -1,5 +1,7 @@
-"""Synthetic EM volumes (Lucchi++-style mitochondria tasks), the port of
-``pytorch_connectomics_tpu/data/synthetic_jax.py:33-148``.
+"""Synthetic EM volumes, the port of
+``pytorch_connectomics_tpu/data/synthetic_jax.py:33-234``: the Lucchi++-style
+mitochondria tasks (``em``, ``em2``) and the CREMI-style dense neuron
+instance task (``instance``).
 
 Each generator is split in two:
 
@@ -14,7 +16,7 @@ Each generator is split in two:
 The draws of JAX's ``jax.random`` and of a ``torch.Generator`` differ for
 one seed, so a volume of the port is not the JAX package's volume for the
 same URL; fed the draws that JAX's keys produce, the transform gives JAX's
-volume (``tests/test_torch_data.py``).
+volume (``tests/test_torch_data.py``, ``tests/test_torch_instance.py``).
 
 Two details follow JAX exactly: ``jax.image.resize(method="cubic")`` is the
 Keys cubic kernel with a = -0.5, half-pixel centres and weights renormalised
@@ -117,6 +119,23 @@ def em_draws(shape: Shape, seed: int, v2: bool = True) -> Dict[str, torch.Tensor
     return d
 
 
+# feature sizes (voxels) of the instance task's smooth fields: the three warp
+# displacements, the cytoplasm texture, the organelle clutter and the gain
+_INSTANCE_FIELDS = {"warp_z": 24.0, "warp_y": 24.0, "warp_x": 24.0, "tex": 5.0, "org": 10.0, "gain": 90.0}
+
+
+def instance_draws(shape: Shape, n_cells: int, seed: int) -> Dict[str, torch.Tensor]:
+    """Every random number of one instance volume, on the CPU: the smooth
+    fields' low-resolution noise, the cell seeds as uniform (n_cells, 3)
+    fractions of the volume, the per-slice gain and the sensor noise."""
+    g = torch.Generator().manual_seed(int(seed))
+    d = {k: torch.randn(low_shape(shape, fv), generator=g) for k, fv in _INSTANCE_FIELDS.items()}
+    d["seeds"] = torch.rand((int(n_cells), 3), generator=g)
+    d["slice_gain"] = torch.randn((shape[0], 1, 1), generator=g)
+    d["noise"] = torch.randn(shape, generator=g)
+    return d
+
+
 # ---------------------------------------------------------------------------
 # transforms
 # ---------------------------------------------------------------------------
@@ -190,15 +209,88 @@ def synthetic_em_volume_v2(
     return torch.clamp(img, 0.0, 1.0), lbl
 
 
-def synthetic_em_task(task: str, shape: Shape, seed: int, device=None) -> Tuple[np.ndarray, np.ndarray]:
-    """(image uint8, label uint32) host arrays of the ``em``/``em2`` task for
-    ``seed``, generated on ``device``."""
+def nearest_seed(pz: torch.Tensor, py: torch.Tensor, px: torch.Tensor, seeds: torch.Tensor,
+                 elongation: float = 1.0) -> torch.Tensor:
+    """int32 label 1..n of the nearest seed to each warped voxel, seeds
+    scanned in order as JAX's ``lax.scan`` does (one distance volume, not
+    n): the strict ``<`` leaves a tie to the lower index."""
+    best_d = torch.full(pz.shape, float("inf"), dtype=torch.float32, device=pz.device)
+    labels = torch.zeros(pz.shape, dtype=torch.int32, device=pz.device)
+    for i, (s0, s1, s2) in enumerate(seeds.tolist(), start=1):
+        s0, s1, s2 = (torch.tensor(v, dtype=torch.float32) for v in (s0, s1, s2))
+        d = ((pz - s0) / elongation) ** 2 + (py - s1) ** 2 + (px - s2) ** 2
+        take = d < best_d
+        best_d = torch.where(take, d, best_d)
+        labels = labels.masked_fill(take, i)
+    return labels
+
+
+def instance_boundary(labels: torch.Tensor) -> torch.Tensor:
+    """Voxels whose 6-neighbourhood crosses a label boundary (``jnp.roll``
+    differences with the first slice of each axis cleared)."""
+    b = torch.zeros(labels.shape, dtype=torch.bool, device=labels.device)
+    for ax in range(3):
+        d = labels != torch.roll(labels, 1, dims=ax)
+        d.select(ax, 0).fill_(False)
+        b = b | d | torch.roll(d, -1, dims=ax)
+    return b
+
+
+def synthetic_instance_volume(
+    draws: Dict[str, torch.Tensor], shape: Shape, elongation: float = 1.0, device=None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense instance task from its draws: warped-Voronoi cells (an elastic
+    warp of the coordinates, each voxel labelled by its nearest seed in
+    warped space), bright textured cytoplasm, dark membranes on the label
+    boundaries, organelle clutter, low-frequency gain, per-slice gain and
+    sensor noise. ``elongation`` > 1 divides the z term of the seed metric,
+    stretching cells along z. (image float32 [0,1] (Z,Y,X), labels int32
+    in 1..n)."""
+    d = {k: v.to(device) for k, v in draws.items()}
+    Z, Y, X = shape
+    n_cells = d["seeds"].shape[0]
+    zz, yy, xx = torch.meshgrid(
+        *(torch.arange(s, dtype=torch.float32, device=device) for s in shape), indexing="ij"
+    )
+    amp = 0.25 * (float(min(Y, X)) / max(1.0, n_cells ** (1.0 / 3.0)))
+    pz = zz + amp * 0.5 * (2.0 * smooth_field(d["warp_z"], shape) - 1.0)
+    py = yy + amp * (2.0 * smooth_field(d["warp_y"], shape) - 1.0)
+    px = xx + amp * (2.0 * smooth_field(d["warp_x"], shape) - 1.0)
+    # the seeds stay on the host: the scan reads them as scalars
+    seeds = draws["seeds"].float() * torch.tensor([Z - 1, Y - 1, X - 1], dtype=torch.float32)
+    labels = nearest_seed(pz, py, px, seeds, elongation)
+    mem = instance_boundary(labels)
+    tex = smooth_field(d["tex"], shape)
+    img = torch.full(shape, 0.72, dtype=torch.float32, device=device)
+    img = img + 0.10 * (2.0 * tex - 1.0)
+    org = smooth_field(d["org"], shape) > 0.78
+    img = torch.where(org & ~mem, torch.full_like(img, 0.45), img)
+    img = torch.where(mem, torch.full_like(img, 0.18), img)
+    img = img * (1.0 + band_noise(d["gain"], shape, 0.08))
+    img = img * (1.0 + 0.04 * d["slice_gain"])
+    img = img + 0.07 * d["noise"]
+    return torch.clamp(img, 0.0, 1.0), labels
+
+
+def default_cells(shape: Shape) -> int:
+    """Cell count of an instance volume whose URL names none: about 180 a
+    megavoxel, at least 8."""
+    return max(8, int(180 * np.prod(shape) / 1e6))
+
+
+def synthetic_em_task(task: str, shape: Shape, seed: int, device=None, cells=None,
+                      elongation: float = 1.0) -> Tuple[np.ndarray, np.ndarray]:
+    """(image uint8, label uint32) host arrays of the ``em``, ``em2`` or
+    ``instance`` task for ``seed``, generated on ``device``."""
     shape = tuple(int(s) for s in shape)
     if task == "em2":
         img, lbl = synthetic_em_volume_v2(em_draws(shape, seed, v2=True), shape, device=device)
     elif task == "em":
         img, lbl = synthetic_em_volume(em_draws(shape, seed, v2=False), shape, device=device)
+    elif task == "instance":
+        n = cells or default_cells(shape)
+        img, lbl = synthetic_instance_volume(instance_draws(shape, n, seed), shape, elongation, device=device)
     else:
-        raise NotImplementedError(f"synthetic task '{task}' is not ported yet (em and em2 only)")
+        raise NotImplementedError(f"synthetic task '{task}' is not ported yet (em, em2 and instance)")
     img = torch.clamp(img * 255.0, 0, 255).to(torch.uint8)
     return img.cpu().numpy(), lbl.cpu().numpy().astype(np.uint32)

@@ -1,35 +1,53 @@
 """Target generation: a label-transform config -> ``seg (C, Z, Y, X) ->
-target (C', Z, Y, X)`` float32, the port of ``build_target_fn`` in
-``pytorch_connectomics_tpu/data/targets/build.py:38-55,127`` with
+target (C', Z, Y, X)`` float32, the port of ``build_target_fn``,
+``build_target_mask_fn``, ``target_channel_spans`` and
+``affinity_target_groups`` in
+``pytorch_connectomics_tpu/data/targets/build.py:38-253``, with
 ``seg_to_binary`` of ``targets/misc.py:17``.
 
-This slice ports the ``binary`` target only; any other target name, and the
-label clean-ups (normalisation, connected-component relabelling, erosion),
-raise ``NotImplementedError``.
+This slice ports the ``binary`` and ``affinity`` targets; any other target
+name, and the label clean-ups (normalisation, connected-component
+relabelling, erosion), raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
+
+from .affinity import affinity_unlabeled_mask, parse_offsets, seg_to_affinity
+
+_DEFAULT_OFFSETS = ["0-0-1", "0-1-0", "1-0-0"]
 
 
 def seg_to_binary(seg: np.ndarray, dtype=np.float32) -> np.ndarray:
     return (np.asarray(seg) > 0).astype(dtype)
 
 
-def _binary(seg: np.ndarray) -> np.ndarray:
+def _binary(seg: np.ndarray, **kw) -> np.ndarray:
     b = seg_to_binary(seg)
     return b[None] if b.ndim == 3 else b
 
 
-_TARGETS = {"binary": _binary}
+def _affinity(seg: np.ndarray, offsets=None, affinity_mode="deepem", **kw) -> np.ndarray:
+    return seg_to_affinity(seg, offsets or _DEFAULT_OFFSETS, affinity_mode)
+
+
+_TARGETS: Dict[str, Callable[..., np.ndarray]] = {"binary": _binary, "affinity": _affinity}
+
+
+def _target_kwargs(t) -> Dict[str, Any]:
+    """A target's kwargs, with its extra keys joined."""
+    kw = dict(t.kwargs or {})
+    extra = getattr(t, "extra", None) or {}
+    kw.update({k: v for k, v in extra.items() if k not in ("name", "kwargs")})
+    return kw
 
 
 def build_target_fn(cfg) -> Optional[Callable[[np.ndarray], np.ndarray]]:
     """Compile a ``LabelTransformConfig``; None when no target is configured
-    (the label is used as it is)."""
+    (the label is used as it is). Targets stack in configured order."""
     if cfg is None or not cfg.targets:
         return None
     for flag, what in (
@@ -43,13 +61,80 @@ def build_target_fn(cfg) -> Optional[Callable[[np.ndarray], np.ndarray]]:
     steps = []
     for t in cfg.targets:
         if t.name not in _TARGETS:
-            raise NotImplementedError(f"target '{t.name}' is not ported yet (binary only)")
-        steps.append(_TARGETS[t.name])
+            raise NotImplementedError(f"target '{t.name}' is not ported yet (binary and affinity only)")
+        steps.append((_TARGETS[t.name], _target_kwargs(t)))
 
     def fn(seg: np.ndarray) -> np.ndarray:
         s = np.asarray(seg)
         if s.ndim == 4:
             s = s[0]
-        return np.concatenate([f(s) for f in steps], axis=0).astype(np.float32)
+        return np.concatenate([f(s, **kw) for f, kw in steps], axis=0).astype(np.float32)
 
     return fn
+
+
+def target_channel_spans(cfg) -> List[Dict[str, Any]]:
+    """[{name, start, end, kwargs}] channel layout of the stacked target
+    tensor: one channel per affinity offset, other targets probed on a tiny
+    segmentation (their channel counts do not depend on the data)."""
+    if cfg is None or not cfg.targets:
+        return []
+    probe = np.zeros((6, 6, 6), np.uint32)
+    probe[1:3, 1:3, 1:3] = 1
+    probe[4:, 4:, 4:] = 2
+    spans = []
+    start = 0
+    for t in cfg.targets:
+        kw = _target_kwargs(t)
+        if t.name == "affinity":
+            c = len(kw.get("offsets") or _DEFAULT_OFFSETS)
+        elif t.name in _TARGETS:
+            c = int(_TARGETS[t.name](probe, **kw).shape[0])
+        else:
+            raise NotImplementedError(f"target '{t.name}' is not ported yet (binary and affinity only)")
+        spans.append({"name": t.name, "start": start, "end": start + c, "kwargs": kw})
+        start += c
+    return spans
+
+
+def build_target_mask_fn(cfg) -> Optional[Callable[[np.ndarray], np.ndarray]]:
+    """``fn(raw_seg) -> (C, Z, Y, X) float32`` per-channel validity mask over
+    the stacked target layout, for segmentations that carry ``-1``
+    (unlabeled) voxels: an affinity edge is valid where both endpoints are
+    labeled and inside the volume (at the mode's storage voxel), any other
+    target channel where ``seg != -1``. None without targets."""
+    spans = target_channel_spans(cfg)
+    if not spans:
+        return None
+
+    def fn(seg: np.ndarray) -> np.ndarray:
+        s = np.asarray(seg)
+        if s.ndim == 4:
+            s = s[0]
+        labeled = (s != -1).astype(np.float32)
+        cols = []
+        for span in spans:
+            if span["name"] == "affinity":
+                offsets = span["kwargs"].get("offsets") or _DEFAULT_OFFSETS
+                cols.append(affinity_unlabeled_mask(s, offsets, span["kwargs"].get("affinity_mode", "deepem")))
+            else:
+                cols.append(np.broadcast_to(labeled[None], (span["end"] - span["start"],) + s.shape))
+        return np.ascontiguousarray(np.concatenate(cols, axis=0), dtype=np.float32)
+
+    return fn
+
+
+def affinity_target_groups(cfg) -> List[Dict[str, Any]]:
+    """[{start, end, offsets, mode}] channel ranges of the target tensor that
+    hold affinity channels, with parsed (dz, dy, dx) offsets: the map the
+    loss orchestrator masks offset validity by."""
+    return [
+        {
+            "start": span["start"],
+            "end": span["end"],
+            "offsets": parse_offsets(span["kwargs"].get("offsets") or _DEFAULT_OFFSETS),
+            "mode": span["kwargs"].get("affinity_mode", "deepem"),
+        }
+        for span in target_channel_spans(cfg)
+        if span["name"] == "affinity"
+    ]

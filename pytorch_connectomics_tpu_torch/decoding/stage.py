@@ -13,14 +13,20 @@ from . import decoders  # noqa: F401 - registers the built-ins
 from .registry import run_steps
 
 
+def postprocessing_configured(pp) -> bool:
+    """True when a ``DecodingPostprocessConfig`` asks for any step (none is
+    ported)."""
+    return pp is not None and bool(
+        pp.binary or pp.split_disconnected or pp.min_instance_size or pp.max_instance_size or pp.transpose
+    )
+
+
 def _check_ported(cfg: DecodingConfig) -> None:
-    pp = cfg.postprocessing
     for flag, what in (
         (cfg.qc.enabled, "the affinity QC mask (decoding.qc)"),
         (cfg.graph, "graph decoding (decoding.graph)"),
         (cfg.streamed, "streamed decoding (decoding.streamed)"),
-        (pp is not None and (pp.binary or pp.split_disconnected or pp.min_instance_size or pp.max_instance_size
-                             or pp.transpose), "decode post-processing (decoding.postprocessing)"),
+        (postprocessing_configured(cfg.postprocessing), "decode post-processing (decoding.postprocessing)"),
     ):
         if flag:
             raise NotImplementedError(f"{what} is not ported yet")

@@ -48,12 +48,20 @@ def save_prediction(
         "framework": "pytorch_connectomics_tpu_torch",
     }
     attrs.update(extra_attrs or {})
-    path = Path(path)
-    if path.suffix.lower() in (".h5", ".hdf5") and not h5py_available():
-        path = path.with_suffix(".npy")
+    path = stored_prediction_path(path)
+    if path.suffix == ".npy":
         path.parent.mkdir(parents=True, exist_ok=True)
         path.with_suffix(".json").write_text(json.dumps(attrs, indent=2))
     save_volume(str(path), pred, attrs=attrs)
+    return path
+
+
+def stored_prediction_path(path: str | Path) -> Path:
+    """Where :func:`save_prediction` writes ``path``: an ``.h5`` name
+    becomes ``.npy`` where h5py is not installed."""
+    path = Path(path)
+    if path.suffix.lower() in (".h5", ".hdf5") and not h5py_available():
+        return path.with_suffix(".npy")
     return path
 
 

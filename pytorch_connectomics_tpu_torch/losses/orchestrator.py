@@ -6,16 +6,19 @@ mask, weight)`` returns ``(total, logs)`` with ``logs["loss_<Function>_<i>"]``
 per term and ``logs["loss_total"]`` (tensors, still on the device). Terms
 route channels with ``pred_slice``/``target_slice``/``mask_slice``, take a
 numeric ``pos_weight`` and the batch's mask and spatial weight as the JAX
-package does. Deep supervision, multi-head outputs, ``pos_weight: auto``,
-pred-vs-pred terms and uncertainty/GradNorm balancing raise
-``NotImplementedError``; affinity validity masks have no use until an
-affinity target is ported (``data/targets`` raises on it).
+package does. Given the affinity channel groups of the target tensor
+(``data.targets.build.affinity_target_groups``), a term whose target
+channels overlap a group gets each channel's offset validity (the voxels
+whose offset neighbour exists) multiplied into its mask, as JAX's
+``_affinity_valid_mask`` (``orchestrator.py:29-53,120-147``). Deep
+supervision, multi-head outputs, ``pos_weight: auto``, pred-vs-pred terms
+and uncertainty/GradNorm balancing raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -41,9 +44,37 @@ class CompiledTerm:
     spatial_weight: Optional[str] = None
 
 
+def offset_valid_mask(spatial: Tuple[int, int, int], offset, mode: str = "deepem", device=None) -> torch.Tensor:
+    """(Z, Y, X) float32 validity of one affinity offset: 1 where the offset
+    neighbour exists, at the mode's storage voxel (``deepem``: the
+    high-end voxel, ``banis``: the source voxel)."""
+    m = torch.ones(spatial, dtype=torch.float32, device=device)
+    for d, o in enumerate(offset):
+        if o == 0:
+            continue
+        n = spatial[d]
+        idx = torch.arange(n, device=device)
+        if mode == "banis":
+            keep = idx < n - o if o > 0 else idx >= -o
+        else:
+            keep = idx >= o if o > 0 else idx < n + o
+        shape = [1, 1, 1]
+        shape[d] = n
+        m = m * keep.reshape(shape).float()
+    return m
+
+
 class LossOrchestrator:
-    def __init__(self, loss_cfg):
+    """``affinity_groups`` ([{start, end, offsets, mode}]) makes the
+    orchestrator affinity-aware: each term whose target channels overlap a
+    group gets the per-offset validity mask multiplied into its loss mask."""
+
+    def __init__(self, loss_cfg, affinity_groups=None):
         self.cfg = loss_cfg
+        self.affinity_groups: List[Dict[str, Any]] = list(affinity_groups or [])
+        # validity masks by (term, target shape, device): built once, as
+        # JAX's are constants of its trace
+        self._valid_masks: Dict[Tuple, Optional[torch.Tensor]] = {}
         for flag, what in (
             (loss_cfg.deep_supervision, "deep supervision"),
             (loss_cfg.balancing.method, f"loss balancing '{loss_cfg.balancing.method}'"),
@@ -71,6 +102,31 @@ class LossOrchestrator:
                 kwargs=kwargs, spatial_weight=t.spatial_weight,
             ))
 
+    def _affinity_valid_mask(self, term: CompiledTerm, target: torch.Tensor) -> Optional[torch.Tensor]:
+        """(1, Z, Y, X, Csel) validity mask when the term's target channels
+        overlap an affinity group; None otherwise."""
+        if not self.affinity_groups:
+            return None
+        key = (term.name, tuple(target.shape), target.device)
+        if key not in self._valid_masks:
+            sel = list(range(*parse_slice(term.target_slice).indices(target.shape[-1])))
+            per_channel = [None] * len(sel)
+            for g in self.affinity_groups:
+                for i, c in enumerate(sel):
+                    if g["start"] <= c < g["end"]:
+                        per_channel[i] = (g["offsets"][c - g["start"]], g.get("mode", "deepem"))
+            mask = None
+            if any(om is not None for om in per_channel):
+                spatial = tuple(target.shape[1:4])
+                cols = [
+                    offset_valid_mask(spatial, om[0], om[1], target.device) if om is not None
+                    else torch.ones(spatial, dtype=torch.float32, device=target.device)
+                    for om in per_channel
+                ]
+                mask = torch.stack(cols, dim=-1)[None]
+            self._valid_masks[key] = mask
+        return self._valid_masks[key]
+
     def _term_loss(self, term: CompiledTerm, pred, target, mask=None, weight=None):
         p = _channels(pred, term.pred_slice)
         t = _channels(target, term.target_slice)
@@ -80,6 +136,9 @@ class LossOrchestrator:
         if term.mask_slice is not None:
             m2 = _channels(target, term.mask_slice)
             m = m2 if m is None else m * m2
+        mv = self._affinity_valid_mask(term, target)
+        if mv is not None:
+            m = mv if m is None else m * mv
         w = None
         if weight is not None and term.spatial_weight != "none":
             w = weight if weight.shape[-1] == 1 else _channels(weight, term.pred_slice)

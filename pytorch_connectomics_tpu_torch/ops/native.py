@@ -1,7 +1,9 @@
-"""ctypes bindings for the host C++ post-processing ops the bcd decode needs
+"""ctypes bindings for the host C++ post-processing ops the decoders need
 (``csrc/pytc_ops.cpp``): 3-D connected components, seeded watershed, small
-instance removal and renumbering. The port's own binding of the shared
-library: host code, not a GPU kernel.
+instance removal and renumbering (the bcd decode), and affinity connected
+components, mean-affinity agglomeration (one threshold or many in one
+pass) and the mutex watershed (the affinity decoders). The port's own
+binding of the shared library: host code, not a GPU kernel.
 
 The library is compiled with ``g++`` on first use into ``build/native/`` at
 the repository root, named by a hash of its source and flags, so an edited
@@ -17,7 +19,7 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -69,6 +71,16 @@ def get_lib() -> ctypes.CDLL:
             lib.dust_u32.argtypes = [u32p, i64, i64]
             lib.renumber_u32.restype = i64
             lib.renumber_u32.argtypes = [u32p, i64]
+            lib.affinity_cc.restype = i64
+            lib.affinity_cc.argtypes = [f32p, i64, i64, i64, ctypes.c_float, u32p]
+            lib.agglomerate_mean.restype = i64
+            lib.agglomerate_mean.argtypes = [u32p, f32p, i64, i64, i64, ctypes.c_float, u32p]
+            i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+            lib.agglomerate_mean_multi.restype = i64
+            lib.agglomerate_mean_multi.argtypes = [u32p, f32p, i64, i64, i64, f32p, i64, u32p, i64p]
+            i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+            lib.mutex_watershed.restype = i64
+            lib.mutex_watershed.argtypes = [f32p, i32p, i64, i64, i64, i64, u32p]
             _lib = lib
         return _lib
 
@@ -108,3 +120,70 @@ def renumber(labels: np.ndarray) -> Tuple[np.ndarray, int]:
     labels = np.array(labels, dtype=np.uint32, order="C", copy=True)
     n = get_lib().renumber_u32(labels, labels.size)
     return labels, int(n)
+
+
+def _cardinal_affinities(aff: np.ndarray) -> np.ndarray:
+    """The first three channels of a (C, Z, Y, X) map, the x, y and z
+    nearest-neighbour affinities stored at the high-end voxel (offsets
+    0-0-1, 0-1-0, 1-0-0), as contiguous float32; fewer channels raise."""
+    aff = np.asarray(aff)
+    if aff.ndim != 4 or aff.shape[0] < 3:
+        raise ValueError(f"expected (C >= 3, Z, Y, X) affinities, got shape {aff.shape}")
+    return np.ascontiguousarray(aff[:3], dtype=np.float32)
+
+
+def affinity_connected_components(aff: np.ndarray, threshold: float = 0.5) -> Tuple[np.ndarray, int]:
+    """Connected components over the edges of the three cardinal affinity
+    channels above ``threshold`` -> (labels uint32, count); a voxel that
+    touches no such edge stays background."""
+    aff = _cardinal_affinities(aff)
+    out = np.empty(aff.shape[1:], np.uint32)
+    n = get_lib().affinity_cc(aff, *aff.shape[1:], float(threshold), out)
+    return out, int(n)
+
+
+def _fragments_for(fragments: np.ndarray, aff: np.ndarray) -> np.ndarray:
+    fragments = np.ascontiguousarray(fragments, dtype=np.uint32)
+    if fragments.shape != aff.shape[1:]:
+        raise ValueError(f"fragments {fragments.shape} do not match affinities {aff.shape[1:]}")
+    return fragments
+
+
+def agglomerate(fragments: np.ndarray, aff: np.ndarray, threshold: float = 0.5) -> Tuple[np.ndarray, int]:
+    """waterz-style agglomeration: fragments merged in order of the mean
+    affinity of their shared edges while it is at least ``threshold`` ->
+    (labels uint32, count)."""
+    aff = _cardinal_affinities(aff)
+    fragments = _fragments_for(fragments, aff)
+    out = np.empty(fragments.shape, np.uint32)
+    n = get_lib().agglomerate_mean(fragments, aff, *fragments.shape, float(threshold), out)
+    return out, int(n)
+
+
+def agglomerate_multi(
+    fragments: np.ndarray, aff: np.ndarray, thresholds: Sequence[float]
+) -> Dict[float, Tuple[np.ndarray, int]]:
+    """:func:`agglomerate` at every threshold in one region graph and one
+    merge pass -> {threshold: (labels, count)} in the caller's order."""
+    aff = _cardinal_affinities(aff)
+    fragments = _fragments_for(fragments, aff)
+    thr = sorted(set(float(t) for t in thresholds), reverse=True)
+    out = np.empty((len(thr),) + fragments.shape, np.uint32)
+    counts = np.zeros(len(thr), np.int64)
+    get_lib().agglomerate_mean_multi(fragments, aff, *fragments.shape, np.asarray(thr, np.float32), len(thr), out,
+                                     counts)
+    by_thr = {t: (out[i], int(counts[i])) for i, t in enumerate(thr)}
+    return {float(t): by_thr[float(t)] for t in thresholds}
+
+
+def mutex_watershed(aff: np.ndarray, offsets: Sequence[Sequence[int]]) -> Tuple[np.ndarray, int]:
+    """Mutex watershed over (K, Z, Y, X) affinities, channel k for offset
+    ``offsets[k]`` (dz, dy, dx): nearest-neighbour channels attract,
+    long-range ones repel -> (labels uint32, count)."""
+    aff = np.ascontiguousarray(aff, dtype=np.float32)
+    offs = np.ascontiguousarray(np.asarray(offsets, dtype=np.int32))
+    if aff.ndim != 4 or offs.shape != (aff.shape[0], 3):
+        raise ValueError(f"expected (K, Z, Y, X) affinities and (K, 3) offsets, got {aff.shape} and {offs.shape}")
+    out = np.empty(aff.shape[1:], np.uint32)
+    n = get_lib().mutex_watershed(aff, offs, *aff.shape, out)
+    return out, int(n)

@@ -1,10 +1,11 @@
 """CLI argument parsing + config setup: the flag surface of
-``pytorch_connectomics_tpu/runtime/cli.py`` plus ``--device``. The port
-implements ``--mode train``, ``val`` and ``test``; ``tune`` and
-``tune-test`` are parsed and refused.
+``pytorch_connectomics_tpu/runtime/cli.py`` plus ``--device``, for
+``--mode train``, ``val``, ``test``, ``tune`` and ``tune-test``.
 
     python -m pytorch_connectomics_tpu_torch.runtime.cli \\
         --config tutorials/mito_synthetic_cli_fast_tpu.yaml --mode train [--device cpu] [key=value ...]
+    python -m pytorch_connectomics_tpu_torch.runtime.cli \\
+        --config tutorials/synthetic_instance_tune_tpu.yaml --mode tune-test --best-params <yaml>
 """
 
 from __future__ import annotations
@@ -55,11 +56,19 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 
 def setup_config(args: argparse.Namespace) -> Config:
-    """Config from ``--config`` and the ``key=value`` overrides."""
+    """Config from ``--config`` and the ``key=value`` overrides; ``--params``
+    fills ``--best-params``, and ``--tune-trials``/``--tune-trial-timeout``
+    set the tuning's trial count and per-trial timeout."""
     cfg = load_config(args.config, overrides=args.overrides, mode=args.mode)
     if args.shard_id is not None:
         cfg.system.shard_id = args.shard_id
         cfg.system.num_shards = args.num_shards or 1
+    if args.params and not args.best_params:
+        args.best_params = args.params
+    if args.tune_trials:
+        cfg.decoding.tuning.n_trials = args.tune_trials
+    if args.tune_trial_timeout:
+        cfg.decoding.tuning.timeout_per_trial = args.tune_trial_timeout
     return cfg
 
 

@@ -1,12 +1,15 @@
-"""Mode dispatch for the port (the ``train``, ``val`` and ``test`` paths of
-``pytorch_connectomics_tpu/runtime/dispatch.py``).
+"""Mode dispatch for the port (the ``train``, ``val``, ``test``, ``tune`` and
+``tune-test`` paths of ``pytorch_connectomics_tpu/runtime/dispatch.py``).
 
 Run dirs: ``--output-dir`` when given; for ``train``/``val`` a timestamped
 ``<save_path>/<YYYYmmdd_HHMMSS>/`` holding ``config.yaml``,
-``metrics.jsonl`` and ``checkpoints/``; for ``test`` the checkpoint's run
-dir ``<run>/test`` (``<ckpt>/../..``), else ``<save_path>/test``. A test
-run without ``--checkpoint`` restores the newest train checkpoint under
-``save_path`` (``last`` preferred).
+``metrics.jsonl`` and ``checkpoints/``; for the inference modes the
+checkpoint's run dir ``<run>/<mode>`` (``<ckpt>/../..``), else
+``<save_path>/<mode>``. An inference run without ``--checkpoint`` restores
+the newest train checkpoint under ``save_path`` (``last`` preferred).
+``tune`` predicts the tune volumes and writes the best-params YAML;
+``tune-test`` applies ``--best-params`` (tuning first when none is given)
+and runs the test pipeline.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from ..training.checkpoint import CheckpointManager, check_config_hash, is_check
 from ..utils.device import resolve_device
 from .cli import parse_args, setup_config
 from .test_pipeline import run_test_pipeline
+from .tune_runner import apply_best_params, run_tuning
 
 logger = logging.getLogger(__name__)
 
@@ -113,19 +117,17 @@ def dispatch_runtime(args=None) -> Dict[str, Any]:
     also the newest checkpoint, for test what was restored."""
     if args is None:
         args = parse_args()
-    if args.mode not in ("train", "val", "test"):
-        raise NotImplementedError(f"--mode {args.mode} is not ported yet (train, val and test)")
     setup_logging()
     device = resolve_device(args.device)
     cfg = setup_config(args)
-    if args.mode == "test" and not args.checkpoint:
+    if args.mode in ("test", "tune", "tune-test") and not args.checkpoint:
         args.checkpoint = resolve_latest_checkpoint(cfg)
         if args.checkpoint:
             logger.info("auto-resolved checkpoint: %s", args.checkpoint)
         else:
             logger.warning(
-                "--mode test without --checkpoint and no trained checkpoint under %s: inference runs "
-                "with RANDOMLY-INITIALIZED weights (seed %d)", _save_root(cfg), cfg.system.seed,
+                "--mode %s without --checkpoint and no trained checkpoint under %s: inference runs "
+                "with RANDOMLY-INITIALIZED weights (seed %d)", args.mode, _save_root(cfg), cfg.system.seed,
             )
     run_dir = setup_runtime_directories(cfg, args.mode, args)
     logger.info("mode=%s run_dir=%s device=%s", args.mode, run_dir, device)
@@ -157,5 +159,12 @@ def dispatch_runtime(args=None) -> Dict[str, Any]:
     if args.checkpoint:
         results["restored"] = load_weights(model, args.checkpoint, cfg)
     logger.info("model ready in %.3fs", time.perf_counter() - t0)
-    results["metrics"] = run_test_pipeline(cfg, model, run_dir, args.checkpoint, device)
+    if args.mode == "test":
+        results["metrics"] = run_test_pipeline(cfg, model, run_dir, args.checkpoint, device)
+    elif args.mode == "tune":
+        results["best_params"] = str(run_tuning(cfg, model, run_dir, args.checkpoint, device))
+    else:
+        study = args.best_params or str(run_tuning(cfg, model, run_dir, args.checkpoint, device))
+        results["metrics"] = run_test_pipeline(apply_best_params(cfg, study), model, run_dir, args.checkpoint, device)
+        results["best_params"] = study
     return results

@@ -1,8 +1,10 @@
-"""Deterministic artifact names (the port's copy of the prediction and
-decoded naming of ``pytorch_connectomics_tpu/runtime/output_naming.py``):
-a prediction's name encodes the checkpoint stem, the TTA pass count and the
-head/channel selection; a decoded volume's name adds the decode recipe
-(step names and kwargs) or the user's ``save_suffix``."""
+"""Deterministic artifact names (the port's copy of the prediction,
+decoded and tuned-params naming of
+``pytorch_connectomics_tpu/runtime/output_naming.py``): a prediction's name
+encodes the checkpoint stem, the TTA pass count and the head/channel
+selection; a decoded volume's name adds the decode recipe (step names and
+kwargs) or the user's ``save_suffix``; a tune run's study is
+``<tag>_best_params.yaml``."""
 
 from __future__ import annotations
 
@@ -107,6 +109,20 @@ def decoded_filename(volume_name: str, tag: str, decode_tag: str = "decoded", de
         if suffix:
             decode_tag = f"decoded_{suffix}"
     return f"{volume_name}_{tag}_{decode_tag}.h5"
+
+
+def tuned_params_filename(tag: str) -> str:
+    return f"{tag}_best_params.yaml"
+
+
+def tuned_params_candidates(tag: str, checkpoint: Optional[str] = None) -> List[str]:
+    """Best-params YAML names, most specific first: the prediction tag's,
+    the checkpoint stem's, then ``best_params.yaml``."""
+    cands = [tuned_params_filename(tag)]
+    if checkpoint:
+        cands.append(tuned_params_filename(checkpoint_stem(checkpoint)))
+    cands.append("best_params.yaml")
+    return list(dict.fromkeys(cands))
 
 
 def volume_name_from_path(path: str) -> str:

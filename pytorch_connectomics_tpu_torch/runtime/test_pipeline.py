@@ -1,7 +1,8 @@
 """Test pipeline: read -> normalise -> infer (+TTA) -> save -> decode ->
 evaluate per test volume. The port of the non-chunked branch of
 ``pytorch_connectomics_tpu/runtime/test_pipeline.py`` with its
-non-streamed decode (``:233-260``); chunked inference, prediction-cache
+non-streamed decode (``:233-260``); in ``tune`` mode it stops after the
+prediction is saved (``:220-221``). Chunked inference, prediction-cache
 reuse, decode-only runs, nnU-Net preprocessing, read-time scaling and test
 sharding are not ported yet and raise ``NotImplementedError``.
 """
@@ -49,15 +50,27 @@ def _check_ported(cfg: Config) -> None:
             raise NotImplementedError(f"{what} is not ported yet")
 
 
+def prediction_tag_of(cfg: Config, manager: InferenceManager, checkpoint: Optional[str]) -> str:
+    """The tag that names a test run's prediction and decoded files."""
+    return prediction_tag(
+        checkpoint,
+        tta_passes=manager.predictor.num_variants,
+        head=cfg.inference.model.output_head,
+        channels=cfg.inference.model.select_channel,
+    )
+
+
 def run_test_pipeline(
     cfg: Config,
     model: torch.nn.Module,
     output_dir: str | Path,
     checkpoint: Optional[str] = None,
     device: torch.device | str = "cuda",
+    mode: str = "test",
 ) -> Dict[str, Dict[str, float]]:
     """Infer (and evaluate, where labels are given) every test volume with
-    ``model`` on ``device``. Returns {volume_name: metrics}."""
+    ``model`` on ``device``. Returns {volume_name: metrics}; in ``tune``
+    mode it stops after saving each prediction ({volume_name: {"cached": 1.0}})."""
     _check_ported(cfg)
     out_dir = Path(output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -65,12 +78,7 @@ def run_test_pipeline(
     labels = _as_list(cfg.data.test.label)
     manager = InferenceManager(cfg, model, device)
     cfg_hash = config_hash(cfg)
-    tag = prediction_tag(
-        checkpoint,
-        tta_passes=manager.predictor.num_variants,
-        head=cfg.inference.model.output_head,
-        channels=cfg.inference.model.select_channel,
-    )
+    tag = prediction_tag_of(cfg, manager, checkpoint)
     all_metrics: Dict[str, Dict[str, float]] = {}
     for vi, image_path in enumerate(images):
         vol_name = volume_name_from_path(image_path)
@@ -95,6 +103,11 @@ def run_test_pipeline(
         logger.info(
             "inference[%s]: %.1fs (%.2f Mvox/s)", vol_name, t_save - t0, voxels / max(t_save - t0, 1e-9) / 1e6
         )
+        if mode == "tune":
+            logger.info("timing[%s]: read+normalise %.3fs, predict %.3fs, save %.3fs", vol_name, t_read - t0,
+                        t_pred - t_read, t_save - t_pred)
+            all_metrics[vol_name] = {"cached": 1.0}
+            continue
         decoded = None
         if cfg.decoding.enabled and (cfg.decoding.steps or cfg.decoding.graph):
             decoded = run_decoding_stage(np.moveaxis(prediction, -1, 0), cfg.decoding).astype(np.uint32)

@@ -33,6 +33,7 @@ import torch
 from ..config.loader import config_hash
 from ..config.schema import Config
 from ..data.pipeline import build_pipelines
+from ..data.targets.build import affinity_target_groups
 from ..losses.orchestrator import LossOrchestrator
 from ..models import build_model
 from ..utils.device import resolve_device
@@ -70,7 +71,9 @@ class Trainer:
         self.run_dir = Path(run_dir)
         self.run_dir.mkdir(parents=True, exist_ok=True)
         self.model = build_model(cfg.model, device=self.device, seed=cfg.system.seed)
-        self.orchestrator = LossOrchestrator(cfg.model.loss)
+        self.orchestrator = LossOrchestrator(
+            cfg.model.loss, affinity_groups=affinity_target_groups(cfg.data.label_transform)
+        )
         n_samples = cfg.data.dataloader.num_samples
         from_samples = max(1, int(n_samples) // max(1, cfg.data.dataloader.batch_size)) if n_samples else None
         self.steps_per_epoch = cfg.optimization.n_steps_per_epoch or from_samples or 100

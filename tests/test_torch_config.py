@@ -63,8 +63,8 @@ def test_cli_refuses_to_run_on_cpu_unasked():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dispatch_runtime(parse_args(["--config", str(FAST), "--mode", "test"]))
-    with pytest.raises(NotImplementedError):
-        dispatch_runtime(parse_args(["--config", str(FAST), "--mode", "tune", "--device", "cpu"]))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dispatch_runtime(parse_args(["--config", str(FAST), "--mode", "tune"]))
 
 
 PORT_MODULES = [
@@ -89,5 +89,6 @@ def test_port_imports_no_jax():
     assert res.returncode == 0, res.stderr[-2000:]
     assert len(PORT_MODULES) >= 20
     for m in ("ops.conv3d", "ops.native", "models.rsunet", "decoding.registry", "decoding.decoders",
-              "decoding.stage", "metrics.seg", "ops.fused_mlp", "ops.probes", "tools.microbench", "tools.probes"):
+              "decoding.stage", "metrics.seg", "ops.fused_mlp", "ops.probes", "tools.microbench", "tools.probes",
+              "data.targets.affinity", "data.targets.build", "decoding.tuning", "runtime.tune_runner"):
         assert "pytorch_connectomics_tpu_torch." + m in PORT_MODULES

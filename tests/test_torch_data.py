@@ -144,4 +144,4 @@ def test_synthetic_url_is_deterministic_per_seed():
     b, _ = synthetic.synthetic_em_task("em2", (8, 24, 20), seed=4)
     assert not np.array_equal(a, b)
     with pytest.raises(NotImplementedError):
-        read_volume("synthetic://instance/x_image?shape=8,8,8")
+        read_volume("synthetic://blobs/x_image?shape=8,8,8")

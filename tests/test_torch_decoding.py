@@ -119,7 +119,7 @@ def test_decoding_stage_refuses_what_is_not_ported(what):
     elif what == "postprocessing":
         cfg.postprocessing.min_instance_size = 10
     else:
-        cfg.steps[0].name = "waterz"
+        cfg.steps[0].name = "distance_watershed"
     with pytest.raises(NotImplementedError):
         run_decoding_stage(bcd_prediction(0, (4, 8, 8)), cfg)
 

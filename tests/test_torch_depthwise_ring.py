@@ -305,6 +305,28 @@ def test_planner_keeps_the_whole_row_plans(key):
     assert all(p["tx"] == fb.whole_row(key[2]) for p in got)
 
 
+# The plans (ty, seg, ring, tx) at the synthetic instance tune recipe's
+# training stages (MedNeXt-S, stock stem, batch 8 of 32 x 64 x 64): forward
+# and weight gradient in bf16, then in f32.
+INSTANCE_PLANS = {
+    (32, 64, 64, 32): ((4, 16, 3, 66), (4, 16, 3, 66), (2, 32, 3, 66), (1, 32, 3, 66)),
+    (16, 32, 32, 64): ((4, 4, 3, 33), (4, 4, 3, 33), (2, 8, 3, 33), (1, 16, 3, 33)),
+    (8, 16, 16, 128): ((4, 1, 3, 18), (4, 1, 3, 18), (1, 4, 3, 18), (1, 4, 3, 18)),
+    (4, 8, 8, 256): ((1, 1, 3, 9), (2, 1, 3, 9), (1, 1, 3, 9), (2, 1, 3, 9)),
+    (2, 4, 4, 512): ((1, 1, 3, 6), (1, 1, 3, 6), (1, 1, 3, 3), (1, 1, 3, 3)),
+}
+
+
+@pytest.mark.parametrize("key", list(INSTANCE_PLANS), ids=lambda k: "x".join(map(str, k)))
+def test_planner_pins_the_instance_recipe_plans(key):
+    shape = (8, *key)
+    assert key in {sp + (c,) for sp, c, _ in mednext_stages((32, 64, 64), "S", (1, 1, 1))}
+    got = [dw.plans(kind, shape, dtype)[0] for dtype in (torch.bfloat16, torch.float32) for kind in (0, 1)]
+    assert [(p["ty"], p["seg"], p["ring"], p["tx"]) for p in got] == list(INSTANCE_PLANS[key])
+    for p in got:
+        check_tiling(shape, p)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("window", TUTORIAL_WINDOWS, ids=_window_id)
 def test_planner_covers_every_tutorial_stage(window, dtype):
