@@ -1,8 +1,8 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--phases 9,10,12] [--phases instance]
+    python3 chip_smoke.py [--phases 9,10,12] [--phases instance] [--phases 15,16]
 
-With --phases, only phases 1-2 and the listed ones of 3-14 run, and the
+With --phases, only phases 1-2 and the listed ones of 3-16 run, and the
 last line is the same {"ok": true, ...} object with the phases run; the
 kernels line needs every phase and is printed by a full run only.
 
@@ -98,7 +98,31 @@ Phases (any failure exits non-zero; no phase catches its own failure):
               held-out volume B, and the same params on an untrained model's
               prediction of B; fails unless the trained VOI on B is below the
               untrained one's
- 15. report   a {"kernels": [...]} line, then {"ok": true, "device": ...} last
+ 15. rsunet-train  RSUNet training's conv kernels: the forward bit-identical
+              to the tree before the shared launch path, with the wrapper's
+              host us a call (tools/conv3d_digest.py); the input gradient
+              (the forward kernel, mirrored and transposed taps) and the
+              weight-gradient kernel against their plain versions at every
+              3^3 layer shape of the SNEMI recipe (batch 8 of 18x160x160) and
+              of the NucMM-Z recipe (batch 8 of 64^3), bf16 and f32, timed in
+              bf16 beside their bounds and one PyTorch call each; the weight
+              gradient bit-identical across launches and grids; one SNEMI
+              train step at full width (bf16, 9 affinity channels): loss and
+              per-leaf gradients of the kernel path against the plain path,
+              with fault probes the limit must reject, 14 launches of each
+              kernel, step time, peak memory and a profile; one NucMM-Z step's
+              launches (15, 14, 15)
+ 16. rsunet-recipes  tutorials/neuron_snemi.yaml through the CLI as shipped
+              on seeded synthetic instance volumes made on the card: --mode
+              train for 10 epochs of 30 steps (54x480x480), --mode tune on
+              volume A (36x320x320, 12 of the 30 TPE trials, adapted Rand),
+              --mode tune-test on the held-out B (flip TTA x4, min ensemble,
+              waterz, adapted Rand and VOI), and the same params on an
+              untrained model's prediction of B; fails unless the trained
+              adapted Rand on B is below the untrained one's; then
+              tutorials/nuc_nucmm.yaml --mode train for 40 steps on phase
+              11's synthetic 165x1024x768 volume
+ 17. report   a {"kernels": [...]} line, then {"ok": true, "device": ...} last
 
 Imports torch and the port only. Details go to build/chip_smoke/chip_smoke.json.
 """
@@ -871,14 +895,16 @@ def phase_wide_depthwise(dwk, dev):
     return rows
 
 
-def leaf_errors(got, want):
-    """Per-leaf gradient error: |g - g_ref| / |g_ref| (norms), and for
-    conv_bias leaves |g - g_ref| over the largest leaf norm."""
+def leaf_errors(got, want, near_zero=lambda n: n.endswith("conv_bias")):
+    """Per-leaf gradient error: |g - g_ref| / |g_ref| (norms), and for the
+    leaves whose gradients nearly cancel (``near_zero``; MedNeXt's
+    conv_bias, zero in exact arithmetic because GroupNorm follows the conv)
+    |g - g_ref| over the largest leaf norm."""
     top = max(g.norm().item() for g in want.values())
     out = {}
     for n, g in want.items():
         d = (got[n] - g).norm().item()
-        out[n] = d / top if n.endswith("conv_bias") else d / max(g.norm().item(), 1e-30)
+        out[n] = d / top if near_zero(n) else d / max(g.norm().item(), 1e-30)
     return out
 
 
@@ -1234,17 +1260,11 @@ def phase_instance(dwk, fb, dev, work, report):
         train_counts = {k.__name__: k.launches for k in dwk.KERNELS + fb.KERNELS}
         if any(k.launches <= 0 for k in dwk.KERNELS):
             fail(f"the instance train leg did not run through both depthwise kernels: {train_counts}")
-        st = train["train_stats"]
-        recs = [json.loads(line) for line in (Path(train["run_dir"]) / "metrics.jsonl").read_text().splitlines()]
-        losses = [r["train_loss_total"] for r in recs if "train_loss_total" in r]
+        train_stats = train_leg_stats(train)
+        st, losses = train_stats["train_stats"], train_stats["losses"]
         if st["steps"] != 300 or not train["checkpoint"] or not all(math.isfinite(v) for v in losses):
             fail(f"instance train leg: {st['steps']} steps, checkpoint {train['checkpoint']}, losses {losses}")
-        train_stats = dict(
-            train_stats=st, steps_per_s=st["steps"] / st["seconds"], step_ms=st["seconds"] / st["steps"] * 1e3,
-            data_wait_ms_per_step=st["data_wait_seconds"] / st["steps"] * 1e3,
-            pipeline_host_ms_per_batch=st["pipeline_host_seconds"] / max(1, st["pipeline_batches"]) * 1e3,
-            losses=losses, launches=train_counts,
-        )
+        train_stats["launches"] = train_counts
         log(f"train leg: {st['steps']} steps in {st['seconds']:.2f} s ({train_stats['steps_per_s']:.3f} steps/s, "
             f"{train_stats['step_ms']:.1f} ms a step, {train_stats['data_wait_ms_per_step']:.1f} of it waiting for "
             f"batches; pipeline {train_stats['pipeline_host_ms_per_batch']:.1f} ms a batch); losses "
@@ -1469,26 +1489,19 @@ def phase_nucmm(c3, dev, work, report):
     import shutil
 
     from pytorch_connectomics_tpu_torch.data.io import read_volume
-    from pytorch_connectomics_tpu_torch.data.synthetic import synthetic_em_task
     from pytorch_connectomics_tpu_torch.models.rsunet import RSUNet
-    from pytorch_connectomics_tpu_torch.ops import native
     from pytorch_connectomics_tpu_torch.runtime.cli import parse_args
     from pytorch_connectomics_tpu_torch.runtime.dispatch import dispatch_runtime
 
     shape = NUCMM_SHAPE
     name = f"nuc{shape[0]}x{shape[1]}x{shape[2]}"
-    t0 = time.perf_counter()
-    img, lbl = synthetic_em_task("em2", shape, seed=3, device=dev)
-    gt, n_gt = native.connected_components(lbl > 0, 6)  # instance ground truth
-    np.save(work / f"{name}_im.npy", img)
-    np.save(work / f"{name}_label.npy", gt)
-    setup_s = time.perf_counter() - t0
-    del img, lbl, gt
+    im, lb, setup_s = nucmm_volume(dev, work)
+    n_gt = int(np.load(lb, mmap_mode="r").max())  # the components are numbered 1..n
     out_dir = work / f"out_{name}"
     shutil.rmtree(out_dir, ignore_errors=True)
     args = parse_args([
         "--config", str(NUCMM), "--mode", "test", "--device", str(dev), "--output-dir", str(out_dir),
-        f"data.test.image={work / f'{name}_im.npy'}", f"data.test.label={work / f'{name}_label.npy'}",
+        f"data.test.image={im}", f"data.test.label={lb}",
     ])
     records = []  # the test pipeline's own timing and decode log lines
 
@@ -1553,6 +1566,491 @@ def phase_nucmm(c3, dev, work, report):
     )
     del pred, decoded
     return launches
+
+
+# RSUNet training (phases 15-16): the SNEMI recipe (width [28, 36, 48, 64,
+# 80], (1, 2, 2) down factors, depth_2d 1, bf16, 9 affinity channels) on
+# batch 8 of its (18, 160, 160) window, and the NucMM-Z recipe
+SNEMI = ROOT / "tutorials" / "neuron_snemi.yaml"
+SNEMI_BATCH = 8
+# ((Z, Y, X), Cin, Cout, launches per step) of RSUNet's 3^3 convs on the
+# SNEMI recipe's window (the (1, 3, 3) level 0 runs in F.conv3d)
+SNEMI_CONV_SHAPES = [
+    ((18, 80, 80), 28, 36, 1),
+    ((18, 80, 80), 36, 36, 3),
+    ((18, 40, 40), 36, 48, 1),
+    ((18, 40, 40), 48, 48, 3),
+    ((18, 20, 20), 48, 64, 1),
+    ((18, 20, 20), 64, 64, 3),
+    ((18, 10, 10), 64, 80, 1),
+    ((18, 10, 10), 80, 80, 1),
+]
+# the CLI legs of phase 16: SNEMI train on a synthetic instance volume for
+# SNEMI_EPOCHS x SNEMI_STEPS steps (the profile's 3 warmup epochs end inside
+# the run), tune on volume A with SNEMI_TRIALS of the recipe's 30 trials,
+# tune-test on the held-out B; NucMM-Z train for NUCMM_TRAIN_STEPS steps
+SNEMI_TRAIN_SHAPE = (54, 480, 480)
+SNEMI_TUNE_SHAPE = (36, 320, 320)
+SNEMI_EPOCHS, SNEMI_STEPS, SNEMI_TRIALS = 10, 30, 12
+NUCMM_TRAIN_STEPS = 40
+# limits of the bf16 RSUNet train step's kernel path against its plain path:
+# the loss, relative; each gradient leaf as the norm of the difference over
+# the leaf's norm (the convs' biases, whose gradients GroupNorm nearly
+# cancels, over the largest leaf norm); PERF.md gives the readings
+RSUNET_TRAIN_LOSS_TOL = 1e-3
+RSUNET_TRAIN_GRAD_TOL = 0.05
+
+
+def wgrad_bounds(n, cin, cout, es):
+    """Least times (ms) of one weight-gradient launch on n voxels, as (bytes
+    term, operations term): x and dy read once and dW (f32) written once
+    over the HBM rate; 2 * 27 * Cin * Cout FLOP per voxel over the bf16
+    tensor-core rate (f32: the CUDA-core rate)."""
+    moved = n * (cin + cout) * es + 27 * cin * cout * 4
+    flop = 2 * 27 * n * cin * cout
+    return dict(bytes=moved / PEAK_BYTES * 1e3, ops=flop / (PEAK_BF16_TC if es == 2 else PEAK_F32) * 1e3)
+
+
+def conv_backward_row(c3, dev, recipe, spatial, cin, cout, per_step, dtype, batch):
+    """The conv's three kernels at one layer shape of a training step: the
+    forward, the input gradient (the forward kernel with mirrored,
+    transposed taps) and the weight gradient, each held against its plain
+    version (bf16 dx two ulps at the largest value, f32 1e-5 of the summed
+    magnitudes; dW 1e-4 of the summed magnitudes), and in bf16 timed beside
+    its plain version, its bound and one PyTorch call of the same function
+    (F.conv3d, conv3d_input, conv3d_weight on channels-last)."""
+    es = 2 if dtype == torch.bfloat16 else 4
+    rng = np.random.default_rng(7 * cin + cout)
+    x = torch.from_numpy(rng.standard_normal((batch, *spatial, cin), dtype=np.float32)).to(dev, dtype)
+    dy = torch.from_numpy(rng.standard_normal((batch, *spatial, cout), dtype=np.float32)).to(dev, dtype)
+    w = torch.from_numpy((rng.standard_normal((cout, cin, 3, 3, 3)) / np.sqrt(27 * cin)).astype(np.float32)).to(dev)
+    b = torch.from_numpy(rng.standard_normal(cout).astype(np.float32) * 0.1).to(dev)
+    what = f"{recipe} {spatial} {cin}->{cout} {str(dtype).split('.')[-1]}"
+    got_g, want_g = c3.conv3d_3x3_input_grad(dy, w), c3.conv3d_3x3_input_grad_plain(dy, w)
+    got_w, want_w = c3.conv3d_3x3_wgrad(x, dy), c3.conv3d_3x3_wgrad_plain(x, dy)
+    torch.cuda.synchronize()
+    err_g = (got_g.float() - want_g.float()).abs().max().item()
+    if es == 4:
+        mag = c3.conv3d_3x3_input_grad_plain(dy.abs(), w.abs())
+        rel_g, tol_g = ((got_g - want_g).abs() / mag).max().item(), 1e-5
+        bad = rel_g > tol_g
+        del mag
+    else:
+        rel_g, tol_g = None, 2.0 ** (math.floor(math.log2(want_g.float().abs().max().item())) - 6)
+        bad = err_g > tol_g
+    if bad:
+        fail(f"conv3d input gradient {what}: error {err_g:.3g} (relative {rel_g}) over {tol_g:.3g}")
+    mag = c3.conv3d_3x3_wgrad_plain(x.abs(), dy.abs())
+    rel_w = ((got_w - want_w).abs() / mag).max().item()
+    err_w = (got_w - want_w).abs().max().item()
+    if not rel_w <= 1e-4:
+        fail(f"conv3d_3x3_wgrad {what}: error {err_w:.3g}, relative to the summed magnitudes {rel_w:.3g} > 1e-4")
+    del mag, want_g, want_w
+    row = dict(recipe=recipe, spatial=list(spatial), cin=cin, cout=cout, dtype=str(dtype).split(".")[-1],
+               launches_per_step=per_step, input_grad=dict(max_abs_err=err_g, max_rel_err=rel_g, tol=tol_g),
+               wgrad=dict(max_abs_err=err_w, max_rel_err=rel_w, tol=1e-4))
+    if es == 4:
+        log(f"{what}: dx err {err_g:.3g} (relative {rel_g:.3g}), dW relative {rel_w:.3g}")
+        return row
+    n = batch * math.prod(spatial)
+    xn, dyn = x.permute(0, 4, 1, 2, 3), dy.permute(0, 4, 1, 2, 3)  # channels_last_3d, as the yardstick takes them
+    wl, bl = w.to(dtype).contiguous(memory_format=torch.channels_last_3d), b.to(dtype)
+    wmat = c3.kernel_weight(w, dtype)
+    mmat = c3.kernel_weight(c3.mirror_weight(w), dtype)
+    reps = 10 if n * max(cin, cout) > 1e7 else 30
+    b_f, b_g, b_w = conv_bounds(n, cin, cout, es), conv_bounds(n, cout, cin, es), wgrad_bounds(n, cin, cout, es)
+    row.update(
+        forward=dict(ms=time_ms(lambda: c3.conv3d_3x3(x, w, b, wmat=wmat), reps),
+                     library_ms=time_ms(lambda: F.conv3d(xn, wl, bl, padding=1), reps),
+                     bound_ms=max(b_f.values()), bound_parts=b_f),
+        input_grad=dict(row["input_grad"], ms=time_ms(lambda: c3.conv3d_3x3_input_grad(dy, w, wmat=mmat), reps),
+                        plain_ms=time_ms(lambda: c3.conv3d_3x3_input_grad_plain(dy, w), 3),
+                        library_ms=time_ms(lambda: torch.nn.grad.conv3d_input(xn.shape, wl, dyn, padding=1), reps),
+                        bound_ms=max(b_g.values()), bound_parts=b_g),
+        wgrad=dict(row["wgrad"], ms=time_ms(lambda: c3.conv3d_3x3_wgrad(x, dy), reps),
+                   plain_ms=time_ms(lambda: c3.conv3d_3x3_wgrad_plain(x, dy), 3),
+                   library_ms=time_ms(lambda: torch.nn.grad.conv3d_weight(xn, wl.shape, dyn, padding=1), reps),
+                   bound_ms=max(b_w.values()), bound_parts=b_w, plan=c3.wgrad_plan(tuple(x.shape), cout, dtype)),
+    )
+    f, g, wg = row["forward"], row["input_grad"], row["wgrad"]
+    log(f"{what}: fwd {f['ms']:.4f} ms (F.conv3d {f['library_ms']:.4f}, bound {f['bound_ms']:.4f}) | dx "
+        f"{g['ms']:.4f} (plain {g['plain_ms']:.3f}, conv3d_input {g['library_ms']:.4f}, bound {g['bound_ms']:.4f}) | "
+        f"dW {wg['ms']:.4f} (plain {wg['plain_ms']:.3f}, conv3d_weight {wg['library_ms']:.4f}, bound "
+        f"{wg['bound_ms']:.4f} {max(b_w, key=b_w.get)}); dx err {err_g:.3g} <= {tol_g:.3g}, dW relative {rel_w:.3g}")
+    log("    wgrad plan " + " ".join(f"{k}={v}" for k, v in wg["plan"].items()))
+    return row
+
+
+def rsunet_train_setup(recipe, dev, overrides=()):
+    """(cfg, model, orchestrator, batch) of a recipe's RSUNet train step at
+    full width on a seeded synthetic instance volume, batch 8 of its
+    window, with the recipe's own targets."""
+    from pytorch_connectomics_tpu_torch.config import load_config
+    from pytorch_connectomics_tpu_torch.data.synthetic import synthetic_em_task
+    from pytorch_connectomics_tpu_torch.data.targets.build import affinity_target_groups, build_target_fn
+    from pytorch_connectomics_tpu_torch.losses import LossOrchestrator
+    from pytorch_connectomics_tpu_torch.models import build_model
+
+    cfg = load_config(recipe, overrides=list(overrides), mode="train")
+    model = build_model(cfg.model, device=dev, seed=0)
+    orch = LossOrchestrator(cfg.model.loss, affinity_groups=affinity_target_groups(cfg.data.label_transform))
+    z, y, x = cfg.data.dataloader.patch_size
+    img, seg = synthetic_em_task("instance", (z, 2 * y, 4 * x), seed=5, device=dev)
+    crops = [(slice(0, z), slice(i * y, (i + 1) * y), slice(j * x, (j + 1) * x)) for i in range(2) for j in range(4)]
+    target = build_target_fn(cfg.data.label_transform)
+    xs = np.stack([img[c] / np.float32(255.0) for c in crops])[..., None].astype(np.float32)
+    ys = np.stack([np.moveaxis(target(seg[c]), 0, -1) for c in crops]).astype(np.float32)
+    batch = {"image": torch.from_numpy(xs).to(dev), "label": torch.from_numpy(ys).to(dev)}
+    return cfg, model, orch, batch
+
+
+def phase_rsunet_train(c3, dev, report):
+    log("== phase 15: RSUNet training: the conv's backward kernels at every layer shape, the SNEMI train step ==")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pytorch_connectomics_tpu_torch.tools import conv3d_digest
+    from pytorch_connectomics_tpu_torch.training.optim import build_optimizer
+    from pytorch_connectomics_tpu_torch.training.state import create_train_state, make_train_step
+
+    out = report["rsunet_train"] = {}
+    # (a) the forward through the cached launch path: its outputs are the
+    # tree before's bit for bit, and the wrapper's host time a call
+    dig = conv3d_digest.run(dev, host=True)
+    if dig["digests"] != conv3d_digest.DIGESTS:
+        bad = sorted(k for k, v in dig["digests"].items() if conv3d_digest.DIGESTS.get(k) != v)
+        fail(f"conv3d_3x3 forward outputs differ from the tree before the shared launch path: {bad}")
+    out["forward_host_us"] = dig["host_us"]
+    log("conv3d_3x3 forward bit-identical to the tree before at 24 cases; host us a call: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in dig["host_us"].items()))
+    # (b) the backward kernels at every 3^3 layer shape of both recipes
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for recipe, shapes in (("snemi", SNEMI_CONV_SHAPES), ("nucmm", CONV_SHAPES)):
+            for spatial, cin, cout, per in shapes:
+                rows.append(conv_backward_row(c3, dev, recipe, spatial, cin, cout, per, dtype, SNEMI_BATCH))
+                torch.cuda.empty_cache()
+    out["rows"] = rows
+    # (c) the weight gradient is the same bits from launch to launch and on any grid
+    for shape in ((SNEMI_BATCH, 18, 80, 80, 28, 36), (SNEMI_BATCH, 64, 64, 64, 1, 28)):
+        for dtype in (torch.bfloat16, torch.float32):
+            rng = np.random.default_rng(3)
+            x = torch.from_numpy(rng.standard_normal(shape[:5], dtype=np.float32)).to(dev, dtype)
+            dy = torch.from_numpy(rng.standard_normal((*shape[:4], shape[5]), dtype=np.float32)).to(dev, dtype)
+            first = c3.conv3d_3x3_wgrad(x, dy)
+            for grid in (None, 1, 7, 1000):
+                if not torch.equal(first, c3.conv3d_3x3_wgrad(x, dy, grid=grid)):
+                    fail(f"conv3d_3x3_wgrad {shape} {dtype} differs from launch to launch (grid {grid})")
+    log("conv3d_3x3_wgrad bit-identical across launches and grids 1, 7, 1000 and the default")
+    # (d) one SNEMI train step at full width: kernel path against plain, launches, time
+    from pytorch_connectomics_tpu_torch.models.rsunet import Conv
+
+    cfg, model, orch, batch = rsunet_train_setup(SNEMI, dev)
+    biases = {f"{n}.bias" for n, m in model.named_modules() if isinstance(m, Conv)}
+    x, y = batch["image"], batch["label"]
+    if cfg.model.compute_dtype != "bfloat16" or x.shape != (SNEMI_BATCH, 18, 160, 160, 1) or y.shape[-1] != 9:
+        fail(f"the SNEMI recipe no longer trains bf16 on batch 8 of (18, 160, 160) with 9 channels: {tuple(y.shape)}")
+
+    def loss_and_grads(plain):
+        model.zero_grad(set_to_none=True)
+        loss, _ = orch(model(x, plain=plain), y)
+        loss.backward()
+        return loss.item(), {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+    c3.reset_launch_counts()
+    loss_k, g_k = loss_and_grads(False)
+    torch.cuda.synchronize()
+    counts = dict(forward=c3.conv3d_3x3.launches - c3.conv3d_3x3_input_grad.launches,
+                  input_grad=c3.conv3d_3x3_input_grad.launches, wgrad=c3.conv3d_3x3_wgrad.launches)
+    if counts != dict(forward=14, input_grad=14, wgrad=14):
+        fail(f"one SNEMI train step should launch 14 forward, 14 input-gradient and 14 weight-gradient convs: {counts}")
+    loss_p, g_p = loss_and_grads(True)
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    errs = leaf_errors(g_k, g_p, biases.__contains__)
+    worst = max(errs, key=errs.get)
+    log(f"SNEMI step: loss kernel {loss_k:.6f} plain {loss_p:.6f} (rel err {loss_err:.3g}); worst leaf {worst} "
+        f"{errs[worst]:.4g} (limit {RSUNET_TRAIN_GRAD_TOL}); launches {counts}")
+    if not math.isfinite(loss_k) or loss_err > RSUNET_TRAIN_LOSS_TOL:
+        fail(f"SNEMI train step loss: kernel {loss_k} vs plain {loss_p} (rel err {loss_err:.3g})")
+    if errs[worst] > RSUNET_TRAIN_GRAD_TOL:
+        fail(f"SNEMI train step gradient {worst}: error {errs[worst]:.3g} > {RSUNET_TRAIN_GRAD_TOL}")
+    # fault probes on the kernel path that the gradient limit must reject
+    wgrad, igrad = c3.conv3d_3x3_wgrad, c3.conv3d_3x3_input_grad
+    def drop_tap(xx, dd, grid=None):
+        g = wgrad(xx, dd).clone()
+        g[:, :, 0, 0, 0] = 0
+        return g
+
+    def unmirrored(dd, ww, wmat=None):
+        return igrad(dd, ww.flip(2, 3, 4))
+
+    faults = {"dW tap (0,0,0) dropped": ("conv3d_3x3_wgrad", drop_tap),
+              "dx taps not mirrored": ("conv3d_3x3_input_grad", unmirrored)}
+    drop_tap.launches = unmirrored.launches = 0  # the wrappers count under the names they replace
+    probes = {}
+    for name, (attr, fn) in faults.items():
+        saved = getattr(c3, attr)
+        setattr(c3, attr, fn)
+        try:
+            probes[name] = max(leaf_errors(loss_and_grads(False)[1], g_p, biases.__contains__).values())
+        finally:
+            setattr(c3, attr, saved)
+        log(f"fault probe ({name}): worst leaf error {probes[name]:.4g} against the limit {RSUNET_TRAIN_GRAD_TOL}")
+    if min(probes.values()) <= RSUNET_TRAIN_GRAD_TOL:
+        fail(f"the gradient limit {RSUNET_TRAIN_GRAD_TOL} lets a fault probe pass: {probes}")
+    opt, schedule = build_optimizer(cfg.optimization, model, cfg.optimization.n_steps_per_epoch)
+    state = create_train_state(model, opt)
+    step = make_train_step(orch, schedule, gradient_clip=cfg.optimization.gradient_clip_val)
+    step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        logs = step(state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / reps * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(float(v)) for v in logs.values()):
+        fail(f"SNEMI train step logs not finite: {logs}")
+    t0 = time.perf_counter()
+    for _ in range(2):
+        loss_and_grads(True)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) / 2 * 1e3
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    prof_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    top = sorted(events, key=dev_us, reverse=True)[:12]
+    snemi_bf16 = [r for r in rows if r["recipe"] == "snemi" and r["dtype"] == "bfloat16"]
+    per_step = {k: sum(r[k]["ms"] * r["launches_per_step"] for r in snemi_bf16)
+                for k in ("forward", "input_grad", "wgrad")}
+    log(f"SNEMI train step bf16 batch 8 of (18, 160, 160): {step_ms:.1f} ms (plain forward+backward {plain_ms:.1f} "
+        f"ms), peak memory {peak / 2**30:.2f} GiB; the 3^3 convs' kernels a step: forward {per_step['forward']:.2f} "
+        f"ms, input gradient {per_step['input_grad']:.2f} ms, weight gradient {per_step['wgrad']:.2f} ms")
+    log(f"one step under the profiler: {prof_ms:.1f} ms, kernels {busy_ms:.1f} ms of device time")
+    for e in top:
+        log(f"  {dev_us(e) / 1e3:8.2f} ms  {e.count:5d}x  {e.key[:90]}")
+    out["snemi_step"] = dict(
+        step_ms=step_ms, plain_fwd_bwd_ms=plain_ms, peak_memory_bytes=peak, launches_per_step=counts,
+        kernel_ms_per_step=per_step, loss_kernel=loss_k, loss_plain=loss_p, loss_rel_err=loss_err,
+        grad_leaf_errors=errs, worst_leaf=worst, grad_tol=RSUNET_TRAIN_GRAD_TOL, fault_probe_leaf_errors=probes,
+        profiled_ms=prof_ms, device_busy_ms=busy_ms,
+        top_kernels=[dict(name=e.key, device_ms=dev_us(e) / 1e3, count=e.count) for e in top],
+    )
+    del model, opt, state, g_k, g_p, batch, x, y
+    torch.cuda.empty_cache()
+    # (e) one NucMM-Z train step: its launches (the stem's input gradient is skipped)
+    cfg, model, orch, batch = rsunet_train_setup(NUCMM, dev)
+    c3.reset_launch_counts()
+    loss, _ = orch(model(batch["image"]), batch["label"])
+    loss.backward()
+    torch.cuda.synchronize()
+    counts = dict(forward=c3.conv3d_3x3.launches - c3.conv3d_3x3_input_grad.launches,
+                  input_grad=c3.conv3d_3x3_input_grad.launches, wgrad=c3.conv3d_3x3_wgrad.launches)
+    if counts != dict(forward=15, input_grad=14, wgrad=15) or not math.isfinite(loss.item()):
+        fail(f"one NucMM-Z train step should launch 15, 14 and 15 convs with a finite loss: {counts}, {loss.item()}")
+    log(f"NucMM-Z train step bf16 batch 8 of 64^3: loss {loss.item():.4f}, launches {counts}")
+    out["nucmm_step"] = dict(loss=loss.item(), launches_per_step=counts)
+    del model, batch, loss
+    torch.cuda.empty_cache()
+    return rows
+
+
+def wgrad_line_row(rows, launches):
+    """The weight-gradient kernel's entry of the kernels line, per SNEMI
+    train step (batch 8 of (18, 160, 160), bf16): each layer shape's times
+    times its launches a step."""
+    snemi = [r for r in rows if r["recipe"] == "snemi" and r["dtype"] == "bfloat16"]
+
+    def per_step(key):
+        return sum(r["wgrad"][key] * r["launches_per_step"] for r in snemi)
+
+    def bound_part(kind):
+        return sum(r["wgrad"]["bound_parts"][kind] * r["launches_per_step"] for r in snemi)
+
+    return dict(
+        name="conv3d_3x3_wgrad", route="cuda", source="pytorch_connectomics_tpu_torch/ops/csrc/conv3d_3x3.cu",
+        replaces="pytorch_connectomics_tpu/ops/conv3d_pallas.py:84", launches=launches,
+        max_abs_err=max(r["wgrad"]["max_abs_err"] for r in rows if r["dtype"] == "bfloat16"),
+        ms=per_step("ms"), plain_ms=per_step("plain_ms"), bound_ms=per_step("bound_ms"),
+        bound_by="bytes" if bound_part("bytes") >= bound_part("ops") else "operations",
+        library_ms=per_step("library_ms"),
+    )
+
+
+def nucmm_volume(dev, work):
+    """(image, label) .npy paths of the seeded synthetic NucMM-Z volume
+    (em2, 165x1024x768) with its label's connected components as instances,
+    made on the card once and kept in ``work``; and the seconds it took."""
+    from pytorch_connectomics_tpu_torch.data.synthetic import synthetic_em_task
+    from pytorch_connectomics_tpu_torch.ops import native
+
+    name = "nuc{}x{}x{}".format(*NUCMM_SHAPE)
+    im, lb = work / f"{name}_im.npy", work / f"{name}_label.npy"
+    t0 = time.perf_counter()
+    if not (im.exists() and lb.exists()):
+        img, lbl = synthetic_em_task("em2", NUCMM_SHAPE, seed=3, device=dev)
+        gt, _ = native.connected_components(lbl > 0, 6)  # instance ground truth
+        np.save(im, img)
+        np.save(lb, gt)
+    return im, lb, time.perf_counter() - t0
+
+
+def train_leg_stats(res):
+    st = res["train_stats"]
+    recs = [json.loads(line) for line in (Path(res["run_dir"]) / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["train_loss_total"] for r in recs if "train_loss_total" in r]
+    return dict(
+        train_stats=st, steps_per_s=st["steps"] / st["seconds"], step_ms=st["seconds"] / st["steps"] * 1e3,
+        data_wait_ms_per_step=st["data_wait_seconds"] / st["steps"] * 1e3,
+        pipeline_host_ms_per_batch=st["pipeline_host_seconds"] / max(1, st["pipeline_batches"]) * 1e3,
+        losses=losses,
+    )
+
+
+def phase_rsunet_recipes(c3, dev, work, report):
+    log("== phase 16: the RSUNet recipes through the CLI: SNEMI train -> tune -> tune-test and the untrained "
+        "control; NucMM-Z train ==")
+    import shutil
+
+    import yaml
+
+    from pytorch_connectomics_tpu_torch.data.io import read_volume
+    from pytorch_connectomics_tpu_torch.data.synthetic import synthetic_em_task
+    from pytorch_connectomics_tpu_torch.runtime.cli import parse_args
+    from pytorch_connectomics_tpu_torch.runtime.dispatch import dispatch_runtime
+
+    out = report["rsunet_recipes"] = {}
+    t0 = time.perf_counter()
+    vols = {}
+    for tag, shape, seed in (("train", SNEMI_TRAIN_SHAPE, 31), ("a", SNEMI_TUNE_SHAPE, 32), ("b", SNEMI_TUNE_SHAPE, 33)):
+        img, lbl = synthetic_em_task("instance", shape, seed=seed, device=dev)
+        vols[tag] = (work / f"snemi_{tag}_im.npy", work / f"snemi_{tag}_label.npy")
+        np.save(vols[tag][0], img)
+        np.save(vols[tag][1], lbl)
+    out["volumes_seconds"] = time.perf_counter() - t0
+    log(f"SNEMI volumes (synthetic instance: train {SNEMI_TRAIN_SHAPE}, A and B {SNEMI_TUNE_SHAPE}) made in "
+        f"{out['volumes_seconds']:.1f} s")
+    run_root, control_root, nuc_root = work / "snemi", work / "snemi_control", work / "nucmm_train"
+    for d in (run_root, control_root, nuc_root):
+        shutil.rmtree(d, ignore_errors=True)
+
+    def data(split, tag):
+        return [f"data.{split}.image={vols[tag][0]}", f"data.{split}.label={vols[tag][1]}"]
+
+    flags = ["--config", str(SNEMI), "--device", str(dev)]
+    logs = LogRecords(("timing[", "trial %d/%d"))
+    port_log = logging.getLogger("pytorch_connectomics_tpu_torch")
+    port_log.addHandler(logs)
+    try:
+        c3.reset_launch_counts()
+        t0 = time.perf_counter()
+        train = dispatch_runtime(parse_args(flags + [
+            "--mode", "train", f"save_path={run_root}", f"optimization.max_epochs={SNEMI_EPOCHS}",
+            f"optimization.n_steps_per_epoch={SNEMI_STEPS}", *data("train", "train")]))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        counts = {k.__name__: k.launches for k in c3.KERNELS + (c3.conv3d_3x3_input_grad,)}
+        steps = SNEMI_EPOCHS * SNEMI_STEPS
+        stats = train_leg_stats(train)
+        if stats["train_stats"]["steps"] != steps or not train["checkpoint"] or not stats["losses"] \
+                or not all(math.isfinite(v) for v in stats["losses"]):
+            fail(f"SNEMI train leg: {stats['train_stats']['steps']} steps, checkpoint {train['checkpoint']}, "
+                 f"losses {stats['losses']}")
+        if counts["conv3d_3x3_wgrad"] != 14 * steps or counts["conv3d_3x3_input_grad"] != 14 * steps \
+                or counts["conv3d_3x3"] != 28 * steps:
+            fail(f"the SNEMI train leg should launch 14 forward, 14 input-gradient and 14 weight-gradient convs a "
+                 f"step for {steps} steps: {counts}")
+        stats.update(seconds=train_s, launches=counts)
+        log(f"SNEMI train leg: {steps} steps in {stats['train_stats']['seconds']:.2f} s ({stats['steps_per_s']:.3f} "
+            f"steps/s, {stats['step_ms']:.1f} ms a step, {stats['data_wait_ms_per_step']:.1f} of it waiting for "
+            f"batches; pipeline {stats['pipeline_host_ms_per_batch']:.1f} ms a batch); losses {stats['losses'][0]:.4f} "
+            f"-> {stats['losses'][-1]:.4f}; launches {counts}")
+
+        def leg(mode, root, extra):
+            c3.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = dispatch_runtime(parse_args(flags + ["--mode", mode] + extra + [f"save_path={root}"]))
+            torch.cuda.synchronize()
+            res["seconds"] = time.perf_counter() - t0
+            res["launches"] = c3.conv3d_3x3.launches
+            if res["launches"] <= 0:
+                fail(f"the {mode} leg did not run through the conv kernel")
+            return res
+
+        tune = leg("tune", run_root, ["--tune-trials", str(SNEMI_TRIALS), *data("test", "a")])
+        if (tune.get("restored") or {}).get("checkpoint") != train["checkpoint"]:
+            fail(f"the tune leg did not restore {train['checkpoint']}: {tune.get('restored')}")
+        study = yaml.safe_load(Path(tune["best_params"]).read_text())
+        trials = [a[4] for a in logs.take("trial %d/%d")]
+        (tune_timing,) = logs.take("timing[")
+        if len(trials) != SNEMI_TRIALS or study["metric"] != "adapted_rand":
+            fail(f"the tune leg ran {len(trials)} trials on {study['metric']}: {study['trials']}")
+        test = leg("tune-test", run_root, ["--best-params", tune["best_params"], *data("test", "b")])
+        (test_timing,) = logs.take("timing[")
+        control = leg("tune-test", control_root, ["--best-params", tune["best_params"], *data("test", "b")])
+        logs.take("timing[")
+    finally:
+        port_log.removeHandler(logs)
+    if control.get("restored"):
+        fail(f"the control restored a checkpoint: {control['restored']}")
+    pred = read_volume(str(next(f for f in Path(test["run_dir"]).iterdir()
+                                if f.name.endswith(("_prediction.h5", "_prediction.npy")))))
+    if pred.shape != (9, *SNEMI_TUNE_SHAPE) or not np.isfinite(pred).all() or pred.min() < 0 or pred.max() > 1:
+        fail(f"tune-test prediction {pred.shape} not finite in [0, 1] of shape (9, {SNEMI_TUNE_SHAPE})")
+    if "_tta_x4_" not in next(f.name for f in Path(test["run_dir"]).iterdir() if "_prediction." in f.name):
+        fail("the tune-test leg did not predict with the recipe's 4 flip variants")
+    scores, control_scores = (next(iter(r["metrics"].values())) for r in (test, control))
+    for sc in (scores, control_scores):
+        if not ({"voi", "adapted_rand"} <= set(sc) and all(math.isfinite(v) for v in sc.values())):
+            fail(f"tune-test metrics: {sc}")
+    # the recipe learns on the card: the trained model's held-out adapted Rand below the untrained one's
+    if not scores["adapted_rand"] < control_scores["adapted_rand"]:
+        fail(f"held-out adapted Rand {scores['adapted_rand']:.4f} (trained) is not below "
+             f"{control_scores['adapted_rand']:.4f} (untrained)")
+    names = ("read+normalise", "predict", "save", "decode", "evaluate")
+    out.update(
+        snemi_train=stats,
+        tune=dict(seconds=tune["seconds"], timing=dict(zip(names, tune_timing[1:])), trial_seconds=trials,
+                  mean_trial_seconds=sum(trials) / len(trials), best_params=study["best_params"],
+                  best_adapted_rand_a=study["best_value"], launches=tune["launches"]),
+        tune_test=dict(seconds=test["seconds"], timing=dict(zip(names, test_timing[1:])), metrics_b=scores,
+                       launches=test["launches"]),
+        control=dict(metrics_b=control_scores, launches=control["launches"]),
+    )
+    log(f"tune leg (volume A, {len(trials)} trials): {tune['seconds']:.2f} s, predict {tune_timing[2]:.3f} s, "
+        f"{out['tune']['mean_trial_seconds']:.3f} s a trial; best adapted Rand {study['best_value']:.4f} with "
+        f"{study['best_params']}")
+    log(f"tune-test leg (held-out volume B, flip TTA x4, min): {test['seconds']:.2f} s, predict {test_timing[2]:.3f} "
+        f"s, decode {test_timing[4]:.3f} s, evaluate {test_timing[5]:.3f} s; adapted Rand {scores['adapted_rand']:.4f}, "
+        f"VOI {scores['voi']:.4f}; untrained control adapted Rand {control_scores['adapted_rand']:.4f}, VOI "
+        f"{control_scores['voi']:.4f}")
+    # the NucMM-Z train leg on the NucMM-Z test geometry's synthetic volume
+    im, lb, setup_s = nucmm_volume(dev, work)
+    c3.reset_launch_counts()
+    nuc = dispatch_runtime(parse_args([
+        "--config", str(NUCMM), "--device", str(dev), "--mode", "train", f"save_path={nuc_root}",
+        "optimization.max_epochs=1", f"optimization.n_steps_per_epoch={NUCMM_TRAIN_STEPS}",
+        f"data.train.image={im}", f"data.train.label={lb}"]))
+    torch.cuda.synchronize()
+    nstats = train_leg_stats(nuc)
+    wl = c3.conv3d_3x3_wgrad.launches
+    if nstats["train_stats"]["steps"] != NUCMM_TRAIN_STEPS or not nstats["losses"] \
+            or not all(math.isfinite(v) for v in nstats["losses"]) or wl != 15 * NUCMM_TRAIN_STEPS:
+        fail(f"NucMM-Z train leg: {nstats['train_stats']['steps']} steps, losses {nstats['losses']}, {wl} weight-"
+             f"gradient launches")
+    nstats.update(setup_s=setup_s, wgrad_launches=wl)
+    out["nucmm_train"] = nstats
+    log(f"NucMM-Z train leg: {NUCMM_TRAIN_STEPS} steps in {nstats['train_stats']['seconds']:.2f} s "
+        f"({nstats['steps_per_s']:.3f} steps/s, {nstats['step_ms']:.1f} ms a step, {nstats['data_wait_ms_per_step']:.1f} "
+        f"waiting; pipeline {nstats['pipeline_host_ms_per_batch']:.1f} ms a batch); losses {nstats['losses'][0]:.4f} "
+        f"-> {nstats['losses'][-1]:.4f}; volume ready in {setup_s:.1f} s")
+    return counts
 
 
 def phase_probes(dev, work, report):
@@ -1751,7 +2249,7 @@ def main(argv=None) -> None:
 
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU and check it.")
     ap.add_argument("--phases", default=None,
-                    help="comma-separated phases of 3-14 (14 also as 'instance') to run after the device and build "
+                    help="comma-separated phases of 3-16 (14 also as 'instance') to run after the device and build "
                     "phases (default: all)")
     args = ap.parse_args(argv)
     phases = None
@@ -1759,9 +2257,9 @@ def main(argv=None) -> None:
         try:
             phases = {14 if p == "instance" else int(p) for p in args.phases.split(",")}
         except ValueError:
-            ap.error("--phases takes phases 3-14")
-    if phases is not None and not phases <= set(range(3, 15)):
-        ap.error("--phases takes phases 3-14")
+            ap.error("--phases takes phases 3-16")
+    if phases is not None and not phases <= set(range(3, 17)):
+        ap.error("--phases takes phases 3-16")
 
     def want(n):
         return phases is None or n in phases
@@ -1842,8 +2340,12 @@ def main(argv=None) -> None:
         phase_fast_recipe(dwk, fb, dev, work, report)
     if want(14):
         phase_instance(dwk, fb, dev, work, report)
+    if want(15):
+        wgrad_rows = phase_rsunet_train(c3, dev, report)
+    if want(16):
+        snemi_counts = phase_rsunet_recipes(c3, dev, work, report)
 
-    log("== phase 15: report ==")
+    log("== phase 17: report ==")
     report["total_seconds"] = time.perf_counter() - started
     log(f"chip_smoke ran in {report['total_seconds']:.1f} s")
     device = {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}
@@ -1854,6 +2356,7 @@ def main(argv=None) -> None:
         return
     kernels = kernel_line_rows(rows, main_run["launches"], dw_rows, train_counts)
     kernels.append(conv3d_line_row(conv_rows, nucmm_launches))
+    kernels.append(wgrad_line_row(wgrad_rows, snemi_counts["conv3d_3x3_wgrad"]))
     kernels += probe_line_rows(probe_records, probe_counts)
     report["kernels"] = kernels
     (work / "chip_smoke.json").write_text(json.dumps(report, indent=2, default=lambda o: o.item()))

@@ -5,9 +5,12 @@ target (C', Z, Y, X)`` float32, the port of ``build_target_fn``,
 ``pytorch_connectomics_tpu/data/targets/build.py:38-253``, with
 ``seg_to_binary`` of ``targets/misc.py:17``.
 
-This slice ports the ``binary`` and ``affinity`` targets; any other target
-name, and the label clean-ups (normalisation, connected-component
-relabelling, erosion), raise ``NotImplementedError``.
+This slice ports the ``binary``, ``affinity``, ``instance_boundary`` and
+``instance_edt`` targets and the ``erosion`` clean-up (applied to the
+segmentation before every target, as JAX's ``build.py:150-151``); any
+other target name, and the other clean-ups (normalisation,
+connected-component relabelling, window erosion), raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 
 from .affinity import affinity_unlabeled_mask, parse_offsets, seg_to_affinity
+from .distance import erode_instances, instance_boundary_mask, instance_edt
 
 _DEFAULT_OFFSETS = ["0-0-1", "0-1-0", "1-0-0"]
 
@@ -34,7 +38,22 @@ def _affinity(seg: np.ndarray, offsets=None, affinity_mode="deepem", **kw) -> np
     return seg_to_affinity(seg, offsets or _DEFAULT_OFFSETS, affinity_mode)
 
 
-_TARGETS: Dict[str, Callable[..., np.ndarray]] = {"binary": _binary, "affinity": _affinity}
+def _chan(x: np.ndarray) -> np.ndarray:
+    return x[None] if x.ndim == 3 else x
+
+
+def _boundary(seg: np.ndarray, thickness=1, mode="3d", edge_mode=None, **kw) -> np.ndarray:
+    return _chan(instance_boundary_mask(seg, thickness, mode, edge_mode).astype(np.float32))
+
+
+def _instance_edt(seg: np.ndarray, mode="3d", **kw) -> np.ndarray:
+    return _chan(instance_edt(seg, mode=mode, **kw))
+
+
+_TARGETS: Dict[str, Callable[..., np.ndarray]] = {
+    "binary": _binary, "affinity": _affinity, "instance_boundary": _boundary, "instance_edt": _instance_edt,
+}
+_PORTED_NAMES = "binary, affinity, instance_boundary and instance_edt"
 
 
 def _target_kwargs(t) -> Dict[str, Any]:
@@ -53,7 +72,6 @@ def build_target_fn(cfg) -> Optional[Callable[[np.ndarray], np.ndarray]]:
     for flag, what in (
         (cfg.normalize_labels, "normalize_labels"),
         (cfg.relabel_cc, "relabel_cc"),
-        (cfg.erosion, "erosion"),
         (getattr(cfg, "erosion_window", None) is not None, "erosion_window"),
     ):
         if flag:
@@ -61,13 +79,15 @@ def build_target_fn(cfg) -> Optional[Callable[[np.ndarray], np.ndarray]]:
     steps = []
     for t in cfg.targets:
         if t.name not in _TARGETS:
-            raise NotImplementedError(f"target '{t.name}' is not ported yet (binary and affinity only)")
+            raise NotImplementedError(f"target '{t.name}' is not ported yet ({_PORTED_NAMES} only)")
         steps.append((_TARGETS[t.name], _target_kwargs(t)))
 
     def fn(seg: np.ndarray) -> np.ndarray:
         s = np.asarray(seg)
         if s.ndim == 4:
             s = s[0]
+        if cfg.erosion:
+            s = erode_instances(s, cfg.erosion)
         return np.concatenate([f(s, **kw) for f, kw in steps], axis=0).astype(np.float32)
 
     return fn
@@ -91,7 +111,7 @@ def target_channel_spans(cfg) -> List[Dict[str, Any]]:
         elif t.name in _TARGETS:
             c = int(_TARGETS[t.name](probe, **kw).shape[0])
         else:
-            raise NotImplementedError(f"target '{t.name}' is not ported yet (binary and affinity only)")
+            raise NotImplementedError(f"target '{t.name}' is not ported yet ({_PORTED_NAMES} only)")
         spans.append({"name": t.name, "start": start, "end": start + c, "kwargs": kw})
         start += c
     return spans

@@ -9,13 +9,9 @@ import numpy as np
 import torch
 
 from ..config.schema import Config
+from ..data.targets.build import affinity_target_groups
 from .tta import TTAPredictor
 from .window import make_engine
-
-
-def _has_affinity_targets(label_transform) -> bool:
-    targets = getattr(label_transform, "targets", None) or []
-    return any((t.get("name") if isinstance(t, dict) else getattr(t, "name", None)) == "affinity" for t in targets)
 
 
 class InferenceManager:
@@ -39,7 +35,7 @@ class InferenceManager:
             inf.test_time_augmentation,
             activations=acts,
             select_channel=inf.model.select_channel,
-            affinity_outputs=_has_affinity_targets(getattr(cfg.data, "label_transform", None)),
+            affinity_groups=affinity_target_groups(getattr(cfg.data, "label_transform", None)),
         )
 
     def predict(self, volume: np.ndarray) -> np.ndarray:

@@ -6,9 +6,12 @@ per-channel-slice ensembling, and :class:`TTAPredictor`, which runs the
 window engine once per variant. The variant transforms, activations and
 the ensemble work on tensors: the predictor keeps the volume, each
 variant's prediction and the ensemble on the device and copies only the
-result to the host. Variant sharding across devices,
-patch-local TTA and the affinity flip realignment are not ported yet and
-raise ``NotImplementedError`` where a config asks for them.
+result to the host. Over affinity channels a flipped variant's raw output
+is realigned to the canonical offsets after the flip-back
+(:func:`affinity_flip_align`, JAX ``tta.py:222-268``), before the channel
+activations. Variant sharding across devices and patch-local TTA are not
+ported yet and raise ``NotImplementedError`` where a config asks for them;
+rotation TTA over affinity channels raises ``ValueError``, as in JAX.
 """
 
 from __future__ import annotations
@@ -143,6 +146,42 @@ def apply_channel_activations(pred: torch.Tensor, acts: Optional[Union[str, List
     return out
 
 
+def affinity_flip_align(aff: torch.Tensor, flipped_axes: Sequence[int], offsets, channel_slice=None) -> torch.Tensor:
+    """Realign flip-inverted affinity predictions to their canonical offsets.
+
+    With the deepem convention (``aff_c[p] = same(seg[p], seg[p - off_c])``),
+    predicting on a volume flipped along spatial axis ``a`` and flipping the
+    prediction back gives channel c's affinity for the offset with its
+    ``a`` component negated; the canonical channel is that map shifted by
+    ``off_c[a]`` voxels along ``a``, zero-filled on the vacated planes.
+    ``aff``: (..., Z, Y, X, C), after the flip-back; ``flipped_axes``: the
+    variant's spatial axes (0 = z, 1 = y, 2 = x); ``offsets``: (dz, dy, dx)
+    of each affinity channel in order; ``channel_slice``: (start, stop) of
+    the affinity channels within C."""
+    if not flipped_axes:
+        return aff
+    c0 = 0 if channel_slice is None else channel_slice[0]
+    sdim = aff.dim() - 4  # the index of Z
+    out = aff.clone()
+    for c, off in enumerate(offsets):
+        ch = aff[..., c0 + c]
+        for a in flipped_axes:
+            o = int(off[a])
+            if o == 0:
+                continue
+            ax = sdim + a
+            n = ch.shape[ax]
+            shifted = torch.zeros_like(ch)
+            if abs(o) < n:
+                if o > 0:
+                    shifted.narrow(ax, o, n - o).copy_(ch.narrow(ax, 0, n - o))
+                else:
+                    shifted.narrow(ax, 0, n + o).copy_(ch.narrow(ax, -o, n + o))
+            ch = shifted
+        out[..., c0 + c] = ch
+    return out
+
+
 def ensemble(preds: Iterable[torch.Tensor], mode: Union[str, List[Any]] = "mean") -> torch.Tensor:
     """Per-channel-slice ensemble, e.g. ``[["0:9", "min"], ["9:", "mean"]]``,
     folded one prediction at a time (a running sum, minimum or maximum), so
@@ -178,7 +217,7 @@ class TTAPredictor:
         tta_cfg: Optional[TTAConfig] = None,
         activations: Optional[Union[str, List[Any]]] = None,
         select_channel: Optional[List[int]] = None,
-        affinity_outputs: bool = False,
+        affinity_groups: Optional[List[Dict[str, Any]]] = None,
     ):
         self.engine = engine
         cfg = tta_cfg or TTAConfig()
@@ -194,8 +233,15 @@ class TTAPredictor:
             self.variants = [{"flip": (), "rot": 0}]
         if cfg.patch_first_local and len(self.variants) > 1:
             raise NotImplementedError("patch-local TTA is not ported yet")
-        if affinity_outputs and any(v["flip"] or v["rot"] for v in self.variants):
-            raise NotImplementedError("TTA over affinity channels (flip realignment) is not ported yet")
+        # affinity channel ranges ([{start, end, offsets}]): a flipped
+        # variant's affinity channels need the per-offset shift of
+        # affinity_flip_align, or the ensemble mixes misaligned maps
+        self.affinity_groups = list(affinity_groups or [])
+        if self.affinity_groups and any(v["rot"] for v in self.variants):
+            raise ValueError(
+                "rotation90 TTA over affinity channels is not supported: a (y,x) rotation permutes offset "
+                "channels; use flip-only TTA for affinity outputs"
+            )
         self.ensemble_mode = cfg.ensemble_mode
         self.activations = activations if activations is not None else cfg.act
         self.select_channel = select_channel
@@ -212,8 +258,10 @@ class TTAPredictor:
 
         def variant_predictions():
             for variant in self.variants:
-                p = self.engine.predict_tensor(apply_variant(vol, variant), out_channels)
-                yield apply_channel_activations(invert_variant(p, variant), self.activations)
+                p = invert_variant(self.engine.predict_tensor(apply_variant(vol, variant), out_channels), variant)
+                for g in self.affinity_groups if variant["flip"] else ():
+                    p = affinity_flip_align(p, tuple(variant["flip"]), g["offsets"], (g["start"], g["end"]))
+                yield apply_channel_activations(p, self.activations)
 
         out = ensemble(variant_predictions(), self.ensemble_mode)
         if self.select_channel is not None:

@@ -6,13 +6,15 @@ mask, weight)`` returns ``(total, logs)`` with ``logs["loss_<Function>_<i>"]``
 per term and ``logs["loss_total"]`` (tensors, still on the device). Terms
 route channels with ``pred_slice``/``target_slice``/``mask_slice``, take a
 numeric ``pos_weight`` and the batch's mask and spatial weight as the JAX
-package does. Given the affinity channel groups of the target tensor
+package does, and ``pos_weight: auto`` (the term's neg/pos ratio over its
+valid voxels, clipped to [1, 100], per batch). Given the affinity channel
+groups of the target tensor
 (``data.targets.build.affinity_target_groups``), a term whose target
 channels overlap a group gets each channel's offset validity (the voxels
 whose offset neighbour exists) multiplied into its mask, as JAX's
 ``_affinity_valid_mask`` (``orchestrator.py:29-53,120-147``). Deep
-supervision, multi-head outputs, ``pos_weight: auto``, pred-vs-pred terms
-and uncertainty/GradNorm balancing raise ``NotImplementedError``.
+supervision, multi-head outputs, pred-vs-pred terms and uncertainty/GradNorm
+balancing raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from ..utils.slicing import parse_slice
-from .zoo import get_loss
+from .zoo import auto_pos_weight, get_loss
 
 
 def _channels(x: torch.Tensor, spec: Optional[str]) -> torch.Tensor:
@@ -39,6 +41,7 @@ class CompiledTerm:
     target_slice: Optional[str]
     mask_slice: Optional[str]
     kwargs: Dict[str, Any]
+    auto_pos: bool = False
     # how the batch's spatial weight reaches the term: "weight" (default),
     # "mask" (folded into the loss mask) or "none"
     spatial_weight: Optional[str] = None
@@ -86,7 +89,6 @@ class LossOrchestrator:
             for flag, what in (
                 (t.head, "multi-head loss terms"),
                 (t.pred2_slice, "pred-vs-pred loss terms"),
-                (t.pos_weight == "auto", "pos_weight: auto"),
             ):
                 if flag:
                     raise NotImplementedError(f"{what} ({t.function}) is not ported yet")
@@ -94,12 +96,13 @@ class LossOrchestrator:
                 raise ValueError(f"loss term {t.function}: spatial_weight must be weight|mask|none, got {t.spatial_weight!r}")
             kwargs = dict(t.kwargs or {})
             kwargs.update(getattr(t, "extra", None) or {})
-            if t.pos_weight is not None:
+            auto_pos = t.pos_weight == "auto"
+            if t.pos_weight is not None and not auto_pos:
                 kwargs["pos_weight"] = float(t.pos_weight)
             self.terms.append(CompiledTerm(
                 name=f"{t.function}_{i}", fn=get_loss(t.function), weight=float(t.weight),
                 pred_slice=t.pred_slice, target_slice=t.target_slice, mask_slice=t.mask_slice,
-                kwargs=kwargs, spatial_weight=t.spatial_weight,
+                kwargs=kwargs, auto_pos=auto_pos, spatial_weight=t.spatial_weight,
             ))
 
     def _affinity_valid_mask(self, term: CompiledTerm, target: torch.Tensor) -> Optional[torch.Tensor]:
@@ -145,6 +148,8 @@ class LossOrchestrator:
             if term.spatial_weight == "mask":
                 m = w if m is None else m * w
                 w = None
+        if term.auto_pos:
+            return term.fn(p, t, weight=w, mask=m, pos_weight=auto_pos_weight(t, m), **term.kwargs)
         return term.fn(p, t, weight=w, mask=m, **term.kwargs)
 
     def compute(self, outputs, targets, mask=None, weight=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

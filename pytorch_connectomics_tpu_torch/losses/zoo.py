@@ -1,5 +1,6 @@
 """Loss zoo, the port of ``pytorch_connectomics_tpu/losses/zoo.py``
-(``_masked_mean``, ``bce_with_logits`` and ``dice_loss``, ``:18-101``, and
+(``_masked_mean``, ``bce_with_logits``, ``auto_pos_weight``,
+``per_channel_bce``, ``dice_loss`` and ``mse_loss``, ``:18-108``, and
 ``get_loss``, ``:292-320``).
 
 Every loss takes ``(pred, target, weight=None, mask=None)`` with
@@ -39,6 +40,50 @@ def bce_with_logits(pred, target, weight=None, mask=None, pos_weight=None, **kw)
     return _masked_mean(loss, weight, mask)
 
 
+def auto_pos_weight(target, mask=None, clip: float = 100.0):
+    """The neg/pos ratio of ``target > 0.5`` (over the voxels where ``mask >
+    0`` when a mask is given), clipped to [1, clip]: ``pos_weight: auto``."""
+    t = target > 0.5
+    if mask is not None:
+        valid = mask > 0
+        pos = (t & valid).sum()
+        neg = (~t & valid).sum()
+    else:
+        pos = t.sum()
+        neg = t.numel() - pos
+    return torch.clamp(neg / torch.clamp(pos, min=1.0), 1.0, clip)
+
+
+def per_channel_bce(pred, target, weight=None, mask=None, auto_pos_weight_flag=True, **kw):
+    """BCE on logits with a pos_weight per channel (the channel's neg/pos
+    ratio over valid voxels, clipped to [1, 100]), then the masked mean."""
+    p = pred.float()
+    t = target.float()
+    axes = tuple(range(p.dim() - 1))  # all but the channel
+    tpos = t > 0.5
+    if mask is not None:
+        valid = mask > 0
+        pos = (tpos & valid).sum(dim=axes)
+        neg = (~tpos & valid).sum(dim=axes)
+    else:
+        pos = tpos.sum(dim=axes)
+        neg = tpos.numel() / tpos.shape[-1] - pos
+    if auto_pos_weight_flag:
+        pw = torch.clamp(neg / torch.clamp(pos, min=1.0), 1.0, 100.0)
+    else:
+        pw = torch.ones_like(pos, dtype=torch.float32)
+    loss = -(pw * t * F.logsigmoid(p) + (1.0 - t) * F.logsigmoid(-p))
+    return _masked_mean(loss, weight, mask)
+
+
+def mse_loss(pred, target, weight=None, mask=None, tanh=False, **kw):
+    """Squared error of the logits (or of their tanh), masked mean."""
+    p = pred.float()
+    if tanh:
+        p = torch.tanh(p)
+    return _masked_mean((p - target.float()) ** 2, weight, mask)
+
+
 def dice_loss(pred, target, weight=None, mask=None, sigmoid=True, softmax=False,
               smooth_nr=1e-5, smooth_dr=1e-5, squared_pred=False, **kw):
     """Soft Dice (MONAI smoothing), per sample and channel, then averaged."""
@@ -72,12 +117,15 @@ def _not_ported(name: str) -> Callable:
 _PORTED: Dict[str, Callable] = {
     "WeightedBCEWithLogitsLoss": bce_with_logits,
     "BCEWithLogitsLoss": bce_with_logits,
+    "PerChannelBCEWithLogitsLoss": per_channel_bce,
+    "PerChannelBCE": per_channel_bce,
     "DiceLoss": dice_loss,
     "GeneralizedDiceLoss": dice_loss,
+    "WeightedMSELoss": mse_loss,
+    "MSELoss": mse_loss,
 }
 _NOT_PORTED = (
-    "MalisLoss", "PerChannelBCEWithLogitsLoss", "PerChannelBCE", "WeightedMSELoss", "MSELoss",
-    "WeightedMAELoss", "MAELoss", "L1Loss", "SmoothL1Loss", "CrossEntropyLoss", "FocalLoss",
+    "MalisLoss", "WeightedMAELoss", "MAELoss", "L1Loss", "SmoothL1Loss", "CrossEntropyLoss", "FocalLoss",
     "TverskyLoss", "SoftClDiceLoss", "ScnpLoss", "BinaryReg", "ForegroundDTConsistency",
     "ContourDTConsistency", "NonOverlapReg", "GANLoss",
 )

@@ -10,23 +10,23 @@ else ``(1,2,2)`` for the first two levels, or the explicit
 (``(1,3,3)``).
 
 Every 3^3 conv (all of them with ``iso`` and ``depth_2d: 0``) is SAME and
-stride 1: on a CUDA device it runs through the hand-written kernel of
+stride 1: on a CUDA device it runs through the hand-written kernels of
 :mod:`..ops.conv3d` (the port of ``conv3d_pallas.py``), on the CPU through
-its plain version. ``forward(x, plain=True)`` runs the plain version on any
-device, the reference a kernel run is held against. Other kernel shapes
-(``kernel_2d``) are computed by ``F.conv3d``, as the JAX package computes
-them outside any Pallas kernel. The 1x1x1 convs are ``F.linear`` over the
-channel axis.
+their plain versions. With grad enabled and a parameter or the input that
+requires grad (training), each goes through ``Conv3x3Function``: the forward
+kernel, then in the backward the input gradient through the same kernel
+(mirrored, transposed taps) and the weight-gradient kernel. Under
+``torch.no_grad()``/``inference_mode()`` the forward kernel takes a weight
+matrix built once per parameter version. ``forward(x, plain=True)`` runs the
+plain version on any device, differentiable by autograd, the reference a
+kernel run is held against. Other kernel shapes (``kernel_2d``) are
+computed by ``F.conv3d``, as the JAX package computes them outside any
+Pallas kernel. The 1x1x1 convs are ``F.linear`` over the channel axis.
 
 Activations are channels-last ``(B, Z, Y, X, C)`` in the compute dtype;
 parameters stay float32 and are cast per call, as flax does (bias added
-after the conv's rounding, in the compute dtype), except that the 3^3
-kernel's weight matrix is built once per parameter version. The head
-computes in float32 and the output is float32.
-
-The kernel has no backward pass, and RSUNet training is not ported yet:
-with grad enabled and a parameter or the input requiring grad, the forward
-raises unless ``plain=True``. Deep supervision raises
+after the conv's rounding, in the compute dtype). The head computes in
+float32 and the output is float32. Deep supervision raises
 ``NotImplementedError``.
 """
 
@@ -61,8 +61,8 @@ class Conv(nn.Module):
         self._wmat_key = None
 
     def _kernel_weight(self) -> torch.Tensor:
-        """The 3^3 kernel's weight matrix in the compute dtype, built again
-        only when the weight moves or is written in place."""
+        """The 3^3 kernel's weight matrix in the compute dtype for inference,
+        built again only when the weight moves or is written in place."""
         key = (self.weight.device, self.weight.data_ptr(), self.weight._version)
         if key != self._wmat_key:
             with torch.inference_mode(False), torch.no_grad():
@@ -75,6 +75,8 @@ class Conv(nn.Module):
         if self.kernel == (3, 3, 3):
             if plain:
                 return conv3d.conv3d_3x3_plain(x, self.weight, self.bias)
+            if torch.is_grad_enabled() and (x.requires_grad or self.weight.requires_grad or self.bias.requires_grad):
+                return conv3d.Conv3x3Function.apply(x, self.weight, self.bias)
             wmat = None if x.device.type == "cpu" else self._kernel_weight()
             return conv3d.conv3d_3x3(x, self.weight, self.bias, wmat=wmat)
         y = conv3d_same(x, self.weight.to(self.dtype), None, (1, 1, 1))
@@ -154,13 +156,6 @@ class RSUNet(nn.Module):
         self.head = nn.Linear(width[0], out_channels)
 
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
-        if not plain and torch.is_grad_enabled() and (
-            x.requires_grad or any(p.requires_grad for p in self.parameters())
-        ):
-            raise NotImplementedError(
-                "RSUNet training is not ported yet (the 3^3 conv kernel has no backward pass); run the "
-                "forward under torch.no_grad() or torch.inference_mode(), or with plain=True"
-            )
         x = self.stem(x, plain)
         skips = []
         for i, blk in enumerate(self.enc):

@@ -143,6 +143,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.conv3d_3x3_plan.restype = i
         lib.conv3d_3x3_fwd.argtypes = [p, p, p, p] + [i] * 9 + [p]
         lib.conv3d_3x3_fwd.restype = i
+        lib.conv3d_3x3_wgrad_plan.argtypes = [i] * 7 + [p, p]
+        lib.conv3d_3x3_wgrad_plan.restype = i
+        lib.conv3d_3x3_wgrad.argtypes = [p, p, p, q, p] + [i] * 8 + [p, p]
+        lib.conv3d_3x3_wgrad.restype = i
         lib.conv3d_3x3_error_string.argtypes = [i]
         lib.conv3d_3x3_error_string.restype = ctypes.c_char_p
     elif name == "fused_mlp":

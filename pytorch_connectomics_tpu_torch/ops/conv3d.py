@@ -1,5 +1,6 @@
-"""The dense 3^3 SAME stride-1 convolution of RSUNet, as a hand-written CUDA
-kernel (``csrc/conv3d_3x3.cu``) with a plain PyTorch version beside it.
+"""The dense 3^3 SAME stride-1 convolution of RSUNet, forward and backward,
+as hand-written CUDA kernels (``csrc/conv3d_3x3.cu``) with a plain PyTorch
+version of each beside it.
 
 :func:`conv3d_3x3` -> ``out = round(conv(x, w)) + bias``, computed on
 channels-last ``(B, Z, Y, X, Cin)`` activations with f32 accumulation; the
@@ -9,25 +10,44 @@ weight is used in x's dtype (flax casts its kernel to the compute dtype).
 Replaces the TPU kernel ``conv3d_3x3_pallas`` of
 ``pytorch_connectomics_tpu/ops/conv3d_pallas.py:84``.
 
+The backward (the JAX package has no kernel for it: XLA differentiates the
+conv, so the forward's function is the spec):
+
+- :func:`conv3d_3x3_input_grad`: ``dx`` is the forward kernel on ``dy``
+  with the taps mirrored and each tap's ``(Cin, Cout)`` block transposed
+  (``w.transpose(0, 1).flip(2, 3, 4)`` in ``oidhw``), no bias; its launches
+  count under :func:`conv3d_3x3` and, apart, under its own ``launches``.
+- :func:`conv3d_3x3_wgrad`: ``dW[tap] = sum_v x(v + tap - 1)^T dy(v)`` in
+  f32, a new kernel: per item (a chunk of tiles, a tile of weight rows, a
+  slice of Cout) partial sums on ``mma.sync`` (bf16; exact f32 FMAs on the
+  CUDA cores for float32), then their sum in a fixed order, so that every
+  launch and every grid gives the same bits.
+- the bias gradient is ``dy`` summed over voxels in f32 (plain PyTorch, as
+  JAX computes it outside any kernel).
+- :class:`Conv3x3Function` ties them into autograd; :func:`conv3d_3x3`
+  called with grad enabled on a tensor that requires grad goes through it.
+
 The weight is PyTorch's ``(Cout, Cin, 3, 3, 3)`` (``layout="oidhw"``) or
 the JAX package's ``(3, 3, 3, Cin, Cout)`` (``layout="dhwio"``). The kernel
 takes it as the tap-major ``(27 * Cin, Cout)`` matrix of the TPU kernel,
 zero-padded as :func:`kernel_weight` describes; a caller that keeps a
 parameter builds that matrix once per parameter version and passes it as
-``wmat`` (``models/rsunet.py``).
+``wmat`` (``models/rsunet.py``, inference).
 
 The kernel keeps the weight of at least 16 output channels (``27 * Cin *
 16`` values) in shared memory next to the input tile, which bounds Cin: up
-to 96 in float32 and 192 in bfloat16 (RSUNet's widths reach 64); a wider
-input raises. The bf16 tensor-core kernel keeps two input tiles where they
-fit beside the weight, so that the next tile's copies run under this
-tile's products, and gives each warp 32 or 64 voxels x 32 to 64 output
-channels; :func:`kernel_plan` reports the plan it takes for a shape.
+to 96 in float32 and 192 in bfloat16 (RSUNet's widths reach 80; for the
+input gradient the bound is on the forward's Cout); a wider input raises.
+The bf16 tensor-core kernel keeps two input tiles where they fit beside the
+weight, so that the next tile's copies run under this tile's products, and
+gives each warp 32 or 64 voxels x 32 to 64 output channels;
+:func:`kernel_plan` and :func:`wgrad_plan` report the plans a shape takes.
+The library caches each shape's plan and grid, so a launch does no
+planning.
 
-Given CPU tensors the wrapper runs the plain version; given CUDA tensors it
-launches the kernel or raises. It counts its launches in
-``conv3d_3x3.launches``. It has no backward pass: called with grad enabled
-on a tensor that requires grad, it raises.
+Given CPU tensors the wrappers run the plain versions; given CUDA tensors
+they launch the kernels or raise. Each counts its launches in its
+``launches`` attribute.
 """
 
 from __future__ import annotations
@@ -40,19 +60,34 @@ import torch.nn.functional as F
 from . import build
 from .fused_block import _dtype_code, _require, refuse_grad
 
+WGRAD_PLAN_FIELDS = ("xs", "r", "nb", "slices", "buffers", "rows_per_chunk", "chunks", "tiles_per_chunk", "items",
+                     "smem_bytes", "grid", "partial_floats")
+
 
 def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
 def _dhwio(w: torch.Tensor, layout: str) -> torch.Tensor:
-    _require(w.dim() == 5, f"w must be 5-D, got {tuple(w.shape)}")
+    _require(w.dim() == 5, "w must be 5-D, got {}", w.shape)
     if layout == "oidhw":
-        _require(tuple(w.shape[2:]) == (3, 3, 3), f"w must be (Cout, Cin, 3, 3, 3), got {tuple(w.shape)}")
+        _require(w.shape[2:] == (3, 3, 3), "w must be (Cout, Cin, 3, 3, 3), got {}", w.shape)
         return w.permute(2, 3, 4, 1, 0)
-    _require(layout == "dhwio", f"layout must be 'oidhw' or 'dhwio', got {layout!r}")
-    _require(tuple(w.shape[:3]) == (3, 3, 3), f"w must be (3, 3, 3, Cin, Cout), got {tuple(w.shape)}")
+    _require(layout == "dhwio", "layout must be 'oidhw' or 'dhwio', got {!r}", layout)
+    _require(w.shape[:3] == (3, 3, 3), "w must be (3, 3, 3, Cin, Cout), got {}", w.shape)
     return w
+
+
+def _oidhw(w: torch.Tensor, layout: str) -> torch.Tensor:
+    """``w`` as ``(Cout, Cin, 3, 3, 3)`` (a view; differentiable)."""
+    return _dhwio(w, layout).permute(4, 3, 0, 1, 2)
+
+
+def mirror_weight(w: torch.Tensor) -> torch.Tensor:
+    """The input gradient's weight: ``(Cout, Cin, 3, 3, 3)`` -> ``(Cin,
+    Cout, 3, 3, 3)`` with the taps mirrored in z, y and x (tap t -> 26 - t)
+    and each tap's block transposed."""
+    return w.transpose(0, 1).flip(2, 3, 4)
 
 
 def conv3d_3x3_plain(
@@ -76,6 +111,28 @@ def conv3d_3x3_plain(
     if bias is not None:
         out = out + bias.to(x.dtype)
     return out
+
+
+def conv3d_3x3_input_grad_plain(dy: torch.Tensor, w: torch.Tensor, layout: str = "oidhw") -> torch.Tensor:
+    """``dx`` of the conv for output gradient ``dy``: :func:`conv3d_3x3_plain`
+    of ``dy`` with :func:`mirror_weight`, no bias; rounded to dy's dtype."""
+    return conv3d_3x3_plain(dy, mirror_weight(_oidhw(w, layout)))
+
+
+def conv3d_3x3_wgrad_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """``dW`` (Cout, Cin, 3, 3, 3) in f32 (f64 for f64 x): per tap, the
+    shifted slice of the zero-padded x, as (voxels, Cin), transposed times
+    dy as (voxels, Cout)."""
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    _, z, y, xs, cin = x.shape
+    cout = dy.shape[-1]
+    xp = F.pad(x.to(acc), (0, 0, 1, 1, 1, 1, 1, 1))
+    d = dy.to(acc).reshape(-1, cout)
+    taps = [
+        xp[:, dz : dz + z, dy_ : dy_ + y, dx : dx + xs].reshape(-1, cin).t() @ d
+        for dz in range(3) for dy_ in range(3) for dx in range(3)
+    ]
+    return torch.stack(taps, dim=-1).permute(1, 0, 2).reshape(cout, cin, 3, 3, 3)
 
 
 def kernel_weight(w: torch.Tensor, dtype: torch.dtype, layout: str = "oidhw") -> torch.Tensor:
@@ -128,6 +185,60 @@ def _check(code: int, lib) -> None:
         raise RuntimeError(f"conv3d 3^3 kernel failed: {lib.conv3d_3x3_error_string(code).decode()}")
 
 
+_PLANNER = (ctypes.c_int * 3)()
+
+
+def _forced(plan: dict | None):
+    """A forced weight-gradient tile (``xs``, ``r``, ``buffers``) as the
+    library takes it; zeros for the planner's."""
+    return (ctypes.c_int * 3)(plan["xs"], plan["r"], plan["buffers"]) if plan else _PLANNER
+
+
+def wgrad_plan(shape: tuple, cout: int, dtype: torch.dtype, plan: dict | None = None) -> dict:
+    """The plan :func:`conv3d_3x3_wgrad` takes for x of ``shape`` (B, Z, Y,
+    X, Cin) and ``cout`` output channels in ``dtype`` on the current
+    device: its tile (``xs`` x ``r``), column slice ``nb`` and ``slices``,
+    buffers, rows a chunk, ``chunks`` and ``tiles_per_chunk``, ``items``,
+    shared memory, default ``grid`` and the float32 scratch of the partials.
+    Chunks and items follow from the shape alone. ``plan`` (``xs``, ``r``,
+    ``buffers``) forces the tile; one that does not fit raises. Needs the
+    built library and the card."""
+    lib = build.load("conv3d_3x3")
+    out = (ctypes.c_longlong * len(WGRAD_PLAN_FIELDS))()
+    b, z, y, xs, cin = shape
+    _check(lib.conv3d_3x3_wgrad_plan(int(dtype == torch.bfloat16), b, z, y, xs, cin, cout, _forced(plan), out), lib)
+    return dict(zip(WGRAD_PLAN_FIELDS, out))
+
+
+def _launch_fwd(x: torch.Tensor, wmat: torch.Tensor, bias: torch.Tensor | None, cout: int) -> torch.Tensor:
+    """Launch the forward kernel on CUDA tensors: x (B, Z, Y, X, Cin) and the
+    weight matrix in x's dtype, bias float32 or None."""
+    code = _dtype_code(x)
+    _require(x.dim() == 5, "x must be (B, Z, Y, X, Cin), got {}", x.shape)
+    _require(x.is_contiguous(), "x must be contiguous channels-last (B, Z, Y, X, Cin)")
+    _require(x.data_ptr() % 16 == 0, "x must be 16-byte aligned")
+    _require(wmat.dtype == x.dtype, "the weight matrix must be {} like x", x.dtype)
+    _require(wmat.dim() == 2 and wmat.shape[1] == _round_up(cout, 16), "the weight matrix has the wrong shape")
+    dev = x.get_device()
+    if bias is not None:
+        _require(bias.shape == (cout,), "bias must be ({},)", cout)
+        if bias.dtype != torch.float32 or not bias.is_contiguous():
+            bias = bias.float().contiguous()
+    for t in (wmat,) if bias is None else (wmat, bias):
+        _require(t.get_device() == dev, "all tensors must be on the device of x")
+        _require(t.is_contiguous() and t.data_ptr() % 16 == 0, "weights must be contiguous and 16-byte aligned")
+    b, z, y, xs, cin = x.shape
+    lib = build.load("conv3d_3x3")
+    out = torch.empty((b, z, y, xs, cout), device=x.device, dtype=x.dtype)
+    rc = lib.conv3d_3x3_fwd(
+        x.data_ptr(), wmat.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
+        code, b, z, y, xs, cin, cout, wmat.shape[0], wmat.shape[1], build.stream(dev),
+    )
+    _check(rc, lib)
+    conv3d_3x3.launches += 1
+    return out
+
+
 def conv3d_3x3(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -138,45 +249,115 @@ def conv3d_3x3(
     """(B, Z, Y, X, Cout) in x's dtype: the 3^3 SAME stride-1 conv of
     channels-last x plus bias; see the module doc. ``wmat``: the matrix
     :func:`kernel_weight` builds from ``w`` for x's dtype, when the caller
-    keeps one."""
-    refuse_grad("conv3d_3x3", x, w, bias)
+    keeps one. With grad enabled and an input that requires grad it runs
+    through :class:`Conv3x3Function` (``wmat`` is then not used)."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, w, bias)):
+        return Conv3x3Function.apply(x, _oidhw(w, layout), bias)
     if x.device.type == "cpu":
         return conv3d_3x3_plain(x, w, bias, layout)
-    code = _dtype_code(x)
-    _require(x.dim() == 5, f"x must be (B, Z, Y, X, Cin), got {tuple(x.shape)}")
-    _require(x.is_contiguous(), "x must be contiguous channels-last (B, Z, Y, X, Cin)")
-    _require(x.data_ptr() % 16 == 0, "x must be 16-byte aligned")
-    b, z, y, xs, cin = x.shape
     wk = _dhwio(w, layout)
-    _require(wk.shape[3] == cin, f"w has {wk.shape[3]} input channels, x has {cin}")
-    cout = wk.shape[4]
+    _require(wk.shape[3] == x.shape[-1], "w has {} input channels, x has {}", wk.shape[3], x.shape[-1])
     if wmat is None:
         wmat = kernel_weight(w, x.dtype, layout)
-    _require(wmat.dtype == x.dtype, f"the weight matrix must be {x.dtype} like x")
-    _require(wmat.dim() == 2 and wmat.shape[1] == _round_up(cout, 16), "the weight matrix has the wrong shape")
-    if bias is not None:
-        _require(bias.shape == (cout,), f"bias must be ({cout},)")
-        bias = bias.float().contiguous()
-    for t in (wmat,) + (() if bias is None else (bias,)):
-        _require(t.device == x.device, "all tensors must be on the device of x")
-        _require(t.is_contiguous() and t.data_ptr() % 16 == 0, "weights must be contiguous and 16-byte aligned")
-    lib = build.load("conv3d_3x3")
-    out = torch.empty((b, z, y, xs, cout), device=x.device, dtype=x.dtype)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.conv3d_3x3_fwd(
-        x.data_ptr(), wmat.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
-        code, b, z, y, xs, cin, cout, wmat.shape[0], wmat.shape[1], stream,
-    )
-    _check(rc, lib)
-    conv3d_3x3.launches += 1
-    return out
+    return _launch_fwd(x, wmat, bias, wk.shape[4])
 
 
 conv3d_3x3.launches = 0
 
-KERNELS = (conv3d_3x3,)
+
+def conv3d_3x3_input_grad(dy: torch.Tensor, w: torch.Tensor, wmat: torch.Tensor | None = None) -> torch.Tensor:
+    """(B, Z, Y, X, Cin) in dy's dtype: the conv's input gradient, the
+    forward kernel on ``dy`` with :func:`mirror_weight` of ``w`` (Cout, Cin,
+    3, 3, 3), no bias. ``wmat``: :func:`kernel_weight` of the mirrored
+    weight in dy's dtype, when the caller keeps one."""
+    refuse_grad("conv3d_3x3_input_grad", dy, w)
+    if dy.device.type == "cpu":
+        return conv3d_3x3_input_grad_plain(dy, w)
+    _require(w.dim() == 5 and w.shape[0] == dy.shape[-1], "w must be (Cout, Cin, 3, 3, 3) with Cout = {}",
+             dy.shape[-1])
+    if wmat is None:
+        wmat = kernel_weight(mirror_weight(w), dy.dtype)
+    out = _launch_fwd(dy, wmat, None, w.shape[1])
+    conv3d_3x3_input_grad.launches += 1
+    return out
+
+
+conv3d_3x3_input_grad.launches = 0
+
+_WGRAD_PLANS: dict = {}
+
+
+def conv3d_3x3_wgrad(x: torch.Tensor, dy: torch.Tensor, grid: int | None = None,
+                     plan: dict | None = None) -> torch.Tensor:
+    """``dW`` (Cout, Cin, 3, 3, 3) float32: the weight gradient of the conv
+    of x (B, Z, Y, X, Cin) whose output gradient is dy (B, Z, Y, X, Cout);
+    see the module doc. ``grid``: the number of persistent blocks in place
+    of the card's default (the result does not depend on it); ``plan``
+    (``xs``, ``r``, ``buffers``): a tile in the place of the planner's, for
+    sweeps (the partials follow the tile, so the sum's order changes)."""
+    refuse_grad("conv3d_3x3_wgrad", x, dy)
+    if x.device.type == "cpu":
+        return conv3d_3x3_wgrad_plain(x, dy)
+    code = _dtype_code(x)
+    _require(x.dim() == 5 and dy.dim() == 5 and dy.shape[:4] == x.shape[:4],
+             "x (B, Z, Y, X, Cin) and dy (B, Z, Y, X, Cout) must share (B, Z, Y, X): {} and {}", x.shape, dy.shape)
+    _require(dy.dtype == x.dtype, "dy must be {} like x", x.dtype)
+    dev = x.get_device()
+    _require(dy.get_device() == dev, "all tensors must be on the device of x")
+    for t in (x, dy):
+        _require(t.is_contiguous() and t.data_ptr() % 16 == 0, "x and dy must be contiguous and 16-byte aligned")
+    b, z, y, xs, cin = x.shape
+    cout = dy.shape[-1]
+    key = (tuple(x.shape), cout, x.dtype, dev, None if plan is None else tuple(_forced(plan)))
+    floats = _WGRAD_PLANS.get(key)
+    if floats is None:
+        with torch.cuda.device(dev):
+            floats = _WGRAD_PLANS[key] = wgrad_plan(tuple(x.shape), cout, x.dtype, plan)["partial_floats"]
+    lib = build.load("conv3d_3x3")
+    partial = torch.empty(floats, device=x.device, dtype=torch.float32)
+    out = torch.empty((cout, cin, 3, 3, 3), device=x.device, dtype=torch.float32)
+    rc = lib.conv3d_3x3_wgrad(
+        x.data_ptr(), dy.data_ptr(), partial.data_ptr(), floats, out.data_ptr(), code, b, z, y, xs, cin, cout,
+        grid or 0, _forced(plan), build.stream(dev),
+    )
+    _check(rc, lib)
+    conv3d_3x3_wgrad.launches += 1
+    return out
+
+
+conv3d_3x3_wgrad.launches = 0
+
+
+class Conv3x3Function(torch.autograd.Function):
+    """``y = conv3d_3x3(x, w, bias)`` (``w`` the float32 parameter, Cout,
+    Cin, 3, 3, 3) whose backward runs the kernels: ``dx`` is
+    :func:`conv3d_3x3_input_grad` of ``dy`` (skipped where x needs no
+    gradient, as the stem's data), ``dW`` is :func:`conv3d_3x3_wgrad`,
+    ``db`` is ``dy`` summed in f32. Saves ``x`` and ``w``."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias):
+        x = x.contiguous()
+        ctx.save_for_backward(x, w)
+        ctx.has_bias = bias is not None
+        return conv3d_3x3(x, w, bias)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = conv3d_3x3_input_grad(dy, w) if ctx.needs_input_grad[0] else None
+        dw = conv3d_3x3_wgrad(x, dy).to(w.dtype) if ctx.needs_input_grad[1] else None
+        db = None
+        if ctx.has_bias and ctx.needs_input_grad[2]:
+            acc = torch.float64 if dy.dtype == torch.float64 else torch.float32
+            db = dy.sum(dim=(0, 1, 2, 3), dtype=acc).to(w.dtype)
+        return dx, dw, db
+
+
+KERNELS = (conv3d_3x3, conv3d_3x3_wgrad)
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
+    for k in KERNELS + (conv3d_3x3_input_grad,):
         k.launches = 0

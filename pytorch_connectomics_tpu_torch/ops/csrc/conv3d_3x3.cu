@@ -283,6 +283,12 @@ __device__ __forceinline__ void ldsm_x4_at(unsigned (&r)[4], unsigned a) {
                : "r"(a));
 }
 
+__device__ __forceinline__ void ldsm_x4_trans_at(unsigned (&r)[4], unsigned a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
 __device__ __forceinline__ float bias_bf16(const float* __restrict__ bias, int co, int Cout) {
   return bias && co < Cout ? to_f32(from_f32<bf16>(__ldg(bias + co))) : 0.f;
 }
@@ -543,6 +549,399 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
+// the weight gradient: dW[tap][ci][co] = sum_v x(v + tap - 1)[ci] * dy(v)[co]
+// ---------------------------------------------------------------------------
+
+// The weight gradient is the product of the forward's weight-matrix layout
+// (rows: tap-major taps x channels, as the forward's kernel_weight, K of
+// them; columns: Cout, Np of them) reduced over every voxel of the batch:
+//     G[row][co] = sum_v A[row][v] * dy[v][co],  A[row][v] = x[v + tap(row) - 1][ci(row)]
+// WGeom adds to the forward's geometry (tiles of R x XS voxels in one z
+// slice, their staged x halo) what the reduction needs: an item is one
+// block's share, (chunk of consecutive tiles, tile of BM rows, slice of NB
+// columns); its partial sums go to partial[chunk][row][col], and
+// wgrad_sum_kernel adds the chunks in a fixed order. Items, chunks and rows
+// follow from the shape alone, so the result is the same bits for any grid.
+struct WGeom {
+  Geom g;         // x side (tiles, halo cells of CP channels at stride CS), K rows, Np, NB, slices, packed, nbuf
+  int DS;         // stride of a staged dy voxel (>= NB)
+  int dvecb;      // bytes of one dy staging copy
+  int BM;         // rows of an item
+  int row_tiles;  // ceil(K / BM)
+  int rows_p;     // row_tiles * BM: rows of a chunk's partial
+  int tap_rows;   // rows a tap takes: CP (bf16 tap-wise) or Cin (packed, f32)
+  int tpc;        // tiles per chunk
+  int chunks;
+  long long items;  // chunks * row_tiles * slices
+};
+
+constexpr int kWgradMaxM = 512;  // voxels of a tile (bf16 tap-wise; packed 256, f32 64)
+constexpr int kWgradF32Rows = 64;  // rows of an f32 item: 16 thread rows x 4
+constexpr int kWgradF32Cols = 64;  // columns of an f32 item: 16 thread columns x 4
+
+// Shared memory of the bf16 kernel: the chunk table (tap-wise) or the tap
+// table (packed), a zero chunk of 16 bytes, nbuf buffers of (x halo, dy
+// tile), and (packed) the patch matrix of the tile.
+struct WgLayout {
+  size_t zero, buf, hbytes, dbytes, patch, total;
+};
+
+__host__ __device__ inline WgLayout wgrad_layout(const WGeom& w, int es) {
+  const Geom& g = w.g;
+  WgLayout l;
+  const int entries = es == 4 ? 0 : g.packed ? 27 : w.rows_p / 8;
+  l.zero = align16((size_t)entries * sizeof(unsigned short));
+  l.buf = l.zero + 16;
+  l.hbytes = align16((size_t)3 * (g.R + 2) * (g.XS + 2) * g.CS * es);
+  l.dbytes = align16((size_t)g.R * g.XS * w.DS * es);
+  l.patch = l.buf + (size_t)g.nbuf * (l.hbytes + l.dbytes);
+  l.total = l.patch + (es == 2 && g.packed ? (size_t)g.R * g.XS * g.KS * 2 : 0);
+  return l;
+}
+
+// Stage dy of the tile at (b, z, y0, x0), channels n0 .. n0 + NB - 1, into
+// dst[m][DS] (m = r * XS + xm), zero outside the volume and past Cout. VEC
+// is the copy width in bytes; a width of one element (bf16, odd Cout) loads
+// and stores.
+template <typename T, int VEC>
+__device__ __forceinline__ void stage_dy(const T* __restrict__ dy, T* __restrict__ dst, const WGeom& w, int b, int z,
+                                         int y0, int x0, int n0) {
+  const Geom& g = w.g;
+  constexpr int per = VEC / (int)sizeof(T);
+  const int vall = g.NB / per;
+  const int total = g.R * g.XS * vall;
+  for (int i = threadIdx.x; i < total; i += kThreads) {
+    const int m = i / vall, q = i - m * vall;
+    const int r = m / g.XS, xm = m - r * g.XS;
+    const int yg = y0 + r, xg = x0 + xm, n = n0 + q * per;
+    const bool valid = yg < g.Y && xg < g.X && n < g.Cout;
+    const long long src = ((((long long)b * g.Z + z) * g.Y + yg) * g.X + xg) * g.Cout + n;
+    if constexpr (VEC == (int)sizeof(T)) {
+      dst[m * w.DS + q] = valid ? dy[src] : from_f32<T>(0.f);
+    } else {
+      cp_async<VEC>(dst + m * w.DS + q * per, valid ? dy + src : dy, valid);
+    }
+  }
+}
+
+// Issue the copies of tile t (x halo and dy) into one buffer.
+template <typename T>
+__device__ __forceinline__ void stage_wgrad_tile(const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__ xh,
+                                                 T* __restrict__ dt, const WGeom& w, long long t, int n0) {
+  const Geom& g = w.g;
+  int b, z, y0, x0;
+  tile_origin(t, g, b, z, y0, x0);
+  if constexpr (std::is_same<T, bf16>::value) {
+    stage_tile(x, xh, g, t);
+  } else {
+    switch (g.vecb) {
+      case 16:
+        stage_halo<float, 16>(x, xh, g, b, z, y0, x0);
+        break;
+      case 8:
+        stage_halo<float, 8>(x, xh, g, b, z, y0, x0);
+        break;
+      default:
+        stage_halo<float, 4>(x, xh, g, b, z, y0, x0);
+    }
+  }
+  switch (w.dvecb) {
+    case 16:
+      stage_dy<T, 16>(dy, dt, w, b, z, y0, x0, n0);
+      break;
+    case 8:
+      stage_dy<T, 8>(dy, dt, w, b, z, y0, x0, n0);
+      break;
+    case 4:
+      stage_dy<T, 4>(dy, dt, w, b, z, y0, x0, n0);
+      break;
+    default:
+      if constexpr (std::is_same<T, bf16>::value) stage_dy<T, 2>(dy, dt, w, b, z, y0, x0, n0);
+  }
+}
+
+// Item i: its chunk, tile of rows and slice of columns. Consecutive items
+// share a chunk, so the blocks that stage the same tiles run together.
+__device__ __forceinline__ void wgrad_item(long long i, const WGeom& w, int& chunk, int& rt, int& sl) {
+  sl = (int)(i % w.g.slices);
+  const long long t = i / w.g.slices;
+  rt = (int)(t % w.row_tiles);
+  chunk = (int)(t / w.row_tiles);
+}
+
+// bf16 on the tensor cores. Warp w of the block owns rows row0 + 32 w ..
+// + 31 of the item (two m16 fragments) and all NB columns of its slice
+// (NFW n8 fragments). Per k-step of 16 voxels of the tile, A (rows x
+// voxels) is read from channels-last x with ldmatrix.trans: the halo cell
+// of voxel v for a chunk of 8 channels of one tap holds A's 8 rows of that
+// voxel contiguously, so the transposed load gives the row-major fragment;
+// B (voxels x columns) the same way from the staged dy tile.
+template <int NFW, bool PACKED>
+__global__ void __launch_bounds__(kThreads, 1)
+    conv3d_wgrad_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy, float* __restrict__ partial,
+                        WGeom w) {
+  static_assert(NFW % 2 == 0, "B fragments come in pairs of n8");
+  constexpr int NP = NFW / 2;
+  const Geom& g = w.g;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const WgLayout l = wgrad_layout(w, 2);
+  unsigned short* tab = reinterpret_cast<unsigned short*>(smem);
+  const bf16* zrow = reinterpret_cast<const bf16*>(smem + l.zero);
+  bf16* patch = reinterpret_cast<bf16*>(smem + l.patch);
+  const int W2 = g.XS + 2, H2 = g.R + 2;
+  const int M = g.R * g.XS, nsteps = M / 16;
+
+  if (PACKED) {  // tap's offset in a halo buffer
+    for (int tap = threadIdx.x; tap < 27; tap += kThreads) {
+      const int dz = tap / 9, dy_ = (tap / 3) % 3, dx = tap % 3;
+      tab[tap] = (unsigned short)(((dz * H2 + dy_) * W2 + dx) * g.CS);
+    }
+  } else {  // chunk c of 8 rows (row = tap * CP + ci): its offset in a halo buffer, or past the taps
+    const int cpc = g.CP / 8;
+    for (int c = threadIdx.x; c < w.rows_p / 8; c += kThreads) {
+      unsigned o = kPadChunk;
+      if (c < 27 * cpc) {
+        const int tap = c / cpc, ci = (c - tap * cpc) * 8;
+        const int dz = tap / 9, dy_ = (tap / 3) % 3, dx = tap % 3;
+        o = (unsigned)(((dz * H2 + dy_) * W2 + dx) * g.CS + ci);
+      }
+      tab[c] = (unsigned short)o;
+    }
+  }
+  if (threadIdx.x < 4) reinterpret_cast<unsigned*>(smem + l.zero)[threadIdx.x] = 0u;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int mj = lane >> 3, r8 = lane & 7;
+  // A: lane gives voxel r8 + 8 (mj / 2) of the k-step, rows 8 (mj % 2) ..
+  // of the fragment; B: voxel r8 + 8 (mj % 2), columns 8 (mj / 2) ..
+  const int avox = r8 + 8 * (mj >> 1), ahalf = 8 * (mj & 1);
+  const int bvox = r8 + 8 * (mj & 1), bcol = 8 * (mj >> 1);
+  const unsigned zsa = smem_addr(zrow);
+
+  for (long long item = blockIdx.x; item < w.items; item += gridDim.x) {
+    int chunk, rt, sl;
+    wgrad_item(item, w, chunk, rt, sl);
+    const int n0 = sl * g.NB;
+    const int row0 = rt * w.BM + warp * 32;
+    const bool active = row0 < g.K;
+    const long long t0 = (long long)chunk * w.tpc;
+    const long long t1 = t0 + w.tpc < g.tiles ? t0 + w.tpc : g.tiles;
+    float acc[2][NFW][4];
+#pragma unroll
+    for (int f = 0; f < 2; ++f)
+#pragma unroll
+      for (int j = 0; j < NFW; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[f][j][q] = 0.f;
+
+    __syncthreads();  // every warp is done with the last item's buffers; the tables are written
+    // this lane's A chunk offsets (tap-wise) or rows (packed), per fragment
+    unsigned aoff[2];
+#pragma unroll
+    for (int f = 0; f < 2; ++f) {
+      const int row = row0 + 16 * f + ahalf;
+      aoff[f] = PACKED ? (row < g.K ? (unsigned)row : kPadChunk) : (active ? tab[row / 8] : kPadChunk);
+    }
+    int buf = 0;
+    stage_wgrad_tile(x, dy, reinterpret_cast<bf16*>(smem + l.buf), reinterpret_cast<bf16*>(smem + l.buf + l.hbytes),
+                     w, t0, n0);
+    for (long long t = t0; t < t1; ++t) {
+      mednext::cp_async_wait_all();
+      __syncthreads();  // tile t has landed; every warp is done with the other buffer
+      const size_t bo = l.buf + buf * (l.hbytes + l.dbytes);
+      const bf16* xh = reinterpret_cast<const bf16*>(smem + bo);
+      const bf16* dt = reinterpret_cast<const bf16*>(smem + bo + l.hbytes);
+      if (g.nbuf == 2 && t + 1 < t1) {
+        const size_t bn = l.buf + (buf ^ 1) * (l.hbytes + l.dbytes);
+        stage_wgrad_tile(x, dy, reinterpret_cast<bf16*>(smem + bn), reinterpret_cast<bf16*>(smem + bn + l.hbytes), w,
+                         t + 1, n0);
+      }
+      if constexpr (PACKED) {  // patch[m][k], k = tap * Cin + ci, zero from 27 * Cin on: one row a thread
+        if ((int)threadIdx.x < M) {
+          const int m = threadIdx.x, r = m / g.XS, xm = m - r * g.XS;
+          const unsigned short* h = reinterpret_cast<const unsigned short*>(xh) + (r * W2 + xm) * g.CS;
+          uint4* prow = reinterpret_cast<uint4*>(patch + (size_t)m * g.KS);
+          int tap = 0, ci = 0;
+          for (int k8 = 0; k8 < g.K / 8; ++k8) {
+            unsigned v[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              if (tap < 27) {
+                v[e / 2] |= (unsigned)h[tab[tap] + ci] << (16 * (e & 1));
+                if (++ci == g.Cin) ci = 0, ++tap;
+              }
+            }
+            prow[k8] = make_uint4(v[0], v[1], v[2], v[3]);
+          }
+        }
+        __syncthreads();  // the patch is complete
+      }
+      if (active) {
+        const unsigned xsa = smem_addr(xh), dsa = smem_addr(dt), psa = smem_addr(patch);
+        auto load = [&](int st, unsigned (&a)[2][4], unsigned (&bb)[NP][4]) {
+          const int m0 = st * 16, r = m0 / g.XS, xm0 = m0 - r * g.XS;
+#pragma unroll
+          for (int f = 0; f < 2; ++f) {
+            unsigned addr = zsa;
+            if (aoff[f] != kPadChunk)
+              addr = PACKED ? psa + 2 * ((m0 + avox) * g.KS + aoff[f])
+                            : xsa + 2 * ((r * W2 + xm0 + avox) * g.CS + aoff[f]);
+            ldsm_x4_trans_at(a[f], addr);
+          }
+#pragma unroll
+          for (int p = 0; p < NP; ++p) ldsm_x4_trans_at(bb[p], dsa + 2 * ((m0 + bvox) * w.DS + p * 16 + bcol));
+        };
+        auto multiply = [&](const unsigned (&a)[2][4], const unsigned (&bb)[NP][4]) {
+#pragma unroll
+          for (int f = 0; f < 2; ++f)
+#pragma unroll
+            for (int j = 0; j < NFW; ++j) mma16816(acc[f][j], a[f], bb[j / 2][(j & 1) * 2], bb[j / 2][(j & 1) * 2 + 1]);
+        };
+        unsigned a0[2][4], a1[2][4], b0[NP][4], b1[NP][4];
+        load(0, a0, b0);
+        for (int st = 0; st < nsteps; st += 2) {  // two register sets: load one k-step ahead
+          if (st + 1 < nsteps) load(st + 1, a1, b1);
+          multiply(a0, b0);
+          if (st + 2 < nsteps) load(st + 2, a0, b0);
+          if (st + 1 < nsteps) multiply(a1, b1);
+        }
+      }
+      if (g.nbuf == 1) {  // one buffer: the next tile's copies wait for every warp's MMAs
+        __syncthreads();
+        if (t + 1 < t1)
+          stage_wgrad_tile(x, dy, reinterpret_cast<bf16*>(smem + l.buf),
+                           reinterpret_cast<bf16*>(smem + l.buf + l.hbytes), w, t + 1, n0);
+      }
+      buf ^= g.nbuf - 1;
+    }
+    // the item's partial, from registers
+    if (active) {
+      float* dst = partial + ((long long)chunk * w.rows_p + row0) * g.Np + n0;
+#pragma unroll
+      for (int f = 0; f < 2; ++f)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float* drow = dst + (long long)(16 * f + gq + 8 * h) * g.Np;
+#pragma unroll
+          for (int j = 0; j < NFW; ++j) {
+            const int col = j * 8 + 2 * tq;
+            if (n0 + col < g.Np) mednext::store2(drow + col, acc[f][j][2 * h], acc[f][j][2 * h + 1]);
+          }
+        }
+    }
+  }
+}
+
+// float32: the exact arithmetic on the CUDA cores (no TF32), not on the
+// bf16 model's path. Thread (tr, tc) owns rows row0 + tr + 16 i and columns
+// n0 + tc + 16 j (i, j < 4) of the item; per voxel it reads four x values
+// and four dy values and does sixteen FMAs. One buffer.
+__global__ void __launch_bounds__(kThreads, 1)
+    conv3d_wgrad_f32_kernel(const float* __restrict__ x, const float* __restrict__ dy, float* __restrict__ partial,
+                            WGeom w) {
+  const Geom& g = w.g;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const WgLayout l = wgrad_layout(w, 4);
+  float* xh = reinterpret_cast<float*>(smem + l.buf);
+  float* dt = reinterpret_cast<float*>(smem + l.buf + l.hbytes);
+  const int W2 = g.XS + 2, H2 = g.R + 2;
+  const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
+
+  for (long long item = blockIdx.x; item < w.items; item += gridDim.x) {
+    int chunk, rt, sl;
+    wgrad_item(item, w, chunk, rt, sl);
+    const int n0 = sl * g.NB;
+    const long long t0 = (long long)chunk * w.tpc;
+    const long long t1 = t0 + w.tpc < g.tiles ? t0 + w.tpc : g.tiles;
+    int off[4], col[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = rt * w.BM + tr + 16 * i;
+      const int tap = row / g.Cin, ci = row - tap * g.Cin;
+      const int dz = tap / 9, dy_ = (tap / 3) % 3, dx = tap % 3;
+      off[i] = row < g.K ? ((dz * H2 + dy_) * W2 + dx) * g.CS + ci : 0;
+      col[i] = tc + 16 * i < g.NB ? tc + 16 * i : 0;
+    }
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (long long t = t0; t < t1; ++t) {
+      __syncthreads();  // every thread is done with the last tile
+      stage_wgrad_tile(x, dy, xh, dt, w, t, n0);
+      mednext::cp_async_wait_all();
+      __syncthreads();
+      for (int r = 0; r < g.R; ++r) {
+        for (int xm = 0; xm < g.XS; ++xm) {
+          const float* hv = xh + (r * W2 + xm) * g.CS;
+          const float* dv = dt + (r * g.XS + xm) * w.DS;
+          float a[4], d[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) a[i] = hv[off[i]];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) d[j] = dv[col[j]];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], d[j], acc[i][j]);
+        }
+      }
+    }
+    float* dst = partial + (long long)chunk * w.rows_p * g.Np + n0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = rt * w.BM + tr + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tc + 16 * j;
+        if (c < g.NB && n0 + c < g.Np) dst[(long long)row * g.Np + c] = acc[i][j];
+      }
+    }
+  }
+}
+
+// The sum of the chunks' partials of each matrix element (row r < 27 *
+// tap_rows, column c < Np), written to dW (Cout, Cin, 27): a block of
+// kSumRows x 32 threads takes 32 elements; thread row q sums chunks q, q +
+// kSumRows, ..., then row 0 adds the kSumRows sums in order. Rows of
+// padding channels and columns past Cout are dropped.
+constexpr int kSumRows = 32;
+
+__global__ void __launch_bounds__(kSumRows * 32)
+    conv3d_wgrad_sum_kernel(const float* __restrict__ partial, float* __restrict__ out, WGeom w) {
+  const Geom& g = w.g;
+  const long long n = 27LL * w.tap_rows * g.Np;
+  __shared__ float s[kSumRows][33];
+  const int col = threadIdx.x & 31, row = threadIdx.x >> 5;
+  const long long i = (long long)blockIdx.x * 32 + col;
+  const long long cstride = (long long)w.rows_p * g.Np;
+  float acc = 0.f;
+  if (i < n) {
+    int it = row;
+    for (; it + 3 * kSumRows < w.chunks; it += 4 * kSumRows) {
+      float v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[k] = partial[(it + k * kSumRows) * cstride + i];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc += v[k];
+    }
+    for (; it < w.chunks; it += kSumRows) acc += partial[it * cstride + i];
+  }
+  s[row][col] = acc;
+  __syncthreads();
+  if (row == 0 && i < n) {
+    float t = 0.f;
+#pragma unroll
+    for (int r = 0; r < kSumRows; ++r) t += s[r][col];
+    const int mrow = (int)(i / g.Np), co = (int)(i - (long long)mrow * g.Np);
+    const int tap = mrow / w.tap_rows, ci = mrow - tap * w.tap_rows;
+    if (ci < g.Cin && co < g.Cout) out[((long long)co * g.Cin + ci) * 27 + tap] = t;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -672,11 +1071,7 @@ inline bool plan_taps(Geom& g, int sms) {
   return true;
 }
 
-inline int sm_count() {
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess) cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return sms;
-}
+using mednext::sm_count;
 
 inline bool plan(Geom& g, int es, int sms) {
   g.K = weight_rows(g.Cin, es, &g.CP, &g.packed);
@@ -701,45 +1096,267 @@ void (*taps_kernel(const Geom& g))(const bf16*, const bf16*, const float*, bf16*
   return nullptr;
 }
 
+// Plans by shape: a launch looks its plan, kernel and grid up here instead
+// of searching the planner's space and asking the card again (a few
+// microseconds of host work each). Entries are never evicted; past
+// kCacheSize shapes a launch plans afresh.
+constexpr int kCacheSize = 256;
+constexpr int kKey = 11;  // device, shape (7), a plan forced by the caller (3)
+
+template <typename G>
+struct PlanCache {
+  struct Entry {
+    long long key[kKey];
+    G g;
+    const void* fn;
+    unsigned blocks;
+  };
+  std::mutex mu;
+  Entry e[kCacheSize];
+  int n = 0;
+  bool get(const long long (&k)[kKey], G& g, const void*& fn, unsigned& blocks) {
+    std::lock_guard<std::mutex> lock(mu);
+    for (int i = 0; i < n; ++i) {
+      bool same = true;
+      for (int j = 0; j < kKey && same; ++j) same = e[i].key[j] == k[j];
+      if (same) {
+        g = e[i].g, fn = e[i].fn, blocks = e[i].blocks;
+        return true;
+      }
+    }
+    return false;
+  }
+  void put(const long long (&k)[kKey], const G& g, const void* fn, unsigned blocks) {
+    std::lock_guard<std::mutex> lock(mu);
+    if (n == kCacheSize) return;
+    for (int j = 0; j < kKey; ++j) e[n].key[j] = k[j];
+    e[n].g = g, e[n].fn = fn, e[n].blocks = blocks;
+    ++n;
+  }
+};
+
+using FwdKernel = void (*)(const bf16*, const bf16*, const float*, bf16*, Geom);
+using FwdKernelF32 = void (*)(const float*, const float*, const float*, float*, Geom);
+
+// The plan, kernel and grid of a forward launch of this shape on the
+// current device, from the cache or planned and put there. 0 or an error
+// code.
 template <typename T>
-int launch(void (*kernel)(const T*, const T*, const float*, T*, Geom), const Geom& g, int sms, const void* x,
-           const void* w, const void* bias, void* out, cudaStream_t stream) {
-  const size_t smem = smem_bytes(g, (int)sizeof(T));
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+int fwd_plan(int B, int Z, int Y, int X, int Cin, int Cout, Geom& g, const void*& fn, unsigned& blocks) {
+  static PlanCache<Geom> cache;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
+  const long long key[kKey] = {dev, B, Z, Y, X, Cin, Cout, (long long)sizeof(T), 0, 0, 0};
+  if (cache.get(key, g, fn, blocks)) return 0;
+  if (B < 1 || Z < 1 || Y < 1 || X < 1 || Cin < 1 || Cout < 1) return kErrShape;
+  if ((long long)B * Z * Y * X * (Cin > Cout ? Cin : Cout) >= (1LL << 62)) return kErrShape;
+  const int es = (int)sizeof(T), sms = sm_count();
+  g = Geom{};
+  g.B = B, g.Z = Z, g.Y = Y, g.X = X, g.Cin = Cin, g.Cout = Cout;
+  if (!plan(g, es, sms)) return kErrShape;
+  if constexpr (std::is_same<T, bf16>::value) {
+    fn = reinterpret_cast<const void*>(g.packed ? taps_kernel<true>(g) : taps_kernel<false>(g));
+  } else {
+    const int row_bytes = Cin * es;
+    FwdKernelF32 k = row_bytes % 16 == 0 ? conv3d_f32_kernel<16>
+                     : row_bytes % 8 == 0 ? conv3d_f32_kernel<8>
+                                          : conv3d_f32_kernel<4>;
+    fn = reinterpret_cast<const void*>(k);
+  }
+  if (!fn) return kErrShape;
   // all of the SM's unified L1/shared memory as shared: as many blocks as fit
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
-  if (e != cudaSuccess) return (int)e;
-  int occ = 1;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, kThreads, smem);
-  if (e != cudaSuccess) return (int)e;
+  int occ = 0;
+  const int rc = mednext::occupancy(fn, kThreads, smem_bytes(g, es), &occ);
+  if (rc) return rc;
   if (occ < 1) return kErrShape;
   const long long want = ((long long)sms * occ + g.slices - 1) / g.slices;
-  const unsigned blocks = (unsigned)(g.tiles < want ? g.tiles : want);
-  kernel<<<dim3(blocks, g.slices), kThreads, smem, stream>>>(static_cast<const T*>(x), static_cast<const T*>(w),
-                                                            static_cast<const float*>(bias), static_cast<T*>(out), g);
-  return (int)cudaGetLastError();
+  blocks = (unsigned)(g.tiles < want ? g.tiles : want);
+  cache.put(key, g, fn, blocks);
+  return 0;
 }
 
 template <typename T>
 int run(const void* x, const void* w, const void* bias, void* out, int B, int Z, int Y, int X, int Cin, int Cout,
         int w_rows, int w_cols, cudaStream_t stream) {
+  Geom g;
+  const void* fn = nullptr;
+  unsigned blocks = 0;
+  const int rc = fwd_plan<T>(B, Z, Y, X, Cin, Cout, g, fn, blocks);
+  if (rc) return rc;
+  if (w_rows != g.K || w_cols != g.Np) return kErrShape;
+  const T* xp = static_cast<const T*>(x);
+  const T* wp = static_cast<const T*>(w);
+  const float* bp = static_cast<const float*>(bias);
+  T* op = static_cast<T*>(out);
+  void* args[] = {&xp, &wp, &bp, &op, &g};
+  const cudaError_t e =
+      cudaLaunchKernel(fn, dim3(blocks, g.slices), dim3(kThreads), args, smem_bytes(g, (int)sizeof(T)), stream);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+// The weight gradient's plan, from the shape alone (the chunks too, so
+// that the sums are the same bits on any grid): the forward's weight-row
+// layout; slices of at most 80 columns (bf16) or 64 (f32); the tile (XS,
+// R) and buffers of least estimated time; then chunks of consecutive tiles
+// for about two items per SM of an H100 (132), their partials at most
+// kPartialBytes. The bf16 estimate, fitted to the card's sweep of every
+// tile at RSUNet's training shapes (tools/conv3d_wgrad_plans.py, PERF.md):
+// a tile's visit costs about kTileClk plus kStepClk a k-step of 16 voxels
+// (at 6 n8 fragments a warp; in proportion to them), whether or not a
+// second buffer stages the next tile under it (it bought 1-3%), so the
+// largest tile that fits wins unless it runs far past the volume's edge;
+// the stem's patch adds about 2 K + 500. f32 (the check path): a voxel
+// about 24 thread instructions a thread, staging a clock per 32 bytes and
+// kTileClk a tile.
+constexpr int kNominalSms = 132;
+constexpr double kTileClk = 6000.0;
+constexpr double kStepClk = 1400.0;
+constexpr long long kPartialBytes = 64LL << 20;
+
+inline bool plan_wgrad(WGeom& w, int es, int force_xs = 0, int force_r = 0, int force_nbuf = 0) {
+  Geom& g = w.g;
+  g.K = weight_rows(g.Cin, es, &g.CP, &g.packed);
+  g.Np = round_up(g.Cout, 16);
+  if (es == 2) {
+    g.CS = g.packed ? g.CP : odd_stride(g.CP);
+    g.KS = odd_stride(g.K);
+    const int row = g.Cin * 2;
+    g.vecb = row % 16 == 0 ? 16 : row % 8 == 0 ? 8 : row % 4 == 0 ? 4 : 2;
+    const int sl = (g.Np + 79) / 80;
+    g.NB = round_up((g.Np + sl - 1) / sl, 16);
+    w.DS = odd_stride(g.NB);
+    w.BM = 8 * 32;
+    w.tap_rows = g.packed ? g.Cin : g.CP;
+  } else {
+    g.CS = g.CP;
+    g.KS = g.K;
+    const int row = g.Cin * 4;
+    g.vecb = row % 16 == 0 ? 16 : row % 8 == 0 ? 8 : 4;
+    g.NB = g.Np < kWgradF32Cols ? g.Np : kWgradF32Cols;
+    w.DS = g.NB;
+    w.BM = kWgradF32Rows;
+    w.tap_rows = g.Cin;
+  }
+  g.slices = (g.Np + g.NB - 1) / g.NB;
+  const int drow = g.Cout * es;
+  w.dvecb = drow % 16 == 0 ? 16 : drow % 8 == 0 ? 8 : drow % 4 == 0 ? 4 : es;
+  w.row_tiles = (g.K + w.BM - 1) / w.BM;
+  w.rows_p = w.row_tiles * w.BM;
+  const int maxm = es == 4 ? 64 : g.packed ? kThreads : kWgradMaxM;  // packed: a patch row a thread
+  const int nfw = g.NB / 8;
+  double best = -1;
+  WGeom pick = w;
+  for (int xs = 16; xs <= 64 && xs <= round_up(g.X, 16); xs += 16) {
+    for (int r = 1; r <= g.Y && r * xs <= maxm; ++r) {
+      for (int nbuf = es == 2 ? 2 : 1; nbuf >= 1; --nbuf) {
+        if (force_xs && (xs != force_xs || r != force_r || nbuf != force_nbuf)) continue;
+        WGeom c = w;
+        c.g.XS = xs, c.g.R = r, c.g.nbuf = nbuf;
+        const int last = ((2 * (r + 2) + 2) * (xs + 2) + 2) * c.g.CS + c.g.CP;
+        if (wgrad_layout(c, es).total > kMaxSmem || last >= (int)kPadChunk) continue;
+        finish(c.g);
+        const WgLayout l = wgrad_layout(c, es);
+        const double tile =
+            es == 2 ? kTileClk - (nbuf == 2 ? 300.0 : 0.0) + (r * xs / 16) * kStepClk * nfw / 6.0 +
+                          (g.packed ? 2.0 * g.K + 500.0 : 0.0)
+                    : kTileClk + r * xs * 24.0 * 16.0 + (double)(l.hbytes + l.dbytes) / 32.0;
+        const double cost = (double)c.g.tiles * tile;
+        if (best < 0 || cost < best) best = cost, pick = c;
+      }
+    }
+  }
+  if (best < 0) return false;
+  w = pick;
+  const long long per = (long long)w.row_tiles * g.slices;
+  long long chunks = (2LL * kNominalSms + per - 1) / per;
+  const long long cap = kPartialBytes / ((long long)w.rows_p * g.Np * 4);
+  if (chunks > cap) chunks = cap;
+  if (chunks > g.tiles) chunks = g.tiles;
+  if (chunks < 1) chunks = 1;
+  const long long tpc = (g.tiles + chunks - 1) / chunks;
+  if (tpc > (1LL << 30)) return false;
+  w.tpc = (int)tpc;
+  w.chunks = (int)((g.tiles + tpc - 1) / tpc);
+  w.items = (long long)w.chunks * per;
+  return true;
+}
+
+using WgradKernel = void (*)(const bf16*, const bf16*, float*, WGeom);
+
+template <bool PACKED>
+WgradKernel wgrad_kernel(int nfw) {
+  switch (nfw) {
+    case 2:
+      return conv3d_wgrad_kernel<2, PACKED>;
+    case 4:
+      return conv3d_wgrad_kernel<4, PACKED>;
+    case 6:
+      return conv3d_wgrad_kernel<6, PACKED>;
+    case 8:
+      return conv3d_wgrad_kernel<8, PACKED>;
+    case 10:
+      return conv3d_wgrad_kernel<10, PACKED>;
+  }
+  return nullptr;
+}
+
+// The weight gradient's plan, kernel and default grid on the current
+// device, cached by shape.
+// force_xs, force_r, force_nbuf: a tile and buffers in the place of the
+// planner's (0: the planner's), for sweeps; a forced plan that does not fit
+// is refused.
+inline int wgrad_plan(int es, int B, int Z, int Y, int X, int Cin, int Cout, int force_xs, int force_r,
+                      int force_nbuf, WGeom& w, const void*& fn, unsigned& blocks) {
+  static PlanCache<WGeom> cache;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const long long key[kKey] = {dev, B, Z, Y, X, Cin, Cout, es, force_xs, force_r, force_nbuf};
+  if (cache.get(key, w, fn, blocks)) return 0;
   if (B < 1 || Z < 1 || Y < 1 || X < 1 || Cin < 1 || Cout < 1) return kErrShape;
   if ((long long)B * Z * Y * X * (Cin > Cout ? Cin : Cout) >= (1LL << 62)) return kErrShape;
-  const int es = (int)sizeof(T), sms = sm_count();
-  Geom g{};
-  g.B = B, g.Z = Z, g.Y = Y, g.X = X, g.Cin = Cin, g.Cout = Cout;
-  if (!plan(g, es, sms)) return kErrShape;
-  if (w_rows != g.K || w_cols != g.Np) return kErrShape;
-  if constexpr (std::is_same<T, bf16>::value) {
-    auto k = g.packed ? taps_kernel<true>(g) : taps_kernel<false>(g);
-    return k ? launch<T>(k, g, sms, x, w, bias, out, stream) : kErrShape;
+  w = WGeom{};
+  w.g.B = B, w.g.Z = Z, w.g.Y = Y, w.g.X = X, w.g.Cin = Cin, w.g.Cout = Cout;
+  if (!plan_wgrad(w, es, force_xs, force_r, force_nbuf)) return kErrShape;
+  if (es == 2) {
+    fn = reinterpret_cast<const void*>(w.g.packed ? wgrad_kernel<true>(w.g.NB / 8) : wgrad_kernel<false>(w.g.NB / 8));
   } else {
-    const int row_bytes = Cin * es;
-    if (row_bytes % 16 == 0) return launch<T>(conv3d_f32_kernel<16>, g, sms, x, w, bias, out, stream);
-    if (row_bytes % 8 == 0) return launch<T>(conv3d_f32_kernel<8>, g, sms, x, w, bias, out, stream);
-    return launch<T>(conv3d_f32_kernel<4>, g, sms, x, w, bias, out, stream);
+    fn = reinterpret_cast<const void*>(conv3d_wgrad_f32_kernel);
   }
+  if (!fn) return kErrShape;
+  int occ = 0;
+  const int rc = mednext::occupancy(fn, kThreads, wgrad_layout(w, es).total, &occ);
+  if (rc) return rc;
+  if (occ < 1) return kErrShape;
+  const long long want = (long long)sm_count() * occ;
+  blocks = (unsigned)(w.items < want ? w.items : want);
+  cache.put(key, w, fn, blocks);
+  return 0;
+}
+
+template <typename T>
+int run_wgrad(const void* x, const void* dy, void* partial, long long partial_floats, void* out, int B, int Z, int Y,
+              int X, int Cin, int Cout, int grid, const int* force, cudaStream_t stream) {
+  const int es = (int)sizeof(T);
+  WGeom w;
+  const void* fn = nullptr;
+  unsigned blocks = 0;
+  const int rc = wgrad_plan(es, B, Z, Y, X, Cin, Cout, force[0], force[1], force[2], w, fn, blocks);
+  if (rc) return rc;
+  if (partial_floats < (long long)w.chunks * w.rows_p * w.g.Np) return kErrShape;
+  if (grid > 0) blocks = (unsigned)(grid < w.items ? grid : w.items);
+  const T* xp = static_cast<const T*>(x);
+  const T* dp = static_cast<const T*>(dy);
+  float* pp = static_cast<float*>(partial);
+  void* args[] = {&xp, &dp, &pp, &w};
+  cudaError_t e = cudaLaunchKernel(fn, dim3(blocks), dim3(kThreads), args, wgrad_layout(w, es).total, stream);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const long long n = 27LL * w.tap_rows * w.g.Np;
+  conv3d_wgrad_sum_kernel<<<(unsigned)((n + 31) / 32), kSumRows * 32, 0, stream>>>(
+      static_cast<const float*>(partial), static_cast<float*>(out), w);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace conv3d
@@ -775,6 +1392,41 @@ int conv3d_3x3_fwd(const void* x, const void* w, const void* bias, void* out, in
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype) return conv3d::run<conv3d::bf16>(x, w, bias, out, B, Z, Y, X, Cin, Cout, w_rows, w_cols, s);
   return conv3d::run<float>(x, w, bias, out, B, Z, Y, X, Cin, Cout, w_rows, w_cols, s);
+}
+
+// The weight gradient's plan for reports and for the wrapper's scratch:
+// plan[0..11] = XS, R, NB, slices, buffers, rows a chunk (rows_p), chunks,
+// tiles a chunk, items, shared-memory bytes, default grid, floats of the
+// partials (chunks x rows_p x Np). Items and chunks do not depend on the
+// grid. force[0..2]: XS, R and buffers in the place of the planner's, or 0.
+int conv3d_3x3_wgrad_plan(int dtype, int B, int Z, int Y, int X, int Cin, int Cout, const int* force,
+                          long long* plan) {
+  conv3d::WGeom w;
+  const void* fn = nullptr;
+  unsigned blocks = 0;
+  const int es = dtype ? 2 : 4;
+  const int rc = conv3d::wgrad_plan(es, B, Z, Y, X, Cin, Cout, force[0], force[1], force[2], w, fn, blocks);
+  if (rc) return rc;
+  const long long v[12] = {w.g.XS, w.g.R, w.g.NB, w.g.slices, w.g.nbuf, w.rows_p, w.chunks, w.tpc, w.items,
+                           (long long)conv3d::wgrad_layout(w, es).total, blocks,
+                           (long long)w.chunks * w.rows_p * w.g.Np};
+  for (int i = 0; i < 12; ++i) plan[i] = v[i];
+  return 0;
+}
+
+// dW (Cout, Cin, 3, 3, 3) float32 of the conv of x (B, Z, Y, X, Cin) whose
+// output gradient is dy (B, Z, Y, X, Cout), both contiguous, 16-byte aligned
+// and of one dtype; partial: float32 scratch of at least partial_floats
+// (conv3d_3x3_wgrad_plan); grid: persistent blocks, 0 for the default (the
+// result does not depend on it); force: as for conv3d_3x3_wgrad_plan (the
+// partials follow the tile, so a forced plan sums in another order). Two
+// kernels on the stream.
+int conv3d_3x3_wgrad(const void* x, const void* dy, void* partial, long long partial_floats, void* out, int dtype,
+                     int B, int Z, int Y, int X, int Cin, int Cout, int grid, const int* force, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype)
+    return conv3d::run_wgrad<conv3d::bf16>(x, dy, partial, partial_floats, out, B, Z, Y, X, Cin, Cout, grid, force, s);
+  return conv3d::run_wgrad<float>(x, dy, partial, partial_floats, out, B, Z, Y, X, Cin, Cout, grid, force, s);
 }
 
 const char* conv3d_3x3_error_string(int code) {

@@ -103,11 +103,24 @@ def test_kernel_weight_layout(cin, dtype):
 
 
 def test_conv3d_refuses_grad_and_bad_layout():
-    x = torch.zeros((1, 2, 2, 2, 4))
-    w = torch.zeros((4, 4, 3, 3, 3), requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward pass"):
-        c3.conv3d_3x3(x, w)
+    """With grad enabled and a weight that requires grad the conv is
+    differentiable (through ``Conv3x3Function``: dW equals autograd through
+    the plain version); the backward wrappers themselves refuse grad; a bad
+    layout still raises."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((1, 2, 3, 2, 4)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((5, 4, 3, 3, 3)).astype(np.float32)).requires_grad_(True)
+    y = c3.conv3d_3x3(x, w)
+    assert y.grad_fn is not None
+    y.square().sum().backward()
+    got, w.grad = w.grad, None
+    c3.conv3d_3x3_plain(x, w).square().sum().backward()
+    torch.testing.assert_close(got, w.grad, rtol=1e-5, atol=1e-5)
     with torch.no_grad():
-        assert c3.conv3d_3x3(x, w).shape == (1, 2, 2, 2, 4)
+        assert c3.conv3d_3x3(x, w).shape == (1, 2, 3, 2, 5)
+    with pytest.raises(RuntimeError, match="no backward pass"):
+        c3.conv3d_3x3_wgrad(x, y)
+    with pytest.raises(RuntimeError, match="no backward pass"):
+        c3.conv3d_3x3_input_grad(y, w)
     with pytest.raises(ValueError):
         c3.conv3d_3x3_plain(x, torch.zeros((4, 4, 3, 3, 3)), layout="dhwio")

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (the fused MedNeXt block pair, the training
-path's depthwise 3^3 conv and its weight gradient, RSUNet's dense 3^3 conv,
-the fused MLP with residual and the pointwise conv, and the probe kernels)
+path's depthwise 3^3 conv and its weight gradient, RSUNet's dense 3^3 conv
+with its input gradient and weight gradient, the fused MLP with residual
+and the pointwise conv, and the probe kernels)
 against their plain PyTorch versions, on the card. Skipped where there is no CUDA device. This
 file imports no JAX, so it also runs with ``--noconftest`` on a machine
 without JAX:
@@ -512,8 +513,132 @@ def test_conv3d_never_falls_back(device):
     wide = torch.zeros((16, 128, 3, 3, 3), device=device)
     with pytest.raises(RuntimeError, match="shape not supported"):  # f32 weight slice beyond shared memory
         c3.conv3d_3x3(torch.zeros((1, 2, 2, 2, 128), device=device), wide)
-    with pytest.raises(RuntimeError, match="no backward pass"):
-        c3.conv3d_3x3(x, w.clone().requires_grad_(True))
+    # a weight that requires grad goes through the backward kernels, not the plain version
+    c3.reset_launch_counts()
+    wg = w.clone().requires_grad_(True)
+    c3.conv3d_3x3(x, wg).sum().backward()
+    assert (c3.conv3d_3x3.launches, c3.conv3d_3x3_wgrad.launches) == (1, 1) and wg.grad is not None
+    with pytest.raises(ValueError):  # dy's dtype differs from x's
+        c3.conv3d_3x3_wgrad(x, x.bfloat16())
+    with pytest.raises(ValueError):  # dy's voxels differ from x's
+        c3.conv3d_3x3_wgrad(x, x[:, :2].contiguous())
+    with pytest.raises(RuntimeError, match="shape not supported"):  # the input gradient's Cin 128 in f32
+        c3.conv3d_3x3_input_grad(torch.zeros((1, 2, 2, 2, 128), device=device), wide.transpose(0, 1).contiguous())
+
+
+# (B, Z, Y, X, Cin, Cout): the backward at every 3^3 layer shape of RSUNet on
+# the SNEMI recipe (18 x 160 x 160 windows, (1, 2, 2) down factors, widths
+# 28-80; the (1, 3, 3) level 0 is F.conv3d's) and on the NucMM-Z recipe
+# (64^3, widths 28-64, the Cin 1 stem), at batch 2; then awkward shapes: one
+# z slice with Cin 1, Cin 3 (packed), Cout not a multiple of 16 and past one
+# 80-channel slice, odd x and y, a single voxel
+WGRAD_SHAPES = [
+    (2, 18, 80, 80, 28, 36), (2, 18, 80, 80, 36, 36), (2, 18, 40, 40, 36, 48), (2, 18, 40, 40, 48, 48),
+    (2, 18, 20, 20, 48, 64), (2, 18, 20, 20, 64, 64), (2, 18, 10, 10, 64, 80), (2, 18, 10, 10, 80, 80),
+    (2, 64, 64, 64, 1, 28), (2, 64, 64, 64, 28, 28), (2, 32, 32, 32, 28, 36), (2, 32, 32, 32, 36, 36),
+    (2, 16, 16, 16, 36, 48), (2, 16, 16, 16, 48, 48), (2, 8, 8, 8, 48, 64), (2, 8, 8, 8, 64, 64),
+    (1, 1, 7, 9, 1, 20), (3, 7, 5, 9, 3, 20), (1, 5, 13, 40, 36, 36), (1, 4, 11, 24, 28, 100),
+    (1, 3, 5, 70, 80, 40), (1, 2, 3, 17, 36, 28), (2, 3, 9, 33, 8, 8), (1, 1, 1, 1, 1, 1),
+]
+
+
+def _wgrad_inputs(shape, dtype, device, seed=6):
+    b, z, y, xs, cin, cout = shape
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((b, z, y, xs, cin), dtype=np.float32)).to(device, dtype)
+    dy = torch.from_numpy(rng.standard_normal((b, z, y, xs, cout), dtype=np.float32)).to(device, dtype)
+    return x, dy
+
+
+@pytest.mark.parametrize(
+    "shape,dtype", [(s, d) for s in WGRAD_SHAPES for d in (torch.float32, torch.bfloat16)],
+    ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else {torch.float32: "f32", torch.bfloat16: "bf16"}[v],
+)
+def test_conv3d_wgrad_matches_plain(device, shape, dtype):
+    """Both sum exact products (bf16) or f32 products in f32, in another
+    order, over up to 4.7 M voxels: 1e-4 of the summed magnitudes."""
+    x, dy = _wgrad_inputs(shape, dtype, device)
+    got, want = c3.conv3d_3x3_wgrad(x, dy), c3.conv3d_3x3_wgrad_plain(x, dy)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (shape[5], shape[4], 3, 3, 3) and got.dtype == torch.float32
+    mag = c3.conv3d_3x3_wgrad_plain(x.abs(), dy.abs())
+    assert torch.all((got - want).abs() <= 1e-4 * mag + 1e-30), ((got - want).abs() / mag).max().item()
+
+
+@pytest.mark.parametrize(
+    "shape,dtype",
+    [(s, d) for s in WGRAD_SHAPES for d in (torch.float32, torch.bfloat16) if d == torch.bfloat16 or s[5] <= 96],
+    ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else {torch.float32: "f32", torch.bfloat16: "bf16"}[v],
+)
+def test_conv3d_input_grad_matches_plain(device, shape, dtype):
+    """dx through the forward kernel with mirrored, transposed taps against
+    the plain version: f32, 1e-5 of the summed magnitudes; bf16, two ulps at
+    the largest magnitude (both sum in f32 and round once)."""
+    x, dy = _wgrad_inputs(shape, dtype, device)
+    w = torch.from_numpy(np.random.default_rng(7).standard_normal((shape[5], shape[4], 3, 3, 3)).astype(np.float32))
+    w = (w / np.sqrt(27 * shape[5])).to(device)
+    got, want = c3.conv3d_3x3_input_grad(dy, w), c3.conv3d_3x3_input_grad_plain(dy, w)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == x.shape and got.dtype == dtype
+    if dtype == torch.float32:
+        mag = c3.conv3d_3x3_input_grad_plain(dy.abs(), w.abs())
+        assert torch.all((got - want).abs() <= 1e-5 * mag + 1e-30), ((got - want).abs() / mag).max().item()
+    else:
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= _bf16_ulps(want, 2), (err, _bf16_ulps(want, 2))
+
+
+@pytest.mark.parametrize("shape", [(2, 18, 40, 40, 36, 48), (2, 64, 64, 64, 1, 28), (1, 4, 11, 24, 28, 100)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_conv3d_wgrad_does_not_depend_on_the_grid(device, shape, dtype):
+    """The items' partials and their fixed-order sum follow from the shape:
+    two launches, one block, seven blocks and the card's default grid give
+    the same bits."""
+    x, dy = _wgrad_inputs(shape, dtype, device, seed=8)
+    first = c3.conv3d_3x3_wgrad(x, dy)
+    for grid in (None, 1, 7):
+        assert torch.equal(first, c3.conv3d_3x3_wgrad(x, dy, grid=grid)), grid
+    plan = c3.wgrad_plan(tuple(x.shape), shape[5], dtype)
+    assert plan["items"] >= plan["chunks"] >= 1 and plan["smem_bytes"] <= 232448
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_conv3d_function_backward_matches_plain_autograd(device, dtype):
+    """Conv3x3Function's dx, dW and db on the card against autograd through
+    the plain version: dx two bf16 ulps (f32: 1e-5 of the magnitudes), dW
+    and db 1e-4 of the summed magnitudes, plus in bf16 2^-8 of the plain
+    value (its autograd rounds the gradients of the bf16 casts of w and the
+    bias to bf16; the kernels keep f32)."""
+    x, dy = _wgrad_inputs((2, 6, 20, 24, 36, 48), dtype, device, seed=9)
+    rng = np.random.default_rng(10)
+    w0 = torch.from_numpy((rng.standard_normal((48, 36, 3, 3, 3)) / np.sqrt(27 * 36)).astype(np.float32)).to(device)
+    b0 = torch.from_numpy((0.1 * rng.standard_normal(48)).astype(np.float32)).to(device)
+    grads = []
+    for fn in (c3.conv3d_3x3, c3.conv3d_3x3_plain):
+        xg, w, b = x.clone().requires_grad_(True), w0.clone().requires_grad_(True), b0.clone().requires_grad_(True)
+        (fn(xg, w, b).float() * dy.float()).sum().backward()
+        grads.append((xg.grad, w.grad, b.grad))
+    (gx, gw, gb), (px, pw, pb) = grads
+    if dtype == torch.float32:
+        mag = c3.conv3d_3x3_input_grad_plain(dy.abs(), w0.abs())
+        assert torch.all((gx - px).abs() <= 1e-5 * mag + 1e-30)
+    else:
+        assert (gx.float() - px.float()).abs().max().item() <= _bf16_ulps(px, 2)
+    rel = 0.0 if dtype == torch.float32 else 2.0 ** -8
+    mag = c3.conv3d_3x3_wgrad_plain(x.abs(), dy.abs())
+    assert torch.all((gw - pw).abs() <= 1e-4 * mag + rel * pw.abs() + 1e-30)
+    mag = dy.float().abs().sum((0, 1, 2, 3))
+    assert torch.all((gb - pb).abs() <= 1e-4 * mag + rel * pb.abs())
+
+
+def test_conv3d_forward_matches_the_tree_before_the_shared_launch_path(device):
+    """The cached plan and launch path leave the forward kernel's outputs
+    as they were: their digests equal those of the tree before
+    (``tools/conv3d_digest.py``), at every RSUNet layer shape of both recipes."""
+    from pytorch_connectomics_tpu_torch.tools import conv3d_digest
+
+    assert conv3d_digest.run(device)["digests"] == conv3d_digest.DIGESTS
 
 
 # ---------------------------------------------------------------------------

@@ -132,13 +132,19 @@ def test_resblock_conv_names():
 
 
 def test_nucmm_config_builds_and_refuses_training():
+    """The NucMM-Z config builds; under grad (training) the 3^3 convs run
+    through the conv's autograd Function and every parameter gets a
+    gradient, as the plain path's; deep supervision still raises."""
     cfg = load_config("tutorials/nuc_nucmm.yaml", overrides=["model.rsunet.width=[8,12]"], mode="test")
     model = build_model(cfg.model, device="cpu", seed=0)
     assert isinstance(model, RSUNet) and model.factors == [(2, 2, 2)]
     assert [model.stem.norm.groups, model.bottleneck.norm2.groups] == [8, 6]
     x = torch.zeros((1, 8, 8, 8, 1))
-    with pytest.raises(NotImplementedError, match="training"):
-        model(x)
+    out = model(x)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    assert all(p.grad is not None for p in model.parameters())
+    model.zero_grad(set_to_none=True)
     out = model(x, plain=True)  # the plain path stays differentiable
     out.sum().backward()
     assert model.stem.conv.weight.grad is not None
