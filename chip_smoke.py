@@ -1826,13 +1826,20 @@ def phase_rsunet_train(c3, dev, report):
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     top = sorted(events, key=dev_us, reverse=True)[:12]
+    # the weight gradient's wgmma kernels by name, in top_kernels where the twelve largest leave them out
+    wg_events = [e for e in events if "conv3d_wgrad_wgmma_kernel" in e.key]
+    if not wg_events:
+        fail("the SNEMI step's profile shows no conv3d_wgrad_wgmma_kernel")
+    top += [e for e in wg_events if e not in top]
     snemi_bf16 = [r for r in rows if r["recipe"] == "snemi" and r["dtype"] == "bfloat16"]
     per_step = {k: sum(r[k]["ms"] * r["launches_per_step"] for r in snemi_bf16)
                 for k in ("forward", "input_grad", "wgrad")}
     log(f"SNEMI train step bf16 batch 8 of (18, 160, 160): {step_ms:.1f} ms (plain forward+backward {plain_ms:.1f} "
         f"ms), peak memory {peak / 2**30:.2f} GiB; the 3^3 convs' kernels a step: forward {per_step['forward']:.2f} "
         f"ms, input gradient {per_step['input_grad']:.2f} ms, weight gradient {per_step['wgrad']:.2f} ms")
-    log(f"one step under the profiler: {prof_ms:.1f} ms, kernels {busy_ms:.1f} ms of device time")
+    log(f"one step under the profiler: {prof_ms:.1f} ms, kernels {busy_ms:.1f} ms of device time; the weight "
+        f"gradient's wgmma kernels {sum(dev_us(e) for e in wg_events) / 1e3:.2f} ms in "
+        f"{sum(e.count for e in wg_events)} launches")
     for e in top:
         log(f"  {dev_us(e) / 1e3:8.2f} ms  {e.count:5d}x  {e.key[:90]}")
     out["snemi_step"] = dict(

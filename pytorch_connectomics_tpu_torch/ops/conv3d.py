@@ -18,10 +18,12 @@ conv, so the forward's function is the spec):
   (``w.transpose(0, 1).flip(2, 3, 4)`` in ``oidhw``), no bias; its launches
   count under :func:`conv3d_3x3` and, apart, under its own ``launches``.
 - :func:`conv3d_3x3_wgrad`: ``dW[tap] = sum_v x(v + tap - 1)^T dy(v)`` in
-  f32, a new kernel: per item (a chunk of tiles, a tile of weight rows, a
-  slice of Cout) partial sums on ``mma.sync`` (bf16; exact f32 FMAs on the
-  CUDA cores for float32), then their sum in a fixed order, so that every
-  launch and every grid gives the same bits.
+  f32, a kernel of its own: per item (a chunk of tiles and a set of weight
+  rows: one dz's taps with tap groups, 2 warpgroups x ``m_tiles`` x 64 rows)
+  partial sums on ``wgmma`` over all of Cout, fed by a producer warpgroup's
+  ring of staged tiles (bf16; exact f32 FMAs on the CUDA cores for float32), then
+  their sum in a fixed order, so that every launch and every grid gives the
+  same bits.
 - the bias gradient is ``dy`` summed over voxels in f32 (plain PyTorch, as
   JAX computes it outside any kernel).
 - :class:`Conv3x3Function` ties them into autograd; :func:`conv3d_3x3`
@@ -34,13 +36,13 @@ zero-padded as :func:`kernel_weight` describes; a caller that keeps a
 parameter builds that matrix once per parameter version and passes it as
 ``wmat`` (``models/rsunet.py``, inference).
 
-The kernel keeps the weight of at least 16 output channels (``27 * Cin *
-16`` values) in shared memory next to the input tile, which bounds Cin: up
-to 96 in float32 and 192 in bfloat16 (RSUNet's widths reach 80; for the
-input gradient the bound is on the forward's Cout); a wider input raises.
-The bf16 tensor-core kernel keeps two input tiles where they fit beside the
-weight, so that the next tile's copies run under this tile's products, and
-gives each warp 32 or 64 voxels x 32 to 64 output channels;
+The forward kernel keeps the weight of at least 16 output channels (``27 *
+Cin * 16`` values) in shared memory next to the input tile, which bounds
+Cin: up to 96 in float32 and 192 in bfloat16 (RSUNet's widths reach 80; for
+the input gradient the bound is on the forward's Cout); a wider input
+raises. The bf16 tensor-core kernel keeps two input tiles where they fit
+beside the weight, so that the next tile's copies run under this tile's
+products, and gives each warp 32 or 64 voxels x 32 to 64 output channels;
 :func:`kernel_plan` and :func:`wgrad_plan` report the plans a shape takes.
 The library caches each shape's plan and grid, so a launch does no
 planning.
@@ -60,8 +62,18 @@ import torch.nn.functional as F
 from . import build
 from .fused_block import _dtype_code, _require, refuse_grad
 
-WGRAD_PLAN_FIELDS = ("xs", "r", "nb", "slices", "buffers", "rows_per_chunk", "chunks", "tiles_per_chunk", "items",
-                     "smem_bytes", "grid", "partial_floats")
+WGRAD_PLAN_FIELDS = ("xs", "r", "n", "slices", "stages", "m_tiles", "tap_groups", "rows_per_block", "row_groups",
+                     "rows_per_chunk", "chunks", "tiles_per_chunk", "items", "smem_bytes", "grid", "partial_floats",
+                     "kernel")
+# the fields a caller may force through ``plan=`` (0 or missing: the planner's)
+WGRAD_FORCED = ("xs", "r", "stages", "m_tiles", "tap_groups")
+# wgmma's widths the weight-gradient kernel is built for, and the M tiles a
+# warpgroup may hold at each (csrc/conv3d_3x3.cu: kWgN, wg_max_mt)
+WGRAD_WIDTHS = (8, 16, 24, 32, 40, 48, 64, 80, 104, 128)
+
+
+def wgrad_max_m_tiles(n: int) -> int:
+    return 4 if 32 <= n <= 48 else 3 if n == 64 else 1 if n == 128 else 2
 
 
 def _round_up(n: int, m: int) -> int:
@@ -185,29 +197,66 @@ def _check(code: int, lib) -> None:
         raise RuntimeError(f"conv3d 3^3 kernel failed: {lib.conv3d_3x3_error_string(code).decode()}")
 
 
-_PLANNER = (ctypes.c_int * 3)()
+_PLANNER = (ctypes.c_int * len(WGRAD_FORCED))()
 
 
 def _forced(plan: dict | None):
-    """A forced weight-gradient tile (``xs``, ``r``, ``buffers``) as the
-    library takes it; zeros for the planner's."""
-    return (ctypes.c_int * 3)(plan["xs"], plan["r"], plan["buffers"]) if plan else _PLANNER
+    """The forced weight-gradient fields (:data:`WGRAD_FORCED`) as the
+    library takes them; zeros for the planner's."""
+    return (ctypes.c_int * len(WGRAD_FORCED))(*(plan.get(k, 0) for k in WGRAD_FORCED)) if plan else _PLANNER
 
 
 def wgrad_plan(shape: tuple, cout: int, dtype: torch.dtype, plan: dict | None = None) -> dict:
     """The plan :func:`conv3d_3x3_wgrad` takes for x of ``shape`` (B, Z, Y,
     X, Cin) and ``cout`` output channels in ``dtype`` on the current
-    device: its tile (``xs`` x ``r``), column slice ``nb`` and ``slices``,
-    buffers, rows a chunk, ``chunks`` and ``tiles_per_chunk``, ``items``,
-    shared memory, default ``grid`` and the float32 scratch of the partials.
-    Chunks and items follow from the shape alone. ``plan`` (``xs``, ``r``,
-    ``buffers``) forces the tile; one that does not fit raises. Needs the
-    built library and the card."""
+    device: its tile (``xs`` x ``r``), product width ``n`` (bf16: wgmma's N,
+    Cout rounded up to a width of :data:`WGRAD_WIDTHS`; f32: a column slice)
+    and column ``slices``, ring ``stages`` (f32: 1), ``m_tiles`` a
+    warpgroup, ``tap_groups`` (3: one dz's taps a row block; 1: all 27),
+    ``rows_per_block`` (padded to 64), ``row_groups``, rows a chunk,
+    ``chunks`` and ``tiles_per_chunk``, ``items``, shared memory, default
+    ``grid``, the float32 scratch of the partials and the ``kernel``
+    (``wgmma``, ``wgmma_packed`` for Cin < 8, ``f32``). Chunks and items
+    follow from the shape alone. ``plan`` forces any of
+    :data:`WGRAD_FORCED`; a plan that does not fit, or whose kernel is not
+    built, raises. Needs the built library and the card."""
     lib = build.load("conv3d_3x3")
     out = (ctypes.c_longlong * len(WGRAD_PLAN_FIELDS))()
     b, z, y, xs, cin = shape
     _check(lib.conv3d_3x3_wgrad_plan(int(dtype == torch.bfloat16), b, z, y, xs, cin, cout, _forced(plan), out), lib)
-    return dict(zip(WGRAD_PLAN_FIELDS, out))
+    got = dict(zip(WGRAD_PLAN_FIELDS, out))
+    got["kernel"] = ("wgmma", "wgmma_packed", "f32")[got["kernel"]]
+    return got
+
+
+def wgrad_geometry(shape: tuple, cout: int, plan: dict) -> dict:
+    """The bf16 weight gradient's decomposition for x of ``shape`` (B, Z, Y,
+    X, Cin), ``cout`` output channels and a ``plan`` of ``xs``, ``r``,
+    ``m_tiles`` and ``tap_groups``: the fields of :func:`wgrad_plan` that
+    follow from them (``n``, ``slices``, ``rows_per_block``, ``row_groups``,
+    ``rows_per_chunk``, ``chunks``, ``tiles_per_chunk``, ``items``,
+    ``partial_floats``) and ``tap_rows`` (CP = Cin rounded up to 8, or Cin
+    below 8: the packed stem) and ``tiles``, computed as
+    ``csrc/conv3d_3x3.cu`` (``plan_wgrad_wgmma``, ``wgrad_chunks``) does,
+    without the card."""
+    b, z, y, x, cin = shape
+    slices = -(-cout // WGRAD_WIDTHS[-1])
+    need = _round_up(-(-cout // slices), 8)
+    n = next(w for w in WGRAD_WIDTHS if w >= need)
+    tap_rows = cin if cin < 8 else _round_up(cin, 8)
+    groups = plan["tap_groups"]
+    rb = _round_up(27 // groups * tap_rows, 64)
+    rows_p = groups * rb
+    rg = -(-(rb // 64) // (2 * plan["m_tiles"]))
+    tiles = b * z * -(-y // plan["r"]) * -(-x // plan["xs"])
+    per = groups * rg * slices
+    chunks = -(-2 * 132 // per)
+    chunks = max(1, min(chunks, (64 << 20) // (rows_p * slices * n * 4), tiles))
+    tpc = -(-tiles // chunks)
+    chunks = -(-tiles // tpc)
+    return dict(n=n, slices=slices, rows_per_block=rb, row_groups=rg, rows_per_chunk=rows_p, chunks=chunks,
+                tiles_per_chunk=tpc, items=chunks * per, partial_floats=chunks * rows_p * slices * n,
+                tap_rows=tap_rows, tiles=tiles)
 
 
 def _launch_fwd(x: torch.Tensor, wmat: torch.Tensor, bias: torch.Tensor | None, cout: int) -> torch.Tensor:
@@ -292,9 +341,9 @@ def conv3d_3x3_wgrad(x: torch.Tensor, dy: torch.Tensor, grid: int | None = None,
     """``dW`` (Cout, Cin, 3, 3, 3) float32: the weight gradient of the conv
     of x (B, Z, Y, X, Cin) whose output gradient is dy (B, Z, Y, X, Cout);
     see the module doc. ``grid``: the number of persistent blocks in place
-    of the card's default (the result does not depend on it); ``plan``
-    (``xs``, ``r``, ``buffers``): a tile in the place of the planner's, for
-    sweeps (the partials follow the tile, so the sum's order changes)."""
+    of the card's default (the result does not depend on it); ``plan``: any
+    of :data:`WGRAD_FORCED` in the place of the planner's, for sweeps and
+    tests (the partials follow the plan, so the sum's order changes)."""
     refuse_grad("conv3d_3x3_wgrad", x, dy)
     if x.device.type == "cpu":
         return conv3d_3x3_wgrad_plain(x, dy)

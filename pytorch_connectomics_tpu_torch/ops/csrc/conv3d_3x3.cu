@@ -552,62 +552,129 @@ __global__ void __launch_bounds__(kThreads)
 // the weight gradient: dW[tap][ci][co] = sum_v x(v + tap - 1)[ci] * dy(v)[co]
 // ---------------------------------------------------------------------------
 
-// The weight gradient is the product of the forward's weight-matrix layout
-// (rows: tap-major taps x channels, as the forward's kernel_weight, K of
-// them; columns: Cout, Np of them) reduced over every voxel of the batch:
+// No TPU kernel computes it: XLA differentiates conv3d_3x3_pallas
+// (pytorch_connectomics_tpu/ops/conv3d_pallas.py:84), so the port has a
+// kernel of its own, as it has for the depthwise conv's. It is the product of
+// the forward's weight-row layout (rows: tap-major taps x channels; columns:
+// Cout) reduced over every voxel of the batch:
 //     G[row][co] = sum_v A[row][v] * dy[v][co],  A[row][v] = x[v + tap(row) - 1][ci(row)]
-// WGeom adds to the forward's geometry (tiles of R x XS voxels in one z
-// slice, their staged x halo) what the reduction needs: an item is one
-// block's share, (chunk of consecutive tiles, tile of BM rows, slice of NB
+// in f32, zero outside the volume. An item is one block's share of it: a
+// chunk of consecutive tiles (R rows of XS voxels in one z slice, as the
+// forward's) times a set of rows (and, past 128 output channels, a slice of
 // columns); its partial sums go to partial[chunk][row][col], and
-// wgrad_sum_kernel adds the chunks in a fixed order. Items, chunks and rows
-// follow from the shape alone, so the result is the same bits for any grid.
+// conv3d_wgrad_sum_kernel adds the chunks in a fixed order. Items, chunks
+// and rows follow from the shape alone, so the result is the same bits for
+// every launch and any grid.
+//
+// Bound on an H100 (chip_smoke.py::wgrad_bounds): 2 * 27 * Cin * Cout FLOP a
+// voxel against (Cin + Cout) * 2 bytes read, 27 Cin Cout / (Cin + Cout) FLOP
+// a byte: the bf16 tensor cores bound every RSUNet layer shape but the stem
+// (Cin 1: bytes). At SNEMI's 36 -> 36 on 8 x 18 x 80 x 80 the product is 43
+// GFLOP, 44 us at 989 TFLOP/s.
+//
+// The bf16 kernel (conv3d_wgrad_wgmma_kernel), against what held the first
+// design (items of 256 rows on mma.sync) back:
+// 1. wgmma.mma_async m64nNk16, bf16 in and f32 accumulate, with N = Cout
+//    rounded up to a multiple of 8 that is instantiated (kWgN: every width
+//    RSUNet and the tests use; 32, 40, 48, 64, 80 for RSUNet, 104 for Cout
+//    100): all of Cout is one instruction, so a tile's products run once and
+//    not once per column slice. Past 128 columns the columns are sliced.
+// 2. A (rows x 16 voxels) comes from registers: the 64 rows of an M tile mix
+//    taps whose halo offsets are not at one stride, which a shared-memory
+//    descriptor cannot express, so each warp loads its 16 rows with one
+//    ldmatrix.x4.trans through the chunk table (a halo cell's 8 channels of
+//    one tap are 8 rows of A for one voxel); the register fragment of wgmma
+//    is mma.sync's. B (16 voxels x N of dy) is read by wgmma from shared
+//    memory through a matrix descriptor: the producer stages dy in 8 x 8 core
+//    matrices (8 voxels of 16 bytes), MN-major, no swizzle. A warp's loads a
+//    k-step fall from 2 + N/16 ldmatrix to one per M tile.
+// 3. Rows are padded to 64 per row block, not to 256 (Cin 36 with tap groups:
+//    9 taps x 40 rows = 360 -> 384; all 27 taps: 1080 -> 1088).
+// 4. Loads run off the critical path with no block barrier a tile: warps
+//    8-11 are the producer; they keep a ring of `stages` (x slices, dy tile)
+//    stages in flight with cp.async (TMA needs 16-byte global strides, which
+//    the channels-last rows of Cin 28 and 36, SNEMI's largest layers, lack)
+//    and signal each stage on a full mbarrier (cp.async.mbarrier.arrive);
+//    the two consumer warpgroups wait on it, fence the async proxy, run
+//    their products and release the stage on an empty mbarrier after
+//    wgmma.wait_group. The only block barrier is the one after the barriers'
+//    init. A's registers are double-buffered: the next k-step's ldmatrix runs
+//    while this one's wgmma does. The staging is bound by the producer's
+//    issue rate on an H100, so the producer is a warpgroup and not one warp
+//    (ptxas gives a 288-thread block the registers of 384 threads, 168 a
+//    thread, all the same), and each of its threads copies whole cells and
+//    voxels, a few instructions a unit (produce_x, produce_dy).
+// 5. A staged tile feeds every row of its item: two warpgroups of `mt` M
+//    tiles each (up to 8 x 64 = 512 rows). With tap groups (`tap_groups` 3,
+//    the planner's pick wherever it costs less), an item takes one dz: 9
+//    taps x CP rows, and its stage holds one z slice of the halo, (R+2) x
+//    (XS+2) cells, not three; a tile whose slice lies outside the volume is
+//    skipped by producer and consumers alike.
+// 6. The stem (Cin < 8) runs the same kernel: rows are taps x Cin packed (27
+//    rows, one M tile), and since a fragment's 8 rows are then not 8
+//    contiguous channels, each thread gathers its A values with scalar shared
+//    loads (PACKED). ptxas serializes these kernels' products (C7513: the
+//    gathered registers are defined inside wgmma's pipeline); the stem is
+//    bound by its bytes (Cin 1) and took 0.18 ms at NucMM-Z's 64^3 batch of
+//    8 on an H100 all the same.
+// Padded channels and columns are neither copied nor zeroed: only their own
+// rows and columns of the product see them, and the sum drops those.
+//
+// float32 (conv3d_wgrad_f32_kernel) is the exact check path on the CUDA
+// cores, the first design: items of (chunk, 64 rows, 64 columns), one buffer.
+
 struct WGeom {
-  Geom g;         // x side (tiles, halo cells of CP channels at stride CS), K rows, Np, NB, slices, packed, nbuf
-  int DS;         // stride of a staged dy voxel (>= NB)
-  int dvecb;      // bytes of one dy staging copy
-  int BM;         // rows of an item
-  int row_tiles;  // ceil(K / BM)
-  int rows_p;     // row_tiles * BM: rows of a chunk's partial
-  int tap_rows;   // rows a tap takes: CP (bf16 tap-wise) or Cin (packed, f32)
-  int tpc;        // tiles per chunk
+  Geom g;           // x side: tiles, halo cells of CP channels at stride CS, Cin, Cout, packed; f32: NB, Np, slices
+  // the f32 kernel
+  int DS;           // stride of a staged dy voxel (>= NB)
+  int dvecb;        // bytes of one dy staging copy (both kernels)
+  int BM;           // rows of an item
+  int row_tiles;    // ceil(K / BM)
+  // both kernels: the partials and their sum
+  int tap_rows;     // rows a tap takes: CP (bf16 tap-wise) or Cin (packed, f32)
+  int taps;         // taps of a row block: 27, or 9 with tap groups (one dz a block)
+  int rb;           // rows of a row block
+  int rows_p;       // rows of a chunk's partial: every row block
+  int cols;         // columns of a partial row
+  int tpc;          // tiles per chunk
   int chunks;
-  long long items;  // chunks * row_tiles * slices
+  long long items;
+  // the bf16 kernel
+  int N;            // columns of one product: wgmma's N
+  int mt;           // M tiles (64 rows) a consumer warpgroup holds
+  int rg;           // row groups of a row block, 2 * mt M tiles each
+  int stages;       // ring stages
+  int zs;           // z slices a stage holds: 3, or 1 with tap groups
+  unsigned xbytes;  // a stage's x part: zs x (R+2) x (XS+2) cells of CS channels
+  unsigned dbytes;  // and its dy part: R*XS voxels x N columns in core matrices
 };
 
-constexpr int kWgradMaxM = 512;  // voxels of a tile (bf16 tap-wise; packed 256, f32 64)
 constexpr int kWgradF32Rows = 64;  // rows of an f32 item: 16 thread rows x 4
 constexpr int kWgradF32Cols = 64;  // columns of an f32 item: 16 thread columns x 4
 
-// Shared memory of the bf16 kernel: the chunk table (tap-wise) or the tap
-// table (packed), a zero chunk of 16 bytes, nbuf buffers of (x halo, dy
-// tile), and (packed) the patch matrix of the tile.
+// Shared memory of the f32 kernel: one buffer of (x halo, dy tile).
 struct WgLayout {
-  size_t zero, buf, hbytes, dbytes, patch, total;
+  size_t buf, hbytes, dbytes, total;
 };
 
-__host__ __device__ inline WgLayout wgrad_layout(const WGeom& w, int es) {
+__host__ __device__ inline WgLayout wgrad_f32_layout(const WGeom& w) {
   const Geom& g = w.g;
   WgLayout l;
-  const int entries = es == 4 ? 0 : g.packed ? 27 : w.rows_p / 8;
-  l.zero = align16((size_t)entries * sizeof(unsigned short));
-  l.buf = l.zero + 16;
-  l.hbytes = align16((size_t)3 * (g.R + 2) * (g.XS + 2) * g.CS * es);
-  l.dbytes = align16((size_t)g.R * g.XS * w.DS * es);
-  l.patch = l.buf + (size_t)g.nbuf * (l.hbytes + l.dbytes);
-  l.total = l.patch + (es == 2 && g.packed ? (size_t)g.R * g.XS * g.KS * 2 : 0);
+  l.buf = 0;
+  l.hbytes = align16((size_t)3 * (g.R + 2) * (g.XS + 2) * g.CS * 4);
+  l.dbytes = align16((size_t)g.R * g.XS * w.DS * 4);
+  l.total = l.hbytes + l.dbytes;
   return l;
 }
 
 // Stage dy of the tile at (b, z, y0, x0), channels n0 .. n0 + NB - 1, into
 // dst[m][DS] (m = r * XS + xm), zero outside the volume and past Cout. VEC
-// is the copy width in bytes; a width of one element (bf16, odd Cout) loads
-// and stores.
-template <typename T, int VEC>
-__device__ __forceinline__ void stage_dy(const T* __restrict__ dy, T* __restrict__ dst, const WGeom& w, int b, int z,
-                                         int y0, int x0, int n0) {
+// is the copy width in bytes (4: loads and stores).
+template <int VEC>
+__device__ __forceinline__ void stage_dy_f32(const float* __restrict__ dy, float* __restrict__ dst, const WGeom& w,
+                                             int b, int z, int y0, int x0, int n0) {
   const Geom& g = w.g;
-  constexpr int per = VEC / (int)sizeof(T);
+  constexpr int per = VEC / 4;
   const int vall = g.NB / per;
   const int total = g.R * g.XS * vall;
   for (int i = threadIdx.x; i < total; i += kThreads) {
@@ -616,219 +683,618 @@ __device__ __forceinline__ void stage_dy(const T* __restrict__ dy, T* __restrict
     const int yg = y0 + r, xg = x0 + xm, n = n0 + q * per;
     const bool valid = yg < g.Y && xg < g.X && n < g.Cout;
     const long long src = ((((long long)b * g.Z + z) * g.Y + yg) * g.X + xg) * g.Cout + n;
-    if constexpr (VEC == (int)sizeof(T)) {
-      dst[m * w.DS + q] = valid ? dy[src] : from_f32<T>(0.f);
+    if constexpr (VEC == 4) {
+      dst[m * w.DS + q] = valid ? dy[src] : 0.f;
     } else {
       cp_async<VEC>(dst + m * w.DS + q * per, valid ? dy + src : dy, valid);
     }
   }
 }
 
-// Issue the copies of tile t (x halo and dy) into one buffer.
-template <typename T>
-__device__ __forceinline__ void stage_wgrad_tile(const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__ xh,
-                                                 T* __restrict__ dt, const WGeom& w, long long t, int n0) {
+// Issue the copies of tile t (x halo and dy) into the f32 kernel's buffer.
+__device__ __forceinline__ void stage_wgrad_f32_tile(const float* __restrict__ x, const float* __restrict__ dy,
+                                                     float* __restrict__ xh, float* __restrict__ dt, const WGeom& w,
+                                                     long long t, int n0) {
   const Geom& g = w.g;
   int b, z, y0, x0;
   tile_origin(t, g, b, z, y0, x0);
-  if constexpr (std::is_same<T, bf16>::value) {
-    stage_tile(x, xh, g, t);
-  } else {
-    switch (g.vecb) {
-      case 16:
-        stage_halo<float, 16>(x, xh, g, b, z, y0, x0);
-        break;
-      case 8:
-        stage_halo<float, 8>(x, xh, g, b, z, y0, x0);
-        break;
-      default:
-        stage_halo<float, 4>(x, xh, g, b, z, y0, x0);
-    }
+  switch (g.vecb) {
+    case 16:
+      stage_halo<float, 16>(x, xh, g, b, z, y0, x0);
+      break;
+    case 8:
+      stage_halo<float, 8>(x, xh, g, b, z, y0, x0);
+      break;
+    default:
+      stage_halo<float, 4>(x, xh, g, b, z, y0, x0);
   }
   switch (w.dvecb) {
     case 16:
-      stage_dy<T, 16>(dy, dt, w, b, z, y0, x0, n0);
+      stage_dy_f32<16>(dy, dt, w, b, z, y0, x0, n0);
       break;
     case 8:
-      stage_dy<T, 8>(dy, dt, w, b, z, y0, x0, n0);
-      break;
-    case 4:
-      stage_dy<T, 4>(dy, dt, w, b, z, y0, x0, n0);
+      stage_dy_f32<8>(dy, dt, w, b, z, y0, x0, n0);
       break;
     default:
-      if constexpr (std::is_same<T, bf16>::value) stage_dy<T, 2>(dy, dt, w, b, z, y0, x0, n0);
+      stage_dy_f32<4>(dy, dt, w, b, z, y0, x0, n0);
   }
 }
 
-// Item i: its chunk, tile of rows and slice of columns. Consecutive items
-// share a chunk, so the blocks that stage the same tiles run together.
-__device__ __forceinline__ void wgrad_item(long long i, const WGeom& w, int& chunk, int& rt, int& sl) {
+// f32 item i: its chunk, tile of rows and slice of columns.
+__device__ __forceinline__ void wgrad_f32_item(long long i, const WGeom& w, int& chunk, int& rt, int& sl) {
   sl = (int)(i % w.g.slices);
   const long long t = i / w.g.slices;
   rt = (int)(t % w.row_tiles);
   chunk = (int)(t / w.row_tiles);
 }
 
-// bf16 on the tensor cores. Warp w of the block owns rows row0 + 32 w ..
-// + 31 of the item (two m16 fragments) and all NB columns of its slice
-// (NFW n8 fragments). Per k-step of 16 voxels of the tile, A (rows x
-// voxels) is read from channels-last x with ldmatrix.trans: the halo cell
-// of voxel v for a chunk of 8 channels of one tap holds A's 8 rows of that
-// voxel contiguously, so the transposed load gives the row-major fragment;
-// B (voxels x columns) the same way from the staged dy tile.
-template <int NFW, bool PACKED>
-__global__ void __launch_bounds__(kThreads, 1)
-    conv3d_wgrad_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy, float* __restrict__ partial,
-                        WGeom w) {
-  static_assert(NFW % 2 == 0, "B fragments come in pairs of n8");
-  constexpr int NP = NFW / 2;
+// ---- the bf16 kernel on wgmma ----
+
+constexpr int kWgConsumers = 2;                       // consumer warpgroups
+constexpr int kWgProducer = 128;                      // and one producer warpgroup
+constexpr int kWgThreads = kWgConsumers * 128 + kWgProducer;
+constexpr int kWgMaxStages = 6;
+constexpr int kWgMaxM = 512;   // voxels of a tile
+constexpr int kWgMaxN = 128;   // columns of one product; wider Cout is sliced
+constexpr unsigned kPad = 0xFFFFFFFFu;  // row table: a row (chunk) past the block's taps
+
+__device__ __forceinline__ void mbar_init(unsigned a, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(a), "r"(count) : "memory");
+}
+
+// Wait until the barrier's phase of this parity has completed. A wait of
+// seconds is a fault (a producer and its consumers that disagree): trap
+// rather than hang the card.
+__device__ __forceinline__ void mbar_wait(unsigned a, unsigned parity) {
+  unsigned ok = 0;
+  const long long t0 = clock64();
+  while (!ok) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(ok)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (!ok && clock64() - t0 > (1LL << 33)) __trap();
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned a) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(a) : "memory");
+}
+
+// The barrier's current phase also waits for every cp.async this thread has
+// issued so far (the pending count is raised now and lowered when they land).
+__device__ __forceinline__ void mbar_arrive_copies(unsigned a) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(a) : "memory");
+}
+
+// Orders the generic proxy's writes to shared memory (the producer's copies,
+// acquired through the full barrier) before the async proxy's reads (wgmma's B).
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accumulator reads or writes across this
+// point (wgmma writes them asynchronously).
+template <int K>
+__device__ __forceinline__ void fence_regs(float (&r)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// A shared-memory matrix descriptor without swizzle: the start address, the
+// leading byte offset (between core matrices along K: here 8 voxels) and the
+// stride byte offset (along N: here 8 columns), in units of 16 bytes.
+__device__ __forceinline__ unsigned long long smem_desc(unsigned addr, unsigned lbo, unsigned sbo) {
+  return (unsigned long long)((addr & 0x3FFFF) >> 4) | ((unsigned long long)(lbo >> 4) << 16) |
+         ((unsigned long long)(sbo >> 4) << 32);
+}
+
+// D (64 x N, f32, registers) += A (64 x 16, bf16, registers) * B (16 x N,
+// bf16, shared memory, MN-major): one specialization per instruction width.
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], const unsigned (&a)[4], unsigned long long desc);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<8>(float (&d)[4], const unsigned (&a)[4], unsigned long long desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3"
+      "}, {%4, %5, %6, %7}, %8, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<16>(float (&d)[8], const unsigned (&a)[4], unsigned long long desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<24>(float (&d)[12], const unsigned (&a)[4], unsigned long long desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11"
+      "}, {%12, %13, %14, %15}, %16, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<32>(float (&d)[16], const unsigned (&a)[4], unsigned long long desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<40>(float (&d)[20], const unsigned (&a)[4], unsigned long long desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19"
+      "}, {%20, %21, %22, %23}, %24, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<48>(float (&d)[24], const unsigned (&a)[4], unsigned long long desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], const unsigned (&a)[4], unsigned long long desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<80>(float (&d)[40], const unsigned (&a)[4], unsigned long long desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<104>(float (&d)[52], const unsigned (&a)[4], unsigned long long desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %57, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n104k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51"
+      "}, {%52, %53, %54, %55}, %56, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], const unsigned (&a)[4], unsigned long long desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// Shared memory of the bf16 kernel: full and empty barriers per stage, the
+// row table, a zero chunk of 16 bytes, then the ring of stages (x part, dy
+// part).
+struct WgmmaLayout {
+  size_t full, empty, tab, zero, ring, total;
+};
+
+__host__ __device__ inline WgmmaLayout wgmma_layout(const WGeom& w) {
+  WgmmaLayout l;
+  l.full = 0;
+  l.empty = 8 * kWgMaxStages;
+  l.tab = 16 * kWgMaxStages;
+  l.zero = align16(l.tab + (size_t)(w.g.packed ? w.rb : w.rb / 8) * 4);
+  l.ring = align128(l.zero + 16);
+  l.total = l.ring + (size_t)w.stages * (w.xbytes + w.dbytes);
+  return l;
+}
+
+// The producer's copies: a cell (x) or a voxel (dy) a producer thread at a
+// time (pt of kWgProducer), all of its VX-byte units in a row, so that a
+// unit costs a few instructions (the staging is bound by the producer's
+// issue: with a cell's units spread over the lanes, about 20 instructions a
+// unit, SNEMI's 36 -> 36 took 0.49 ms on an H100 against 0.31 this way, at
+// the same plan in tools/conv3d_wgrad_plans.py's sweeps).
+// Each lane starts at another unit of its cell, so that a warp's stores fall
+// on other banks; indices walk without a division. Cells and voxels outside
+// the volume are zero-filled, padded channels and columns not written.
+template <int VX>
+__device__ __forceinline__ void copy_unit(unsigned char* d, const bf16* s, bool valid) {
+  if constexpr (VX == 2) {
+    *reinterpret_cast<bf16*>(d) = valid ? *s : from_f32<bf16>(0.f);
+  } else {
+    cp_async<VX>(d, s, valid);
+  }
+}
+
+// The stage's x part: zs z slices from zf of (R+2) rows from y0 - 1 of XS + 2
+// cells from x0 - 1.
+template <int VX>
+__device__ __forceinline__ void produce_x(const bf16* __restrict__ x, unsigned char* st, const Geom& g, int b, int zf,
+                                          int y0, int x0, int zs, int pt) {
+  constexpr int per = VX / 2;
+  const int vec = g.Cin / per;  // units a cell
+  const int W2 = g.XS + 2, H2 = g.R + 2;
+  const int cells = zs * H2 * W2;
+  const int dyy = kWgProducer / W2, dxx = kWgProducer - dyy * W2;
+  int yy = pt / W2, xx = pt - yy * W2, s = 0;
+  while (yy >= H2) yy -= H2, ++s;
+  const int q0 = (pt & 31) % vec;
+  for (int c = pt; c < cells; c += kWgProducer) {
+    const int zg = zf + s, yg = y0 + yy - 1, xg = x0 + xx - 1;
+    const bool valid = zg >= 0 && zg < g.Z && yg >= 0 && yg < g.Y && xg >= 0 && xg < g.X;
+    unsigned char* d = st + (size_t)((s * H2 + yy) * W2 + xx) * 2 * g.CS;
+    const bf16* src = valid ? x + ((((long long)b * g.Z + zg) * g.Y + yg) * g.X + xg) * g.Cin : x;
+    const int sp = valid ? per : 0;
+    int q = q0;
+    const bf16* sq = src + q * sp;
+    for (int k = 0; k < vec; ++k) {
+      copy_unit<VX>(d + q * VX, sq, valid);
+      sq += sp;
+      if (++q == vec) q = 0, sq = src;
+    }
+    xx += dxx;
+    yy += dyy;
+    if (xx >= W2) xx -= W2, ++yy;
+    while (yy >= H2) yy -= H2, ++s;
+  }
+}
+
+// The stage's dy part: the R*XS voxels of the tile at (b, z, y0, x0),
+// columns n0 .. of its slice (the real ones), in core matrices: voxel m,
+// column c at byte (m / 8) * 16 N + (c / 8) * 128 + (m % 8) * 16 + (c % 8) * 2.
+template <int VX>
+__device__ __forceinline__ void produce_dy(const bf16* __restrict__ dy, unsigned char* dst, const WGeom& w, int b,
+                                           int z, int y0, int x0, int n0, int pt) {
+  const Geom& g = w.g;
+  constexpr int per = VX / 2;
+  const int dv = (g.Cout - n0 < w.N ? g.Cout - n0 : w.N) / per;  // units a voxel
+  const int M = g.R * g.XS;
+  const int dr = kWgProducer / g.XS, dxm = kWgProducer - dr * g.XS;
+  int r = pt / g.XS, xm = pt - r * g.XS;
+  const int q0 = (pt & 31) % dv;
+  for (int m = pt; m < M; m += kWgProducer) {
+    const int yg = y0 + r, xg = x0 + xm;
+    const bool valid = yg < g.Y && xg < g.X;
+    unsigned char* d = dst + (m >> 3) * 16 * w.N + (m & 7) * 16;
+    const bf16* src = valid ? dy + ((((long long)b * g.Z + z) * g.Y + yg) * g.X + xg) * g.Cout + n0 : dy;
+    const int sp = valid ? per : 0;
+    int q = q0;
+    const bf16* sq = src + q * sp;
+    for (int k = 0; k < dv; ++k) {
+      const int c = q * per;
+      copy_unit<VX>(d + (c >> 3) * 128 + (c & 7) * 2, sq, valid);
+      sq += sp;
+      if (++q == dv) q = 0, sq = src;
+    }
+    xm += dxm;
+    r += dr;
+    if (xm >= g.XS) xm -= g.XS, ++r;
+  }
+}
+
+// Issue the copies of tile t for row block blk and the column slice at n0
+// into stage st: the z slices the block reads (z - 1 .. z + 1, or z + blk - 1
+// with tap groups), then dy. pt: the thread's index in the producer
+// warpgroup.
+__device__ __forceinline__ void produce_tile(const bf16* __restrict__ x, const bf16* __restrict__ dy,
+                                             unsigned char* st, const WGeom& w, long long t, int blk, int n0,
+                                             int pt) {
+  const Geom& g = w.g;
+  int b, z, y0, x0;
+  tile_origin(t, g, b, z, y0, x0);
+  const int zf = z - 1 + (w.zs == 1 ? blk : 0);
+  switch (g.vecb) {
+    case 16:
+      produce_x<16>(x, st, g, b, zf, y0, x0, w.zs, pt);
+      break;
+    case 8:
+      produce_x<8>(x, st, g, b, zf, y0, x0, w.zs, pt);
+      break;
+    case 4:
+      produce_x<4>(x, st, g, b, zf, y0, x0, w.zs, pt);
+      break;
+    default:
+      produce_x<2>(x, st, g, b, zf, y0, x0, w.zs, pt);
+  }
+  unsigned char* dd = st + w.xbytes;
+  switch (w.dvecb) {
+    case 16:
+      produce_dy<16>(dy, dd, w, b, z, y0, x0, n0, pt);
+      break;
+    case 8:
+      produce_dy<8>(dy, dd, w, b, z, y0, x0, n0, pt);
+      break;
+    case 4:
+      produce_dy<4>(dy, dd, w, b, z, y0, x0, n0, pt);
+      break;
+    default:
+      produce_dy<2>(dy, dd, w, b, z, y0, x0, n0, pt);
+  }
+}
+
+// Item i of the bf16 kernel: its chunk, row block (a tap group's dz, or 0),
+// row group and column slice. Consecutive items share a chunk, so the blocks
+// that stage the same tiles run together.
+__device__ __forceinline__ void wgmma_item(long long i, const WGeom& w, int& chunk, int& blk, int& grp, int& sl) {
+  grp = (int)(i % w.rg);
+  long long r = i / w.rg;
+  const int nblk = 27 / w.taps;
+  blk = (int)(r % nblk);
+  r /= nblk;
+  sl = (int)(r % w.g.slices);
+  chunk = (int)(r / w.g.slices);
+}
+
+// With tap groups a tile whose z slice for row block blk lies outside the
+// volume adds nothing: producer and consumers both skip it.
+__device__ __forceinline__ bool tile_skipped(long long t, int blk, const WGeom& w) {
+  if (w.zs == 3) return false;
+  const int zg = (int)((t / ((long long)w.g.TX * w.g.TY)) % w.g.Z) + blk - 1;
+  return zg < 0 || zg >= w.g.Z;
+}
+
+// Two x values of one row (element offset o in a cell) at the cells c and
+// c + cs, packed as a fragment register; 0 for a padding row.
+__device__ __forceinline__ unsigned gather2(const unsigned short* h, int c, int cs, unsigned o) {
+  return o == kPad ? 0u : (unsigned)h[c + o] | ((unsigned)h[c + cs + o] << 16);
+}
+
+// Warps 0-7 are two consumer warpgroups, warps 8-11 the producer. Warpgroup wg
+// holds M tiles mt0 .. mt0 + MT - 1 of the item's row block (an M tile past
+// the block multiplies zeros); warp q of it owns rows 16 q .. 16 q + 15 of
+// each.
+template <int N, int MT, bool PACKED>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    conv3d_wgrad_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy, float* __restrict__ partial,
+                              WGeom w) {
+  static_assert(N % 8 == 0 && N >= 8 && N <= 256, "wgmma's N is 8 to 256 in steps of 8");
   const Geom& g = w.g;
   extern __shared__ __align__(128) unsigned char smem[];
-  const WgLayout l = wgrad_layout(w, 2);
-  unsigned short* tab = reinterpret_cast<unsigned short*>(smem);
-  const bf16* zrow = reinterpret_cast<const bf16*>(smem + l.zero);
-  bf16* patch = reinterpret_cast<bf16*>(smem + l.patch);
+  const WgmmaLayout l = wgmma_layout(w);
+  const unsigned sbase = smem_addr(smem);
+  unsigned* tab = reinterpret_cast<unsigned*>(smem + l.tab);
   const int W2 = g.XS + 2, H2 = g.R + 2;
-  const int M = g.R * g.XS, nsteps = M / 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
 
-  if (PACKED) {  // tap's offset in a halo buffer
-    for (int tap = threadIdx.x; tap < 27; tap += kThreads) {
-      const int dz = tap / 9, dy_ = (tap / 3) % 3, dx = tap % 3;
-      tab[tap] = (unsigned short)(((dz * H2 + dy_) * W2 + dx) * g.CS);
-    }
-  } else {  // chunk c of 8 rows (row = tap * CP + ci): its offset in a halo buffer, or past the taps
-    const int cpc = g.CP / 8;
-    for (int c = threadIdx.x; c < w.rows_p / 8; c += kThreads) {
-      unsigned o = kPadChunk;
-      if (c < 27 * cpc) {
-        const int tap = c / cpc, ci = (c - tap * cpc) * 8;
-        const int dz = tap / 9, dy_ = (tap / 3) % 3, dx = tap % 3;
-        o = (unsigned)(((dz * H2 + dy_) * W2 + dx) * g.CS + ci);
+  // The row table, the same for every row block: tap-wise, chunk c of 8 rows
+  // -> the byte offset of its first channel in a stage's x part; packed, row
+  // r -> its element offset; kPad past the block's taps.
+  if (PACKED) {
+    for (int r = threadIdx.x; r < w.rb; r += kWgThreads) {
+      unsigned o = kPad;
+      if (r < w.taps * g.Cin) {
+        const int tl = r / g.Cin, ci = r - tl * g.Cin;
+        o = (unsigned)((((tl / 9) * H2 + (tl / 3) % 3) * W2 + tl % 3) * g.CS + ci);
       }
-      tab[c] = (unsigned short)o;
+      tab[r] = o;
+    }
+  } else {
+    for (int c = threadIdx.x; c < w.rb / 8; c += kWgThreads) {
+      unsigned o = kPad;
+      if (8 * c < w.taps * g.CP) {
+        const int tl = 8 * c / g.CP, ci = 8 * c - tl * g.CP;
+        o = (unsigned)(2 * ((((tl / 9) * H2 + (tl / 3) % 3) * W2 + tl % 3) * g.CS + ci));
+      }
+      tab[c] = o;
     }
   }
   if (threadIdx.x < 4) reinterpret_cast<unsigned*>(smem + l.zero)[threadIdx.x] = 0u;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < w.stages; ++s) {
+      mbar_init(sbase + (unsigned)l.full + 8 * s, kWgProducer);        // the producer's threads
+      mbar_init(sbase + (unsigned)l.empty + 8 * s, kWgConsumers * 4);  // the consumers' warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // the only block barrier: table, zero chunk and barriers are ready
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const unsigned sstride = w.xbytes + w.dbytes;
+  const unsigned full = sbase + (unsigned)l.full, empty = sbase + (unsigned)l.empty;
+  if (warp >= kWgConsumers * 4) {  // the producer
+    int stage = 0;
+    unsigned phase = 0;
+    for (long long item = blockIdx.x; item < w.items; item += gridDim.x) {
+      int chunk, blk, grp, sl;
+      wgmma_item(item, w, chunk, blk, grp, sl);
+      const long long t0 = (long long)chunk * w.tpc;
+      const long long t1 = t0 + w.tpc < g.tiles ? t0 + w.tpc : g.tiles;
+      for (long long t = t0; t < t1; ++t) {
+        if (tile_skipped(t, blk, w)) continue;
+        mbar_wait(empty + 8 * stage, phase ^ 1);  // the consumers are done with the stage's last fill
+        produce_tile(x, dy, smem + l.ring + (size_t)stage * sstride, w, t, blk, sl * N,
+                     threadIdx.x - kWgConsumers * 128);
+        mbar_arrive_copies(full + 8 * stage);
+        mbar_arrive(full + 8 * stage);
+        if (++stage == w.stages) stage = 0, phase ^= 1;
+      }
+    }
+    mednext::cp_async_wait_all();
+    return;
+  }
+
+  const int wg = warp / 4, wq = warp & 3;
   const int gq = lane >> 2, tq = lane & 3;
   const int mj = lane >> 3, r8 = lane & 7;
-  // A: lane gives voxel r8 + 8 (mj / 2) of the k-step, rows 8 (mj % 2) ..
-  // of the fragment; B: voxel r8 + 8 (mj % 2), columns 8 (mj / 2) ..
+  // ldmatrix.x4.trans of A: lane gives voxel avox of the k-step and rows
+  // ahalf .. ahalf + 7 of the warp's 16 (matrix mj: rows 8 (mj % 2), voxels 8 (mj / 2))
   const int avox = r8 + 8 * (mj >> 1), ahalf = 8 * (mj & 1);
-  const int bvox = r8 + 8 * (mj & 1), bcol = 8 * (mj >> 1);
-  const unsigned zsa = smem_addr(zrow);
-
+  const unsigned zsa = sbase + (unsigned)l.zero;
+  const int steps = g.R * g.XS / 16;
+  const int cstep = PACKED ? g.CS : 2 * g.CS;  // a cell: elements (packed gather) or bytes (ldmatrix)
+  int stage = 0;
+  unsigned phase = 0;
   for (long long item = blockIdx.x; item < w.items; item += gridDim.x) {
-    int chunk, rt, sl;
-    wgrad_item(item, w, chunk, rt, sl);
-    const int n0 = sl * g.NB;
-    const int row0 = rt * w.BM + warp * 32;
-    const bool active = row0 < g.K;
+    int chunk, blk, grp, sl;
+    wgmma_item(item, w, chunk, blk, grp, sl);
     const long long t0 = (long long)chunk * w.tpc;
     const long long t1 = t0 + w.tpc < g.tiles ? t0 + w.tpc : g.tiles;
-    float acc[2][NFW][4];
+    const int mt0 = (grp * kWgConsumers + wg) * MT;
+    // per M tile: tap-wise, this lane's A offset (its chunk and its voxel's
+    // cell), kPad for a chunk past the taps or an M tile past the block;
+    // packed, the element offsets of rows gq and gq + 8
+    unsigned ao[MT], bo[MT];
 #pragma unroll
-    for (int f = 0; f < 2; ++f)
-#pragma unroll
-      for (int j = 0; j < NFW; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[f][j][q] = 0.f;
-
-    __syncthreads();  // every warp is done with the last item's buffers; the tables are written
-    // this lane's A chunk offsets (tap-wise) or rows (packed), per fragment
-    unsigned aoff[2];
-#pragma unroll
-    for (int f = 0; f < 2; ++f) {
-      const int row = row0 + 16 * f + ahalf;
-      aoff[f] = PACKED ? (row < g.K ? (unsigned)row : kPadChunk) : (active ? tab[row / 8] : kPadChunk);
+    for (int f = 0; f < MT; ++f) {
+      const int row = (mt0 + f) * 64 + 16 * wq;
+      if constexpr (PACKED) {
+        ao[f] = row < w.rb ? tab[row + gq] : kPad;
+        bo[f] = row < w.rb ? tab[row + gq + 8] : kPad;
+      } else {
+        const unsigned o = row < w.rb ? tab[(row + ahalf) / 8] : kPad;
+        ao[f] = o == kPad ? kPad : o + avox * cstep;
+        bo[f] = 0;
+      }
     }
-    int buf = 0;
-    stage_wgrad_tile(x, dy, reinterpret_cast<bf16*>(smem + l.buf), reinterpret_cast<bf16*>(smem + l.buf + l.hbytes),
-                     w, t0, n0);
+    float acc[MT][N / 2];
+#pragma unroll
+    for (int f = 0; f < MT; ++f)
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) acc[f][i] = 0.f;
     for (long long t = t0; t < t1; ++t) {
-      mednext::cp_async_wait_all();
-      __syncthreads();  // tile t has landed; every warp is done with the other buffer
-      const size_t bo = l.buf + buf * (l.hbytes + l.dbytes);
-      const bf16* xh = reinterpret_cast<const bf16*>(smem + bo);
-      const bf16* dt = reinterpret_cast<const bf16*>(smem + bo + l.hbytes);
-      if (g.nbuf == 2 && t + 1 < t1) {
-        const size_t bn = l.buf + (buf ^ 1) * (l.hbytes + l.dbytes);
-        stage_wgrad_tile(x, dy, reinterpret_cast<bf16*>(smem + bn), reinterpret_cast<bf16*>(smem + bn + l.hbytes), w,
-                         t + 1, n0);
-      }
-      if constexpr (PACKED) {  // patch[m][k], k = tap * Cin + ci, zero from 27 * Cin on: one row a thread
-        if ((int)threadIdx.x < M) {
-          const int m = threadIdx.x, r = m / g.XS, xm = m - r * g.XS;
-          const unsigned short* h = reinterpret_cast<const unsigned short*>(xh) + (r * W2 + xm) * g.CS;
-          uint4* prow = reinterpret_cast<uint4*>(patch + (size_t)m * g.KS);
-          int tap = 0, ci = 0;
-          for (int k8 = 0; k8 < g.K / 8; ++k8) {
-            unsigned v[4] = {0u, 0u, 0u, 0u};
+      if (tile_skipped(t, blk, w)) continue;
+      mbar_wait(full + 8 * stage, phase);
+      __syncwarp();
+      fence_proxy_async();  // the copies landed through the generic proxy; wgmma reads B through the async one
+      const unsigned xsa = sbase + (unsigned)l.ring + stage * sstride;
+      const unsigned long long desc = smem_desc(xsa + w.xbytes, 16 * N, 128);
+      const unsigned short* xh = reinterpret_cast<const unsigned short*>(smem + l.ring + (size_t)stage * sstride);
+      unsigned a0[MT][4], a1[MT][4];
+      int cb = 0, xm0 = 0;  // the k-step's first voxel: its cell (in cstep units x cstep) and x
+      auto load = [&](unsigned (&a)[MT][4]) {
 #pragma unroll
-            for (int e = 0; e < 8; ++e) {
-              if (tap < 27) {
-                v[e / 2] |= (unsigned)h[tab[tap] + ci] << (16 * (e & 1));
-                if (++ci == g.Cin) ci = 0, ++tap;
-              }
-            }
-            prow[k8] = make_uint4(v[0], v[1], v[2], v[3]);
+        for (int f = 0; f < MT; ++f) {
+          if constexpr (PACKED) {
+            const int c0 = cb + 2 * tq * g.CS, c8 = c0 + 8 * g.CS;
+            a[f][0] = gather2(xh, c0, g.CS, ao[f]);
+            a[f][1] = gather2(xh, c0, g.CS, bo[f]);
+            a[f][2] = gather2(xh, c8, g.CS, ao[f]);
+            a[f][3] = gather2(xh, c8, g.CS, bo[f]);
+          } else {
+            ldsm_x4_trans_at(a[f], ao[f] != kPad ? xsa + cb + ao[f] : zsa);
           }
         }
-        __syncthreads();  // the patch is complete
-      }
-      if (active) {
-        const unsigned xsa = smem_addr(xh), dsa = smem_addr(dt), psa = smem_addr(patch);
-        auto load = [&](int st, unsigned (&a)[2][4], unsigned (&bb)[NP][4]) {
-          const int m0 = st * 16, r = m0 / g.XS, xm0 = m0 - r * g.XS;
+      };
+      auto issue = [&](int s, const unsigned (&a)[MT][4]) {
+        wgmma_fence();  // A's registers were just written
 #pragma unroll
-          for (int f = 0; f < 2; ++f) {
-            unsigned addr = zsa;
-            if (aoff[f] != kPadChunk)
-              addr = PACKED ? psa + 2 * ((m0 + avox) * g.KS + aoff[f])
-                            : xsa + 2 * ((r * W2 + xm0 + avox) * g.CS + aoff[f]);
-            ldsm_x4_trans_at(a[f], addr);
-          }
-#pragma unroll
-          for (int p = 0; p < NP; ++p) ldsm_x4_trans_at(bb[p], dsa + 2 * ((m0 + bvox) * w.DS + p * 16 + bcol));
-        };
-        auto multiply = [&](const unsigned (&a)[2][4], const unsigned (&bb)[NP][4]) {
-#pragma unroll
-          for (int f = 0; f < 2; ++f)
-#pragma unroll
-            for (int j = 0; j < NFW; ++j) mma16816(acc[f][j], a[f], bb[j / 2][(j & 1) * 2], bb[j / 2][(j & 1) * 2 + 1]);
-        };
-        unsigned a0[2][4], a1[2][4], b0[NP][4], b1[NP][4];
-        load(0, a0, b0);
-        for (int st = 0; st < nsteps; st += 2) {  // two register sets: load one k-step ahead
-          if (st + 1 < nsteps) load(st + 1, a1, b1);
-          multiply(a0, b0);
-          if (st + 2 < nsteps) load(st + 2, a0, b0);
-          if (st + 1 < nsteps) multiply(a1, b1);
+        for (int f = 0; f < MT; ++f) wgmma_bf16<N>(acc[f], a[f], desc + (unsigned long long)(2 * N * s));
+        wgmma_commit();
+      };
+      auto next = [&]() {  // 16 voxels on; XS is a multiple of 16, so a k-step stays in one row
+        xm0 += 16;
+        cb += 16 * cstep;
+        if (xm0 == g.XS) xm0 = 0, cb += 2 * cstep;
+      };
+      load(a0);
+      for (int s = 0; s < steps; s += 2) {  // two register sets: the next k-step loads under this one's products
+        issue(s, a0);
+        if (s + 1 < steps) {
+          next();
+          wgmma_wait<1>();  // step s - 1 is done with a1
+          load(a1);
+          issue(s + 1, a1);
+        }
+        if (s + 2 < steps) {
+          next();
+          wgmma_wait<1>();  // step s is done with a0
+          load(a0);
         }
       }
-      if (g.nbuf == 1) {  // one buffer: the next tile's copies wait for every warp's MMAs
-        __syncthreads();
-        if (t + 1 < t1)
-          stage_wgrad_tile(x, dy, reinterpret_cast<bf16*>(smem + l.buf),
-                           reinterpret_cast<bf16*>(smem + l.buf + l.hbytes), w, t + 1, n0);
-      }
-      buf ^= g.nbuf - 1;
+      wgmma_wait<0>();
+#pragma unroll
+      for (int f = 0; f < MT; ++f) fence_regs(acc[f]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * stage);  // this warp is done with the stage
+      if (++stage == w.stages) stage = 0, phase ^= 1;
     }
-    // the item's partial, from registers
-    if (active) {
-      float* dst = partial + ((long long)chunk * w.rows_p + row0) * g.Np + n0;
+    // the item's partial, from registers: the rows of its M tiles inside the block
+    float* dst = partial + ((long long)chunk * w.rows_p + (long long)blk * w.rb) * w.cols + sl * N + 2 * tq;
 #pragma unroll
-      for (int f = 0; f < 2; ++f)
+    for (int f = 0; f < MT; ++f) {
+      const int row = (mt0 + f) * 64 + 16 * wq + gq;
+      if (row >= w.rb) continue;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float* drow = dst + (long long)(16 * f + gq + 8 * h) * g.Np;
-#pragma unroll
-          for (int j = 0; j < NFW; ++j) {
-            const int col = j * 8 + 2 * tq;
-            if (n0 + col < g.Np) mednext::store2(drow + col, acc[f][j][2 * h], acc[f][j][2 * h + 1]);
-          }
-        }
+      for (int j = 0; j < N / 8; ++j) {
+        mednext::store2(dst + (long long)row * w.cols + 8 * j, acc[f][4 * j], acc[f][4 * j + 1]);
+        mednext::store2(dst + (long long)(row + 8) * w.cols + 8 * j, acc[f][4 * j + 2], acc[f][4 * j + 3]);
+      }
     }
   }
 }
@@ -842,7 +1308,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                             WGeom w) {
   const Geom& g = w.g;
   extern __shared__ __align__(128) unsigned char smem[];
-  const WgLayout l = wgrad_layout(w, 4);
+  const WgLayout l = wgrad_f32_layout(w);
   float* xh = reinterpret_cast<float*>(smem + l.buf);
   float* dt = reinterpret_cast<float*>(smem + l.buf + l.hbytes);
   const int W2 = g.XS + 2, H2 = g.R + 2;
@@ -850,7 +1316,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   for (long long item = blockIdx.x; item < w.items; item += gridDim.x) {
     int chunk, rt, sl;
-    wgrad_item(item, w, chunk, rt, sl);
+    wgrad_f32_item(item, w, chunk, rt, sl);
     const int n0 = sl * g.NB;
     const long long t0 = (long long)chunk * w.tpc;
     const long long t1 = t0 + w.tpc < g.tiles ? t0 + w.tpc : g.tiles;
@@ -870,7 +1336,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
     for (long long t = t0; t < t1; ++t) {
       __syncthreads();  // every thread is done with the last tile
-      stage_wgrad_tile(x, dy, xh, dt, w, t, n0);
+      stage_wgrad_f32_tile(x, dy, xh, dt, w, t, n0);
       mednext::cp_async_wait_all();
       __syncthreads();
       for (int r = 0; r < g.R; ++r) {
@@ -889,45 +1355,45 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
     }
-    float* dst = partial + (long long)chunk * w.rows_p * g.Np + n0;
+    float* dst = partial + (long long)chunk * w.rows_p * w.cols + n0;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = rt * w.BM + tr + 16 * i;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = tc + 16 * j;
-        if (c < g.NB && n0 + c < g.Np) dst[(long long)row * g.Np + c] = acc[i][j];
+        if (c < g.NB && n0 + c < g.Np) dst[(long long)row * w.cols + c] = acc[i][j];
       }
     }
   }
 }
 
-// The sum of the chunks' partials of each matrix element (row r < 27 *
-// tap_rows, column c < Np), written to dW (Cout, Cin, 27): a block of
-// kSumRows x 32 threads takes 32 elements; thread row q sums chunks q, q +
-// kSumRows, ..., then row 0 adds the kSumRows sums in order. Rows of
-// padding channels and columns past Cout are dropped.
+// The sum of the chunks' partials of each matrix element (row r of rows_p,
+// column c of cols), written to dW (Cout, Cin, 27): a block of kSumRows x 32
+// threads takes 32 elements; thread row q sums chunks q, q + kSumRows, ...,
+// then row 0 adds the kSumRows sums in order. Row r is channel ci of tap tl
+// of row block r / rb (taps of a block: 27, or 9 a dz); rows of padding
+// channels and taps and columns past Cout are dropped.
 constexpr int kSumRows = 32;
 
 __global__ void __launch_bounds__(kSumRows * 32)
     conv3d_wgrad_sum_kernel(const float* __restrict__ partial, float* __restrict__ out, WGeom w) {
   const Geom& g = w.g;
-  const long long n = 27LL * w.tap_rows * g.Np;
+  const long long n = (long long)w.rows_p * w.cols;
   __shared__ float s[kSumRows][33];
   const int col = threadIdx.x & 31, row = threadIdx.x >> 5;
   const long long i = (long long)blockIdx.x * 32 + col;
-  const long long cstride = (long long)w.rows_p * g.Np;
   float acc = 0.f;
   if (i < n) {
     int it = row;
     for (; it + 3 * kSumRows < w.chunks; it += 4 * kSumRows) {
       float v[4];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) v[k] = partial[(it + k * kSumRows) * cstride + i];
+      for (int k = 0; k < 4; ++k) v[k] = partial[(it + k * kSumRows) * n + i];
 #pragma unroll
       for (int k = 0; k < 4; ++k) acc += v[k];
     }
-    for (; it < w.chunks; it += kSumRows) acc += partial[it * cstride + i];
+    for (; it < w.chunks; it += kSumRows) acc += partial[it * n + i];
   }
   s[row][col] = acc;
   __syncthreads();
@@ -935,9 +1401,10 @@ __global__ void __launch_bounds__(kSumRows * 32)
     float t = 0.f;
 #pragma unroll
     for (int r = 0; r < kSumRows; ++r) t += s[r][col];
-    const int mrow = (int)(i / g.Np), co = (int)(i - (long long)mrow * g.Np);
-    const int tap = mrow / w.tap_rows, ci = mrow - tap * w.tap_rows;
-    if (ci < g.Cin && co < g.Cout) out[((long long)co * g.Cin + ci) * 27 + tap] = t;
+    const int mrow = (int)(i / w.cols), co = (int)(i - (long long)mrow * w.cols);
+    const int blk = mrow / w.rb, rr = mrow - blk * w.rb;
+    const int tl = rr / w.tap_rows, ci = rr - tl * w.tap_rows;
+    if (tl < w.taps && ci < g.Cin && co < g.Cout) out[((long long)co * g.Cin + ci) * 27 + blk * w.taps + tl] = t;
   }
 }
 
@@ -1101,7 +1568,7 @@ void (*taps_kernel(const Geom& g))(const bf16*, const bf16*, const float*, bf16*
 // microseconds of host work each). Entries are never evicted; past
 // kCacheSize shapes a launch plans afresh.
 constexpr int kCacheSize = 256;
-constexpr int kKey = 11;  // device, shape (7), a plan forced by the caller (3)
+constexpr int kKey = 13;  // device, shape (7), a plan forced by the caller (5)
 
 template <typename G>
 struct PlanCache {
@@ -1147,7 +1614,7 @@ int fwd_plan(int B, int Z, int Y, int X, int Cin, int Cout, Geom& g, const void*
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
-  const long long key[kKey] = {dev, B, Z, Y, X, Cin, Cout, (long long)sizeof(T), 0, 0, 0};
+  const long long key[kKey] = {dev, B, Z, Y, X, Cin, Cout, (long long)sizeof(T), 0, 0, 0, 0, 0};
   if (cache.get(key, g, fn, blocks)) return 0;
   if (B < 1 || Z < 1 || Y < 1 || X < 1 || Cin < 1 || Cout < 1) return kErrShape;
   if ((long long)B * Z * Y * X * (Cin > Cout ? Cin : Cout) >= (1LL << 62)) return kErrShape;
@@ -1195,82 +1662,50 @@ int run(const void* x, const void* w, const void* bias, void* out, int B, int Z,
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
-// The weight gradient's plan, from the shape alone (the chunks too, so
-// that the sums are the same bits on any grid): the forward's weight-row
-// layout; slices of at most 80 columns (bf16) or 64 (f32); the tile (XS,
-// R) and buffers of least estimated time; then chunks of consecutive tiles
+// The weight gradient's plans, from the shape alone (the chunks too, so that
+// the sums are the same bits on any grid), then chunks of consecutive tiles
 // for about two items per SM of an H100 (132), their partials at most
-// kPartialBytes. The bf16 estimate, fitted to the card's sweep of every
-// tile at RSUNet's training shapes (tools/conv3d_wgrad_plans.py, PERF.md):
-// a tile's visit costs about kTileClk plus kStepClk a k-step of 16 voxels
-// (at 6 n8 fragments a warp; in proportion to them), whether or not a
-// second buffer stages the next tile under it (it bought 1-3%), so the
-// largest tile that fits wins unless it runs far past the volume's edge;
-// the stem's patch adds about 2 K + 500. f32 (the check path): a voxel
-// about 24 thread instructions a thread, staging a clock per 32 bytes and
-// kTileClk a tile.
+// kPartialBytes.
+//
+// bf16 (plan_wgrad_wgmma): among tap groups (3, one dz a row block, or 1),
+// M tiles a warpgroup (those built for N), tiles (XS a multiple of 16 up to
+// 128, R rows, at most kWgMaxM voxels) and ring stages (2 to kWgMaxStages)
+// whose shared memory fits a block, the least estimated time (wgmma_cost),
+// a model fitted (tools/conv3d_wgrad_plans.py --fit; PERF.md) to that tool's
+// sweep of every RSUNet training shape on an H100: a stage's visit costs the
+// longer of the consumers' k-steps (kWgStepClk a column of wgmma's width, or
+// of its shared-memory reads where those are more, for each M tile, plus
+// kWgStepLat) and the producer's staging (kWgBytesClk bytes a clock); with
+// two stages a share kWgTwoStages of the shorter adds to it; every visit
+// adds kWgVisitClk. Visits: tiles x tap groups (less the skipped z edges) x
+// row groups x column slices, out in waves of items over the SMs.
+// f32 (plan_wgrad_f32, the check path): slices of at most 64 columns, the
+// tile of least estimated time: kTileClk a tile, a voxel about 24 thread
+// instructions a thread, staging a clock per 32 bytes.
 constexpr int kNominalSms = 132;
-constexpr double kTileClk = 6000.0;
-constexpr double kStepClk = 1400.0;
 constexpr long long kPartialBytes = 64LL << 20;
+constexpr double kTileClk = 6000.0;
+constexpr double kWgStepClk = 0.417;
+constexpr double kWgStepLat = 97.6;
+constexpr double kWgBytesClk = 13.1;
+constexpr double kWgTwoStages = 0.036;
+constexpr double kWgVisitClk = 4989.0;
 
-inline bool plan_wgrad(WGeom& w, int es, int force_xs = 0, int force_r = 0, int force_nbuf = 0) {
-  Geom& g = w.g;
-  g.K = weight_rows(g.Cin, es, &g.CP, &g.packed);
-  g.Np = round_up(g.Cout, 16);
-  if (es == 2) {
-    g.CS = g.packed ? g.CP : odd_stride(g.CP);
-    g.KS = odd_stride(g.K);
-    const int row = g.Cin * 2;
-    g.vecb = row % 16 == 0 ? 16 : row % 8 == 0 ? 8 : row % 4 == 0 ? 4 : 2;
-    const int sl = (g.Np + 79) / 80;
-    g.NB = round_up((g.Np + sl - 1) / sl, 16);
-    w.DS = odd_stride(g.NB);
-    w.BM = 8 * 32;
-    w.tap_rows = g.packed ? g.Cin : g.CP;
-  } else {
-    g.CS = g.CP;
-    g.KS = g.K;
-    const int row = g.Cin * 4;
-    g.vecb = row % 16 == 0 ? 16 : row % 8 == 0 ? 8 : 4;
-    g.NB = g.Np < kWgradF32Cols ? g.Np : kWgradF32Cols;
-    w.DS = g.NB;
-    w.BM = kWgradF32Rows;
-    w.tap_rows = g.Cin;
-  }
-  g.slices = (g.Np + g.NB - 1) / g.NB;
-  const int drow = g.Cout * es;
-  w.dvecb = drow % 16 == 0 ? 16 : drow % 8 == 0 ? 8 : drow % 4 == 0 ? 4 : es;
-  w.row_tiles = (g.K + w.BM - 1) / w.BM;
-  w.rows_p = w.row_tiles * w.BM;
-  const int maxm = es == 4 ? 64 : g.packed ? kThreads : kWgradMaxM;  // packed: a patch row a thread
-  const int nfw = g.NB / 8;
-  double best = -1;
-  WGeom pick = w;
-  for (int xs = 16; xs <= 64 && xs <= round_up(g.X, 16); xs += 16) {
-    for (int r = 1; r <= g.Y && r * xs <= maxm; ++r) {
-      for (int nbuf = es == 2 ? 2 : 1; nbuf >= 1; --nbuf) {
-        if (force_xs && (xs != force_xs || r != force_r || nbuf != force_nbuf)) continue;
-        WGeom c = w;
-        c.g.XS = xs, c.g.R = r, c.g.nbuf = nbuf;
-        const int last = ((2 * (r + 2) + 2) * (xs + 2) + 2) * c.g.CS + c.g.CP;
-        if (wgrad_layout(c, es).total > kMaxSmem || last >= (int)kPadChunk) continue;
-        finish(c.g);
-        const WgLayout l = wgrad_layout(c, es);
-        const double tile =
-            es == 2 ? kTileClk - (nbuf == 2 ? 300.0 : 0.0) + (r * xs / 16) * kStepClk * nfw / 6.0 +
-                          (g.packed ? 2.0 * g.K + 500.0 : 0.0)
-                    : kTileClk + r * xs * 24.0 * 16.0 + (double)(l.hbytes + l.dbytes) / 32.0;
-        const double cost = (double)c.g.tiles * tile;
-        if (best < 0 || cost < best) best = cost, pick = c;
-      }
-    }
-  }
-  if (best < 0) return false;
-  w = pick;
-  const long long per = (long long)w.row_tiles * g.slices;
+// wgmma's widths instantiated (wgmma_kernel), and the M tiles a warpgroup
+// may hold at each: what fits 168 registers a thread (65,536 over 384
+// threads) without spilling (ptxas on the H100's build: 168 with spills at
+// MT x N of 4 x 64, 3 x 80 and 2 x 128).
+constexpr int kWgN[] = {8, 16, 24, 32, 40, 48, 64, 80, 104, 128};
+constexpr int wg_max_mt(int n) { return n >= 32 && n <= 48 ? 4 : n == 64 ? 3 : n == 128 ? 1 : 2; }
+
+// The widest copy (16, 8, 4 or 2 bytes) that divides a row of `bytes`.
+inline int copy_bytes(int bytes) { return bytes % 16 == 0 ? 16 : bytes % 8 == 0 ? 8 : bytes % 4 == 0 ? 4 : 2; }
+
+// Chunks of the plan's tiles for about two items per SM, `per` items a chunk.
+inline bool wgrad_chunks(WGeom& w, long long per) {
+  const Geom& g = w.g;
   long long chunks = (2LL * kNominalSms + per - 1) / per;
-  const long long cap = kPartialBytes / ((long long)w.rows_p * g.Np * 4);
+  const long long cap = kPartialBytes / ((long long)w.rows_p * w.cols * 4);
   if (chunks > cap) chunks = cap;
   if (chunks > g.tiles) chunks = g.tiles;
   if (chunks < 1) chunks = 1;
@@ -1282,51 +1717,163 @@ inline bool plan_wgrad(WGeom& w, int es, int force_xs = 0, int force_r = 0, int 
   return true;
 }
 
-using WgradKernel = void (*)(const bf16*, const bf16*, float*, WGeom);
-
-template <bool PACKED>
-WgradKernel wgrad_kernel(int nfw) {
-  switch (nfw) {
-    case 2:
-      return conv3d_wgrad_kernel<2, PACKED>;
-    case 4:
-      return conv3d_wgrad_kernel<4, PACKED>;
-    case 6:
-      return conv3d_wgrad_kernel<6, PACKED>;
-    case 8:
-      return conv3d_wgrad_kernel<8, PACKED>;
-    case 10:
-      return conv3d_wgrad_kernel<10, PACKED>;
-  }
-  return nullptr;
+inline double wgmma_cost(const WGeom& c) {
+  const Geom& g = c.g;
+  const double width = c.N > 32 + c.N / 2.0 ? c.N : 32 + c.N / 2.0;
+  const double cons = g.R * g.XS / 16.0 * (kWgStepClk * c.mt * width + kWgStepLat);
+  const int dcols = g.Cout < c.N ? g.Cout : c.N;
+  const double prod = (2.0 * c.zs * (g.R + 2) * (g.XS + 2) * g.Cin + 2.0 * g.R * g.XS * dcols) / kWgBytesClk;
+  const double visit = (cons > prod ? cons : prod) + (c.stages < 3 ? kWgTwoStages * (cons < prod ? cons : prod) : 0.0) +
+                       kWgVisitClk;
+  const double groups = c.zs == 1 ? 3.0 - 2.0 / g.Z : 1.0;
+  const double waves = ceil((double)c.items / kNominalSms) / ((double)c.items / kNominalSms);
+  return (double)g.tiles * groups * c.rg * g.slices * visit * waves;
 }
 
+// force: XS, R, stages, M tiles a warpgroup and tap groups (1 or 3) in the
+// place of the planner's, each 0 for its own.
+inline bool plan_wgrad_wgmma(WGeom& w, const int* force) {
+  Geom& g = w.g;
+  g.packed = g.Cin < 8;
+  g.CP = g.packed ? g.Cin : round_up(g.Cin, 8);
+  g.CS = g.packed ? g.CP : odd_stride(g.CP);
+  g.vecb = copy_bytes(g.Cin * 2);
+  w.dvecb = copy_bytes(g.Cout * 2);
+  g.slices = (g.Cout + kWgMaxN - 1) / kWgMaxN;
+  const int need = round_up((g.Cout + g.slices - 1) / g.slices, 8);
+  w.N = 0;
+  for (int n : kWgN)
+    if (!w.N && n >= need) w.N = n;
+  g.NB = w.N;
+  g.Np = w.cols = g.slices * w.N;
+  w.tap_rows = g.CP;
+  double best = -1;
+  WGeom pick = w;
+  for (int tg = 3; tg >= 1; tg -= 2) {
+    if (force[4] && force[4] != tg) continue;
+    for (int mt = 1; mt <= (g.packed ? 1 : wg_max_mt(w.N)); ++mt) {
+      if (force[3] && force[3] != mt) continue;
+      for (int xs = 16; xs <= 128 && xs <= round_up(g.X, 16); xs += 16) {
+        if (force[0] && force[0] != xs) continue;
+        for (int r = 1; r <= g.Y && r * xs <= kWgMaxM; ++r) {
+          if (force[1] && force[1] != r) continue;
+          for (int stages = 2; stages <= kWgMaxStages; ++stages) {
+            if (force[2] && force[2] != stages) continue;
+            WGeom c = w;
+            c.taps = 27 / tg;
+            c.zs = tg == 3 ? 1 : 3;
+            c.rb = round_up(c.taps * c.tap_rows, 64);
+            c.rows_p = tg * c.rb;
+            c.mt = mt;
+            c.rg = (c.rb / 64 + kWgConsumers * mt - 1) / (kWgConsumers * mt);
+            c.stages = stages;
+            c.g.XS = xs, c.g.R = r;
+            c.xbytes = (unsigned)align128((size_t)c.zs * (r + 2) * (xs + 2) * g.CS * 2);
+            c.dbytes = (unsigned)align128((size_t)r * xs * w.N * 2);
+            if (wgmma_layout(c).total > kMaxSmem) break;  // more stages take more
+            finish(c.g);
+            if (!wgrad_chunks(c, (long long)tg * c.rg * g.slices)) continue;
+            const double cost = wgmma_cost(c);
+            if (best < 0 || cost < best) best = cost, pick = c;
+          }
+        }
+      }
+    }
+  }
+  if (best < 0) return false;
+  w = pick;
+  return true;
+}
+
+// force: XS, R and one buffer (stages 1) in the place of the planner's.
+inline bool plan_wgrad_f32(WGeom& w, const int* force) {
+  Geom& g = w.g;
+  if (force[2] > 1 || force[3] || force[4] > 1) return false;  // one buffer, no M tiles or tap groups
+  g.K = weight_rows(g.Cin, 4, &g.CP, &g.packed);
+  g.Np = round_up(g.Cout, 16);
+  g.CS = g.CP;
+  g.KS = g.K;
+  const int row = g.Cin * 4;
+  g.vecb = row % 16 == 0 ? 16 : row % 8 == 0 ? 8 : 4;
+  g.NB = g.Np < kWgradF32Cols ? g.Np : kWgradF32Cols;
+  g.nbuf = 1;
+  g.slices = (g.Np + g.NB - 1) / g.NB;
+  w.DS = g.NB;
+  w.BM = kWgradF32Rows;
+  w.dvecb = copy_bytes(g.Cout * 4);
+  w.tap_rows = g.Cin;
+  w.taps = 27;
+  w.row_tiles = (g.K + w.BM - 1) / w.BM;
+  w.rows_p = w.rb = w.row_tiles * w.BM;
+  w.cols = g.Np;
+  double best = -1;
+  WGeom pick = w;
+  for (int xs = 16; xs <= 64 && xs <= round_up(g.X, 16); xs += 16) {
+    for (int r = 1; r <= g.Y && r * xs <= 64; ++r) {
+      if (force[0] && (xs != force[0] || r != force[1])) continue;
+      WGeom c = w;
+      c.g.XS = xs, c.g.R = r;
+      const int last = ((2 * (r + 2) + 2) * (xs + 2) + 2) * g.CS + g.CP;
+      const WgLayout l = wgrad_f32_layout(c);
+      if (l.total > kMaxSmem || last >= 0xFFFF) continue;
+      finish(c.g);
+      const double cost = (double)c.g.tiles * (kTileClk + r * xs * 24.0 * 16.0 + (double)(l.hbytes + l.dbytes) / 32.0);
+      if (best < 0 || cost < best) best = cost, pick = c;
+    }
+  }
+  if (best < 0) return false;
+  w = pick;
+  return wgrad_chunks(w, (long long)w.row_tiles * g.slices);
+}
+
+using WgradKernel = void (*)(const bf16*, const bf16*, float*, WGeom);
+
+template <int N, int MT>
+WgradKernel wgmma_kernel_upto(int mt) {
+  if constexpr (MT == 0) {
+    return nullptr;
+  } else {
+    return mt == MT ? conv3d_wgrad_wgmma_kernel<N, MT, false> : wgmma_kernel_upto<N, MT - 1>(mt);
+  }
+}
+
+// The bf16 kernel of a plan: tap-wise for each width and mt <= wg_max_mt,
+// packed (the stem) with mt 1.
+template <int I = 0>
+WgradKernel wgmma_kernel(int n, int mt, bool packed) {
+  if constexpr (I == sizeof(kWgN) / sizeof(kWgN[0])) {
+    return nullptr;
+  } else {
+    constexpr int NN = kWgN[I];
+    if (n != NN) return wgmma_kernel<I + 1>(n, mt, packed);
+    if (packed) return mt == 1 ? conv3d_wgrad_wgmma_kernel<NN, 1, true> : nullptr;
+    return wgmma_kernel_upto<NN, wg_max_mt(NN)>(mt);
+  }
+}
+
+inline size_t wgrad_smem(const WGeom& w, int es) { return es == 2 ? wgmma_layout(w).total : wgrad_f32_layout(w).total; }
+
 // The weight gradient's plan, kernel and default grid on the current
-// device, cached by shape.
-// force_xs, force_r, force_nbuf: a tile and buffers in the place of the
-// planner's (0: the planner's), for sweeps; a forced plan that does not fit
-// is refused.
-inline int wgrad_plan(int es, int B, int Z, int Y, int X, int Cin, int Cout, int force_xs, int force_r,
-                      int force_nbuf, WGeom& w, const void*& fn, unsigned& blocks) {
+// device, cached by shape and forced fields (a forced plan that does not
+// fit, or names no instantiated kernel, is refused).
+inline int wgrad_plan(int es, int B, int Z, int Y, int X, int Cin, int Cout, const int* force, WGeom& w,
+                      const void*& fn, unsigned& blocks) {
   static PlanCache<WGeom> cache;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
-  const long long key[kKey] = {dev, B, Z, Y, X, Cin, Cout, es, force_xs, force_r, force_nbuf};
+  const long long key[kKey] = {dev, B, Z, Y, X, Cin, Cout, es, force[0], force[1], force[2], force[3], force[4]};
   if (cache.get(key, w, fn, blocks)) return 0;
   if (B < 1 || Z < 1 || Y < 1 || X < 1 || Cin < 1 || Cout < 1) return kErrShape;
   if ((long long)B * Z * Y * X * (Cin > Cout ? Cin : Cout) >= (1LL << 62)) return kErrShape;
   w = WGeom{};
   w.g.B = B, w.g.Z = Z, w.g.Y = Y, w.g.X = X, w.g.Cin = Cin, w.g.Cout = Cout;
-  if (!plan_wgrad(w, es, force_xs, force_r, force_nbuf)) return kErrShape;
-  if (es == 2) {
-    fn = reinterpret_cast<const void*>(w.g.packed ? wgrad_kernel<true>(w.g.NB / 8) : wgrad_kernel<false>(w.g.NB / 8));
-  } else {
-    fn = reinterpret_cast<const void*>(conv3d_wgrad_f32_kernel);
-  }
+  if (!(es == 2 ? plan_wgrad_wgmma(w, force) : plan_wgrad_f32(w, force))) return kErrShape;
+  fn = es == 2 ? reinterpret_cast<const void*>(wgmma_kernel(w.N, w.mt, w.g.packed))
+               : reinterpret_cast<const void*>(conv3d_wgrad_f32_kernel);
   if (!fn) return kErrShape;
   int occ = 0;
-  const int rc = mednext::occupancy(fn, kThreads, wgrad_layout(w, es).total, &occ);
+  const int rc = mednext::occupancy(fn, es == 2 ? kWgThreads : kThreads, wgrad_smem(w, es), &occ);
   if (rc) return rc;
   if (occ < 1) return kErrShape;
   const long long want = (long long)sm_count() * occ;
@@ -1342,18 +1889,19 @@ int run_wgrad(const void* x, const void* dy, void* partial, long long partial_fl
   WGeom w;
   const void* fn = nullptr;
   unsigned blocks = 0;
-  const int rc = wgrad_plan(es, B, Z, Y, X, Cin, Cout, force[0], force[1], force[2], w, fn, blocks);
+  const int rc = wgrad_plan(es, B, Z, Y, X, Cin, Cout, force, w, fn, blocks);
   if (rc) return rc;
-  if (partial_floats < (long long)w.chunks * w.rows_p * w.g.Np) return kErrShape;
+  if (partial_floats < (long long)w.chunks * w.rows_p * w.cols) return kErrShape;
   if (grid > 0) blocks = (unsigned)(grid < w.items ? grid : w.items);
   const T* xp = static_cast<const T*>(x);
   const T* dp = static_cast<const T*>(dy);
   float* pp = static_cast<float*>(partial);
   void* args[] = {&xp, &dp, &pp, &w};
-  cudaError_t e = cudaLaunchKernel(fn, dim3(blocks), dim3(kThreads), args, wgrad_layout(w, es).total, stream);
+  cudaError_t e = cudaLaunchKernel(fn, dim3(blocks), dim3(es == 2 ? kWgThreads : kThreads), args, wgrad_smem(w, es),
+                                   stream);
   if (e == cudaSuccess) e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const long long n = 27LL * w.tap_rows * w.g.Np;
+  const long long n = (long long)w.rows_p * w.cols;
   conv3d_wgrad_sum_kernel<<<(unsigned)((n + 31) / 32), kSumRows * 32, 0, stream>>>(
       static_cast<const float*>(partial), static_cast<float*>(out), w);
   return (int)cudaGetLastError();
@@ -1395,22 +1943,29 @@ int conv3d_3x3_fwd(const void* x, const void* w, const void* bias, void* out, in
 }
 
 // The weight gradient's plan for reports and for the wrapper's scratch:
-// plan[0..11] = XS, R, NB, slices, buffers, rows a chunk (rows_p), chunks,
-// tiles a chunk, items, shared-memory bytes, default grid, floats of the
-// partials (chunks x rows_p x Np). Items and chunks do not depend on the
-// grid. force[0..2]: XS, R and buffers in the place of the planner's, or 0.
+// plan[0..16] = XS, R, N (bf16: wgmma's width; f32: the slice's columns),
+// column slices, ring stages (f32: 1), M tiles a warpgroup (f32: 0), tap
+// groups, rows a row block, row groups (f32: row tiles), rows a chunk
+// (rows_p), chunks, tiles a chunk, items, shared-memory bytes, default grid,
+// floats of the partials (chunks x rows_p x columns), kernel (0 wgmma, 1
+// wgmma packed stem, 2 f32). Items and chunks do not depend on the grid.
+// force[0..4]: XS, R, stages, M tiles a warpgroup, tap groups (1 or 3) in
+// the place of the planner's, each 0 for its own.
 int conv3d_3x3_wgrad_plan(int dtype, int B, int Z, int Y, int X, int Cin, int Cout, const int* force,
                           long long* plan) {
   conv3d::WGeom w;
   const void* fn = nullptr;
   unsigned blocks = 0;
   const int es = dtype ? 2 : 4;
-  const int rc = conv3d::wgrad_plan(es, B, Z, Y, X, Cin, Cout, force[0], force[1], force[2], w, fn, blocks);
+  const int rc = conv3d::wgrad_plan(es, B, Z, Y, X, Cin, Cout, force, w, fn, blocks);
   if (rc) return rc;
-  const long long v[12] = {w.g.XS, w.g.R, w.g.NB, w.g.slices, w.g.nbuf, w.rows_p, w.chunks, w.tpc, w.items,
-                           (long long)conv3d::wgrad_layout(w, es).total, blocks,
-                           (long long)w.chunks * w.rows_p * w.g.Np};
-  for (int i = 0; i < 12; ++i) plan[i] = v[i];
+  const bool f32 = es == 4;
+  const long long v[17] = {w.g.XS,  w.g.R,         f32 ? w.g.NB : w.N, w.g.slices, f32 ? 1 : w.stages,
+                           w.mt,    27 / w.taps,   w.rb,               f32 ? w.row_tiles : w.rg,
+                           w.rows_p, w.chunks,     w.tpc,              w.items,
+                           (long long)conv3d::wgrad_smem(w, es),       blocks,
+                           (long long)w.chunks * w.rows_p * w.cols,    f32 ? 2 : w.g.packed ? 1 : 0};
+  for (int i = 0; i < 17; ++i) plan[i] = v[i];
   return 0;
 }
 
@@ -1419,7 +1974,7 @@ int conv3d_3x3_wgrad_plan(int dtype, int B, int Z, int Y, int X, int Cin, int Co
 // and of one dtype; partial: float32 scratch of at least partial_floats
 // (conv3d_3x3_wgrad_plan); grid: persistent blocks, 0 for the default (the
 // result does not depend on it); force: as for conv3d_3x3_wgrad_plan (the
-// partials follow the tile, so a forced plan sums in another order). Two
+// partials follow the plan, so a forced plan sums in another order). Two
 // kernels on the stream.
 int conv3d_3x3_wgrad(const void* x, const void* dy, void* partial, long long partial_floats, void* out, int dtype,
                      int B, int Z, int Y, int X, int Cin, int Cout, int grid, const int* force, void* stream) {

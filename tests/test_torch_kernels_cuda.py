@@ -603,6 +603,56 @@ def test_conv3d_wgrad_does_not_depend_on_the_grid(device, shape, dtype):
     assert plan["items"] >= plan["chunks"] >= 1 and plan["smem_bytes"] <= 232448
 
 
+# (shape, forced plan): two and four ring stages, one and several M tiles a
+# warpgroup, tap groups and all 27 taps, on the tests' widest Cout (N 104)
+# and the packed stem
+WGRAD_FORCED_PLANS = [
+    ((2, 18, 40, 40, 36, 48), dict(xs=32, r=4, stages=2, m_tiles=1, tap_groups=3)),
+    ((2, 18, 40, 40, 36, 48), dict(xs=32, r=4, stages=4, m_tiles=3, tap_groups=3)),
+    ((2, 18, 40, 40, 36, 48), dict(xs=16, r=4, stages=3, m_tiles=4, tap_groups=1)),
+    ((1, 4, 11, 24, 28, 100), dict(xs=32, r=2, stages=4, m_tiles=2, tap_groups=1)),
+    ((1, 4, 11, 24, 28, 100), dict(xs=16, r=3, stages=2, m_tiles=1, tap_groups=3)),
+    ((2, 16, 16, 16, 1, 28), dict(xs=16, r=4, stages=3, m_tiles=1, tap_groups=3)),
+    ((2, 16, 16, 16, 1, 28), dict(xs=16, r=8, stages=5, m_tiles=1, tap_groups=1)),
+]
+
+
+@pytest.mark.parametrize("case", WGRAD_FORCED_PLANS,
+                         ids=lambda c: "x".join(map(str, c[0])) + "-" + "-".join(f"{k}{v}" for k, v in c[1].items()))
+def test_conv3d_wgrad_forced_plans(device, case):
+    """Each plan parameter forced through ``plan=``: the library's plan is
+    the one asked for, with the decomposition ``wgrad_geometry`` computes;
+    the result matches the plain version (1e-4 of the summed magnitudes) and
+    is the same bits for grids 1, 7 and the default."""
+    shape, plan = case
+    x, dy = _wgrad_inputs(shape, torch.bfloat16, device, seed=11)
+    got_plan = c3.wgrad_plan(tuple(x.shape), shape[5], torch.bfloat16, plan)
+    assert {k: got_plan[k] for k in plan} == plan
+    geo = c3.wgrad_geometry(tuple(x.shape), shape[5], plan)
+    assert {k: got_plan[k] for k in geo if k in got_plan} == {k: v for k, v in geo.items() if k in got_plan}
+    assert got_plan["kernel"] == ("wgmma_packed" if shape[4] < 8 else "wgmma")
+    first = c3.conv3d_3x3_wgrad(x, dy, plan=plan)
+    want = c3.conv3d_3x3_wgrad_plain(x, dy)
+    torch.cuda.synchronize()
+    mag = c3.conv3d_3x3_wgrad_plain(x.abs(), dy.abs())
+    assert torch.all((first - want).abs() <= 1e-4 * mag + 1e-30), ((first - want).abs() / mag).max().item()
+    for grid in (1, 7, None):
+        assert torch.equal(first, c3.conv3d_3x3_wgrad(x, dy, grid=grid, plan=plan)), grid
+
+
+def test_conv3d_wgrad_refuses_plans_without_a_kernel(device):
+    """A forced plan the library has no kernel for (more M tiles than N 104
+    holds, several M tiles on the packed stem, tap groups of 2), or whose
+    ring does not fit shared memory, raises."""
+    x, dy = _wgrad_inputs((1, 4, 11, 24, 28, 100), torch.bfloat16, device)
+    for plan in (dict(m_tiles=3), dict(tap_groups=2), dict(xs=32, r=11, stages=2, tap_groups=1)):
+        with pytest.raises(RuntimeError, match="shape not supported"):
+            c3.conv3d_3x3_wgrad(x, dy, plan=plan)
+    x, dy = _wgrad_inputs((1, 4, 11, 24, 1, 28), torch.bfloat16, device)
+    with pytest.raises(RuntimeError, match="shape not supported"):
+        c3.conv3d_3x3_wgrad(x, dy, plan=dict(m_tiles=2))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_conv3d_function_backward_matches_plain_autograd(device, dtype):
     """Conv3x3Function's dx, dW and db on the card against autograd through
