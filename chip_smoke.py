@@ -1,8 +1,8 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--phases 9,10,12] [--phases instance] [--phases 15,16]
+    python3 chip_smoke.py [--phases 9,10,12] [--phases instance] [--phases 15,16] [--phases unet]
 
-With --phases, only phases 1-2 and the listed ones of 3-16 run, and the
+With --phases, only phases 1-2 and the listed ones of 3-17 run, and the
 last line is the same {"ok": true, ...} object with the phases run; the
 kernels line needs every phase and is printed by a full run only.
 
@@ -122,7 +122,24 @@ Phases (any failure exits non-zero; no phase catches its own failure):
               adapted Rand on B is below the untrained one's; then
               tutorials/nuc_nucmm.yaml --mode train for 40 steps on phase
               11's synthetic 165x1024x768 volume
- 17. report   a {"kernels": [...]} line, then {"ok": true, "device": ...} last
+ 17. unet     the MONAI U-Nets: the conv's kernels (forward, input gradient,
+              weight gradient) against their plain versions at each of
+              BasicUNet's 18 layer shapes on tutorials/vesicle_xm.yaml (bf16 at
+              batch 8 of 16x128x128, timed beside bounds and one PyTorch call;
+              f32 at batch 1), Cin 256 in Cin chunks and Cout 256 in column
+              blocks; the stock BasicUNet forward and one train step, kernel
+              path against plain path (18 forward, 17 input-gradient, 18
+              weight-gradient launches; a fault probe the limit must reject),
+              step time, peak memory and a profile; UNETR at the schema's
+              stock knobs, one forward of batch 2 of 96^3 against plain; then
+              through the CLI: tutorials/minimal.yaml train (4 steps) -> test
+              (random:// test volumes named on the command line),
+              tutorials/synthetic_blobs.yaml train (8 steps) -> test (bump
+              blending, overlap 0.25) -> bcd decode -> adapted Rand and VOI,
+              and tutorials/vesicle_xm.yaml train (40 steps) -> test (flip TTA
+              xy, binary_cc, jaccard / instance F1) on seeded synthetic em2
+              165x1024x768 volumes (its datasets are not in the repository)
+ 18. report   a {"kernels": [...]} line, then {"ok": true, "device": ...} last
 
 Imports torch and the port only. Details go to build/chip_smoke/chip_smoke.json.
 """
@@ -1399,7 +1416,7 @@ def nucmm_model(dev, dtype="bfloat16"):
     bias left out by a kernel must show)."""
     from pytorch_connectomics_tpu_torch.config import load_config
     from pytorch_connectomics_tpu_torch.models import build_model
-    from pytorch_connectomics_tpu_torch.models.rsunet import Conv
+    from pytorch_connectomics_tpu_torch.models.layers import Conv
 
     cfg = load_config(NUCMM, mode="test")
     cfg.model.compute_dtype = dtype
@@ -1601,6 +1618,14 @@ RSUNET_TRAIN_LOSS_TOL = 1e-3
 RSUNET_TRAIN_GRAD_TOL = 0.05
 
 
+def conv_counts(c3):
+    """The dense conv's launches since the last reset: forward (the input
+    gradient's launches of the forward kernel taken out), input gradient and
+    weight gradient."""
+    return dict(forward=c3.conv3d_3x3.launches - c3.conv3d_3x3_input_grad.launches,
+                input_grad=c3.conv3d_3x3_input_grad.launches, wgrad=c3.conv3d_3x3_wgrad.launches)
+
+
 def wgrad_bounds(n, cin, cout, es):
     """Least times (ms) of one weight-gradient launch on n voxels, as (bytes
     term, operations term): x and dy read once and dW (f32) written once
@@ -1632,7 +1657,7 @@ def conv_backward_row(c3, dev, recipe, spatial, cin, cout, per_step, dtype, batc
     err_g = (got_g.float() - want_g.float()).abs().max().item()
     if es == 4:
         mag = c3.conv3d_3x3_input_grad_plain(dy.abs(), w.abs())
-        rel_g, tol_g = ((got_g - want_g).abs() / mag).max().item(), 1e-5
+        rel_g, tol_g = ((got_g - want_g).abs() / mag.clamp_min(1e-30)).max().item(), 1e-5
         bad = rel_g > tol_g
         del mag
     else:
@@ -1641,7 +1666,8 @@ def conv_backward_row(c3, dev, recipe, spatial, cin, cout, per_step, dtype, batc
     if bad:
         fail(f"conv3d input gradient {what}: error {err_g:.3g} (relative {rel_g}) over {tol_g:.3g}")
     mag = c3.conv3d_3x3_wgrad_plain(x.abs(), dy.abs())
-    rel_w = ((got_w - want_w).abs() / mag).max().item()
+    # taps that read only the zero halo (z of 1) have no magnitude: there the error must be 0
+    rel_w = ((got_w - want_w).abs() / mag.clamp_min(1e-30)).max().item()
     err_w = (got_w - want_w).abs().max().item()
     if not rel_w <= 1e-4:
         fail(f"conv3d_3x3_wgrad {what}: error {err_w:.3g}, relative to the summed magnitudes {rel_w:.3g} > 1e-4")
@@ -1743,7 +1769,7 @@ def phase_rsunet_train(c3, dev, report):
                     fail(f"conv3d_3x3_wgrad {shape} {dtype} differs from launch to launch (grid {grid})")
     log("conv3d_3x3_wgrad bit-identical across launches and grids 1, 7, 1000 and the default")
     # (d) one SNEMI train step at full width: kernel path against plain, launches, time
-    from pytorch_connectomics_tpu_torch.models.rsunet import Conv
+    from pytorch_connectomics_tpu_torch.models.layers import Conv
 
     cfg, model, orch, batch = rsunet_train_setup(SNEMI, dev)
     biases = {f"{n}.bias" for n, m in model.named_modules() if isinstance(m, Conv)}
@@ -1760,8 +1786,7 @@ def phase_rsunet_train(c3, dev, report):
     c3.reset_launch_counts()
     loss_k, g_k = loss_and_grads(False)
     torch.cuda.synchronize()
-    counts = dict(forward=c3.conv3d_3x3.launches - c3.conv3d_3x3_input_grad.launches,
-                  input_grad=c3.conv3d_3x3_input_grad.launches, wgrad=c3.conv3d_3x3_wgrad.launches)
+    counts = conv_counts(c3)
     if counts != dict(forward=14, input_grad=14, wgrad=14):
         fail(f"one SNEMI train step should launch 14 forward, 14 input-gradient and 14 weight-gradient convs: {counts}")
     loss_p, g_p = loss_and_grads(True)
@@ -1857,14 +1882,389 @@ def phase_rsunet_train(c3, dev, report):
     loss, _ = orch(model(batch["image"]), batch["label"])
     loss.backward()
     torch.cuda.synchronize()
-    counts = dict(forward=c3.conv3d_3x3.launches - c3.conv3d_3x3_input_grad.launches,
-                  input_grad=c3.conv3d_3x3_input_grad.launches, wgrad=c3.conv3d_3x3_wgrad.launches)
+    counts = conv_counts(c3)
     if counts != dict(forward=15, input_grad=14, wgrad=15) or not math.isfinite(loss.item()):
         fail(f"one NucMM-Z train step should launch 15, 14 and 15 convs with a finite loss: {counts}, {loss.item()}")
     log(f"NucMM-Z train step bf16 batch 8 of 64^3: loss {loss.item():.4f}, launches {counts}")
     out["nucmm_step"] = dict(loss=loss.item(), launches_per_step=counts)
     del model, batch, loss
     torch.cuda.empty_cache()
+    return rows
+
+
+# the MONAI U-Net recipes (phase 17)
+VESICLE = ROOT / "tutorials" / "vesicle_xm.yaml"
+MINIMAL = ROOT / "tutorials" / "minimal.yaml"
+BLOBS = ROOT / "tutorials" / "synthetic_blobs.yaml"
+VESICLE_BATCH = 8
+VESICLE_SHAPE = (165, 1024, 768)
+VESICLE_STEPS = 40
+# ((Z, Y, X), Cin, Cout, launches per forward) of BasicUNet's 3^3 convs at
+# vesicle_xm's (16, 128, 128) window, stock features [32, 32, 64, 128, 256, 32]:
+# the encoder's two convs a level, then the decoder's (after the upcat)
+UNET_CONV_SHAPES = [
+    ((16, 128, 128), 1, 32, 1), ((16, 128, 128), 32, 32, 2), ((16, 128, 128), 64, 32, 1),
+    ((8, 64, 64), 32, 32, 3), ((8, 64, 64), 64, 32, 1),
+    ((4, 32, 32), 32, 64, 1), ((4, 32, 32), 64, 64, 2), ((4, 32, 32), 128, 64, 1),
+    ((2, 16, 16), 64, 128, 1), ((2, 16, 16), 128, 128, 2), ((2, 16, 16), 256, 128, 1),
+    ((1, 8, 8), 128, 256, 1), ((1, 8, 8), 256, 256, 1),
+]
+# limits of the U-Nets' kernel path against their plain path. bf16: the
+# forward as a share of max |plain output|, the train step's loss (relative)
+# and its whole gradient (the norm of the difference over all leaves over the
+# norm of all leaves): a deep leaf's gradient is the small remainder of
+# cancellations in the instance norms' backward, where one path's bf16
+# roundings move it by 10-30% (PERF.md), so single leaves are held in f32:
+# the f32 step's leaves each UNET_F32_GRAD_TOL over their norm or, under
+# UNET_SMALL_LEAF of the largest leaf's norm (the conv biases that instance
+# norm cancels), over that share of the largest (the same cancellations
+# leave f32 sums in another order 0.3% apart there; a dropped tap moves a
+# leaf about 20%). PERF.md gives the readings
+UNET_BF16_TOL = 0.03
+UNET_TRAIN_LOSS_TOL = 1e-3
+UNET_TRAIN_GRAD_TOL = 0.05
+UNET_SMALL_LEAF = 0.01
+UNET_F32_GRAD_TOL = 1e-2
+
+
+def unet_leaf_errors(got, want, floor):
+    """Per-leaf |g - g_ref| / max(|g_ref|, floor * largest |g_ref|), each
+    leaf's norm as a share of the largest, and the whole gradient's error
+    |g - g_ref| / |g_ref| over all leaves."""
+    top = max(g.norm().item() for g in want.values())
+    errs = {n: (got[n] - g).norm().item() / max(g.norm().item(), floor * top) for n, g in want.items()}
+    whole = math.sqrt(sum((got[n] - g).norm().item() ** 2 for n, g in want.items())
+                      / sum(g.norm().item() ** 2 for g in want.values()))
+    return errs, {n: g.norm().item() / top for n, g in want.items()}, whole
+
+
+def unet_conv_row(c3, dev, spatial, cin, cout, per_fwd, dtype, batch):
+    """The conv's three kernels at one BasicUNet layer shape: the forward
+    against its plain version (bf16 two ulps at the largest output, f32 1e-5
+    of the summed magnitudes) with its plan (Cin chunks past one launch's
+    weight slice), then the input and weight gradients
+    (:func:`conv_backward_row`: checked, and in bf16 timed)."""
+    es = 2 if dtype == torch.bfloat16 else 4
+    rng = np.random.default_rng(11 * cin + cout)
+    x = torch.from_numpy(rng.standard_normal((batch, *spatial, cin), dtype=np.float32)).to(dev, dtype)
+    w = torch.from_numpy((rng.standard_normal((cout, cin, 3, 3, 3)) / np.sqrt(27 * cin)).astype(np.float32)).to(dev)
+    b = torch.from_numpy(rng.standard_normal(cout).astype(np.float32) * 0.1).to(dev)
+    got, want = c3.conv3d_3x3(x, w, b), c3.conv3d_3x3_plain(x, w, b)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    if es == 4:
+        mag = c3.conv3d_3x3_plain(x.abs(), w.abs()) + b.abs()
+        rel, tol = ((got - want).abs() / mag.clamp_min(1e-30)).max().item(), 1e-5
+        bad = rel > tol
+        del mag
+    else:
+        rel, tol = None, 2.0 ** (math.floor(math.log2(want.float().abs().max().item())) - 6)
+        bad = err > tol
+    what = f"BasicUNet {spatial} {cin}->{cout} {str(dtype).split('.')[-1]} batch {batch}"
+    if bad:
+        fail(f"conv3d_3x3 {what}: error {err:.3g} (relative {rel}) over {tol:.3g}")
+    plan = c3.kernel_plan(tuple(x.shape), cout, dtype)
+    plain_ms = time_ms(lambda: c3.conv3d_3x3_plain(x, w, b), 3) if es == 2 else None
+    del x, w, b, got, want
+    row = conv_backward_row(c3, dev, "vesicle", spatial, cin, cout, per_fwd, dtype, batch)
+    row["forward"] = dict(row.get("forward", {}), max_abs_err=err, max_rel_err=rel, tol=tol, plan=plan,
+                          plain_ms=plain_ms)
+    log(f"    forward plan: {plan['chunks']} Cin chunk(s) of {plan['cin_chunk']}, tile {plan['xs']}x{plan['r']}, "
+        f"warp {plan['warp_m']}x{plan['warp_n']}, {plan['buffers']} buffer(s); err {err:.3g} <= {tol:.3g}")
+    return row
+
+
+def unet_step_batch(cfg, dev):
+    """Batch 8 of vesicle_xm's (16, 128, 128) patch from a seeded synthetic
+    em2 volume made on the card, with the recipe's binary target."""
+    from pytorch_connectomics_tpu_torch.data.synthetic import synthetic_em_task
+    from pytorch_connectomics_tpu_torch.data.targets.build import build_target_fn
+
+    z, y, x = cfg.data.dataloader.patch_size
+    img, lbl = synthetic_em_task("em2", (z, 2 * y, 4 * x), seed=5, device=dev)
+    crops = [(slice(0, z), slice(i * y, (i + 1) * y), slice(j * x, (j + 1) * x)) for i in range(2) for j in range(4)]
+    target = build_target_fn(cfg.data.label_transform)
+    xs = np.stack([img[c] / np.float32(255.0) for c in crops])[..., None].astype(np.float32)
+    ys = np.stack([np.moveaxis(target(lbl[c]), 0, -1) for c in crops]).astype(np.float32)
+    return {"image": torch.from_numpy(xs).to(dev), "label": torch.from_numpy(ys).to(dev)}
+
+
+def phase_unet(c3, dev, work, report):
+    log("== phase 17: the MONAI U-Nets: BasicUNet's conv shapes, the vesicle_xm step, UNETR, the three recipes ==")
+    import shutil
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pytorch_connectomics_tpu_torch.config import load_config
+    from pytorch_connectomics_tpu_torch.data.io import read_volume
+    from pytorch_connectomics_tpu_torch.losses import LossOrchestrator
+    from pytorch_connectomics_tpu_torch.models import build_model
+    from pytorch_connectomics_tpu_torch.models.layers import Conv
+    from pytorch_connectomics_tpu_torch.runtime.cli import parse_args
+    from pytorch_connectomics_tpu_torch.runtime.dispatch import dispatch_runtime
+    from pytorch_connectomics_tpu_torch.training.optim import build_optimizer
+    from pytorch_connectomics_tpu_torch.training.state import create_train_state, make_train_step
+
+    out = report["unet"] = {}
+    t_phase = time.perf_counter()
+
+    def lap(what):
+        out.setdefault("seconds", {})[what] = time.perf_counter() - t_phase
+        log(f"-- {what}: {out['seconds'][what]:.1f} s into phase 17")
+
+    # (a) the conv's kernels at every BasicUNet layer shape: bf16 at the recipe's batch, f32 at batch 1
+    rows = []
+    for dtype, batch in ((torch.bfloat16, VESICLE_BATCH), (torch.float32, 1)):
+        for spatial, cin, cout, per in UNET_CONV_SHAPES:
+            rows.append(unet_conv_row(c3, dev, spatial, cin, cout, per, dtype, batch))
+            torch.cuda.empty_cache()
+    out["conv_rows"] = rows
+    bf16 = [r for r in rows if r["dtype"] == "bfloat16"]
+    per_fwd = {k: sum(r[k]["ms"] * r["launches_per_step"] for r in bf16) for k in ("forward", "input_grad", "wgrad")}
+    per_fwd["stem_input_grad"] = sum(r["input_grad"]["ms"] for r in bf16 if r["cin"] == 1)  # not run in training
+    bounds = {k: sum(r[k]["bound_ms"] * r["launches_per_step"] for r in bf16) for k in ("forward", "input_grad", "wgrad")}
+    libs = {k: sum(r[k]["library_ms"] * r["launches_per_step"] for r in bf16) for k in ("forward", "input_grad", "wgrad")}
+    out["kernel_ms_per_forward"], out["bound_ms_per_forward"], out["library_ms_per_forward"] = per_fwd, bounds, libs
+    log("BasicUNet's 18 convs (bf16, batch 8 of 16x128x128) a forward: " + ", ".join(
+        f"{k} {per_fwd[k]:.3f} ms (bound {bounds[k]:.3f}, library {libs[k]:.3f})"
+        for k in ("forward", "input_grad", "wgrad")))
+    lap("conv shapes")
+    # (b) vesicle_xm at full width: the forward and one train step, kernel path against plain
+    cfg = load_config(VESICLE, mode="train")
+    m = cfg.model
+    if (m.arch.type != "monai_basic_unet" or list(m.monai.features) != [32, 32, 64, 128, 256, 32]
+            or m.compute_dtype != "bfloat16" or cfg.data.dataloader.batch_size != VESICLE_BATCH
+            or list(cfg.data.dataloader.patch_size) != [16, 128, 128]):
+        fail("vesicle_xm.yaml no longer trains the stock BasicUNet bf16 on batch 8 of 16x128x128")
+    model = build_model(cfg.model, device=dev, seed=0)
+    with torch.no_grad():  # seeded nonzero conv biases: a bias the kernel drops must show
+        g = torch.Generator().manual_seed(1)
+        for mod in model.modules():
+            if isinstance(mod, Conv):
+                mod.bias.copy_(0.1 * torch.randn(mod.bias.shape, generator=g))
+    batch = unet_step_batch(cfg, dev)
+    x, y = batch["image"], batch["label"]
+    with torch.no_grad():
+        c3.reset_launch_counts()
+        got = model(x)
+        torch.cuda.synchronize()
+        fwd_counts = conv_counts(c3)
+        want = model(x, plain=True)
+        fwd_err = ((got - want).abs().max() / want.abs().max()).item()
+        fwd_ms = time_ms(lambda: model(x), 5)
+        plain_fwd_ms = time_ms(lambda: model(x, plain=True), 2)
+    if fwd_counts != dict(forward=18, input_grad=0, wgrad=0):
+        fail(f"one BasicUNet forward should launch conv3d_3x3 18 times: {fwd_counts}")
+    if not torch.isfinite(got).all() or fwd_err > UNET_BF16_TOL:
+        fail(f"BasicUNet forward kernel vs plain: {fwd_err:.4g} of max |plain| > {UNET_BF16_TOL}")
+    log(f"vesicle_xm BasicUNet forward (bf16, batch 8 of 16x128x128): {fwd_ms:.2f} ms (plain path {plain_fwd_ms:.1f} "
+        f"ms), kernel vs plain {fwd_err:.4g} of max |plain| (limit {UNET_BF16_TOL}), launches {fwd_counts}")
+    del got, want
+    orch = LossOrchestrator(cfg.model.loss)
+
+    def loss_and_grads(plain, net=model, xx=x, yy=y):
+        net.zero_grad(set_to_none=True)
+        loss, _ = orch(net(xx, plain=plain), yy)
+        loss.backward()
+        return loss.item(), {n: p.grad.detach().clone() for n, p in net.named_parameters()}
+
+    model.train()
+    c3.reset_launch_counts()
+    loss_k, g_k = loss_and_grads(False)
+    torch.cuda.synchronize()
+    counts = conv_counts(c3)
+    if counts != dict(forward=18, input_grad=17, wgrad=18):
+        fail(f"one vesicle_xm train step should launch 18 forward, 17 input-gradient and 18 weight-gradient convs: "
+             f"{counts}")
+    loss_p, g_p = loss_and_grads(True)
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    errs, shares, whole = unet_leaf_errors(g_k, g_p, UNET_SMALL_LEAF)
+    worst = max(errs, key=errs.get)
+    log(f"vesicle_xm step: loss kernel {loss_k:.6f} plain {loss_p:.6f} (rel err {loss_err:.3g}); whole gradient "
+        f"{whole:.4g} (limit {UNET_TRAIN_GRAD_TOL}); worst leaf {worst} {errs[worst]:.4g}; launches {counts}")
+    log("  worst leaves (error, norm / largest): " + ", ".join(
+        f"{n} {errs[n]:.3g} {shares[n]:.2g}" for n in sorted(errs, key=errs.get, reverse=True)[:6]))
+    if not math.isfinite(loss_k) or loss_err > UNET_TRAIN_LOSS_TOL:
+        fail(f"vesicle_xm train step loss: kernel {loss_k} vs plain {loss_p} (rel err {loss_err:.3g})")
+    if whole > UNET_TRAIN_GRAD_TOL:
+        fail(f"vesicle_xm train step gradient: error {whole:.3g} > {UNET_TRAIN_GRAD_TOL}")
+    # a fault probe that the gradient limit must reject: a weight-gradient tap dropped
+    wgrad = c3.conv3d_3x3_wgrad
+
+    def drop_tap(xx, dd, grid=None):
+        gg = wgrad(xx, dd).clone()
+        gg[:, :, 0, 0, 0] = 0
+        return gg
+
+    drop_tap.launches = 0
+    c3.conv3d_3x3_wgrad = drop_tap
+    try:
+        probe = unet_leaf_errors(loss_and_grads(False)[1], g_p, UNET_SMALL_LEAF)[2]
+    finally:
+        c3.conv3d_3x3_wgrad = wgrad
+    log(f"fault probe (dW tap (0,0,0) dropped): whole gradient error {probe:.4g} against the limit "
+        f"{UNET_TRAIN_GRAD_TOL}")
+    if probe <= UNET_TRAIN_GRAD_TOL:
+        fail(f"the gradient limit {UNET_TRAIN_GRAD_TOL} lets the dropped-tap probe pass: {probe}")
+    opt, schedule = build_optimizer(cfg.optimization, model, cfg.optimization.n_steps_per_epoch)
+    state = create_train_state(model, opt)
+    step = make_train_step(orch, schedule, gradient_clip=cfg.optimization.gradient_clip_val)
+    step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        logs = step(state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 5 * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(float(v)) for v in logs.values()):
+        fail(f"vesicle_xm train step logs not finite: {logs}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    top = sorted(events, key=dev_us, reverse=True)[:12]
+    log(f"vesicle_xm train step: {step_ms:.1f} ms, peak memory {peak / 2**30:.2f} GiB; under the profiler the "
+        f"kernels take {busy_ms:.1f} ms of device time")
+    for e in top:
+        log(f"  {dev_us(e) / 1e3:8.2f} ms  {e.count:5d}x  {e.key[:90]}")
+    # the same step in f32 (batch 2; the f32 kernels): every leaf within UNET_F32_GRAD_TOL of the plain path
+    fcfg = load_config(VESICLE, overrides=["optimization.precision=32"], mode="train")
+    if fcfg.model.compute_dtype != "float32":
+        fail(f"optimization.precision=32 gives compute dtype {fcfg.model.compute_dtype}")
+    fmodel = build_model(fcfg.model, device=dev, seed=0)
+    fmodel.load_state_dict(model.state_dict())
+    fmodel.train()
+    f_args = dict(net=fmodel, xx=x[:2].contiguous(), yy=y[:2].contiguous())
+    c3.reset_launch_counts()
+    floss_k, fg_k = loss_and_grads(False, **f_args)
+    fcounts = conv_counts(c3)
+    floss_p, fg_p = loss_and_grads(True, **f_args)
+    ferrs, _, fwhole = unet_leaf_errors(fg_k, fg_p, UNET_SMALL_LEAF)
+    fworst = max(ferrs, key=ferrs.get)
+    floss_err = abs(floss_k - floss_p) / abs(floss_p)
+    log(f"vesicle_xm step in f32 (batch 2): loss kernel {floss_k:.7f} plain {floss_p:.7f} (rel err {floss_err:.3g}); "
+        f"worst leaf {fworst} {ferrs[fworst]:.3g} (limit {UNET_F32_GRAD_TOL}), whole gradient {fwhole:.3g}; launches "
+        f"{fcounts}")
+    if fcounts != dict(forward=18, input_grad=17, wgrad=18) or floss_err > 1e-5 or ferrs[fworst] > UNET_F32_GRAD_TOL:
+        fail(f"vesicle_xm f32 step: launches {fcounts}, loss rel err {floss_err:.3g}, {fworst} {ferrs[fworst]:.3g}")
+    del fmodel, fg_k, fg_p
+    out["vesicle_step"] = dict(
+        f32_loss_rel_err=floss_err, f32_worst_leaf=fworst, f32_worst_leaf_error=ferrs[fworst], f32_leaf_errors=ferrs,
+        grad_whole_error=whole,
+        forward_ms=fwd_ms, plain_forward_ms=plain_fwd_ms, forward_rel_err=fwd_err, forward_launches=fwd_counts,
+        step_ms=step_ms, peak_memory_bytes=peak, launches_per_step=counts, loss_kernel=loss_k, loss_plain=loss_p,
+        loss_rel_err=loss_err, grad_leaf_errors=errs, worst_leaf=worst, fault_probe_leaf_error=probe,
+        device_busy_ms=busy_ms, top_kernels=[dict(name=e.key, device_ms=dev_us(e) / 1e3, count=e.count) for e in top],
+    )
+    del model, opt, state, g_k, g_p, batch, x, y
+    torch.cuda.empty_cache()
+    lap("vesicle step")
+    # (c) UNETR at the schema's stock knobs: one forward, batch 2 of 96^3, kernel path against plain
+    ucfg = load_config(VESICLE, overrides=["model.arch.type=monai_unetr", "model.input_size=[96,96,96]"], mode="train")
+    unetr = build_model(ucfg.model, device=dev, seed=0)
+    mu = ucfg.model.monai
+    xu = torch.from_numpy(np.random.default_rng(9).standard_normal((2, 96, 96, 96, 1), dtype=np.float32)).to(dev)
+    with torch.no_grad():
+        c3.reset_launch_counts()
+        got = unetr(xu)
+        torch.cuda.synchronize()
+        ucounts = conv_counts(c3)
+        want = unetr(xu, plain=True)
+        uerr = ((got - want).abs().max() / want.abs().max()).item()
+        ums = time_ms(lambda: unetr(xu), 5)
+        uplain = time_ms(lambda: unetr(xu, plain=True), 2)
+    if ucounts["forward"] != 9 or not torch.isfinite(got).all() or uerr > UNET_BF16_TOL:
+        fail(f"UNETR forward: {ucounts} launches (9 expected), kernel vs plain {uerr:.4g} > {UNET_BF16_TOL}?")
+    log(f"UNETR (hidden {mu.hidden_size}, {mu.num_layers} layers, {mu.num_heads} heads, mlp {mu.mlp_dim}, patch "
+        f"{list(mu.patch_size)}, feature_size {mu.feature_size}) forward bf16 batch 2 of 96^3: {ums:.2f} ms (plain "
+        f"{uplain:.1f}), kernel vs plain {uerr:.4g} of max |plain|, launches {ucounts}")
+    out["unetr"] = dict(forward_ms=ums, plain_forward_ms=uplain, rel_err=uerr, launches=ucounts)
+    del unetr, xu, got, want
+    torch.cuda.empty_cache()
+    lap("unetr")
+    # (d) the recipes through the CLI
+    logs_h = LogRecords(("timing[",))
+    port_log = logging.getLogger("pytorch_connectomics_tpu_torch")
+    port_log.addHandler(logs_h)
+
+    def leg(recipe, mode, root, extra, steps=None):
+        c3.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = dispatch_runtime(parse_args(["--config", str(recipe), "--device", str(dev), "--mode", mode,
+                                           f"save_path={root}"] + extra))
+        torch.cuda.synchronize()
+        res["seconds"] = time.perf_counter() - t0
+        res["launches"] = conv_counts(c3)
+        if res["launches"]["forward"] <= 0 or (recipe == VESICLE and res["launches"]["forward"] % 18):
+            fail(f"{recipe.name} --mode {mode} did not run its forwards through the conv kernel: {res['launches']}")
+        if mode == "train":
+            st = train_leg_stats(res)
+            if st["train_stats"]["steps"] != steps or not res["checkpoint"] or not st["losses"] \
+                    or not all(math.isfinite(v) for v in st["losses"]):
+                fail(f"{recipe.name} train leg: {st['train_stats']['steps']} steps, checkpoint {res['checkpoint']}, "
+                     f"losses {st['losses']}")
+            if res["launches"]["wgrad"] <= 0 or res["launches"]["input_grad"] <= 0:
+                fail(f"{recipe.name} train leg did not run the backward kernels: {res['launches']}")
+            if recipe == VESICLE and res["launches"] != dict(forward=18 * steps, input_grad=17 * steps, wgrad=18 * steps):
+                fail(f"the vesicle_xm train leg should launch 18 forward, 17 input-gradient and 18 weight-gradient "
+                     f"convs a step for {steps} steps: {res['launches']}")
+            res["stats"] = st
+            log(f"{recipe.name} train: {steps} steps in {st['train_stats']['seconds']:.2f} s ({st['steps_per_s']:.3f} "
+                f"steps/s, {st['step_ms']:.1f} ms a step, {st['data_wait_ms_per_step']:.1f} of it waiting; pipeline "
+                f"{st['pipeline_host_ms_per_batch']:.1f} ms a batch); losses {st['losses'][0]:.4f} -> "
+                f"{st['losses'][-1]:.4f}; launches {res['launches']}; {res['seconds']:.1f} s in all")
+        else:
+            timing = logs_h.take("timing[")
+            res["timing"] = [dict(zip(("volume", "read+normalise", "predict", "save", "decode", "evaluate"), t))
+                             for t in timing]
+            metrics = next(iter(res["metrics"].values()))
+            if not all(math.isfinite(v) for v in metrics.values()):
+                fail(f"{recipe.name} test metrics: {metrics}")
+            log(f"{recipe.name} test: {res['seconds']:.1f} s, timing {res['timing']}, metrics {metrics}, "
+                f"launches {res['launches']}")
+        return res
+
+    legs = {}
+    try:
+        for recipe, tag in ((MINIMAL, "minimal"), (BLOBS, "blobs"), (VESICLE, "vesicle")):
+            root = work / f"unet_{tag}"
+            shutil.rmtree(root, ignore_errors=True)
+            if recipe == VESICLE:
+                shape = "shape={},{},{}".format(*VESICLE_SHAPE)
+                train_extra = [f"data.train.image=synthetic://em2/vesicle_train_image?{shape}&seed=41",
+                               f"data.train.label=synthetic://em2/vesicle_train_label?{shape}&seed=41",
+                               f"optimization.n_steps_per_epoch={VESICLE_STEPS}", "optimization.max_epochs=1"]
+                test_extra = [f"data.test.image=synthetic://em2/vesicle_test_image?{shape}&seed=42",
+                              f"data.test.label=synthetic://em2/vesicle_test_label?{shape}&seed=42"]
+                steps = VESICLE_STEPS
+            elif recipe == MINIMAL:  # the recipe names no test volume: the test leg names random:// ones
+                train_extra, steps = [], 4
+                test_extra = ["data.test.image=random://minimal/test_image", "data.test.label=random://minimal/test_label"]
+            else:
+                train_extra, test_extra, steps = [], [], 8
+            train = leg(recipe, "train", root, train_extra, steps)
+            test = leg(recipe, "test", root, test_extra)
+            if (test.get("restored") or {}).get("checkpoint") != train["checkpoint"]:
+                fail(f"{recipe.name} test leg did not restore {train['checkpoint']}: {test.get('restored')}")
+            pred = read_volume(str(next(f for f in Path(test["run_dir"]).iterdir()
+                                        if f.name.endswith(("_prediction.h5", "_prediction.npy")))))
+            if not np.isfinite(pred).all():
+                fail(f"{recipe.name} prediction not finite")
+            legs[tag] = dict(train=dict(train["stats"], seconds=train["seconds"], launches=train["launches"]),
+                             test=dict(seconds=test["seconds"], timing=test["timing"], launches=test["launches"],
+                                       metrics=next(iter(test["metrics"].values())), prediction_shape=list(pred.shape)))
+            lap(tag)
+    finally:
+        port_log.removeHandler(logs_h)
+    if "adapted_rand" not in legs["blobs"]["test"]["metrics"] or "jaccard" not in legs["vesicle"]["test"]["metrics"]:
+        fail(f"recipe metrics: {legs['blobs']['test']['metrics']}, {legs['vesicle']['test']['metrics']}")
+    if "_tta_x4_" not in next(f.name for f in (work / "unet_vesicle").rglob("*_prediction.*")):
+        fail("the vesicle_xm test leg did not predict with the recipe's 4 flip variants")
+    out["recipes"] = legs
     return rows
 
 
@@ -2256,17 +2656,17 @@ def main(argv=None) -> None:
 
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU and check it.")
     ap.add_argument("--phases", default=None,
-                    help="comma-separated phases of 3-16 (14 also as 'instance') to run after the device and build "
-                    "phases (default: all)")
+                    help="comma-separated phases of 3-17 (14 also as 'instance', 17 as 'unet') to run after the "
+                    "device and build phases (default: all)")
     args = ap.parse_args(argv)
     phases = None
     if args.phases is not None:
         try:
-            phases = {14 if p == "instance" else int(p) for p in args.phases.split(",")}
+            phases = {{"instance": 14, "unet": 17}.get(p) or int(p) for p in args.phases.split(",")}
         except ValueError:
-            ap.error("--phases takes phases 3-16")
-    if phases is not None and not phases <= set(range(3, 17)):
-        ap.error("--phases takes phases 3-16")
+            ap.error("--phases takes phases 3-17")
+    if phases is not None and not phases <= set(range(3, 18)):
+        ap.error("--phases takes phases 3-17")
 
     def want(n):
         return phases is None or n in phases
@@ -2351,8 +2751,10 @@ def main(argv=None) -> None:
         wgrad_rows = phase_rsunet_train(c3, dev, report)
     if want(16):
         snemi_counts = phase_rsunet_recipes(c3, dev, work, report)
+    if want(17):
+        phase_unet(c3, dev, work, report)
 
-    log("== phase 17: report ==")
+    log("== phase 18: report ==")
     report["total_seconds"] = time.perf_counter() - started
     log(f"chip_smoke ran in {report['total_seconds']:.1f} s")
     device = {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}

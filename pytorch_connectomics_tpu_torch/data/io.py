@@ -4,7 +4,7 @@ generated ``synthetic://`` volumes.
 
 Counterpart of ``read_volume``/``save_volume`` in
 ``pytorch_connectomics_tpu/data/io.py`` for the formats the ported slices
-read and write.
+read and write, and of its ``random://`` volumes (:func:`random_volume`).
 """
 
 from __future__ import annotations
@@ -52,6 +52,49 @@ _SYNTH_TASKS = ("em", "em2", "instance", "blobs")
 _LABEL_TAGS = ("label", "_lb", "seg", "mask")
 
 
+def random_volume(name: str, shape: Tuple[int, ...] = (64, 128, 128)) -> np.ndarray:
+    """The ``random://<name>`` volume, the JAX package's ``synthetic_volume``
+    (``data/io.py:59-100``) value for value: smooth noise from a numpy
+    ``default_rng`` seeded by the crc32 of the name with its role tags
+    removed (so an image and its label share one field), an 8^3 normal
+    field resized by separable linear interpolation and scaled to [0, 1].
+    Names with a label tag give the connected components (scipy's
+    6-connected ``label``) of the field above 0.6 as uint32, others the
+    field as uint8 (x 255)."""
+    base = name.lower()
+    for tag in ("image", "label", "mask", "seg", "_im", "_lb", "im", "lb"):
+        base = base.replace(tag, "")
+    rng = np.random.default_rng(zlib.crc32(base.encode()) % (2**31))
+    vol = rng.normal(size=(8, 8, 8)).astype(np.float32)
+    for axis, target in enumerate(shape):
+        idx = np.linspace(0, vol.shape[axis] - 1, target)
+        lo = np.floor(idx).astype(int)
+        hi = np.minimum(lo + 1, vol.shape[axis] - 1)
+        wshape = [1] * vol.ndim
+        wshape[axis] = target
+        w = (idx - lo).astype(np.float32).reshape(wshape)
+        vol = np.take(vol, lo, axis=axis) * (1 - w) + np.take(vol, hi, axis=axis) * w
+    vol = (vol - vol.min()) / max(1e-6, float(np.ptp(vol)))
+    if any(tag in name.lower() for tag in _LABEL_TAGS):
+        from scipy import ndimage
+
+        return ndimage.label((vol > 0.6).astype(np.uint8))[0].astype(np.uint32)
+    return (vol * 255).astype(np.uint8)
+
+
+def parse_random_url(path: str) -> Tuple[str, Tuple[int, ...]]:
+    """``random://<name>?shape=Z,Y,X`` -> (name, shape); default (64, 128, 128)."""
+    body = path[len("random://"):]
+    if "?" in body:
+        body, qs = body.split("?", 1)
+        m = re.search(r"shape=([\dx,]+)", qs)
+        if m:
+            return body, tuple(int(s) for s in re.split("[x,]", m.group(1)))
+    return body, (64, 128, 128)
+
+
+
+
 def parse_synthetic_url(path: str):
     """``synthetic://<task>/<name>?shape=Z,Y,X&seed=N&cells=K&elong=E`` ->
     (task, name, shape, seed, cells, elong). Without ``seed`` the seed is a
@@ -96,8 +139,6 @@ def synthetic_task_volume(path: str, device=None) -> np.ndarray:
     from .synthetic import synthetic_em_task
 
     task, name, shape, seed, cells, elong = parse_synthetic_url(path)
-    if task not in ("em", "em2", "instance"):
-        raise NotImplementedError(f"synthetic task '{task}' is not ported yet (em, em2 and instance)")
     key = (task, shape, seed, cells, elong)
     with _SYNTH_LOCK:
         if key not in _SYNTH_CACHE:
@@ -113,6 +154,9 @@ def read_volume(
 ) -> np.ndarray:
     """Read a full volume (or an ``roi`` slab). ``device`` is where a
     ``synthetic://`` volume is generated (default the CPU)."""
+    if str(path).startswith("random://"):
+        vol = random_volume(*parse_random_url(str(path)))
+        return vol[tuple(roi)] if roi else vol
     if str(path).startswith("synthetic://"):
         vol = synthetic_task_volume(str(path), device)
         return vol[tuple(roi)] if roi else vol

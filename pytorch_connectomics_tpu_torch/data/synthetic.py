@@ -1,7 +1,8 @@
 """Synthetic EM volumes, the port of
-``pytorch_connectomics_tpu/data/synthetic_jax.py:33-234``: the Lucchi++-style
-mitochondria tasks (``em``, ``em2``) and the CREMI-style dense neuron
-instance task (``instance``).
+``pytorch_connectomics_tpu/data/synthetic_jax.py:33-320``: the Lucchi++-style
+mitochondria tasks (``em``, ``em2``), the CREMI-style dense neuron
+instance task (``instance``) and the MitoEM-style sparse blob task
+(``blobs``).
 
 Each generator is split in two:
 
@@ -131,6 +132,26 @@ def instance_draws(shape: Shape, n_cells: int, seed: int) -> Dict[str, torch.Ten
     g = torch.Generator().manual_seed(int(seed))
     d = {k: torch.randn(low_shape(shape, fv), generator=g) for k, fv in _INSTANCE_FIELDS.items()}
     d["seeds"] = torch.rand((int(n_cells), 3), generator=g)
+    d["slice_gain"] = torch.randn((shape[0], 1, 1), generator=g)
+    d["noise"] = torch.randn(shape, generator=g)
+    return d
+
+
+# feature sizes (voxels) of the blob task's smooth fields: the three warp
+# displacements, the interior texture, the background shading and the clutter
+_BLOB_FIELDS = {"warp_z": 20.0, "warp_y": 20.0, "warp_x": 20.0, "tex": 4.0, "shade": 30.0, "clutter": 9.0}
+
+
+def blob_draws(shape: Shape, n_blobs: int, seed: int) -> Dict[str, torch.Tensor]:
+    """Every random number of one blob volume, on the CPU: the smooth
+    fields' low-resolution noise, the blob seeds as uniform (n, 3)
+    fractions of the volume, the radii's and the per-axis squash's uniforms
+    in [0, 1), the per-slice gain and the sensor noise."""
+    g = torch.Generator().manual_seed(int(seed))
+    d = {k: torch.randn(low_shape(shape, fv), generator=g) for k, fv in _BLOB_FIELDS.items()}
+    d["seeds"] = torch.rand((int(n_blobs), 3), generator=g)
+    d["radii"] = torch.rand((int(n_blobs),), generator=g)
+    d["aniso"] = torch.rand((int(n_blobs), 3), generator=g)
     d["slice_gain"] = torch.randn((shape[0], 1, 1), generator=g)
     d["noise"] = torch.randn(shape, generator=g)
     return d
@@ -272,6 +293,67 @@ def synthetic_instance_volume(
     return torch.clamp(img, 0.0, 1.0), labels
 
 
+def synthetic_blob_volume(
+    draws: Dict[str, torch.Tensor], shape: Shape, device=None
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sparse blob task from its draws (JAX ``synthetic_blob_instance_volume``,
+    ``synthetic_jax.py:237``): elastically warped ellipsoids, each voxel
+    owned by the blob of least normalised warped distance ``u = d / r``
+    where that is below 1 (seeds scanned in order, ties to the lower index),
+    bright shaded cytoplasm, dark textured interiors with a darker rim,
+    unlabelled clutter, per-slice gain and sensor noise. (image float32
+    [0,1] (Z,Y,X), labels int32 (0 background), distance ``1 - u`` clipped
+    to [0, 1])."""
+    d = {k: v.to(device) for k, v in draws.items()}
+    Z, Y, X = shape
+    n = d["seeds"].shape[0]
+    zz, yy, xx = torch.meshgrid(
+        *(torch.arange(s, dtype=torch.float32, device=device) for s in shape), indexing="ij"
+    )
+    r_base = 0.45 * (float(np.prod(shape)) / max(1, n)) ** (1.0 / 3.0)
+    amp = 0.6 * r_base
+    pz = zz + amp * 0.5 * (2.0 * smooth_field(d["warp_z"], shape) - 1.0)
+    py = yy + amp * (2.0 * smooth_field(d["warp_y"], shape) - 1.0)
+    px = xx + amp * (2.0 * smooth_field(d["warp_x"], shape) - 1.0)
+    # the scan reads the blobs as f32 scalars on the host, as jax.random.uniform's
+    # affine map gives them: max(lo, u * (hi - lo) + lo)
+    f32 = np.float32
+    seeds = draws["seeds"].float().numpy() * np.array([Z - 1, Y - 1, X - 1], f32)
+    radii = f32(r_base) * np.maximum(f32(0.6), draws["radii"].float().numpy() * f32(0.9) + f32(0.6))
+    aniso = np.maximum(f32(0.6), draws["aniso"].float().numpy() * f32(1.1) + f32(0.6))
+    best_u = torch.full(shape, float("inf"), dtype=torch.float32, device=device)
+    owner = torch.zeros(shape, dtype=torch.int32, device=device)
+    for i in range(n):
+        s, a = seeds[i], aniso[i]
+        dd = torch.sqrt(((pz - float(s[0])) / float(a[0])) ** 2 + ((py - float(s[1])) / float(a[1])) ** 2
+                        + ((px - float(s[2])) / float(a[2])) ** 2)
+        u = dd / float(radii[i])
+        take = u < best_u
+        best_u = torch.where(take, u, best_u)
+        owner = owner.masked_fill(take, i + 1)
+    inside = best_u < 1.0
+    labels = torch.where(inside, owner, torch.zeros_like(owner))
+    dist = torch.clamp(1.0 - best_u, 0.0, 1.0)
+    tex = smooth_field(d["tex"], shape)
+    img = torch.full(shape, 0.70, dtype=torch.float32, device=device)
+    img = img + 0.08 * (2.0 * smooth_field(d["shade"], shape) - 1.0)
+    rim = inside & (best_u > 0.82)
+    interior = inside & ~rim
+    img = torch.where(interior, 0.42 + 0.14 * (2.0 * tex - 1.0), img)
+    img = torch.where(rim, torch.full_like(img, 0.20), img)
+    clutter = (smooth_field(d["clutter"], shape) > 0.80) & ~inside
+    img = torch.where(clutter, torch.full_like(img, 0.50), img)
+    img = img * (1.0 + 0.04 * d["slice_gain"])
+    img = img + 0.06 * d["noise"]
+    return torch.clamp(img, 0.0, 1.0), labels, dist
+
+
+def default_blobs(shape: Shape) -> int:
+    """Blob count of a blob volume whose URL names none: about 40 a
+    megavoxel, at least 6."""
+    return max(6, int(40 * np.prod(shape) / 1e6))
+
+
 def default_cells(shape: Shape) -> int:
     """Cell count of an instance volume whose URL names none: about 180 a
     megavoxel, at least 8."""
@@ -280,8 +362,9 @@ def default_cells(shape: Shape) -> int:
 
 def synthetic_em_task(task: str, shape: Shape, seed: int, device=None, cells=None,
                       elongation: float = 1.0) -> Tuple[np.ndarray, np.ndarray]:
-    """(image uint8, label uint32) host arrays of the ``em``, ``em2`` or
-    ``instance`` task for ``seed``, generated on ``device``."""
+    """(image uint8, label uint32) host arrays of the ``em``, ``em2``,
+    ``instance`` or ``blobs`` task for ``seed``, generated on ``device``
+    (``cells``: the instance task's cells or the blob task's blobs)."""
     shape = tuple(int(s) for s in shape)
     if task == "em2":
         img, lbl = synthetic_em_volume_v2(em_draws(shape, seed, v2=True), shape, device=device)
@@ -290,7 +373,10 @@ def synthetic_em_task(task: str, shape: Shape, seed: int, device=None, cells=Non
     elif task == "instance":
         n = cells or default_cells(shape)
         img, lbl = synthetic_instance_volume(instance_draws(shape, n, seed), shape, elongation, device=device)
+    elif task == "blobs":
+        n = cells or default_blobs(shape)
+        img, lbl, _ = synthetic_blob_volume(blob_draws(shape, n, seed), shape, device=device)
     else:
-        raise NotImplementedError(f"synthetic task '{task}' is not ported yet (em, em2 and instance)")
+        raise ValueError(f"unknown synthetic task '{task}'")
     img = torch.clamp(img * 255.0, 0, 255).to(torch.uint8)
     return img.cpu().numpy(), lbl.cpu().numpy().astype(np.uint32)

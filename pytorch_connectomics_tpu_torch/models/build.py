@@ -15,19 +15,23 @@ from .registry import get_architecture
 # architecture modules self-register on import
 from . import mednext as _mednext  # noqa: F401
 from . import rsunet as _rsunet  # noqa: F401
+from . import unet3d as _unet3d  # noqa: F401
 
 
 def init_model(model: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded init in place, following flax's defaults: LeCun-normal kernels
     (normal truncated at 2 sigma, std sqrt(1/fan_in)), zero biases, unit
-    norm scales. Weight shapes of ``conv_weight``/``head_weight`` of
-    transposed convs are (I, O, k...); every other kernel is (O, I, k...)."""
+    norm scales, UNETR's position embedding normal with std 0.02. Weight
+    shapes of ``conv_weight``/``head_weight`` of transposed convs are (I, O,
+    k...); every other kernel is (O, I, k...)."""
     g = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
             if leaf.endswith("bias"):
                 p.zero_()
+            elif leaf == "pos_embed":  # UNETR's position embedding: flax's normal(0.02)
+                p.copy_(torch.randn(p.shape, generator=g) * 0.02)
             elif p.dim() == 1:  # norm scale
                 p.fill_(1.0)
             else:

@@ -1,5 +1,5 @@
-"""Weight bridge: a flax MedNeXt or RSUNet parameter tree -> the port's
-``state_dict``.
+"""Weight bridge: a flax MedNeXt, RSUNet or MONAI U-Net (BasicUNet3D,
+UNet3D, UNETR) parameter tree -> the port's ``state_dict``.
 
 The tree is the ``params`` collection that ``pytorch_connectomics_tpu``'s
 ``init_model`` or a training checkpoint holds, given as a nested dict of
@@ -33,6 +33,18 @@ bottleneck); per decoder level k, from the deepest, a top-level 1x1x1
 ``Conv_0``, so the second 3^3 conv is ``Conv_1`` with a skip and ``Conv_0``
 without one; ``ConvNormAct_0`` holds the first conv and ``Norm_0`` the
 block's last norm. Norms sit at ``.../Norm_0/GroupNorm_0/{scale,bias}``.
+
+The U-Nets (``models/unet3d.py``) count each class in creation order too:
+``BasicUNet3D`` has ``ConvNormAct_0..9`` (two a level, the bottleneck last)
+then per decoder level ``UpConv_j`` and ``ConvNormAct_{10+2j, 11+2j}``;
+``UNet3D`` the stem ``ConvNormAct_0``, a ``ConvNormAct`` per strided down
+conv and ``ResBlock_k`` for every residual unit in the order they run,
+``UpConv_j`` per decoder level; ``UNETR`` ``patch_embed``, ``pos_embed``,
+per transformer layer ``LayerNorm_{2l, 2l+1}``, ``Dense_{2l, 2l+1}`` and
+``MultiHeadDotProductAttention_l`` (``query``/``key``/``value`` kernels
+``(hidden, heads, head_dim)``, ``out`` ``(heads, head_dim, hidden)``), then
+the decoder's ``ConvNormAct_0..8`` and ``UpConv_0..6`` in the order they
+run. ``UpConv`` holds ``ConvTranspose_0``.
 """
 
 from __future__ import annotations
@@ -43,8 +55,10 @@ from typing import Any, Dict, Mapping, Union
 import numpy as np
 import torch
 
+from .layers import ResBlock
 from .mednext import MedNeXt, MedNeXtBlock
-from .rsunet import ResBlock, RSUNet
+from .rsunet import RSUNet
+from .unet3d import UNETR, BasicUNet3D, UNet3D
 
 
 def load_flax_npz(path: Union[str, Path]) -> Dict[str, Any]:
@@ -150,16 +164,88 @@ def rsunet_to_state_dict(params: Mapping[str, Any], model: RSUNet) -> Dict[str, 
         sd[f"up.{i}.weight"] = linear_kernel(params[f"Conv_{k}"]["kernel"])
         sd[f"up.{i}.bias"] = _t(params[f"Conv_{k}"]["bias"])
         _res_block(params[f"ResBlock_{n + 1 + k}"], f"dec.{i}.", model.dec[i], sd)
-    sd["head.weight"] = linear_kernel(params["head"]["kernel"])
-    sd["head.bias"] = _t(params["head"]["bias"])
+    _head(params, sd)
     return sd
 
 
-def flax_to_state_dict(params: Mapping[str, Any], model: MedNeXt | RSUNet) -> Dict[str, torch.Tensor]:
-    """Map a flax MedNeXt or RSUNet ``params`` tree onto ``model``'s
-    state_dict keys."""
+def _up_conv(fp: Mapping[str, Any], prefix: str, sd: Dict[str, torch.Tensor]) -> None:
+    sd[prefix + "conv_weight"] = conv_transpose_kernel(fp["ConvTranspose_0"]["kernel"])
+    sd[prefix + "conv_bias"] = _t(fp["ConvTranspose_0"]["bias"])
+
+
+def _dense(fp: Mapping[str, Any], prefix: str, sd: Dict[str, torch.Tensor], in_axes: int = 1) -> None:
+    """flax Dense / DenseGeneral whose kernel's first ``in_axes`` axes are
+    its inputs -> ``nn.Linear`` weight (out, in) and flat bias."""
+    k, b = np.asarray(fp["kernel"]), np.asarray(fp["bias"])
+    sd[prefix + "weight"] = _t(k.reshape(int(np.prod(k.shape[:in_axes])), -1).T)
+    sd[prefix + "bias"] = _t(b.reshape(-1))
+
+
+def _head(params: Mapping[str, Any], sd: Dict[str, torch.Tensor]) -> None:
+    sd["head.weight"] = linear_kernel(params["head"]["kernel"])
+    sd["head.bias"] = _t(params["head"]["bias"])
+
+
+def unet_to_state_dict(params: Mapping[str, Any], model) -> Dict[str, torch.Tensor]:
+    """Map a flax BasicUNet3D, UNet3D or UNETR ``params`` tree onto
+    ``model``'s state_dict keys."""
+    if "params" in params and "head" not in params:
+        params = params["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    _head(params, sd)
+    if isinstance(model, BasicUNet3D):
+        for i in range(5):
+            for j in range(2):
+                _conv_norm_act(params[f"ConvNormAct_{2 * i + j}"], f"enc.{i}.c{j}.", sd)
+        for i in range(4):
+            _up_conv(params[f"UpConv_{i}"], f"up.{i}.", sd)
+            for j in range(2):
+                _conv_norm_act(params[f"ConvNormAct_{10 + 2 * i + j}"], f"dec.{i}.c{j}.", sd)
+        return sd
+    if isinstance(model, UNet3D):
+        _conv_norm_act(params["ConvNormAct_0"], "stem.", sd)
+        rb = iter(range(1 << 30))
+        units = [("stem_units", model.stem_units)]
+        for i, u in enumerate(model.down_units):
+            _conv_norm_act(params[f"ConvNormAct_{i + 1}"], f"down.{i}.", sd)
+            units.append((f"down_units.{i}", u))
+        for name, u in units:
+            for k, blk in enumerate(u.blocks):
+                _res_block(params[f"ResBlock_{next(rb)}"], f"{name}.blocks.{k}.", blk, sd)
+        for i, u in enumerate(model.up_units):
+            _up_conv(params[f"UpConv_{i}"], f"up.{i}.", sd)
+            for k, blk in enumerate(u.blocks):
+                _res_block(params[f"ResBlock_{next(rb)}"], f"up_units.{i}.blocks.{k}.", blk, sd)
+        return sd
+    sd["patch_embed.weight"] = conv_kernel(params["patch_embed"]["kernel"])
+    sd["patch_embed.bias"] = _t(params["patch_embed"]["bias"])
+    sd["pos_embed"] = _t(params["pos_embed"])
+    for li in range(len(model.layers)):
+        p = f"layers.{li}."
+        for j, ln in enumerate(("ln1", "ln2")):
+            sd[f"{p}{ln}.weight"] = _t(params[f"LayerNorm_{2 * li + j}"]["scale"])
+            sd[f"{p}{ln}.bias"] = _t(params[f"LayerNorm_{2 * li + j}"]["bias"])
+        attn = params[f"MultiHeadDotProductAttention_{li}"]
+        for name in ("query", "key", "value", "out"):
+            _dense(attn[name], f"{p}attn.{name}.", sd, 2 if name == "out" else 1)
+        _dense(params[f"Dense_{2 * li}"], f"{p}fc1.", sd)
+        _dense(params[f"Dense_{2 * li + 1}"], f"{p}fc2.", sd)
+    # decoder, in the order the JAX module creates its layers
+    names = ["proj.0.", "proj.1.", "proj.2.", "proj.3.", "fuse.0.", "fuse.1.", "fuse.2.", "inp.", "last."]
+    for k, name in enumerate(names):
+        _conv_norm_act(params[f"ConvNormAct_{k}"], name, sd)
+    for k in range(7):
+        _up_conv(params[f"UpConv_{k}"], f"up.{k}.", sd)
+    return sd
+
+
+def flax_to_state_dict(params: Mapping[str, Any], model) -> Dict[str, torch.Tensor]:
+    """Map a flax MedNeXt, RSUNet or MONAI U-Net ``params`` tree onto
+    ``model``'s state_dict keys."""
     if isinstance(model, RSUNet):
         return rsunet_to_state_dict(params, model)
+    if isinstance(model, (BasicUNet3D, UNet3D, UNETR)):
+        return unet_to_state_dict(params, model)
     if "params" in params and "stem" not in params:
         params = params["params"]
     sd: Dict[str, torch.Tensor] = {}
@@ -189,7 +275,7 @@ def flax_to_state_dict(params: Mapping[str, Any], model: MedNeXt | RSUNet) -> Di
     return sd
 
 
-def load_flax_params(model: MedNeXt | RSUNet, params: Union[str, Path, Mapping[str, Any]]) -> MedNeXt:
+def load_flax_params(model: torch.nn.Module, params: Union[str, Path, Mapping[str, Any]]) -> MedNeXt:
     """Load a flax tree (dict or ``.npz`` path) into ``model`` in place; every
     parameter of the model must be covered and every shape must match."""
     if not isinstance(params, Mapping):

@@ -38,79 +38,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops import conv3d
-from .layers import Norm, conv3d_same, downsample, get_act, upsample_trilinear
+from .layers import ConvNormAct, ResBlock, downsample, linear, upsample_trilinear
 from .registry import register_architecture
-
-
-def _linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
-    """flax's 1x1x1 ``nn.Conv`` in ``dtype``: rounded product, then the bias."""
-    return F.linear(x.to(dtype), layer.weight.to(dtype)) + layer.bias.to(dtype)
-
-
-class Conv(nn.Module):
-    """flax ``nn.Conv(features, kernel, padding='SAME')``, stride 1, in
-    ``dtype`` on channels-last input; weight ``(O, I, kz, ky, kx)``."""
-
-    def __init__(self, cin: int, cout: int, kernel: Sequence[int], dtype: torch.dtype):
-        super().__init__()
-        self.kernel = tuple(int(k) for k in kernel)
-        self.dtype = dtype
-        self.weight = nn.Parameter(torch.zeros(cout, cin, *self.kernel))
-        self.bias = nn.Parameter(torch.zeros(cout))
-        self._wmat_key = None
-
-    def _kernel_weight(self) -> torch.Tensor:
-        """The 3^3 kernel's weight matrix in the compute dtype for inference,
-        built again only when the weight moves or is written in place."""
-        key = (self.weight.device, self.weight.data_ptr(), self.weight._version)
-        if key != self._wmat_key:
-            with torch.inference_mode(False), torch.no_grad():
-                self._wmat = conv3d.kernel_weight(self.weight, self.dtype)
-            self._wmat_key = key
-        return self._wmat
-
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
-        x = x.to(self.dtype)
-        if self.kernel == (3, 3, 3):
-            if plain:
-                return conv3d.conv3d_3x3_plain(x, self.weight, self.bias)
-            if torch.is_grad_enabled() and (x.requires_grad or self.weight.requires_grad or self.bias.requires_grad):
-                return conv3d.Conv3x3Function.apply(x, self.weight, self.bias)
-            wmat = None if x.device.type == "cpu" else self._kernel_weight()
-            return conv3d.conv3d_3x3(x, self.weight, self.bias, wmat=wmat)
-        y = conv3d_same(x, self.weight.to(self.dtype), None, (1, 1, 1))
-        return y + self.bias.to(self.dtype)
-
-
-class ConvNormAct(nn.Module):
-    def __init__(self, cin, cout, kernel, norm, act, groups, dtype):
-        super().__init__()
-        self.conv = Conv(cin, cout, kernel, dtype)
-        self.norm = Norm(cout, norm, groups)
-        self.act = get_act(act)
-
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
-        return self.act(self.norm(self.conv(x, plain)))
-
-
-class ResBlock(nn.Module):
-    """Two convs with an additive skip before the last activation; the skip
-    is a 1x1x1 conv only when the channel count changes."""
-
-    def __init__(self, cin, cout, kernel, norm, act, groups, dtype):
-        super().__init__()
-        self.dtype = dtype
-        self.skip = nn.Linear(cin, cout) if cin != cout else None
-        self.conv1 = ConvNormAct(cin, cout, kernel, norm, act, groups, dtype)
-        self.conv2 = Conv(cout, cout, kernel, dtype)
-        self.norm2 = Norm(cout, norm, groups)
-        self.act = get_act(act)
-
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
-        skip = x if self.skip is None else _linear(x, self.skip, self.dtype)
-        y = self.norm2(self.conv2(self.conv1(x, plain), plain))
-        return self.act(y + skip)
 
 
 class RSUNet(nn.Module):
@@ -165,7 +94,7 @@ class RSUNet(nn.Module):
         x = self.bottleneck(x, plain)
         for i in reversed(range(len(self.dec))):
             x = upsample_trilinear(x, self.factors[i])
-            x = _linear(x, self.up[i], self.dtype) + skips[i]
+            x = linear(x, self.up[i], self.dtype) + skips[i]
             x = self.dec[i](x, plain)
         return F.linear(x.float(), self.head.weight, self.head.bias)
 

@@ -141,7 +141,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.conv3d_3x3_weight_rows.restype = i
         lib.conv3d_3x3_plan.argtypes = [i] * 7 + [p]
         lib.conv3d_3x3_plan.restype = i
-        lib.conv3d_3x3_fwd.argtypes = [p, p, p, p] + [i] * 9 + [p]
+        lib.conv3d_3x3_fwd.argtypes = [p, p, p, p, p] + [i] * 9 + [p]
         lib.conv3d_3x3_fwd.restype = i
         lib.conv3d_3x3_wgrad_plan.argtypes = [i] * 7 + [p, p]
         lib.conv3d_3x3_wgrad_plan.restype = i

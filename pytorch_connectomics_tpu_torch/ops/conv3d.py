@@ -37,10 +37,16 @@ parameter builds that matrix once per parameter version and passes it as
 ``wmat`` (``models/rsunet.py``, inference).
 
 The forward kernel keeps the weight of at least 16 output channels (``27 *
-Cin * 16`` values) in shared memory next to the input tile, which bounds
-Cin: up to 96 in float32 and 192 in bfloat16 (RSUNet's widths reach 80; for
-the input gradient the bound is on the forward's Cout); a wider input
-raises. The bf16 tensor-core kernel keeps two input tiles where they fit
+Cin * 16`` values) in shared memory next to the input tile, which one
+launch fits up to Cin 97 in float32 and 192 in bfloat16 (RSUNet's widths
+reach 80). A wider input (the MONAI U-Nets reach 256, UNETR 384; for the
+input gradient the forward's Cout) streams Cin in chunks, one launch a
+chunk: the first stores its f32 sums in a scratch, the middle ones add to
+it, the last adds its own, rounds once to x's dtype and adds the bias, so
+the function is the same single f32 sum and rounding
+(:func:`conv3d_3x3_chunked_plain` emulates it; :func:`kernel_plan` reports
+``chunks`` and ``cin_chunk``). A Cin that fits takes one launch, with the
+plan and bits it had before. The bf16 tensor-core kernel keeps two input tiles where they fit
 beside the weight, so that the next tile's copies run under this tile's
 products, and gives each warp 32 or 64 voxels x 32 to 64 output channels;
 :func:`kernel_plan` and :func:`wgrad_plan` report the plans a shape takes.
@@ -125,6 +131,24 @@ def conv3d_3x3_plain(
     return out
 
 
+def conv3d_3x3_chunked_plain(
+    x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None, cin_chunk: int = 128, layout: str = "oidhw"
+) -> torch.Tensor:
+    """The Cin-chunked kernel's arithmetic: each chunk of ``cin_chunk``
+    input channels summed over its taps in f32, the chunks' sums added in
+    order in f32, one rounding to x's dtype, then the bias in x's dtype."""
+    wk = _dhwio(w, layout)
+    total = None
+    for c0 in range(0, x.shape[-1], cin_chunk):
+        xc = x[..., c0 : c0 + cin_chunk].float() if x.dtype != torch.float64 else x[..., c0 : c0 + cin_chunk]
+        part = conv3d_3x3_plain(xc, wk[:, :, :, c0 : c0 + cin_chunk].to(x.dtype), layout="dhwio")
+        total = part if total is None else total + part
+    out = total.to(x.dtype)
+    if bias is not None:
+        out = out + bias.to(x.dtype)
+    return out
+
+
 def conv3d_3x3_input_grad_plain(dy: torch.Tensor, w: torch.Tensor, layout: str = "oidhw") -> torch.Tensor:
     """``dx`` of the conv for output gradient ``dy``: :func:`conv3d_3x3_plain`
     of ``dy`` with :func:`mirror_weight`, no bias; rounded to dy's dtype."""
@@ -180,16 +204,19 @@ def kernel_plan(shape: tuple, cout: int, dtype: torch.dtype) -> dict:
     ``r`` rows), channel slice ``nb`` and ``slices``, for the tap-wise
     kernel its warp tile (``warp_m`` voxels x ``warp_n`` channels), warps
     (``warps_m`` x ``warps_n``) and halo buffers, its shared memory, and
-    which path (``taps``; ``packed`` for bf16 with Cin < 8; ``f32``).
+    which path (``taps``; ``packed`` for bf16 with Cin < 8; ``f32``), the
+    launches over Cin (``chunks``, 1 where the whole Cin fits) with
+    ``cin_chunk`` channels each and the staging's ``copy_bytes``.
     Needs the built library (a machine with the CUDA toolkit); raises for a
     shape the kernel does not take."""
     lib = build.load("conv3d_3x3")
-    out = (ctypes.c_int * 11)()
+    out = (ctypes.c_int * 14)()
     b, z, y, xs, cin = shape
     _check(lib.conv3d_3x3_plan(int(dtype == torch.bfloat16), b, z, y, xs, cin, cout, out), lib)
     v = list(out)
     return dict(xs=v[0], r=v[1], nb=v[2], slices=v[3], warp_m=16 * v[4], warp_n=8 * v[5], warps_m=v[6],
-                warps_n=v[7], buffers=v[8], smem_bytes=v[9], kernel=("taps", "packed", "f32")[v[10]])
+                warps_n=v[7], buffers=v[8], smem_bytes=v[9], kernel=("taps", "packed", "f32")[v[10]],
+                chunks=v[11], cin_chunk=v[12], copy_bytes=v[13])
 
 
 def _check(code: int, lib) -> None:
@@ -279,13 +306,25 @@ def _launch_fwd(x: torch.Tensor, wmat: torch.Tensor, bias: torch.Tensor | None, 
     b, z, y, xs, cin = x.shape
     lib = build.load("conv3d_3x3")
     out = torch.empty((b, z, y, xs, cout), device=x.device, dtype=x.dtype)
+    key = (tuple(x.shape), cout, x.dtype, dev)
+    chunks = _FWD_CHUNKS.get(key)
+    if chunks is None:
+        with torch.cuda.device(dev):
+            chunks = _FWD_CHUNKS[key] = kernel_plan(tuple(x.shape), cout, x.dtype)["chunks"]
+    part = None
+    if chunks > 1 and x.dtype == torch.bfloat16:
+        part = torch.empty((b, z, y, xs, cout), device=x.device, dtype=torch.float32)
     rc = lib.conv3d_3x3_fwd(
         x.data_ptr(), wmat.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
-        code, b, z, y, xs, cin, cout, wmat.shape[0], wmat.shape[1], build.stream(dev),
+        None if part is None else part.data_ptr(), code, b, z, y, xs, cin, cout, wmat.shape[0], wmat.shape[1],
+        build.stream(dev),
     )
     _check(rc, lib)
     conv3d_3x3.launches += 1
     return out
+
+
+_FWD_CHUNKS: dict = {}
 
 
 def conv3d_3x3(

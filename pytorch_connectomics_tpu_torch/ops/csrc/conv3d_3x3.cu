@@ -62,6 +62,19 @@
 //   multiplies. The planner picks the warp tile, the warps' layout, the
 //   tile shape, NB and the buffers from a cost model of the loads, the
 //   MMAs, the staging and the waves (plan_taps).
+// - Any Cin: where the weight slice of the whole Cin does not fit beside a
+//   halo tile (bf16 past Cin 192, f32 past 97; the MONAI U-Nets reach 256
+//   and UNETR 384), Cin is streamed in chunks of Cc channels, one launch a
+//   chunk of the same kernel (plan_chunks): each launch stages its
+//   chunk's channels of the halo (x read at its full channel stride XC
+//   from channel c0) and its chunk's rows of the weight matrix (the
+//   wrapper's matrix of the whole Cin, mapped row by row), and keeps its
+//   f32 sums; the first launch stores them in an f32 scratch of (voxels,
+//   Cout), the middle ones add to it, and the last adds its sums to the
+//   scratch's, rounds the total once to the output type and adds the bias
+//   (f32: the output is the scratch). So the function stays one f32 sum
+//   over all of Cin, one rounding, then the bias. A Cin that fits takes
+//   one launch with today's plan and bits (chunks 1, mode 0).
 // - K is tap-major with the channels of a tap padded to CP = Cin rounded up
 //   to 8 (not 16: Cin 36 takes 40 channels a tap, not 48). A k-step of 16
 //   is two chunks of 8 channels, which may belong to two taps: lanes 0-15
@@ -120,6 +133,13 @@ struct Geom {
   int nbuf;      // halo buffers: 2 (the next tile's copies overlap the MMAs) or 1
   int vecb;      // bytes of one staging copy: 16, 8, 4 or 2
   long long tiles;
+  // Cin streamed in chunks (forward only; 1 chunk and mode 0 otherwise)
+  int XC;       // channels of an x voxel in memory (the stride of a voxel): the whole Cin
+  int chunks;   // launches over Cin; Cin above is a chunk's channels (Cc, the last may have fewer)
+  int wtap;     // rows a tap takes in the weight matrix of the whole Cin (CP of XC; f32: XC)
+  int c0;       // this launch's first channel
+  int mode;     // 0 one launch; 1 first chunk (store the sums), 2 middle (add), 3 last (add, round, bias)
+  float* part;  // bf16 with chunks: f32 scratch (voxels, Cout) of the earlier chunks' sums
 };
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
@@ -193,7 +213,7 @@ __device__ __forceinline__ void stage_halo_scalar(const T* __restrict__ x, T* __
         const int zg = z + dz - 1, yg = y0 + yy - 1, xg = x0 + xx - 1;
         d[u] = (row * W2 + xx) * g.CS + q;
         if (q < g.Cin && zg >= 0 && zg < g.Z && yg >= 0 && yg < g.Y && xg >= 0 && xg < g.X)
-          v[u] = x[((((long long)b * g.Z + zg) * g.Y + yg) * g.X + xg) * g.Cin + q];
+          v[u] = x[((((long long)b * g.Z + zg) * g.Y + yg) * g.X + xg) * g.XC + q];
       }
     }
 #pragma unroll
@@ -203,7 +223,8 @@ __device__ __forceinline__ void stage_halo_scalar(const T* __restrict__ x, T* __
 }
 
 // Stage the (3, R+2, XS+2) neighbourhood of the tile at (b, z, y0, x0) into
-// halo[cell][CS]: channels 0..Cin-1 copied, Cin..CP-1 zero-filled, cells
+// halo[cell][CS]: channels 0..Cin-1 copied (x's voxels XC channels apart,
+// x at this launch's first channel), Cin..CP-1 zero-filled, cells
 // outside the volume zero-filled. VEC is the copy width in bytes: with
 // cp.async, a warp takes one (dz, y) row of cells at a time, its lanes the
 // copies along the row; a width of one element goes to stage_halo_scalar.
@@ -230,16 +251,18 @@ __device__ __forceinline__ void stage_halo(const T* __restrict__ x, T* __restric
         const int xx = j / vall, q = j - xx * vall;
         const int xg = x0 + xx - 1;
         const bool valid = rv && q < vec && xg >= 0 && xg < g.X;
-        cp_async<VEC>(dst + xx * g.CS + q * per, valid ? x + (vrow + xg) * g.Cin + q * per : x, valid);
+        cp_async<VEC>(dst + xx * g.CS + q * per, valid ? x + (vrow + xg) * g.XC + q * per : x, valid);
       }
     }
   }
 }
 
 // The block's weight slice, transposed and resident: wsm[n * KS + k] =
-// W[k][n0 + n], zero for a column past Np. 16-byte loads along a weight
-// row (NB, Np and n0 are multiples of 16); the first tile's barrier
-// publishes the slice.
+// W[row(k)][n0 + n], zero for a column past Np. Row k of the launch (tap k
+// / CP, channel k % CP) is row tap * wtap + c0 + channel of the whole
+// Cin's matrix, zero past its tap's rows or past the 27 taps (one launch:
+// row k itself). 16-byte loads along a weight row (NB, Np and n0 are
+// multiples of 16); the first tile's barrier publishes the slice.
 template <typename T>
 __device__ __forceinline__ void load_weight_slice(const T* __restrict__ wg, T* __restrict__ wsm, const Geom& g,
                                                   int n0) {
@@ -247,8 +270,10 @@ __device__ __forceinline__ void load_weight_slice(const T* __restrict__ wg, T* _
   const int nv = g.NB / per;
   for (int i = threadIdx.x; i < g.K * nv; i += kThreads) {
     const int k = i / nv, n = (i - k * nv) * per;
+    const int tap = k / g.CP, ch = g.c0 + k - tap * g.CP;
     uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (n0 + n < g.Np) raw = __ldg(reinterpret_cast<const uint4*>(wg + (size_t)k * g.Np + n0 + n));
+    if (n0 + n < g.Np && tap < 27 && ch < g.wtap)
+      raw = __ldg(reinterpret_cast<const uint4*>(wg + (size_t)(tap * g.wtap + ch) * g.Np + n0 + n));
     const T* v = reinterpret_cast<const T*>(&raw);
 #pragma unroll
     for (int e = 0; e < per; ++e) wsm[(size_t)(n + e) * g.KS + k] = v[e];
@@ -287,6 +312,22 @@ __device__ __forceinline__ void ldsm_x4_trans_at(unsigned (&r)[4], unsigned a) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(a));
+}
+
+// A chunked launch's sums of output channels co, co + 1 of one voxel (p: its
+// row of the scratch at co): the first chunk stores them, a middle one adds
+// them to the scratch, the last adds the scratch's to them (true: store).
+__device__ __forceinline__ bool chunk_sums(float* __restrict__ p, float& s0, float& s1, int co, int Cout, int mode) {
+  const bool one = co + 1 >= Cout;
+  if (mode == 3) {
+    s0 += p[0];
+    if (!one) s1 += p[1];
+    return true;
+  }
+  if (mode == 2) s0 += p[0], s1 += one ? 0.f : p[1];
+  p[0] = s0;
+  if (!one) p[1] = s1;
+  return false;
 }
 
 __device__ __forceinline__ float bias_bf16(const float* __restrict__ bias, int co, int Cout) {
@@ -468,13 +509,15 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int r = m / g.XS, xm = m - r * g.XS;
           const int yg = y0 + r, xg = x0 + xm;
           if (yg >= g.Y || xg >= g.X) continue;
-          bf16* orow = out + ((((long long)b * g.Z + z) * g.Y + yg) * g.X + xg) * g.Cout;
+          const long long vox = (((long long)b * g.Z + z) * g.Y + yg) * g.X + xg;
+          bf16* orow = out + vox * g.Cout;
 #pragma unroll
           for (int j = 0; j < NFW; ++j) {
             const int co = n0 + nw0 + j * 8 + 2 * tq;
-            if (co < g.Cout)
-              store_pair(orow + co, acc[f][j][2 * rh], acc[f][j][2 * rh + 1], bv[j][0], bv[j][1], has_bias, co,
-                         g.Cout, two);
+            if (co >= g.Cout) continue;
+            float s0 = acc[f][j][2 * rh], s1 = acc[f][j][2 * rh + 1];
+            if (g.mode && !chunk_sums(g.part + vox * g.Cout + co, s0, s1, co, g.Cout, g.mode)) continue;
+            store_pair(orow + co, s0, s1, bv[j][0], bv[j][1], has_bias, co, g.Cout, two);
           }
         }
       }
@@ -541,8 +584,16 @@ __global__ void __launch_bounds__(kThreads)
       const int yg = y0 + r, xg = x0 + xm;
       if (co >= g.Cout || yg >= g.Y || xg >= g.X) continue;
       float v = acc[j];
+      float* dst = out + ((((long long)b * g.Z + z) * g.Y + yg) * g.X + xg) * g.Cout + co;
+      if (g.mode) {  // chunked: the output holds the earlier chunks' sums
+        if (g.mode > 1) v += *dst;
+        if (g.mode < 3) {
+          *dst = v;
+          continue;
+        }
+      }
       if (bias) v += __ldg(bias + co);
-      out[((((long long)b * g.Z + z) * g.Y + yg) * g.X + xg) * g.Cout + co] = v;
+      *dst = v;
     }
     __syncthreads();  // the halo is reused by the next tile
   }
@@ -1443,6 +1494,8 @@ inline void finish(Geom& g) {
 inline bool plan_f32(Geom& g) {
   g.CS = g.CP;
   g.KS = g.K;
+  const int row = g.Cin * 4;
+  g.vecb = row % 16 == 0 ? 16 : row % 8 == 0 ? 8 : 4;
   for (int xs = (round_up(g.X, 16) < kMaxM ? round_up(g.X, 16) : kMaxM); xs >= 16; xs -= 16) {
     g.XS = xs;
     for (int nb = (g.Np < kMaxNB ? g.Np : kMaxNB); nb >= 16; nb -= 16) {
@@ -1540,10 +1593,44 @@ inline bool plan_taps(Geom& g, int sms) {
 
 using mednext::sm_count;
 
-inline bool plan(Geom& g, int es, int sms) {
+inline bool plan_one(Geom& g, int es, int sms) {
   g.K = weight_rows(g.Cin, es, &g.CP, &g.packed);
   g.Np = round_up(g.Cout, 16);
   return es == 2 ? plan_taps(g, sms) : plan_f32(g);
+}
+
+inline int gcd(int a, int b) { return b ? gcd(b, a % b) : a; }
+
+// The plan of a launch over all of Cin where one fits (chunks 1, today's
+// plans), else of the fewest Cin chunks whose launch plans: chunks of Cc =
+// ceil(Cin / n) channels rounded up to 8 (bf16: whole 8-channel groups of
+// the tap-wise table) or 4 (f32: 16-byte chunk offsets), the last holding
+// the rest. The copy width divides every chunk's first channel, its
+// channels and the voxel stride. g.Cin is then Cc; the launches set each
+// chunk's channels, first channel and mode.
+inline bool plan(Geom& g, int es, int sms) {
+  const int cin = g.Cin;
+  g.XC = cin, g.chunks = 1, g.c0 = 0, g.mode = 0, g.part = nullptr;
+  int cp = 0, packed = 0;
+  weight_rows(cin, es, &cp, &packed);
+  g.wtap = cp;
+  if (plan_one(g, es, sms)) return true;
+  if (packed) return false;
+  const int align = es == 2 ? 8 : 4;
+  for (int n = 2; n <= cin; ++n) {
+    const int cc = round_up((cin + n - 1) / n, align);
+    const int chunks = (cin + cc - 1) / cc;
+    if (chunks != n) continue;  // a rounded chunk width that another n already tried
+    Geom c = g;
+    c.Cin = cc;
+    if (!plan_one(c, es, sms)) continue;
+    const int unit = gcd(gcd(cin, cc), cin - (chunks - 1) * cc) * es;
+    c.vecb = unit % 16 == 0 ? 16 : unit % 8 == 0 ? 8 : unit % 4 == 0 ? 4 : 2;
+    c.chunks = chunks;
+    g = c;
+    return true;
+  }
+  return false;
 }
 
 inline size_t smem_bytes(const Geom& g, int es) { return es == 2 ? layout_taps(g).total : f32_smem(g); }
@@ -1625,10 +1712,7 @@ int fwd_plan(int B, int Z, int Y, int X, int Cin, int Cout, Geom& g, const void*
   if constexpr (std::is_same<T, bf16>::value) {
     fn = reinterpret_cast<const void*>(g.packed ? taps_kernel<true>(g) : taps_kernel<false>(g));
   } else {
-    const int row_bytes = Cin * es;
-    FwdKernelF32 k = row_bytes % 16 == 0 ? conv3d_f32_kernel<16>
-                     : row_bytes % 8 == 0 ? conv3d_f32_kernel<8>
-                                          : conv3d_f32_kernel<4>;
+    FwdKernelF32 k = g.vecb == 16 ? conv3d_f32_kernel<16> : g.vecb == 8 ? conv3d_f32_kernel<8> : conv3d_f32_kernel<4>;
     fn = reinterpret_cast<const void*>(k);
   }
   if (!fn) return kErrShape;
@@ -1643,23 +1727,37 @@ int fwd_plan(int B, int Z, int Y, int X, int Cin, int Cout, Geom& g, const void*
   return 0;
 }
 
+// One launch, or one a Cin chunk in order (first, middle, last); part: the
+// bf16 chunks' f32 scratch of (voxels, Cout).
 template <typename T>
-int run(const void* x, const void* w, const void* bias, void* out, int B, int Z, int Y, int X, int Cin, int Cout,
-        int w_rows, int w_cols, cudaStream_t stream) {
+int run(const void* x, const void* w, const void* bias, void* out, void* part, int B, int Z, int Y, int X, int Cin,
+        int Cout, int w_rows, int w_cols, cudaStream_t stream) {
   Geom g;
   const void* fn = nullptr;
   unsigned blocks = 0;
   const int rc = fwd_plan<T>(B, Z, Y, X, Cin, Cout, g, fn, blocks);
   if (rc) return rc;
-  if (w_rows != g.K || w_cols != g.Np) return kErrShape;
-  const T* xp = static_cast<const T*>(x);
+  int cp = 0, packed = 0;
+  if (w_rows != weight_rows(Cin, (int)sizeof(T), &cp, &packed) || w_cols != g.Np) return kErrShape;
+  if (g.chunks > 1 && sizeof(T) == 2 && !part) return kErrShape;
+  const int cc = g.Cin;
   const T* wp = static_cast<const T*>(w);
   const float* bp = static_cast<const float*>(bias);
   T* op = static_cast<T*>(out);
-  void* args[] = {&xp, &wp, &bp, &op, &g};
-  const cudaError_t e =
-      cudaLaunchKernel(fn, dim3(blocks, g.slices), dim3(kThreads), args, smem_bytes(g, (int)sizeof(T)), stream);
-  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+  for (int c = 0; c < g.chunks; ++c) {
+    Geom gc = g;
+    gc.c0 = c * cc;
+    gc.Cin = Cin - gc.c0 < cc ? Cin - gc.c0 : cc;
+    gc.mode = g.chunks == 1 ? 0 : c == 0 ? 1 : c + 1 < g.chunks ? 2 : 3;
+    gc.part = static_cast<float*>(part);
+    const T* xp = static_cast<const T*>(x) + gc.c0;
+    void* args[] = {&xp, &wp, &bp, &op, &gc};
+    cudaError_t e =
+        cudaLaunchKernel(fn, dim3(blocks, g.slices), dim3(kThreads), args, smem_bytes(g, (int)sizeof(T)), stream);
+    if (e == cudaSuccess) e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
 }
 
 // The weight gradient's plans, from the shape alone (the chunks too, so that
@@ -1735,6 +1833,7 @@ inline double wgmma_cost(const WGeom& c) {
 inline bool plan_wgrad_wgmma(WGeom& w, const int* force) {
   Geom& g = w.g;
   g.packed = g.Cin < 8;
+  g.XC = g.Cin;
   g.CP = g.packed ? g.Cin : round_up(g.Cin, 8);
   g.CS = g.packed ? g.CP : odd_stride(g.CP);
   g.vecb = copy_bytes(g.Cin * 2);
@@ -1797,6 +1896,7 @@ inline bool plan_wgrad_f32(WGeom& w, const int* force) {
   g.vecb = row % 16 == 0 ? 16 : row % 8 == 0 ? 8 : 4;
   g.NB = g.Np < kWgradF32Cols ? g.Np : kWgradF32Cols;
   g.nbuf = 1;
+  g.XC = g.Cin;
   g.slices = (g.Np + g.NB - 1) / g.NB;
   w.DS = g.NB;
   w.BM = kWgradF32Rows;
@@ -1921,25 +2021,29 @@ int conv3d_3x3_weight_rows(int Cin, int dtype) {
   return conv3d::weight_rows(Cin, dtype ? 2 : 4, &cp, &packed);
 }
 
-// The plan a launch of this shape takes, for reports: plan[0..10] = XS, R,
+// The plan a launch of this shape takes, for reports: plan[0..13] = XS, R,
 // NB, slices, MFW, NFW, WMW, WNW, nbuf, shared-memory bytes, kernel (0
-// tap-wise, 1 packed stem, 2 f32). The f32 kernel leaves MFW..nbuf 0.
+// tap-wise, 1 packed stem, 2 f32), Cin chunks (launches), channels a chunk
+// (Cc; Cin for one launch), copy bytes. The f32 kernel leaves MFW..nbuf 0.
 int conv3d_3x3_plan(int dtype, int B, int Z, int Y, int X, int Cin, int Cout, int* plan) {
   conv3d::Geom g{};
   g.B = B, g.Z = Z, g.Y = Y, g.X = X, g.Cin = Cin, g.Cout = Cout;
   const int es = dtype ? 2 : 4;
   if (!conv3d::plan(g, es, conv3d::sm_count())) return conv3d::kErrShape;
-  const int v[11] = {g.XS, g.R,    g.NB,   g.slices, g.MFW, g.NFW, g.WMW, g.WNW, g.nbuf,
-                     (int)conv3d::smem_bytes(g, es), es == 4 ? 2 : g.packed ? 1 : 0};
-  for (int i = 0; i < 11; ++i) plan[i] = v[i];
+  const int v[14] = {g.XS,  g.R,    g.NB,   g.slices, g.MFW,     g.NFW,    g.WMW,
+                     g.WNW, g.nbuf, (int)conv3d::smem_bytes(g, es), es == 4 ? 2 : g.packed ? 1 : 0,
+                     g.chunks, g.Cin, g.vecb};
+  for (int i = 0; i < 14; ++i) plan[i] = v[i];
   return 0;
 }
 
-int conv3d_3x3_fwd(const void* x, const void* w, const void* bias, void* out, int dtype, int B, int Z, int Y,
-                   int X, int Cin, int Cout, int w_rows, int w_cols, void* stream) {
+// part: bf16 with Cin chunks (conv3d_3x3_plan), an f32 scratch of B*Z*Y*X*Cout
+// values; else unused (may be null).
+int conv3d_3x3_fwd(const void* x, const void* w, const void* bias, void* out, void* part, int dtype, int B, int Z,
+                   int Y, int X, int Cin, int Cout, int w_rows, int w_cols, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype) return conv3d::run<conv3d::bf16>(x, w, bias, out, B, Z, Y, X, Cin, Cout, w_rows, w_cols, s);
-  return conv3d::run<float>(x, w, bias, out, B, Z, Y, X, Cin, Cout, w_rows, w_cols, s);
+  if (dtype) return conv3d::run<conv3d::bf16>(x, w, bias, out, part, B, Z, Y, X, Cin, Cout, w_rows, w_cols, s);
+  return conv3d::run<float>(x, w, bias, out, part, B, Z, Y, X, Cin, Cout, w_rows, w_cols, s);
 }
 
 // The weight gradient's plan for reports and for the wrapper's scratch:

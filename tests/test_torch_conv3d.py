@@ -187,17 +187,20 @@ def _wgrad_emulate(x, dy, plan):
 # (x shape, Cout, plan): tap groups with two row groups (CP 16, N 24); all 27
 # taps of Cin 36 (CP 40, 1088 rows, three row groups of 3 M tiles a
 # warpgroup); the packed stem; Cout 136 in two column slices of N 72 -> 80;
-# more than 32 chunks (the sum's thread rows each add several)
+# more than 32 chunks (the sum's thread rows each add several); Cout 256 in
+# two 128-column blocks (BasicUNet's bottleneck)
 WGRAD_PLANS = [
     ((1, 3, 5, 18, 12), 20, dict(xs=16, r=2, m_tiles=1, tap_groups=3)),
     ((2, 2, 4, 9, 36), 28, dict(xs=16, r=4, m_tiles=3, tap_groups=1)),
     ((1, 4, 6, 16, 1), 28, dict(xs=16, r=3, m_tiles=1, tap_groups=1)),
     ((1, 2, 3, 16, 8), 136, dict(xs=16, r=2, m_tiles=2, tap_groups=3)),
     ((2, 4, 8, 40, 8), 16, dict(xs=16, r=1, m_tiles=1, tap_groups=3)),
+    ((1, 2, 3, 16, 8), 256, dict(xs=16, r=2, m_tiles=1, tap_groups=3)),
 ]
 
 
-@pytest.mark.parametrize("case", WGRAD_PLANS, ids=["groups-12-20", "all-taps-36-28", "stem", "slices-136", "chunks"])
+@pytest.mark.parametrize("case", WGRAD_PLANS,
+                         ids=["groups-12-20", "all-taps-36-28", "stem", "slices-136", "chunks", "slices-256"])
 def test_wgrad_decomposition_matches_plain_and_jax(case):
     """The bf16 weight-gradient kernel's decomposition, emulated in f32
     (:func:`_wgrad_emulate`), against ``conv3d_3x3_wgrad_plain`` and against

@@ -143,5 +143,7 @@ def test_synthetic_url_is_deterministic_per_seed():
     a, _ = synthetic.synthetic_em_task("em2", (8, 24, 20), seed=3)
     b, _ = synthetic.synthetic_em_task("em2", (8, 24, 20), seed=4)
     assert not np.array_equal(a, b)
-    with pytest.raises(NotImplementedError):
-        read_volume("synthetic://blobs/x_image?shape=8,8,8")
+    # every task of the JAX package reads, blobs too; an unknown one raises
+    assert read_volume("synthetic://blobs/x_image?shape=8,8,8").shape == (8, 8, 8)
+    with pytest.raises(ValueError):
+        read_volume("synthetic://nuclei/x_image?shape=8,8,8")

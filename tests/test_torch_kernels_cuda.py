@@ -510,9 +510,11 @@ def test_conv3d_never_falls_back(device):
         c3.conv3d_3x3(x, w, wmat=c3.kernel_weight(w, torch.bfloat16))
     with pytest.raises(RuntimeError, match="shape not supported"):  # a weight matrix short of rows
         c3.conv3d_3x3(x, w, wmat=c3.kernel_weight(w, torch.float32)[:-16].contiguous())
+    # an f32 weight slice beyond shared memory streams Cin in chunks: no refusal, no plain version
     wide = torch.zeros((16, 128, 3, 3, 3), device=device)
-    with pytest.raises(RuntimeError, match="shape not supported"):  # f32 weight slice beyond shared memory
-        c3.conv3d_3x3(torch.zeros((1, 2, 2, 2, 128), device=device), wide)
+    c3.reset_launch_counts()
+    assert torch.count_nonzero(c3.conv3d_3x3(torch.ones((1, 2, 2, 2, 128), device=device), wide)).item() == 0
+    assert c3.conv3d_3x3.launches == 1
     # a weight that requires grad goes through the backward kernels, not the plain version
     c3.reset_launch_counts()
     wg = w.clone().requires_grad_(True)
@@ -522,8 +524,9 @@ def test_conv3d_never_falls_back(device):
         c3.conv3d_3x3_wgrad(x, x.bfloat16())
     with pytest.raises(ValueError):  # dy's voxels differ from x's
         c3.conv3d_3x3_wgrad(x, x[:, :2].contiguous())
-    with pytest.raises(RuntimeError, match="shape not supported"):  # the input gradient's Cin 128 in f32
-        c3.conv3d_3x3_input_grad(torch.zeros((1, 2, 2, 2, 128), device=device), wide.transpose(0, 1).contiguous())
+    with pytest.raises(RuntimeError, match="shape not supported"):  # the input gradient's weight matrix short of rows
+        c3.conv3d_3x3_input_grad(torch.zeros((1, 2, 2, 2, 16), device=device), w.transpose(0, 1).contiguous(),
+                                 wmat=c3.kernel_weight(c3.mirror_weight(w.transpose(0, 1)), torch.float32)[:-16])
 
 
 # (B, Z, Y, X, Cin, Cout): the backward at every 3^3 layer shape of RSUNet on
@@ -539,6 +542,9 @@ WGRAD_SHAPES = [
     (2, 16, 16, 16, 36, 48), (2, 16, 16, 16, 48, 48), (2, 8, 8, 8, 48, 64), (2, 8, 8, 8, 64, 64),
     (1, 1, 7, 9, 1, 20), (3, 7, 5, 9, 3, 20), (1, 5, 13, 40, 36, 36), (1, 4, 11, 24, 28, 100),
     (1, 3, 5, 70, 80, 40), (1, 2, 3, 17, 36, 28), (2, 3, 9, 33, 8, 8), (1, 1, 1, 1, 1, 1),
+    # Cout past one 128-column block (two blocks of N 72 and 128): BasicUNet's
+    # bottleneck (128 -> 256, 256 -> 256 at 1 x 8 x 8) and a ragged 136
+    (2, 1, 8, 8, 128, 256), (2, 1, 8, 8, 256, 256), (1, 3, 6, 10, 40, 136),
 ]
 
 
@@ -566,8 +572,7 @@ def test_conv3d_wgrad_matches_plain(device, shape, dtype):
 
 
 @pytest.mark.parametrize(
-    "shape,dtype",
-    [(s, d) for s in WGRAD_SHAPES for d in (torch.float32, torch.bfloat16) if d == torch.bfloat16 or s[5] <= 96],
+    "shape,dtype", [(s, d) for s in WGRAD_SHAPES for d in (torch.float32, torch.bfloat16)],
     ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else {torch.float32: "f32", torch.bfloat16: "bf16"}[v],
 )
 def test_conv3d_input_grad_matches_plain(device, shape, dtype):
@@ -588,7 +593,8 @@ def test_conv3d_input_grad_matches_plain(device, shape, dtype):
         assert err <= _bf16_ulps(want, 2), (err, _bf16_ulps(want, 2))
 
 
-@pytest.mark.parametrize("shape", [(2, 18, 40, 40, 36, 48), (2, 64, 64, 64, 1, 28), (1, 4, 11, 24, 28, 100)],
+@pytest.mark.parametrize("shape", [(2, 18, 40, 40, 36, 48), (2, 64, 64, 64, 1, 28), (1, 4, 11, 24, 28, 100),
+                                   (2, 1, 8, 8, 256, 256), (1, 3, 6, 10, 40, 136)],
                          ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_conv3d_wgrad_does_not_depend_on_the_grid(device, shape, dtype):
@@ -680,6 +686,51 @@ def test_conv3d_function_backward_matches_plain_autograd(device, dtype):
     assert torch.all((gw - pw).abs() <= 1e-4 * mag + rel * pw.abs() + 1e-30)
     mag = dy.float().abs().sum((0, 1, 2, 3))
     assert torch.all((gb - pb).abs() <= 1e-4 * mag + rel * pb.abs())
+
+
+# (B, Z, Y, X, Cin, Cout, dtype): Cin past what one launch's weight slice
+# holds (bf16 192, f32 97), streamed in chunks: an odd Cin (scalar copies),
+# BasicUNet's Cin 256 at its bottleneck (z 1) and 2 x 16 x 16 level, UNETR's
+# hidden 384 on its 6^3 patch grid; f32 99 (odd) and 256
+WIDE_CIN = [
+    (1, 3, 5, 20, 193, 24, torch.bfloat16), (8, 1, 8, 8, 256, 256, torch.bfloat16),
+    (8, 2, 16, 16, 256, 128, torch.bfloat16), (2, 6, 6, 6, 384, 192, torch.bfloat16),
+    (1, 3, 5, 20, 99, 24, torch.float32), (1, 2, 16, 16, 256, 128, torch.float32),
+]
+
+
+@pytest.mark.parametrize("case", WIDE_CIN, ids=lambda c: "x".join(map(str, c[:6])) + "-" + str(c[6])[6:])
+def test_conv3d_streams_wide_cin(device, case):
+    """A Cin past one launch's weight slice runs in Cin chunks (the plan
+    reports them) with one rounding of the f32 sum: the forward (with and
+    without bias) and the input gradient (Cin = the forward's Cout) match
+    the plain versions (bf16: two ulps at the largest magnitude; f32: 1e-5
+    of the summed magnitudes), and launches repeat bit for bit."""
+    *shape, dtype = case
+    b, z, y, xs, cin, cout = shape
+    plan = c3.kernel_plan((b, z, y, xs, cin), cout, dtype)
+    assert plan["chunks"] > 1 and plan["cin_chunk"] * plan["chunks"] >= cin, plan
+    x, w, bias = _conv_inputs(tuple(shape), dtype, device, seed=12)
+    for bb in (bias, None):
+        got, want = c3.conv3d_3x3(x, w, bb), c3.conv3d_3x3_plain(x, w, bb)
+        torch.cuda.synchronize()
+        if dtype == torch.float32:
+            mag = c3.conv3d_3x3_plain(x.abs(), w.abs()) + (0 if bb is None else bb.abs())
+            assert torch.all((got - want).abs() <= 1e-5 * mag + 1e-30), ((got - want).abs() / mag).max().item()
+        else:
+            assert (got.float() - want.float()).abs().max().item() <= _bf16_ulps(want, 2)
+    assert torch.equal(c3.conv3d_3x3(x, w, bias), c3.conv3d_3x3(x, w, bias))
+    # the input gradient of a conv whose Cout is this Cin
+    dy = x
+    wt = w.transpose(0, 1).contiguous()  # (Cout' = cin, Cin' = cout)
+    got, want = c3.conv3d_3x3_input_grad(dy, wt), c3.conv3d_3x3_input_grad_plain(dy, wt)
+    torch.cuda.synchronize()
+    assert got.shape == (b, z, y, xs, cout)
+    if dtype == torch.float32:
+        mag = c3.conv3d_3x3_input_grad_plain(dy.abs(), wt.abs())
+        assert torch.all((got - want).abs() <= 1e-5 * mag + 1e-30)
+    else:
+        assert (got.float() - want.float()).abs().max().item() <= _bf16_ulps(want, 2)
 
 
 def test_conv3d_forward_matches_the_tree_before_the_shared_launch_path(device):
