@@ -1,8 +1,8 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--phases 9,10,12] [--phases instance] [--phases 15,16] [--phases unet]
+    python3 chip_smoke.py [--phases 9,10,12] [--phases instance] [--phases 15,16] [--phases unet] [--phases nisb]
 
-With --phases, only phases 1-2 and the listed ones of 3-17 run, and the
+With --phases, only phases 1-2 and the listed ones of 3-18 run, and the
 last line is the same {"ok": true, ...} object with the phases run; the
 kernels line needs every phase and is printed by a full run only.
 
@@ -92,8 +92,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
               plain versions at its stride-1 stage shapes, timed, with their
               plans; its forward, kernel path against plain (18 launches of
               each pair kernel); then through the CLI on the recipe's seeded
-              synthetic://instance volumes, as shipped: --mode train (2
-              epochs of 150 steps), --mode tune on volume A (24 TPE trials of
+              synthetic://instance volumes, as shipped but for the train
+              leg's depth: --mode train (75 steps; it ships 2 epochs of 150),
+              --mode tune on volume A (24 TPE trials of
               waterz against VOI), --mode tune-test --best-params on the
               held-out volume B, and the same params on an untrained model's
               prediction of B; fails unless the trained VOI on B is below the
@@ -114,13 +115,13 @@ Phases (any failure exits non-zero; no phase catches its own failure):
               launches (15, 14, 15)
  16. rsunet-recipes  tutorials/neuron_snemi.yaml through the CLI as shipped
               on seeded synthetic instance volumes made on the card: --mode
-              train for 10 epochs of 30 steps (54x480x480), --mode tune on
+              train for 1 epoch of 30 steps (54x480x480), --mode tune on
               volume A (36x320x320, 12 of the 30 TPE trials, adapted Rand),
               --mode tune-test on the held-out B (flip TTA x4, min ensemble,
               waterz, adapted Rand and VOI), and the same params on an
               untrained model's prediction of B; fails unless the trained
               adapted Rand on B is below the untrained one's; then
-              tutorials/nuc_nucmm.yaml --mode train for 40 steps on phase
+              tutorials/nuc_nucmm.yaml --mode train for 10 steps on phase
               11's synthetic 165x1024x768 volume
  17. unet     the MONAI U-Nets: the conv's kernels (forward, input gradient,
               weight gradient) against their plain versions at each of
@@ -136,10 +137,34 @@ Phases (any failure exits non-zero; no phase catches its own failure):
               (random:// test volumes named on the command line),
               tutorials/synthetic_blobs.yaml train (8 steps) -> test (bump
               blending, overlap 0.25) -> bcd decode -> adapted Rand and VOI,
-              and tutorials/vesicle_xm.yaml train (40 steps) -> test (flip TTA
+              and tutorials/vesicle_xm.yaml train (10 steps) -> test (flip TTA
               xy, binary_cc, jaccard / instance F1) on seeded synthetic em2
               165x1024x768 volumes (its datasets are not in the repository)
- 18. report   a {"kernels": [...]} line, then {"ok": true, "device": ...} last
+ 18. nisb     tutorials/neuron_nisb.yaml (MedNeXt-L, bf16, 3 affinity channels,
+              outside_block remat): the block pair (inference batch 8 of
+              32x128x128) and the depthwise kernels (training batch 4), bf16
+              and f32, against their plain versions at MedNeXt-L's five
+              stride-1 stages, timed, with their plans (the C 512 / R 4096
+              bottleneck's apply against its plain version logged); the
+              forward (54 launches of each pair kernel) and one train step
+              (162 depthwise and 54 weight-gradient launches; fault probes),
+              kernel path against plain; then through the CLI on seeded
+              synthetic://instance volumes made on the card: --mode train
+              (2 epochs of 15 steps, 48x384x384), --mode tune on A
+              (32x256x256, 3 of the 20 TPE trials on NERL), --mode tune-test
+              on the held-out B (96x768x768) chunk by chunk at the shipped
+              chunk size and halo (2x2x2 chunks, the last on each axis cut),
+              and the same params on an untrained model's B (VOI through
+              the CLI, NERL and ERL from the trained leg's skeletons of B's
+              ground truth); the prediction
+              stage again, resuming (0 chunks recomputed), and with one chunk
+              off the manifest (that chunk alone, the file bit-equal); that
+              chunk (cut on every axis) kernel path against plain; the whole-volume
+              prediction against the chunked one (reported); one trial on A
+              split into decode, post-processing, GT skeletons, ERL and VOI;
+              fails unless the trained VOI on B is below the untrained one's
+              and every NERL lies in [0, 1]
+ 19. report   a {"kernels": [...]} line, then {"ok": true, "device": ...} last
 
 Imports torch and the port only. Details go to build/chip_smoke/chip_smoke.json.
 """
@@ -260,7 +285,7 @@ def library_block(x, p, eps):
     return x + F.linear(h, p["w2"], p["b2"])
 
 
-def pair_row(fb, dev, c, r, spatial, per_fwd, dtype, batch=BATCH):
+def pair_row(fb, dev, c, r, spatial, per_fwd, dtype, batch=BATCH, reps=None):
     """The block pair at one stage: each kernel against its plain version
     (stated tolerances; fails the run beyond them), timed beside its plain
     version, its bound and the library yardstick, with the plan it took."""
@@ -290,7 +315,7 @@ def pair_row(fb, dev, c, r, spatial, per_fwd, dtype, batch=BATCH):
     tol = 2e-4 if es == 4 else 2.0 ** (math.floor(math.log2(max(top, 1.0))) - 6)
     if not err <= tol:
         fail(f"fused_block_apply C={c} {dtype}: max error {err:.3g} > {tol:.3g}")
-    reps = 20 if c >= 128 else 10
+    reps = reps or (20 if c >= 128 else 10)
     b_stats, b_apply = bounds(c, r, spatial, es, batch)
     row = dict(
         C=c, R=r, spatial=list(spatial), dtype=str(dtype).split(".")[-1], blocks_per_forward=per_fwd,
@@ -687,8 +712,10 @@ def phase_predict_profile(dev, work, shape, report, recipe=RECIPE, name=None, ke
 
     from torch.autograd import DeviceType
 
-    # kernel rows only: operator rows (aten::*) repeat their kernels' time
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    # kernel rows only: operator rows (aten::*) repeat their kernels' time;
+    # one averaging pass (each walks every event of the predict)
+    averages = prof.key_averages()
+    events = [e for e in averages if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     busy = sum(dev_us(e) for e in events) / 1e6
     top = sorted(events, key=dev_us, reverse=True)[:8]
     mvox = math.prod(shape) / secs / 1e6
@@ -696,7 +723,7 @@ def phase_predict_profile(dev, work, shape, report, recipe=RECIPE, name=None, ke
         f"with the device busy {busy:.3f} s ({100 * busy / prof_secs:.1f}%)")
     for e in top:
         log(f"  {dev_us(e) / 1e3:9.2f} ms  {e.count:6d}x  {e.key[:90]}")
-    ops = [e for e in prof.key_averages() if e.device_type != DeviceType.CUDA and dev_us(e) > 0]
+    ops = [e for e in averages if e.device_type != DeviceType.CUDA and dev_us(e) > 0]
     for e in sorted(ops, key=dev_us, reverse=True)[:6]:
         log(f"  op {dev_us(e) / 1e3:9.2f} ms  {e.count:6d}x  {e.key[:90]}")
     copies = sorted(
@@ -1188,6 +1215,9 @@ def phase_fast_recipe(dwk, fb, dev, work, report):
 # forward or train step) of its stride-1 blocks
 INSTANCE = ROOT / "tutorials" / "synthetic_instance_tune_tpu.yaml"
 INSTANCE_BATCH = 8
+# phase 14's train leg: one epoch of INSTANCE_STEPS steps (the recipe ships
+# 2 x 150; cut to make room for phase 18)
+INSTANCE_STEPS = 75
 INSTANCE_STAGES = [
     (32, 64, (32, 64, 64), 4),
     (64, 128, (16, 32, 32), 4),
@@ -1272,14 +1302,17 @@ def phase_instance(dwk, fb, dev, work, report):
     try:
         dwk.reset_launch_counts()
         fb.reset_launch_counts()
-        train = dispatch_runtime(parse_args(flags + ["--mode", "train", f"save_path={run_root}"]))
+        train = dispatch_runtime(parse_args(flags + ["--mode", "train", f"save_path={run_root}",
+                                                     "optimization.max_epochs=1",
+                                                     f"optimization.n_steps_per_epoch={INSTANCE_STEPS}"]))
         torch.cuda.synchronize()
         train_counts = {k.__name__: k.launches for k in dwk.KERNELS + fb.KERNELS}
         if any(k.launches <= 0 for k in dwk.KERNELS):
             fail(f"the instance train leg did not run through both depthwise kernels: {train_counts}")
         train_stats = train_leg_stats(train)
         st, losses = train_stats["train_stats"], train_stats["losses"]
-        if st["steps"] != 300 or not train["checkpoint"] or not all(math.isfinite(v) for v in losses):
+        if st["steps"] != INSTANCE_STEPS or not train["checkpoint"] \
+                or not all(math.isfinite(v) for v in losses):
             fail(f"instance train leg: {st['steps']} steps, checkpoint {train['checkpoint']}, losses {losses}")
         train_stats["launches"] = train_counts
         log(f"train leg: {st['steps']} steps in {st['seconds']:.2f} s ({train_stats['steps_per_s']:.3f} steps/s, "
@@ -1603,13 +1636,14 @@ SNEMI_CONV_SHAPES = [
     ((18, 10, 10), 80, 80, 1),
 ]
 # the CLI legs of phase 16: SNEMI train on a synthetic instance volume for
-# SNEMI_EPOCHS x SNEMI_STEPS steps (the profile's 3 warmup epochs end inside
-# the run), tune on volume A with SNEMI_TRIALS of the recipe's 30 trials,
-# tune-test on the held-out B; NucMM-Z train for NUCMM_TRAIN_STEPS steps
+# SNEMI_EPOCHS x SNEMI_STEPS steps (cut from 10 epochs to make room for
+# phase 18; the profile's 3 warmup epochs are clamped to the run), tune on
+# volume A with SNEMI_TRIALS of the recipe's 30 trials, tune-test on the
+# held-out B; NucMM-Z train for NUCMM_TRAIN_STEPS steps
 SNEMI_TRAIN_SHAPE = (54, 480, 480)
 SNEMI_TUNE_SHAPE = (36, 320, 320)
-SNEMI_EPOCHS, SNEMI_STEPS, SNEMI_TRIALS = 10, 30, 12
-NUCMM_TRAIN_STEPS = 40
+SNEMI_EPOCHS, SNEMI_STEPS, SNEMI_TRIALS = 1, 30, 12
+NUCMM_TRAIN_STEPS = 10
 # limits of the bf16 RSUNet train step's kernel path against its plain path:
 # the loss, relative; each gradient leaf as the norm of the difference over
 # the leaf's norm (the convs' biases, whose gradients GroupNorm nearly
@@ -1898,7 +1932,7 @@ MINIMAL = ROOT / "tutorials" / "minimal.yaml"
 BLOBS = ROOT / "tutorials" / "synthetic_blobs.yaml"
 VESICLE_BATCH = 8
 VESICLE_SHAPE = (165, 1024, 768)
-VESICLE_STEPS = 40
+VESICLE_STEPS = 10
 # ((Z, Y, X), Cin, Cout, launches per forward) of BasicUNet's 3^3 convs at
 # vesicle_xm's (16, 128, 128) window, stock features [32, 32, 64, 128, 256, 32]:
 # the encoder's two convs a level, then the decoder's (after the upcat)
@@ -2266,6 +2300,479 @@ def phase_unet(c3, dev, work, report):
         fail("the vesicle_xm test leg did not predict with the recipe's 4 flip variants")
     out["recipes"] = legs
     return rows
+
+
+NISB = ROOT / "tutorials" / "neuron_nisb.yaml"
+NISB_BATCH, NISB_TRAIN_BATCH = 8, 4
+# (C, R, (Z, Y, X), blocks per forward) of MedNeXt-L's stride-1 blocks on the
+# NISB recipe's (32, 128, 128) window (stock stem): 54 blocks
+NISB_STAGES = [
+    (32, 96, (32, 128, 128), 6),
+    (64, 256, (16, 64, 64), 8),
+    (128, 1024, (8, 32, 32), 16),
+    (256, 2048, (4, 16, 16), 16),
+    (512, 4096, (2, 8, 8), 8),
+]
+NISB_BLOCKS = sum(s[3] for s in NISB_STAGES)
+# the MedNeXt-L forward: the kernel path's relative error against the f32
+# plain path at most this many times the bf16 plain path's own
+NISB_FWD_ERR_RATIO = 2.0
+# the corner chunk of the tuned prediction (cut on every axis), kernel path
+# against plain (two bf16 computations rounding at other points): the mean
+# |difference| of the probabilities, and the share of voxels that differ by
+# more than 0.05
+NISB_CHUNK_MEAN_TOL = 2e-3
+NISB_CHUNK_FAR_SHARE = 1e-4
+# seeded synthetic://instance volumes made on the card (the NISB volumes are
+# not in the repository): train, tune volume A, held-out volume B; B holds two
+# of the recipe's (64, 512, 512) chunks on every axis, the second one cut
+NISB_TRAIN_SHAPE = (48, 384, 384)
+NISB_TUNE_SHAPE = (32, 256, 256)
+NISB_TEST_SHAPE = (96, 768, 768)
+NISB_EPOCHS, NISB_STEPS, NISB_TRIALS = 2, 15, 3
+# the chunk the resume check drops from the manifest and the kernel path is
+# held to the plain path on: the corner one, cut on every axis
+NISB_DROPPED_CHUNK = "1_1_1"
+
+
+def nisb_forward(fb, dev, out):
+    """The 3-channel MedNeXt-L forward at batch 8, kernel path against plain.
+    Both run bf16 and round at other points, and over 54 blocks the two
+    drift apart by about the bf16 plain path's own error, so the kernel
+    path is held to the f32 plain path: its relative error (norm of the
+    difference over the norm) at most NISB_FWD_ERR_RATIO times the bf16
+    plain path's."""
+    import copy
+
+    from pytorch_connectomics_tpu_torch.config import load_config
+    from pytorch_connectomics_tpu_torch.models import build_model
+
+    cfg = load_config(NISB, mode="test")
+    model = build_model(cfg.model, device=dev, seed=0)
+    cfg32 = copy.deepcopy(cfg)
+    cfg32.model.compute_dtype = "float32"
+    model32 = build_model(cfg32.model, device=dev, seed=0)
+    model32.load_state_dict(model.state_dict())
+    x = torch.from_numpy(np.random.default_rng(2).random((NISB_BATCH, 32, 128, 128, 1), dtype=np.float32)).to(dev)
+    with torch.inference_mode():
+        fb.reset_launch_counts()
+        y = model(x)
+        torch.cuda.synchronize()
+        counts = {k.__name__: k.launches for k in fb.KERNELS}
+        if any(v != NISB_BLOCKS for v in counts.values()):
+            fail(f"one MedNeXt-L forward should launch each kernel {NISB_BLOCKS} times, got {counts}")
+        ref = model(x, plain=True)
+        ref32 = model32(x, plain=True).float()
+        err, top = (y - ref).abs().max().item(), ref.abs().max().item()
+        rel_k = ((y.float() - ref32).norm() / ref32.norm()).item()
+        rel_p = ((ref.float() - ref32).norm() / ref32.norm()).item()
+        if not torch.isfinite(y).all() or y.shape != (NISB_BATCH, 32, 128, 128, 3) \
+                or not rel_k <= NISB_FWD_ERR_RATIO * rel_p:
+            fail(f"MedNeXt-L {tuple(y.shape)}: kernel path's error against f32 {rel_k:.3g}, more than "
+                 f"{NISB_FWD_ERR_RATIO} x the bf16 plain path's {rel_p:.3g}")
+        ms = time_ms(lambda: model(x), reps=5, warmup=1)
+        plain_ms = time_ms(lambda: model(x, plain=True), reps=3, warmup=1)
+    out["model"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, max_abs_ref=top, rel_err_f32=rel_k,
+                        plain_rel_err_f32=rel_p, err_ratio_limit=NISB_FWD_ERR_RATIO, launches_per_forward=counts)
+    log(f"MedNeXt-L, 3 affinity channels, bf16 batch 8 of 32x128x128: kernel path {ms:.2f} ms, plain path "
+        f"{plain_ms:.2f} ms; against the f32 plain path the kernel path's relative error {rel_k:.4g}, the bf16 plain "
+        f"path's {rel_p:.4g} (limit {NISB_FWD_ERR_RATIO}x); max |kernel - plain| {err:.4g} of max |plain| {top:.4g}")
+    del model, model32
+
+
+def nisb_train_step(dwk, fb, dev, out):
+    """One MedNeXt-L train step at the recipe's batch 4 of 32x128x128 (bf16,
+    outside_block remat): loss and per-leaf gradients of the kernel path
+    against the plain path, with fault probes the limit must reject; step
+    time, peak memory and launches a step."""
+    from pytorch_connectomics_tpu_torch.config import load_config
+    from pytorch_connectomics_tpu_torch.losses import LossOrchestrator
+    from pytorch_connectomics_tpu_torch.models import build_model
+    from pytorch_connectomics_tpu_torch.training.optim import build_optimizer
+    from pytorch_connectomics_tpu_torch.training.state import create_train_state, make_train_step
+
+    cfg = load_config(NISB, mode="train")
+    if cfg.model.mednext.checkpoint_style != "outside_block" or cfg.model.compute_dtype != "bfloat16" \
+            or cfg.data.dataloader.batch_size != NISB_TRAIN_BATCH:
+        fail("neuron_nisb.yaml no longer trains bf16 at batch 4 with outside_block remat")
+    model = build_model(cfg.model, device=dev, seed=0)
+    orch = LossOrchestrator(cfg.model.loss)
+    shape = (NISB_TRAIN_BATCH, *cfg.data.dataloader.patch_size)
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.random((*shape, 1), dtype=np.float32)).to(dev)
+    y = torch.from_numpy((rng.random((*shape, 3)) > 0.5).astype(np.float32)).to(dev)
+
+    def loss_and_grads(plain):
+        model.zero_grad(set_to_none=True)
+        loss, _ = orch(model(x, plain=plain), y)
+        loss.backward()
+        return loss.item(), {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+    dwk.reset_launch_counts()
+    fb.reset_launch_counts()
+    loss_k, g_k = loss_and_grads(False)
+    torch.cuda.synchronize()
+    counts = {k.__name__: k.launches for k in dwk.KERNELS + fb.KERNELS}
+    # each stride-1 block: forward, remat recompute and input gradient; one weight gradient
+    want = {"depthwise3x3": 3 * NISB_BLOCKS, "depthwise3x3_wgrad": NISB_BLOCKS, "dw_stats": 0, "fused_block_apply": 0}
+    if counts != want:
+        fail(f"one MedNeXt-L remat train step should launch {want}, got {counts}")
+    loss_p, g_p = loss_and_grads(True)
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    errs = leaf_errors(g_k, g_p)
+    worst = max(errs, key=errs.get)
+    log(f"loss kernel {loss_k:.6f} plain {loss_p:.6f} (rel err {loss_err:.3g}); worst leaf {worst} {errs[worst]:.4g}")
+    if not math.isfinite(loss_k) or loss_err > TRAIN_LOSS_TOL:
+        fail(f"MedNeXt-L train step loss: kernel {loss_k} vs plain {loss_p} (rel err {loss_err:.3g})")
+    if errs[worst] > TRAIN_GRAD_TOL:
+        fail(f"MedNeXt-L train step gradient {worst}: error {errs[worst]:.3g} > {TRAIN_GRAD_TOL}")
+    probes = {}
+    s0, bott = model.enc[0].blocks[0], model.bottleneck.blocks[0]
+    for name, w, idx in (("dw tap (0,0,0) dropped, stage 0", s0.conv_weight, (slice(None), 0, 0, 0, 0)),
+                         ("hidden units 0:16 dropped, bottleneck", bott.pw2.weight, (slice(None), slice(0, 16)))):
+        with torch.no_grad():
+            saved = w[idx].clone()
+            w[idx] = 0
+        _, g_f = loss_and_grads(True)
+        with torch.no_grad():
+            w[idx] = saved
+        probes[name] = max(leaf_errors(g_f, g_p).values())
+    log("fault probes (worst leaf error): " + ", ".join(f"{k} {v:.4g}" for k, v in probes.items()))
+    if min(probes.values()) <= TRAIN_GRAD_TOL:
+        fail(f"the gradient limit {TRAIN_GRAD_TOL} lets a fault probe pass: {probes}")
+    opt, schedule = build_optimizer(cfg.optimization, model, 100)
+    state = create_train_state(model, opt)
+    step = make_train_step(orch, schedule, gradient_clip=cfg.optimization.gradient_clip_val)
+    batch = {"image": x, "label": y}
+    step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reps = 3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        logs = step(state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / reps * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(float(v)) for v in logs.values()):
+        fail(f"MedNeXt-L train step logs not finite: {logs}")
+    out["train_step"] = dict(shape=list(shape), step_ms=step_ms, peak_memory_bytes=peak, launches_per_step=counts,
+                             loss_kernel=loss_k, loss_plain=loss_p, loss_rel_err=loss_err, grad_leaf_errors=errs,
+                             worst_leaf=worst, grad_tol=TRAIN_GRAD_TOL, fault_probe_leaf_errors=probes)
+    log(f"MedNeXt-L train step {shape} bf16 remat: {step_ms:.1f} ms, peak memory {peak / 2**30:.2f} GiB, "
+        f"launches per step {counts}")
+    del model, opt, state, g_k, g_p
+    torch.cuda.empty_cache()
+
+
+def phase_nisb(dwk, fb, dev, work, report):
+    log("== phase 18: tutorials/neuron_nisb.yaml (MedNeXt-L, affinities): kernels at its shapes, forward, train "
+        "step, CLI train -> tune on NERL -> chunked tune-test and the untrained control ==")
+    import shutil
+
+    import yaml
+
+    from pytorch_connectomics_tpu_torch.chunked import build_chunk_grid
+    from pytorch_connectomics_tpu_torch.data.io import read_volume
+    from pytorch_connectomics_tpu_torch.data.preprocess import normalize_volume
+    from pytorch_connectomics_tpu_torch.data.synthetic import synthetic_em_task
+    from pytorch_connectomics_tpu_torch.decoding.postprocess import apply_postprocessing
+    from pytorch_connectomics_tpu_torch.decoding.registry import run_steps
+    from pytorch_connectomics_tpu_torch.inference import InferenceManager, LazyVolumeAccessor
+    from pytorch_connectomics_tpu_torch.metrics import expected_run_length, skeletonize_volume, voi
+    from pytorch_connectomics_tpu_torch.metrics import nerl as nerl_module
+    from pytorch_connectomics_tpu_torch.models import build_model
+    from pytorch_connectomics_tpu_torch.runtime.cli import parse_args, setup_config
+    from pytorch_connectomics_tpu_torch.runtime.dispatch import dispatch_runtime, load_weights
+    from pytorch_connectomics_tpu_torch.runtime.test_pipeline import run_test_pipeline
+    from pytorch_connectomics_tpu_torch.runtime.tune_runner import apply_best_params
+
+    out = report["nisb"] = {}
+    t_phase = time.perf_counter()
+    parts = out["part_seconds"] = {}
+    last = [t_phase]
+
+    def lap(what):
+        now = time.perf_counter()
+        parts[what] = now - last[0]
+        last[0] = now
+    # (a) the kernels of this path at MedNeXt-L's stride-1 stages: the pair at
+    # the inference batch 8, the depthwise kernels at the training batch 4
+    # f32 applies run the exact CUDA-core check path (73-123 ms a launch here): 3 timed calls
+    out["pair_rows"] = [pair_row(fb, dev, c, r, spatial, per, dtype, NISB_BATCH,
+                                 reps=3 if dtype == torch.float32 else None)
+                        for dtype in (torch.bfloat16, torch.float32) for c, r, spatial, per in NISB_STAGES]
+    for row in out["pair_rows"]:
+        if row["C"] == 512:
+            a = row["fused_block_apply"]
+            log(f"bottleneck C 512 / R 4096 {row['dtype']}: fused_block_apply {a['ms']:.4f} ms against its plain "
+                f"version's {a['plain_ms']:.4f} ms (bound {a['bound_ms']:.4f})")
+    out["depthwise_rows"] = [depthwise_row(dwk, dev, "nisb", spatial, c, per, dtype, NISB_TRAIN_BATCH)
+                             for dtype in (torch.bfloat16, torch.float32) for c, _, spatial, per in NISB_STAGES]
+    lap("kernel_rows")
+    # (b) the forward, (c) one train step
+    nisb_forward(fb, dev, out)
+    lap("forward")
+    nisb_train_step(dwk, fb, dev, out)
+    lap("train_step")
+
+    # (d) the recipe's CLI legs as shipped, on volumes made on the card
+    t0 = time.perf_counter()
+    vols = {}
+    for tag, shape, seed in (("train", NISB_TRAIN_SHAPE, 41), ("a", NISB_TUNE_SHAPE, 42), ("b", NISB_TEST_SHAPE, 43)):
+        img, lbl = synthetic_em_task("instance", shape, seed=seed, device=dev)
+        vols[tag] = (work / f"nisb_{tag}_im.npy", work / f"nisb_{tag}_label.npy")
+        np.save(vols[tag][0], img)
+        np.save(vols[tag][1], lbl)
+    out["volumes_seconds"] = time.perf_counter() - t0
+    lap("volumes")
+    log(f"NISB volumes (synthetic instance: train {NISB_TRAIN_SHAPE}, A {NISB_TUNE_SHAPE}, B {NISB_TEST_SHAPE}) made "
+        f"in {out['volumes_seconds']:.1f} s")
+    shipped = yaml.safe_load(NISB.read_text())["default"]["inference"]["chunked"]
+    grid = build_chunk_grid(NISB_TEST_SHAPE, shipped["chunk_size"], shipped["halo"])
+    counts_a = [len({c.index[i] for c in grid}) for i in range(3)]
+    if min(counts_a) < 2 or not all(c.stop[i] - c.start[i] < shipped["chunk_size"][i] for c in grid[-1:] for i in
+                                    range(3)):
+        fail(f"B {NISB_TEST_SHAPE} does not hold two chunks of {shipped['chunk_size']} an axis with a cut last one")
+    run_root, control_root = work / "nisb", work / "nisb_control"
+    for d in (run_root, control_root):
+        shutil.rmtree(d, ignore_errors=True)
+
+    def data(split, tag):
+        return [f"data.{split}.image={vols[tag][0]}", f"data.{split}.label={vols[tag][1]}"]
+
+    flags = ["--config", str(NISB), "--device", str(dev)]
+    logs = LogRecords(("timing[", "trial %d/%d", "chunk ", "chunked: "))
+    port_log = logging.getLogger("pytorch_connectomics_tpu_torch")
+    port_log.addHandler(logs)
+    try:
+        dwk.reset_launch_counts()
+        fb.reset_launch_counts()
+        steps = NISB_EPOCHS * NISB_STEPS
+        train = dispatch_runtime(parse_args(flags + [
+            "--mode", "train", f"save_path={run_root}", f"optimization.max_epochs={NISB_EPOCHS}",
+            f"optimization.n_steps_per_epoch={NISB_STEPS}", *data("train", "train")]))
+        torch.cuda.synchronize()
+        train_counts = {k.__name__: k.launches for k in dwk.KERNELS + fb.KERNELS}
+        stats = train_leg_stats(train)
+        if stats["train_stats"]["steps"] != steps or not train["checkpoint"] or not stats["losses"] \
+                or not all(math.isfinite(v) for v in stats["losses"]):
+            fail(f"NISB train leg: {stats['train_stats']['steps']} steps, checkpoint {train['checkpoint']}, "
+                 f"losses {stats['losses']}")
+        if train_counts["depthwise3x3"] != 3 * NISB_BLOCKS * steps \
+                or train_counts["depthwise3x3_wgrad"] != NISB_BLOCKS * steps:
+            fail(f"the NISB train leg should launch depthwise3x3 {3 * NISB_BLOCKS} and depthwise3x3_wgrad "
+                 f"{NISB_BLOCKS} times a step for {steps} steps: {train_counts}")
+        stats["launches"] = train_counts
+        lap("train_leg")
+        log(f"NISB train leg: {steps} steps in {stats['train_stats']['seconds']:.2f} s ({stats['steps_per_s']:.3f} "
+            f"steps/s, {stats['step_ms']:.1f} ms a step, {stats['data_wait_ms_per_step']:.1f} of it waiting for "
+            f"batches; pipeline {stats['pipeline_host_ms_per_batch']:.1f} ms a batch); losses "
+            f"{stats['losses'][0]:.4f} -> {stats['losses'][-1]:.4f}; launches {train_counts}")
+
+        def leg(mode, root, extra):
+            fb.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = dispatch_runtime(parse_args(flags + ["--mode", mode] + extra + [f"save_path={root}"]))
+            torch.cuda.synchronize()
+            res["seconds"] = time.perf_counter() - t0
+            res["launches"] = {k.__name__: k.launches for k in fb.KERNELS}
+            if any(v <= 0 or v % NISB_BLOCKS for v in res["launches"].values()):
+                fail(f"the {mode} leg did not run every stride-1 block through the fused kernels: {res['launches']}")
+            return res
+
+        tune = leg("tune", run_root, ["--tune-trials", str(NISB_TRIALS), *data("test", "a")])
+        if (tune.get("restored") or {}).get("checkpoint") != train["checkpoint"]:
+            fail(f"the tune leg did not restore {train['checkpoint']}: {tune.get('restored')}")
+        study = yaml.safe_load(Path(tune["best_params"]).read_text())
+        trials = [a[4] for a in logs.take("trial %d/%d")]
+        (tune_timing,) = logs.take("timing[")
+        logs.take("chunk ")
+        logs.take("chunked: ")
+        if len(trials) != NISB_TRIALS or study["metric"] != "nerl" or study["direction"] != "maximize" \
+                or not all(0 <= t["value"] <= 1 for t in study["trials"] if t["state"] == "complete"):
+            fail(f"the tune leg ran {len(trials)} trials on {study['metric']}: {study['trials']}")
+        lap("tune_leg")
+        bp = ["--best-params", tune["best_params"], *data("test", "b")]
+        # the leg as shipped; the ground-truth skeletons its NERL makes are
+        # kept (and timed) for the control's NERL
+        made = {}
+
+        def recording(gt, **kw):
+            t0 = time.perf_counter()
+            made["skeletons"] = skeletonize(gt, **kw)
+            made["seconds"] = time.perf_counter() - t0
+            return made["skeletons"]
+
+        skeletonize = nerl_module.skeletonize_volume
+        nerl_module.skeletonize_volume = recording
+        try:
+            test = leg("tune-test", run_root, bp)
+        finally:
+            nerl_module.skeletonize_volume = skeletonize
+        (test_timing,) = logs.take("timing[")
+        chunk_times = [dict(key=a[0], read_s=a[1], predict_s=a[2], write_s=a[3]) for a in logs.take("chunk ")]
+        (summary,) = logs.take("chunked: ")
+        if summary[:2] != (len(grid), len(grid)) or sorted(c["key"] for c in chunk_times) != sorted(c.key for c in grid):
+            fail(f"the tune-test leg computed {summary[:2]} chunks, not all {len(grid)}: {chunk_times}")
+        lap("tune_test_leg")
+        # the control scores VOI through the CLI; its NERL and ERL come from
+        # the trained leg's skeletons of the same ground truth (B's skeletons
+        # take most of an evaluation's minute on the host)
+        control = leg("tune-test", control_root, bp + ["evaluation.metrics=[voi]"])
+        lap("control_leg")
+        logs.take("timing[")
+        logs.take("chunk ")
+        logs.take("chunked: ")
+        if control.get("restored"):
+            fail(f"the control restored a checkpoint: {control['restored']}")
+
+        # (e) resume: the tune-test leg's prediction stage again, with its
+        # config (so its config hash) and checkpoint, then again with one
+        # chunk taken off the manifest
+        ckpt = test["restored"]["checkpoint"]
+        cfg_b = apply_best_params(setup_config(parse_args(flags + ["--mode", "tune-test", *bp,
+                                                                   f"save_path={run_root}"])), tune["best_params"])
+        model = build_model(cfg_b.model, device=dev, seed=cfg_b.system.seed)
+        load_weights(model, ckpt, cfg_b)
+        run_dir = Path(test["run_dir"])
+        pred_file = next(f for f in run_dir.iterdir() if f.name.endswith(("_prediction.h5", "_prediction.npy")))
+        manifest = next(run_dir.glob("*_prediction.h5.manifest.json"))
+        chunked = read_volume(str(pred_file)).copy()
+        resumed = []
+        for drop in ((), (NISB_DROPPED_CHUNK,)):
+            m = json.loads(manifest.read_text())
+            m["done"] = [k for k in m["done"] if k not in drop]
+            manifest.write_text(json.dumps(m))
+            fb.reset_launch_counts()
+            run_test_pipeline(cfg_b, model, run_dir, ckpt, dev, mode="tune")
+            (s,) = logs.take("chunked: ")
+            keys = [a[0] for a in logs.take("chunk ")]
+            logs.take("timing[")
+            same = bool(np.array_equal(read_volume(str(pred_file)), chunked))
+            resumed.append(dict(dropped=list(drop), computed=s[0], chunks=s[1], keys=keys, bit_equal=same,
+                                launches=fb.fused_block_apply.launches))
+            if s[0] != len(drop) or keys != list(drop) or not same:
+                fail(f"resume with {list(drop)} off the manifest recomputed {s[0]} chunks {keys}, file bit-equal "
+                     f"{same}")
+        lap("resume")
+    finally:
+        port_log.removeHandler(logs)
+
+    # (f) the corner chunk, kernel path against plain; the whole volume against the chunks (reported)
+    manager = InferenceManager(cfg_b, model, dev)
+    plain = InferenceManager(cfg_b, model, dev)
+    plain.engine.apply_fn = lambda t: model(t, plain=True)
+    corner = next(c for c in grid if c.key == NISB_DROPPED_CHUNK)
+    data = LazyVolumeAccessor(str(vols["b"][0]), normalize=cfg_b.data.preprocessing.normalize).read(corner.read_slices)
+    fb.reset_launch_counts()
+    got = manager.predictor.predict(data, out_channels=3)
+    k_launches = fb.fused_block_apply.launches
+    want = plain.predictor.predict(data, out_channels=3)
+    d = np.abs(got - want)
+    thr = float(cfg_b.decoding.steps[0].kwargs["threshold"])
+    corner_cmp = dict(max_abs_err=float(d.max()), mean_abs_err=float(d.mean()), far_share=float((d > 0.05).mean()),
+                     flipped_share=float(((got > thr) != (want > thr)).mean()), mean_tol=NISB_CHUNK_MEAN_TOL,
+                     far_share_tol=NISB_CHUNK_FAR_SHARE, launches=k_launches)
+    del d
+    log(f"chunk {corner.key} {data.shape}, kernel path vs plain: mean |diff| {corner_cmp['mean_abs_err']:.3g} "
+        f"(limit {NISB_CHUNK_MEAN_TOL}), share above 0.05 {corner_cmp['far_share']:.3g} (limit {NISB_CHUNK_FAR_SHARE}), "
+        f"max {corner_cmp['max_abs_err']:.4g}, affinities on the other side of the tuned threshold "
+        f"{corner_cmp['flipped_share']:.3g}")
+    if k_launches <= 0 or fb.fused_block_apply.launches != k_launches \
+            or not corner_cmp["mean_abs_err"] <= NISB_CHUNK_MEAN_TOL \
+            or not corner_cmp["far_share"] <= NISB_CHUNK_FAR_SHARE:
+        fail(f"chunk {corner.key} kernel path vs plain beyond its limits: {corner_cmp}, launches {k_launches} then "
+             f"{fb.fused_block_apply.launches}")
+    lap("corner_chunk")
+    t0 = time.perf_counter()
+    whole = manager.predict(normalize_volume(np.load(vols["b"][0]), cfg_b.data.preprocessing.normalize))
+    whole_s = time.perf_counter() - t0
+    diff = np.abs(np.moveaxis(whole, -1, 0) - chunked)
+    seam, seam_mean = float(diff.max()), float(diff.mean())
+    del whole, chunked, diff
+    lap("whole_volume")
+
+    # (g) one trial on A, step by step, with the tuned params
+    pred_a = read_volume(str(next(f for f in (Path(tune["run_dir"])).iterdir()
+                                  if f.name.endswith(("_prediction.h5", "_prediction.npy")))))
+    gt_a = np.load(vols["a"][1])
+    split = {}
+    t0 = time.perf_counter()
+    labels = run_steps(pred_a, cfg_b.decoding.steps)
+    split["decode"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seg = apply_postprocessing(labels, cfg_b.decoding.postprocessing)
+    split["postprocess"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sk = skeletonize_volume(gt_a)
+    split["gt_skeletons"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    erl, max_erl = expected_run_length(seg, sk)
+    split["erl"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    voi(seg, gt_a)
+    split["voi"] = time.perf_counter() - t0
+    lap("trial_split")
+
+    scores, control_scores = (next(iter(r["metrics"].values())) for r in (test, control))
+    # NERL and ERL from B's ground-truth skeletons: the control's, and the
+    # trained leg's again, which must equal its evaluation's
+    sk_b = made["skeletons"]
+    erl_s = {}
+    for name, res, sc in (("trained", test, dict(scores)), ("control", control, control_scores)):
+        seg = read_volume(str(next(f for f in Path(res["run_dir"]).glob("*_decoded_*") if f.suffix in (".npy", ".h5"))))
+        t0 = time.perf_counter()
+        erl, max_erl = expected_run_length(seg, sk_b)
+        erl_s[name] = time.perf_counter() - t0
+        if name == "control":
+            sc.update(nerl=erl / max_erl if max_erl > 0 else 0.0, erl=erl)
+        elif abs(erl / max_erl - scores["nerl"]) > 1e-9 or abs(erl - scores["erl"]) > 1e-6 * max(1.0, erl):
+            fail(f"B's NERL from the kept skeletons {erl / max_erl} (ERL {erl}) is not the evaluation's {scores}")
+    for sc in (scores, control_scores):
+        if not ({"nerl", "erl", "voi"} <= set(sc) and all(math.isfinite(v) for v in sc.values())
+                and 0 <= sc["nerl"] <= 1):
+            fail(f"tune-test metrics: {sc}")
+    # the recipe learns on the card: the trained model's held-out VOI below the untrained one's
+    if not scores["voi"] < control_scores["voi"]:
+        fail(f"held-out VOI {scores['voi']:.4f} (trained) is not below {control_scores['voi']:.4f} (untrained)")
+    names = ("read+normalise", "predict", "save", "decode", "evaluate")
+    overlap = dict(zip(("computed", "chunks", "seconds", "read_s", "read_under_predict_s", "predict_s", "write_s"),
+                       summary))
+    out.update(
+        train=stats,
+        tune=dict(seconds=tune["seconds"], timing=dict(zip(names, tune_timing[1:])), trial_seconds=trials,
+                  mean_trial_seconds=sum(trials) / len(trials), trial_split_seconds=split, best_params=study["best_params"],
+                  best_nerl_a=study["best_value"], skeletons_a=len(sk), launches=tune["launches"]),
+        tune_test=dict(seconds=test["seconds"], timing=dict(zip(names, test_timing[1:])), metrics_b=scores,
+                       launches=test["launches"], chunks=chunk_times, chunked=overlap, resume=resumed,
+                       corner_chunk=corner_cmp,
+                       gt_skeletons_b=len(sk_b), gt_skeleton_seconds_b=made["seconds"], erl_seconds_b=erl_s,
+                       whole_volume_seconds=whole_s, chunked_vs_whole_max_abs_diff=seam,
+                       chunked_vs_whole_mean_abs_diff=seam_mean),
+        control=dict(seconds=control["seconds"], metrics_b=control_scores, launches=control["launches"]),
+        seconds=time.perf_counter() - t_phase,
+    )
+    log(f"tune leg (volume A, {len(trials)} trials on NERL): {tune['seconds']:.2f} s, predict {tune_timing[2]:.3f} s, "
+        f"{out['tune']['mean_trial_seconds']:.3f} s a trial; best NERL {study['best_value']:.4f} with "
+        f"{study['best_params']}; one trial on A: " + ", ".join(f"{k} {v:.3f} s" for k, v in split.items())
+        + f" ({len(sk)} skeletons)")
+    for c in chunk_times:
+        log(f"  chunk {c['key']}: read {c['read_s']:.3f} s, predict {c['predict_s']:.3f} s, write {c['write_s']:.3f} s")
+    log(f"tune-test leg (held-out volume B {NISB_TEST_SHAPE}, {len(grid)} chunks of {shipped['chunk_size']} halo "
+        f"{shipped['halo']}): {test['seconds']:.2f} s; chunked {overlap['seconds']:.3f} s, reads {overlap['read_s']:.3f} "
+        f"s of which {overlap['read_under_predict_s']:.3f} s under predicts, predicts {overlap['predict_s']:.3f} s, "
+        f"writes {overlap['write_s']:.3f} s; decode {test_timing[4]:.3f} s, evaluate {test_timing[5]:.3f} s (GT "
+        f"skeletons {made['seconds']:.3f} s for {len(sk_b)} instances, ERL {erl_s['trained']:.3f} s); launches "
+        f"{test['launches']}")
+    log(f"resume: {resumed[0]['computed']} chunks recomputed with the manifest whole, {resumed[1]['computed']} "
+        f"({resumed[1]['keys']}) with {NISB_DROPPED_CHUNK} off it, file bit-equal; whole-volume prediction {whole_s:.2f} s, |chunked - whole| max "
+        f"{seam:.4g}, mean {seam_mean:.3g} (reported, not a gate)")
+    log(f"held-out B: NERL {scores['nerl']:.4f}, ERL {scores['erl']:.2f}, VOI {scores['voi']:.4f}; untrained control "
+        f"NERL {control_scores['nerl']:.4f}, ERL {control_scores['erl']:.2f}, VOI {control_scores['voi']:.4f}; "
+        f"phase {out['seconds']:.1f} s: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+    del model, manager, plain
+    torch.cuda.empty_cache()
 
 
 def wgrad_line_row(rows, launches):
@@ -2656,17 +3163,17 @@ def main(argv=None) -> None:
 
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU and check it.")
     ap.add_argument("--phases", default=None,
-                    help="comma-separated phases of 3-17 (14 also as 'instance', 17 as 'unet') to run after the "
-                    "device and build phases (default: all)")
+                    help="comma-separated phases of 3-18 (14 also as 'instance', 17 as 'unet', 18 as 'nisb') to "
+                    "run after the device and build phases (default: all)")
     args = ap.parse_args(argv)
     phases = None
     if args.phases is not None:
         try:
-            phases = {{"instance": 14, "unet": 17}.get(p) or int(p) for p in args.phases.split(",")}
+            phases = {{"instance": 14, "unet": 17, "nisb": 18}.get(p) or int(p) for p in args.phases.split(",")}
         except ValueError:
-            ap.error("--phases takes phases 3-17")
-    if phases is not None and not phases <= set(range(3, 18)):
-        ap.error("--phases takes phases 3-17")
+            ap.error("--phases takes phases 3-18")
+    if phases is not None and not phases <= set(range(3, 19)):
+        ap.error("--phases takes phases 3-18")
 
     def want(n):
         return phases is None or n in phases
@@ -2713,10 +3220,21 @@ def main(argv=None) -> None:
 
     work = ROOT / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
+    phase_seconds = report["phase_seconds"] = {}
+    last = [time.perf_counter()]
+
+    def mark(n):
+        now = time.perf_counter()
+        phase_seconds[n] = now - last[0]
+        last[0] = now
+        log(f"phase {n} took {phase_seconds[n]:.1f} s")
+
     if want(3):
         rows = phase_kernels(fb, dev, report)
+        mark(3)
     if want(4):
         phase_model(fb, dev, report)
+        mark(4)
 
     if want(5):
         log("== phase 5: CLI --mode test slice ==")
@@ -2724,37 +3242,53 @@ def main(argv=None) -> None:
         tta_run = run_slice(fb, dev, (96, 256, 192), True, work, seed=1)
         report["slice"] = [main_run, tta_run]
         phase_predict_profile(dev, work, (165, 1024, 768), report)
+        mark(5)
 
     if want(6):
         dw_rows = phase_depthwise(dwk, dev, report)
+        mark(6)
     if want(7):
         phase_train_step(dwk, fb, dev, report)
+        mark(7)
     if want(8):
         train_counts = phase_cli_train_test(dwk, fb, dev, work, report)
+        mark(8)
 
     if want(9):
         conv_rows = phase_conv3d(c3, dev, report)
+        mark(9)
     if want(10):
         phase_rsunet(c3, dev, report)
+        mark(10)
     if want(11):
         nucmm_launches = phase_nucmm(c3, dev, work, report)
         phase_predict_profile(dev, work, NUCMM_SHAPE, report, recipe=NUCMM,
                               name="nuc{}x{}x{}".format(*NUCMM_SHAPE), key="nucmm_predict")
+        mark(11)
 
     if want(12):
         probe_records, probe_counts = phase_probes(dev, work, report)
+        mark(12)
     if want(13):
         phase_fast_recipe(dwk, fb, dev, work, report)
+        mark(13)
     if want(14):
         phase_instance(dwk, fb, dev, work, report)
+        mark(14)
     if want(15):
         wgrad_rows = phase_rsunet_train(c3, dev, report)
+        mark(15)
     if want(16):
         snemi_counts = phase_rsunet_recipes(c3, dev, work, report)
+        mark(16)
     if want(17):
         phase_unet(c3, dev, work, report)
+        mark(17)
+    if want(18):
+        phase_nisb(dwk, fb, dev, work, report)
+        mark(18)
 
-    log("== phase 18: report ==")
+    log("== phase 19: report ==")
     report["total_seconds"] = time.perf_counter() - started
     log(f"chip_smoke ran in {report['total_seconds']:.1f} s")
     device = {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}

@@ -1,0 +1,2 @@
+from .grid import ChunkRef, build_chunk_grid, resolve_halo  # noqa: F401
+from .manifest import ResumeManifest  # noqa: F401

@@ -1,10 +1,14 @@
 """Volume I/O for the port: ``.npy`` always, HDF5 (``.h5``/``.hdf5``, with
-an optional ``file.h5:dataset`` suffix) when ``h5py`` is importable, and
-generated ``synthetic://`` volumes.
+an optional ``file.h5:dataset`` suffix) when ``h5py`` is importable, zarr
+(``.zarr``/``.n5``, with an optional ``vol.zarr:array`` suffix) through
+tensorstore when it is importable, and generated ``synthetic://`` volumes.
+A format whose package is missing raises; nothing falls back.
 
-Counterpart of ``read_volume``/``save_volume`` in
-``pytorch_connectomics_tpu/data/io.py`` for the formats the ported slices
-read and write, and of its ``random://`` volumes (:func:`random_volume`).
+Counterpart of ``read_volume``/``save_volume``/``probe_volume`` and the
+tensorstore zarr readers and writers (``open_zarr``/``create_zarr``,
+``data/io.py:283-370``) in ``pytorch_connectomics_tpu/data/io.py`` for the
+formats the ported slices read and write, and of its ``random://`` volumes
+(:func:`random_volume`).
 """
 
 from __future__ import annotations
@@ -21,8 +25,10 @@ _DEFAULT_H5_KEYS = ("main", "data", "image", "label", "raw", "volume", "seg")
 
 
 def split_internal_path(path: str) -> Tuple[str, Optional[str]]:
-    """``file.h5:dataset`` -> (file, dataset)."""
-    m = re.match(r"^(.*\.(?:h5|hdf5))[:](.+)$", path)
+    """``file.h5:dataset`` or ``vol.zarr:array`` -> (file, internal path)."""
+    if "://" in path:
+        return path, None
+    m = re.match(r"^(.*\.(?:h5|hdf5|zarr|n5))[:](.+)$", path)
     if m:
         return m.group(1), m.group(2)
     return path, None
@@ -46,6 +52,74 @@ def _h5_dataset_key(f, internal: Optional[str]) -> str:
     if len(keys) == 1:
         return keys[0]
     raise KeyError(f"ambiguous HDF5 datasets {keys}; use 'file.h5:key'")
+
+
+def _tensorstore():
+    try:
+        import tensorstore
+    except ImportError as e:
+        raise RuntimeError("reading or writing zarr volumes needs tensorstore") from e
+    return tensorstore
+
+
+class ZarrArray:
+    """A window onto a tensorstore array: ``shape``, ``dtype``, reads by
+    slicing, writes by slice assignment (each one waited for)."""
+
+    def __init__(self, store):
+        self._store = store
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return tuple(self._store.shape)
+
+    @property
+    def dtype(self) -> np.dtype:
+        return np.dtype(self._store.dtype.numpy_dtype)
+
+    def __getitem__(self, item) -> np.ndarray:
+        return np.asarray(self._store[item].read().result())
+
+    def __setitem__(self, item, value) -> None:
+        self._store[item].write(np.ascontiguousarray(value)).result()
+
+
+def _zarr_kvstore(path: str, internal_path: Optional[str]) -> Dict[str, Any]:
+    full = Path(path) / internal_path if internal_path else Path(path)
+    return {"driver": "file", "path": str(full)}
+
+
+def open_zarr(path: str, internal_path: Optional[str] = None) -> ZarrArray:
+    """An existing zarr (v2, else v3) array."""
+    ts = _tensorstore()
+    spec = {"driver": "zarr", "kvstore": _zarr_kvstore(path, internal_path)}
+    try:
+        store = ts.open(spec, open=True).result()
+    except Exception:
+        spec["driver"] = "zarr3"
+        store = ts.open(spec, open=True).result()
+    return ZarrArray(store)
+
+
+def create_zarr(
+    path: str, shape: Sequence[int], dtype, chunks: Optional[Sequence[int]] = None,
+    internal_path: Optional[str] = None,
+) -> ZarrArray:
+    """A new zarr v2 array (an existing one at ``path`` is replaced)."""
+    ts = _tensorstore()
+    spec = {
+        "driver": "zarr",
+        "kvstore": _zarr_kvstore(path, internal_path),
+        "metadata": {"shape": list(shape), "chunks": list(chunks) if chunks else [min(64, s) for s in shape],
+                     "dtype": np.dtype(dtype).str},
+        "create": True,
+        "delete_existing": True,
+    }
+    return ZarrArray(ts.open(spec).result())
+
+
+def _is_zarr(fpath: str) -> bool:
+    return Path(fpath).suffix.lower() in (".zarr", ".n5") or Path(fpath, ".zarray").exists()
 
 
 _SYNTH_TASKS = ("em", "em2", "instance", "blobs")
@@ -166,10 +240,36 @@ def read_volume(
         with _h5py().File(fpath, "r") as f:
             ds = f[_h5_dataset_key(f, internal_path or inner)]
             return ds[tuple(roi)] if roi else ds[:]
+    if _is_zarr(fpath):
+        arr = open_zarr(fpath, internal_path or inner)
+        return arr[tuple(roi)] if roi else arr[...]
     if suffix == ".npy":
-        vol = np.load(fpath)
-        return vol[tuple(roi)] if roi else vol
-    raise ValueError(f"unsupported volume format: {path} (the port reads .npy and .h5)")
+        vol = np.load(fpath, mmap_mode="r") if roi else np.load(fpath)
+        return np.asarray(vol[tuple(roi)]) if roi else vol
+    raise ValueError(f"unsupported volume format: {path} (the port reads .npy, .h5 and zarr)")
+
+
+def probe_volume(path: str, internal_path: Optional[str] = None) -> Tuple[Tuple[int, ...], np.dtype]:
+    """(shape, dtype) of a volume without reading it where the format
+    allows (``random://``, ``synthetic://``, HDF5, zarr, ``.npy``)."""
+    if path.startswith(("random://", "synthetic://")):
+        name, shape = parse_random_url(path) if path.startswith("random://") else parse_synthetic_url(path)[1:3]
+        label = any(t in name.lower() for t in _LABEL_TAGS)
+        return tuple(shape), np.dtype(np.uint32 if label else np.uint8)
+    fpath, inner = split_internal_path(path)
+    suffix = Path(fpath).suffix.lower()
+    if suffix in (".h5", ".hdf5"):
+        with _h5py().File(fpath, "r") as f:
+            ds = f[_h5_dataset_key(f, internal_path or inner)]
+            return tuple(ds.shape), ds.dtype
+    if _is_zarr(fpath):
+        arr = open_zarr(fpath, internal_path or inner)
+        return arr.shape, arr.dtype
+    if suffix == ".npy":
+        vol = np.load(fpath, mmap_mode="r")
+        return tuple(vol.shape), vol.dtype
+    vol = read_volume(path, internal_path)
+    return vol.shape, vol.dtype
 
 
 def save_volume(
@@ -192,7 +292,10 @@ def save_volume(
             for k, v in (attrs or {}).items():
                 ds.attrs[k] = v
         return
+    if suffix in (".zarr", ".n5"):
+        create_zarr(fpath, volume.shape, volume.dtype, internal_path=internal_path or inner)[...] = volume
+        return
     if suffix == ".npy":
         np.save(fpath, volume)
         return
-    raise ValueError(f"unsupported output format: {path} (the port writes .npy and .h5)")
+    raise ValueError(f"unsupported output format: {path} (the port writes .npy, .h5 and zarr)")

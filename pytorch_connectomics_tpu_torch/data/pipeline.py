@@ -17,12 +17,15 @@ thread count. Where a label volume carries ``-1`` (unlabeled) voxels, each
 sample also gets the per-channel validity mask of its targets, multiplied
 into its ``mask``. This slice ports the cached in-RAM dataset: on-device
 augmentation, lazy (zarr) datasets, nnU-Net preprocessing, auxiliary label
-volumes, target context, read-time downscaling, paired data transforms and
-axis-range splits raise ``NotImplementedError``.
+volumes, target context, read-time downscaling and paired data transforms
+raise ``NotImplementedError``. Without ``data.val`` paths, ``data.split``
+splits each train volume into train and val slabs along one axis
+(:mod:`.split`).
 """
 
 from __future__ import annotations
 
+import copy
 import queue
 import threading
 import time
@@ -34,6 +37,7 @@ import numpy as np
 from ..config.schema import Config, DatasetSplitConfig
 from .augment import build_augmentation_fn
 from .datasets import RejectConfig, VolumeDataset
+from .split import split_volume
 from .targets import build_target_fn
 from .targets.build import build_target_mask_fn
 
@@ -82,9 +86,24 @@ def make_train_val_datasets(cfg: Config, device=None):
     train_ds = build_dataset(cfg, cfg.data.train, train=True, device=device)
     if cfg.data.val.image:
         return train_ds, build_dataset(cfg, cfg.data.val, train=False, device=device)
-    if cfg.data.split.enabled:
-        raise NotImplementedError("the axis-range train/val split is not ported yet")
-    return train_ds, None
+    if not cfg.data.split.enabled:
+        return train_ds, None
+    # the axis-range split of every train volume: the train dataset keeps
+    # the train slabs, a copy of it the val slabs; the volume draw keeps the
+    # whole volumes' proportions, as in the JAX package. Masks are split
+    # with their volumes (the JAX package keeps them whole).
+    s = cfg.data.split
+
+    def halves(vols):
+        pairs = [split_volume(v, s.axis, s.train_range, s.val_range) if v is not None else (None, None)
+                 for v in vols]
+        return [p[0] for p in pairs], [p[1] for p in pairs]
+
+    val_ds = copy.copy(train_ds)
+    train_ds.images, val_ds.images = halves(train_ds.images)
+    train_ds.labels, val_ds.labels = halves(train_ds.labels)
+    train_ds.masks, val_ds.masks = halves(train_ds.masks)
+    return train_ds, val_ds
 
 
 class PatchPipeline:

@@ -1,8 +1,8 @@
 """Decoding stage for one volume (the port of the steps branch of
 ``run_decoding_stage``, ``pytorch_connectomics_tpu/decoding/stage.py:21-64``):
-prediction -> decode steps -> labels. The affinity QC mask, graph
-decoding, streamed decoding and post-processing are not ported yet and
-raise ``NotImplementedError``."""
+prediction -> decode steps -> post-processing -> labels. The affinity QC
+mask, graph decoding and streamed decoding are not ported yet and raise
+``NotImplementedError``."""
 
 from __future__ import annotations
 
@@ -10,15 +10,8 @@ import numpy as np
 
 from ..config.schema import DecodingConfig
 from . import decoders  # noqa: F401 - registers the built-ins
+from .postprocess import apply_postprocessing
 from .registry import run_steps
-
-
-def postprocessing_configured(pp) -> bool:
-    """True when a ``DecodingPostprocessConfig`` asks for any step (none is
-    ported)."""
-    return pp is not None and bool(
-        pp.binary or pp.split_disconnected or pp.min_instance_size or pp.max_instance_size or pp.transpose
-    )
 
 
 def _check_ported(cfg: DecodingConfig) -> None:
@@ -26,7 +19,6 @@ def _check_ported(cfg: DecodingConfig) -> None:
         (cfg.qc.enabled, "the affinity QC mask (decoding.qc)"),
         (cfg.graph, "graph decoding (decoding.graph)"),
         (cfg.streamed, "streamed decoding (decoding.streamed)"),
-        (postprocessing_configured(cfg.postprocessing), "decode post-processing (decoding.postprocessing)"),
     ):
         if flag:
             raise NotImplementedError(f"{what} is not ported yet")
@@ -45,4 +37,4 @@ def run_decoding_stage(prediction: np.ndarray, cfg: DecodingConfig) -> np.ndarra
         labels = run_steps(pred, cfg.steps)
     else:
         labels = decoders.decode_binary_cc(pred)
-    return np.asarray(labels)
+    return np.asarray(apply_postprocessing(labels, cfg.postprocessing))

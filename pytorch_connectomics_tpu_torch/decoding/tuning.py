@@ -2,13 +2,13 @@
 ``pytorch_connectomics_tpu/decoding/tuning.py`` (numpy, host side): search
 spaces over decoder parameters (float/int/categorical, log scale), random,
 grid, CMA-ES-style and TPE samplers, median and Hyperband pruning, single-
-and multi-objective scoring (adapted_rand, voi, jaccard, instance f1), a
-per-trial timeout in a forked process, and the best-params YAML. One seed
-gives the JAX package's trial sequence.
+and multi-objective scoring (adapted_rand, voi, jaccard, instance f1,
+nerl), a per-trial timeout in a forked process, and the best-params YAML.
+One seed gives the JAX package's trial sequence.
 
 TPE is the two-density formulation (good/bad split by objective quantile,
-candidates scored by l(x)/g(x)). The ``nerl`` metric raises
-``NotImplementedError`` until NERL is ported.
+candidates scored by l(x)/g(x)). ``nerl`` skeletonises the ground truth on
+every trial, as the JAX package does.
 
 The timeout's child process is forked from a parent that may have
 initialised CUDA: an objective works on host arrays and the native ops
@@ -30,7 +30,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..config.schema import TuningConfig, TuningParamConfig
-from ..metrics import adapted_rand, instance_matching, voi
+from ..metrics import adapted_rand, compute_nerl, instance_matching, voi
 from ..metrics.binary import jaccard_index
 
 logger = logging.getLogger(__name__)
@@ -311,7 +311,7 @@ def compute_segmentation_metric(
     if metric == "voi_merge":
         return float(voi(seg, gt)[1])
     if metric == "nerl":
-        raise NotImplementedError("the nerl tuning metric is not ported yet")
+        return float(compute_nerl(seg, gt)["nerl"])
     if metric in ("instance_f1", "f1"):
         return float(instance_matching(seg, gt)["f1"])
     if metric == "jaccard":
@@ -636,7 +636,7 @@ def make_waterz_batch_objective(
     """
     from ..config.schema import DecodingPostprocessConfig, DecodingStepConfig, build_dataclass
     from .decoders import decode_waterz
-    from .stage import postprocessing_configured
+    from .postprocess import apply_postprocessing
 
     step_idx = find_waterz_step(decoding_cfg_dict)
     if step_idx is None:
@@ -653,8 +653,7 @@ def make_waterz_batch_objective(
         step = build_dataclass(DecodingStepConfig, d["steps"][step_idx])
         kwargs = dict(step.kwargs or {})
         kwargs.pop("threshold", None)
-        if postprocessing_configured(build_dataclass(DecodingPostprocessConfig, d.get("postprocessing") or {})):
-            raise NotImplementedError("decode post-processing (decoding.postprocessing) is not ported yet")
+        post = build_dataclass(DecodingPostprocessConfig, d.get("postprocessing") or {})
         per_thr: Dict[float, float] = {float(t): 0.0 for t in batch_thresholds}
         for pred_v, gt_v in zip(preds, gts):
             pred = np.asarray(pred_v, dtype=np.float32)
@@ -663,7 +662,7 @@ def make_waterz_batch_objective(
                 return_all_thresholds=True, **kwargs,
             )
             for thr, labels in by_thr.items():
-                per_thr[float(thr)] += compute_segmentation_metric(metric, labels, gt_v)
+                per_thr[float(thr)] += compute_segmentation_metric(metric, apply_postprocessing(labels, post), gt_v)
         per_thr = {t: v / len(preds) for t, v in per_thr.items()}
         best_thr = (min if minimize else max)(per_thr, key=per_thr.get)
         attrs = {

@@ -2,15 +2,17 @@
 ``pytorch_connectomics_tpu/evaluation/stage.py``): binary metrics (jaccard,
 dice, accuracy) of the thresholded probability map and instance metrics
 (adapted_rand, voi, instance_f1, panoptic_quality, ap) of the decoded
-labels against the ground truth, and the per-volume metrics report. NERL
-and the tube QC are not ported yet; they are skipped with a warning."""
+labels against the ground truth, NERL and ERL over the ground truth's
+skeletons (``cfg.nerl``'s anisotropy), and the per-volume metrics report.
+A metric the port does not know raises ``NotImplementedError``, the tube
+QC among them."""
 
 from __future__ import annotations
 
 import json
 import logging
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 
@@ -19,6 +21,7 @@ from ..metrics import (
     adapted_rand,
     average_precision,
     binary_accuracy,
+    compute_nerl,
     dice_coefficient,
     instance_matching,
     jaccard_index,
@@ -28,15 +31,22 @@ from ..metrics import (
 logger = logging.getLogger(__name__)
 
 _BINARY_METRICS = {"jaccard", "dice", "accuracy"}
-_INSTANCE_METRICS = {"adapted_rand", "voi", "instance_f1", "ap", "panoptic_quality"}
+_INSTANCE_METRICS = {"adapted_rand", "voi", "instance_f1", "ap", "panoptic_quality", "nerl"}
 
 
 def compute_test_metrics(
-    prediction: Optional[np.ndarray], decoded: Optional[np.ndarray], gt: np.ndarray, metrics: Sequence[str]
+    prediction: Optional[np.ndarray],
+    decoded: Optional[np.ndarray],
+    gt: np.ndarray,
+    metrics: Sequence[str],
+    nerl_cfg: Optional[Dict[str, Any]] = None,
 ) -> Dict[str, float]:
     """``prediction``: probability map (Z,Y,X,C) or (C,Z,Y,X) for the binary
     metrics; ``decoded``: instance labels (Z,Y,X) for the instance metrics.
-    A metric whose input is None is left out."""
+    A metric whose input is None is left out; an unknown one raises."""
+    unknown = [m for m in metrics if m.lower() not in _BINARY_METRICS | _INSTANCE_METRICS]
+    if unknown:
+        raise NotImplementedError(f"evaluation metrics {unknown} are not ported yet")
     out: Dict[str, float] = {}
     gt = np.asarray(gt)
     if gt.ndim == 4:
@@ -67,10 +77,11 @@ def compute_test_metrics(
                 out["instance_recall"] = stats["recall"]
             elif m == "panoptic_quality":
                 out["panoptic_quality"] = instance_matching(seg, gt)["panoptic_quality"]
-            else:
+            elif m == "ap":
                 out["ap"] = float(average_precision(seg, gt))
-        else:
-            logger.warning("metric '%s' is not ported yet; skipped", metric)
+            else:
+                res = compute_nerl(seg, gt, anisotropy=(nerl_cfg or {}).get("anisotropy", (1, 1, 1)))
+                out["nerl"], out["erl"] = res["nerl"], res["erl"]
     return out
 
 
@@ -97,7 +108,7 @@ def run_evaluation_stage(
 ) -> Dict[str, float]:
     if not cfg.enabled or not cfg.metrics:
         return {}
-    results = compute_test_metrics(prediction, decoded, gt, cfg.metrics)
+    results = compute_test_metrics(prediction, decoded, gt, cfg.metrics, cfg.nerl)
     logger.info("evaluation[%s]: %s", volume_name, {k: round(v, 4) for k, v in results.items()})
     if output_dir:
         write_metrics_report(output_dir, volume_name, results)

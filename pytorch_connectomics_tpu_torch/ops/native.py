@@ -1,8 +1,9 @@
 """ctypes bindings for the host C++ post-processing ops the decoders need
 (``csrc/pytc_ops.cpp``): 3-D connected components, seeded watershed, small
-instance removal and renumbering (the bcd decode), and affinity connected
-components, mean-affinity agglomeration (one threshold or many in one
-pass) and the mutex watershed (the affinity decoders). The port's own
+instance removal and renumbering (the bcd decode and post-processing),
+affinity connected components, mean-affinity agglomeration (one threshold
+or many in one pass) and the mutex watershed (the affinity decoders), and
+the TEASAR skeleton (NERL's ground-truth skeletons). The port's own
 binding of the shared library: host code, not a GPU kernel.
 
 The library is compiled with ``g++`` on first use into ``build/native/`` at
@@ -81,6 +82,11 @@ def get_lib() -> ctypes.CDLL:
             i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
             lib.mutex_watershed.restype = i64
             lib.mutex_watershed.argtypes = [f32p, i32p, i64, i64, i64, i64, u32p]
+            f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+            d = ctypes.c_double
+            lib.teasar_skeleton.restype = i64
+            lib.teasar_skeleton.argtypes = [u8p, f32p, i64, i64, i64, d, d, d, d, d, d, i64, f64p, i64p, i64, i64,
+                                            ctypes.POINTER(i64)]
             _lib = lib
         return _lib
 
@@ -187,3 +193,32 @@ def mutex_watershed(aff: np.ndarray, offsets: Sequence[Sequence[int]]) -> Tuple[
     out = np.empty(aff.shape[1:], np.uint32)
     n = get_lib().mutex_watershed(aff, offs, *aff.shape, out)
     return out, int(n)
+
+
+def teasar_skeleton(
+    mask: np.ndarray,
+    anisotropy: Sequence[float] = (1.0, 1.0, 1.0),
+    scale: float = 1.5,
+    const_r: float = 2.0,
+    penalty_scale: float = 5000.0,
+    max_paths: int = 256,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """TEASAR centreline skeleton of one binary instance (rolling-ball
+    invalidation, boundary-penalised Dijkstra paths) -> (nodes (N, 3)
+    float64 z, y, x voxel coordinates, edges (M, 2) int64)."""
+    from scipy import ndimage
+
+    # a one-voxel zero border: the boundary distance must see background
+    # even where the mask fills its box
+    m = np.pad(np.ascontiguousarray(mask, dtype=np.uint8), 1)
+    dbf = np.ascontiguousarray(ndimage.distance_transform_edt(m, sampling=anisotropy).astype(np.float32))
+    cap = int(m.sum()) + 1
+    nodes = np.empty((cap, 3), np.float64)
+    edges = np.empty((cap, 2), np.int64)
+    n_edges = ctypes.c_int64(0)
+    az, ay, ax = (float(a) for a in anisotropy)
+    n = get_lib().teasar_skeleton(m, dbf, *m.shape, az, ay, ax, float(scale), float(const_r), float(penalty_scale),
+                                  int(max_paths), nodes, edges, cap, cap, ctypes.byref(n_edges))
+    if n < 0:
+        raise RuntimeError("teasar_skeleton: output capacity exceeded")
+    return nodes[:n] - 1.0, edges[: n_edges.value].copy()

@@ -1,10 +1,12 @@
 """Test pipeline: read -> normalise -> infer (+TTA) -> save -> decode ->
-evaluate per test volume. The port of the non-chunked branch of
-``pytorch_connectomics_tpu/runtime/test_pipeline.py`` with its
-non-streamed decode (``:233-260``); in ``tune`` mode it stops after the
-prediction is saved (``:220-221``). Chunked inference, prediction-cache
-reuse, decode-only runs, nnU-Net preprocessing, read-time scaling and test
-sharding are not ported yet and raise ``NotImplementedError``.
+evaluate per test volume. The port of
+``pytorch_connectomics_tpu/runtime/test_pipeline.py`` with its chunked
+branch (``:126-149``: the volume predicted chunk by chunk through lazy
+reads into one file, then read back), its read-scaled whole-volume reads
+(``:150-158``) and its non-streamed decode (``:233-260``); in ``tune`` mode
+it stops after the prediction is saved (``:220-221``). Prediction-cache
+reuse, decode-only runs, nnU-Net preprocessing and test sharding are not
+ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,7 +25,13 @@ from ..data.io import read_volume
 from ..data.preprocess import normalize_volume
 from ..decoding import run_decoding_stage
 from ..evaluation.stage import run_evaluation_stage
-from ..inference import InferenceManager, apply_prediction_transform, save_prediction
+from ..inference import (
+    InferenceManager,
+    LazyVolumeAccessor,
+    apply_prediction_transform,
+    run_chunked_inference,
+    save_prediction,
+)
 from .output_naming import decoded_filename, prediction_filename, prediction_tag, volume_name_from_path
 
 logger = logging.getLogger(__name__)
@@ -37,14 +45,14 @@ def _as_list(x):
 
 def _check_ported(cfg: Config) -> None:
     for flag, what in (
-        (cfg.inference.chunked.enabled, "chunked inference"),
         (cfg.decoding.enabled and cfg.decoding.load_prediction_path, "decode-only runs (load_prediction_path)"),
         (cfg.data.nnunet_preprocessing.enabled, "nnU-Net preprocessing"),
-        (cfg.data.test.read_scale, "read-time scaling"),
         (cfg.data.data_transform.align_to_image, "align_to_image"),
         (cfg.inference.output.crop_pad, "prediction crops"),
         (cfg.inference.output.save_all_heads, "per-head artifacts"),
         ((cfg.system.num_shards or 1) > 1, "test sharding"),
+        (cfg.inference.chunked.enabled and cfg.inference.chunked.output_mode == "precomputed",
+         "the precomputed chunked output"),
     ):
         if flag:
             raise NotImplementedError(f"{what} is not ported yet")
@@ -83,14 +91,38 @@ def run_test_pipeline(
     for vi, image_path in enumerate(images):
         vol_name = volume_name_from_path(image_path)
         t0 = time.perf_counter()
-        vol = read_volume(image_path, device=device)
-        if cfg.data.test.transpose:
-            vol = np.transpose(vol, cfg.data.test.transpose)
-        vol = normalize_volume(vol, cfg.data.preprocessing.normalize)
-        t_read = time.perf_counter()
-        prediction = manager.predict(vol)  # (Z,Y,X,C)
+        chunked = cfg.inference.chunked.enabled
+        if chunked:
+            # lazy reads, each chunk normalised on its own; the raw
+            # prediction goes to disk chunk by chunk and is read back
+            accessor = LazyVolumeAccessor(
+                image_path, transpose=cfg.data.test.transpose, pad=cfg.data.test.pad,
+                normalize=cfg.data.preprocessing.normalize, scale=cfg.data.test.read_scale, device=device,
+            )
+            t_read = time.perf_counter()
+            written = run_chunked_inference(
+                manager.predictor, accessor, out_dir / prediction_filename(vol_name, tag), cfg.inference.chunked,
+                out_channels=cfg.model.out_channels,
+                # the checkpoint is in the signature: a manifest of other weights is dropped
+                signature={"config_hash": cfg_hash, "checkpoint": str(checkpoint or "") or "random-init"},
+            )
+            prediction = np.moveaxis(read_volume(str(written)), 0, -1)
+            logger.info("prediction[%s]: %s", vol_name, written)
+        else:
+            if cfg.data.test.read_scale:
+                vol = LazyVolumeAccessor(
+                    image_path, transpose=cfg.data.test.transpose, normalize=cfg.data.preprocessing.normalize,
+                    scale=cfg.data.test.read_scale, device=device,
+                ).read_all()
+            else:
+                vol = read_volume(image_path, device=device)
+                if cfg.data.test.transpose:
+                    vol = np.transpose(vol, cfg.data.test.transpose)
+                vol = normalize_volume(vol, cfg.data.preprocessing.normalize)
+            t_read = time.perf_counter()
+            prediction = manager.predict(vol)  # (Z,Y,X,C)
         t_pred = time.perf_counter()
-        if cfg.inference.output.save_raw:
+        if cfg.inference.output.save_raw and not chunked:
             # channel-first and contiguous: np.save writes a strided view element by element
             stored = np.moveaxis(apply_prediction_transform(prediction, cfg.inference.output), -1, 0)
             stored = np.ascontiguousarray(stored)

@@ -90,5 +90,7 @@ def test_port_imports_no_jax():
     assert len(PORT_MODULES) >= 20
     for m in ("ops.conv3d", "ops.native", "models.rsunet", "decoding.registry", "decoding.decoders",
               "decoding.stage", "metrics.seg", "ops.fused_mlp", "ops.probes", "tools.microbench", "tools.probes",
-              "data.targets.affinity", "data.targets.build", "decoding.tuning", "runtime.tune_runner"):
+              "data.targets.affinity", "data.targets.build", "decoding.tuning", "runtime.tune_runner",
+              "decoding.postprocess", "metrics.skeleton", "metrics.nerl", "data.split", "chunked.grid",
+              "chunked.manifest", "inference.lazy", "inference.chunked"):
         assert "pytorch_connectomics_tpu_torch." + m in PORT_MODULES

@@ -34,7 +34,7 @@ def test_unsupported_formats_raise(tmp_path):
     with pytest.raises(ValueError):
         read_volume(str(tmp_path / "vol.tif"))
     with pytest.raises(ValueError):
-        save_volume(str(tmp_path / "vol.zarr"), np.zeros((2, 2, 2)))
+        save_volume(str(tmp_path / "vol.tif"), np.zeros((2, 2, 2)))
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,7 @@ from pytorch_connectomics_tpu.metrics import seg as jseg
 from pytorch_connectomics_tpu.ops import native as jnative
 from pytorch_connectomics_tpu.runtime.output_naming import decoded_filename as jax_decoded_filename
 from pytorch_connectomics_tpu_torch.config import load_config
+from pytorch_connectomics_tpu_torch.config.schema import DecodingStepConfig, build_dataclass
 from pytorch_connectomics_tpu_torch.decoding import decoders as pdec
 from pytorch_connectomics_tpu_torch.decoding import get_decoder, run_decoding_stage
 from pytorch_connectomics_tpu_torch.evaluation.stage import compute_test_metrics
@@ -107,7 +108,7 @@ def test_decoding_stage_matches_jax():
     assert np.array_equal(run_decoding_stage(pred, cfg.decoding), jax_run_decoding_stage(pred, jcfg.decoding))
 
 
-@pytest.mark.parametrize("what", ["qc", "graph", "streamed", "postprocessing", "decoder"])
+@pytest.mark.parametrize("what", ["qc", "graph", "streamed", "branch_merge", "decoder"])
 def test_decoding_stage_refuses_what_is_not_ported(what):
     cfg = load_config(NUCMM, mode="test").decoding
     if what == "qc":
@@ -116,8 +117,8 @@ def test_decoding_stage_refuses_what_is_not_ported(what):
         cfg.graph = {"nodes": {}, "output": "x"}
     elif what == "streamed":
         cfg.streamed = True
-    elif what == "postprocessing":
-        cfg.postprocessing.min_instance_size = 10
+    elif what == "branch_merge":
+        cfg.steps.append(build_dataclass(DecodingStepConfig, {"name": "branch_merge"}))
     else:
         cfg.steps[0].name = "distance_watershed"
     with pytest.raises(NotImplementedError):

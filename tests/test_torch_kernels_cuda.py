@@ -66,9 +66,34 @@ SHAPES = [
 ]
 
 
+# (B, Z, Y, X, C, R, Cout) of MedNeXt-L's stride-1 stages on
+# tutorials/neuron_nisb.yaml's (32, 128, 128) window at its inference batch 8
+NISB_SHAPES = [
+    (8, 32, 128, 128, 32, 96, 32),
+    (8, 16, 64, 64, 64, 256, 64),
+    (8, 8, 32, 32, 128, 1024, 128),
+    (8, 4, 16, 16, 256, 2048, 256),
+    (8, 2, 8, 8, 512, 4096, 512),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_kernels_match_plain(device, shape, dtype):
+    _check_pair(device, shape, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", NISB_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_kernels_match_plain_at_the_nisb_stages(device, shape, dtype):
+    _check_pair(device, shape, dtype)
+    plan = fb.card_plan(shape[:4] + (shape[4],), dtype, shape[5])
+    for k in plan.values():
+        if "ty" in k:
+            assert k["card_smem_bytes"] == k["smem_bytes"] and k["card_items"] == k["items"], (shape, k)
+
+
+def _check_pair(device, shape, dtype):
     b, z, y, xs, c, r, cout = shape
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.standard_normal((b, z, y, xs, c), dtype=np.float32)).to(device, dtype)
@@ -247,9 +272,28 @@ def _bf16_ulps(ref, n):
     return 2.0 ** (np.floor(np.log2(max(top, 1e-30))) - 8 + n)
 
 
+# (B, Z, Y, X, C) of MedNeXt-L's stride-1 training stages on
+# tutorials/neuron_nisb.yaml's (32, 128, 128) patch at its batch 4
+DW_NISB = [(4, 32, 128, 128, 32), (4, 16, 64, 64, 64), (4, 8, 32, 32, 128), (4, 4, 16, 16, 256), (4, 2, 8, 8, 512)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("shape", DW_SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_depthwise_kernels_match_plain(device, shape, dtype):
+    _check_depthwise(device, shape, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", DW_NISB, ids=lambda s: "x".join(map(str, s)))
+def test_depthwise_kernels_match_plain_at_the_nisb_stages(device, shape, dtype):
+    _check_depthwise(device, shape, dtype)
+    plan = dwk.card_plan(shape, dtype)
+    for name in dwk.KERNEL_NAMES:
+        k = plan[name]
+        assert k["card_smem_bytes"] == k["smem_bytes"] and k["card_items"] == k["items"], (shape, k)
+
+
+def _check_depthwise(device, shape, dtype):
     c = shape[-1]
     rng = np.random.default_rng(1)
     x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device, dtype)

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 import yaml
+from scipy import ndimage
 
 from pytorch_connectomics_tpu.config import load_config as jax_load_config
 from pytorch_connectomics_tpu.config.loader import config_hash as jax_config_hash
@@ -18,6 +19,7 @@ from pytorch_connectomics_tpu.config.schema import TuningConfig as JaxTuningConf
 from pytorch_connectomics_tpu.config.schema import build_dataclass as jax_build_dataclass
 from pytorch_connectomics_tpu.config.schema import to_dict as jax_to_dict
 from pytorch_connectomics_tpu.decoding.tuning import DecodingTuner as JaxDecodingTuner
+from pytorch_connectomics_tpu.decoding.tuning import compute_segmentation_metric as jax_segmentation_metric
 from pytorch_connectomics_tpu.inference.output import save_prediction as jax_save_prediction
 from pytorch_connectomics_tpu.models import build_model as jax_build
 from pytorch_connectomics_tpu.runtime import output_naming as jnaming
@@ -153,10 +155,20 @@ def test_trial_timeout_fires_in_a_forked_process():
 
 
 def test_nerl_metric_is_not_ported():
-    seg = np.ones((2, 3, 4), np.uint32)
-    with pytest.raises(NotImplementedError, match="nerl"):
-        compute_segmentation_metric("nerl", seg, seg)
-    assert compute_segmentation_metric("voi", seg, seg) == 0.0
+    """The tuner's ``nerl`` (``neuron_nisb.yaml`` tunes on it, maximised)
+    against the JAX package's on a synthetic://instance ground truth and
+    its eroded, partly merged segmentation; the name is kept from when the
+    metric raised."""
+    _, gt = synthetic_em_task("instance", (16, 48, 48), seed=3)
+    seg = np.where(ndimage.binary_erosion(gt > 0), gt, 0).astype(np.uint32)
+    ids = np.unique(gt)
+    seg[gt == ids[2]] = ids[1]
+    got, want = compute_segmentation_metric("nerl", seg, gt), jax_segmentation_metric("nerl", seg, gt)
+    np.testing.assert_allclose(got, want, rtol=1e-12)
+    assert 0 < got < 1 and compute_segmentation_metric("nerl", gt, gt) == pytest.approx(1.0, abs=1e-12)
+    tuning = load_config("tutorials/neuron_nisb.yaml", mode="tune").decoding.tuning
+    assert tuning.metric == "nerl" and tuning.direction == "maximize"
+    assert compute_segmentation_metric("voi", gt, gt) == 0.0
 
 
 def test_tuned_params_names_match_jax():
