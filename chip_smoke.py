@@ -1,8 +1,9 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py [--phases 9,10,12] [--phases instance] [--phases 15,16] [--phases unet] [--phases nisb]
+                          [--phases multitask]
 
-With --phases, only phases 1-2 and the listed ones of 3-18 run, and the
+With --phases, only phases 1-2 and the listed ones of 3-19 run, and the
 last line is the same {"ok": true, ...} object with the phases run; the
 kernels line needs every phase and is printed by a full run only.
 
@@ -164,7 +165,32 @@ Phases (any failure exits non-zero; no phase catches its own failure):
               split into decode, post-processing, GT skeletons, ERL and VOI;
               fails unless the trained VOI on B is below the untrained one's
               and every NERL lies in [0, 1]
- 19. report   a {"kernels": [...]} line, then {"ok": true, "device": ...} last
+ 19. multitask  multi-task MedNeXt-S: the block pair (betaseg's test batch 1 of
+              192^3) and the depthwise kernels (its training batch 2 of 192^3,
+              and tutorials/neuron_snemi_sdt_multitask.yaml's batch 8 of
+              16x160x160, whose stage 0 holds the heads' blocks) against their
+              plain versions, bf16, timed, with their plans; betaseg's 3-head
+              forward (18 launches of each pair kernel), each head held to the
+              f32 plain path as phase 18 holds NISB's, with fault probes; its
+              train step as shipped (batch 2 of 192^3, remat: launches, time,
+              peak memory); the multi-task step in f32 (per-leaf gradients
+              kernel vs plain with fault probes and a bf16 control, the heads'
+              launches counted apart inside the step,
+              GradNorm's weights over three steps kernel vs plain) and in
+              bf16, timed; then through the CLI on seeded volumes made on
+              the card: tutorials/mito_betaseg.yaml as shipped but for the
+              train leg's depth (2 epochs of 10 steps on synthetic://blobs
+              192x256x256, separate objects as mitochondria are), --mode
+              test on the held-out blobs 192x576x576 (windows
+              of 192^3 at overlap 0.5, output_head aff_r1, affinity_cc,
+              min_instance_size 200, adapted Rand, VOI, instance F1) and an
+              untrained control (VOI); fails unless the trained VOI is below
+              the control's; the host's target time a sample at 192^3; then
+              the multi-task recipe at z 16 (its shipped 18 is no multiple of
+              16) on synthetic://instance volumes: train (2 epochs of 10 steps
+              on 32x480x480, GradNorm weights logged) and test with waterz on
+              32x320x320, reported
+ 20. report   a {"kernels": [...]} line, then {"ok": true, "device": ...} last
 
 Imports torch and the port only. Details go to build/chip_smoke/chip_smoke.json.
 """
@@ -239,6 +265,14 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+def device_randn(shape, seed, dev, dtype=torch.float32):
+    """Seeded standard normal values made on the device (a host draw of a
+    192^3 batch takes seconds)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+
 def block_params(rng, c, r, dev):
     def t(a):
         return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
@@ -291,7 +325,7 @@ def pair_row(fb, dev, c, r, spatial, per_fwd, dtype, batch=BATCH, reps=None):
     version, its bound and the library yardstick, with the plan it took."""
     es = 2 if dtype == torch.bfloat16 else 4
     rng = np.random.default_rng(c)
-    x = torch.from_numpy(rng.standard_normal((batch, *spatial, c), dtype=np.float32)).to(dev, dtype)
+    x = device_randn((batch, *spatial, c), c, dev, dtype)
     p = block_params(rng, c, r, dev)
     # cast once, as the model does: the timed windows hold the launches only
     p.update(w1=p["w1"].to(dtype), w2=p["w2"].to(dtype))
@@ -751,7 +785,7 @@ def dw_bounds(n, c, es):
     return fwd, wgrad
 
 
-def depthwise_row(dwk, dev, recipe, spatial, c, per_step, dtype, batch):
+def depthwise_row(dwk, dev, recipe, spatial, c, per_step, dtype, batch, reps=None):
     """The depthwise kernels at one training stage (forward, input gradient
     with mirrored taps, weight gradient twice, bit-identical), each against
     its plain version (stated tolerances; fails the run beyond them), timed
@@ -761,8 +795,7 @@ def depthwise_row(dwk, dev, recipe, spatial, c, per_step, dtype, batch):
     shape = (batch, *spatial, c)
     n = math.prod(shape[:4])
     rng = np.random.default_rng(c)
-    x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
-    dy = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
+    x, dy = device_randn(shape, c, dev, dtype), device_randn(shape, c + 1, dev, dtype)
     w = torch.from_numpy(rng.standard_normal((c, 1, 3, 3, 3)).astype(np.float32) * 0.3).to(dev)
     b = torch.from_numpy(rng.standard_normal(c).astype(np.float32)).to(dev)
     wf = w.flip((2, 3, 4))
@@ -797,7 +830,7 @@ def depthwise_row(dwk, dev, recipe, spatial, c, per_step, dtype, batch):
         fail(f"depthwise3x3_wgrad {recipe} C={c} {dtype}: relative error {rel:.3g} > 1e-5")
     row["wgrad"] = dict(max_abs_err=max((gw - ww).abs().max().item(), (gb - wb).abs().max().item()),
                         max_rel_err=rel, bit_identical=True)
-    reps = 10 if n * c > 1e7 else 30
+    reps = reps or (10 if n * c > 1e7 else 30)
     xn, dyn, wd, bd = x.permute(0, 4, 1, 2, 3), dy.permute(0, 4, 1, 2, 3), w.to(dtype), b.to(dtype)
     b_fwd, b_wgrad = dw_bounds(n, c, es)
     row["forward"].update(
@@ -2775,6 +2808,512 @@ def phase_nisb(dwk, fb, dev, work, report):
     torch.cuda.empty_cache()
 
 
+BETASEG = ROOT / "tutorials" / "mito_betaseg.yaml"
+MULTITASK = ROOT / "tutorials" / "neuron_snemi_sdt_multitask.yaml"
+BETASEG_TEST_BATCH, BETASEG_TRAIN_BATCH, MULTITASK_BATCH = 1, 2, 8
+# (C, R, (Z, Y, X), blocks per forward) of MedNeXt-S's stride-1 blocks on
+# betaseg's 192^3 window (stock stem; its three heads have no blocks): 18
+BETASEG_STAGES = [
+    (32, 64, (192, 192, 192), 4),
+    (64, 128, (96, 96, 96), 4),
+    (128, 256, (48, 48, 48), 4),
+    (256, 512, (24, 24, 24), 4),
+    (512, 1024, (12, 12, 12), 2),
+]
+BETASEG_BLOCKS = sum(s[3] for s in BETASEG_STAGES)
+# the SNEMI multi-task recipe runs at z 16: its shipped 18 x 160 x 160 is no
+# multiple of 16, which MedNeXt's four down and up steps need (the JAX
+# package raises there too); its two heads run one stage-0 block each
+MULTITASK_PATCH = (16, 160, 160)
+MULTITASK_SHAPE = [f"model.input_size=[{','.join(map(str, MULTITASK_PATCH))}]",
+                   f"data.dataloader.patch_size=[{','.join(map(str, MULTITASK_PATCH))}]",
+                   f"inference.window.window_size=[{','.join(map(str, MULTITASK_PATCH))}]"]
+MULTITASK_STAGES = [(32, 64, MULTITASK_PATCH, 6), (64, 128, (8, 80, 80), 4), (128, 256, (4, 40, 40), 4),
+                    (256, 512, (2, 20, 20), 4), (512, 1024, (1, 10, 10), 2)]
+MULTITASK_HEAD_BLOCKS = 2
+MULTITASK_BLOCKS = BETASEG_BLOCKS + MULTITASK_HEAD_BLOCKS
+# the f32 multi-task step: every gradient leaf (phase 17's measure) within
+# this of the plain path's: about ten times the worst sound reading (7e-6 to
+# 1.7e-5 on the H100), under what a depthwise conv computed in bf16 inside
+# the f32 path gives (the bf16 control among the fault probes); the loss
+# within 1e-5, GradNorm's weights over three steps within 1e-4 of the plain
+# path's. PERF.md gives the readings
+MULTITASK_GRAD_TOL = 2e-4
+MULTITASK_GRADNORM_TOL = 1e-4
+# seeded volumes made on the card (the BetaSeg and SNEMI volumes are not in
+# the repository): synthetic://blobs for betaseg's mitochondria (separate
+# objects in background; on synthetic://instance, cells tiling the volume,
+# 20 steps left one merged instance), synthetic://instance for SNEMI's neurons
+BETASEG_TRAIN_SHAPE = (192, 256, 256)
+BETASEG_TEST_SHAPE = (192, 576, 576)
+MULTITASK_TRAIN_SHAPE = (32, 480, 480)
+MULTITASK_TEST_SHAPE = (32, 320, 320)
+BETASEG_EPOCHS, BETASEG_STEPS = 2, 10
+MULTITASK_EPOCHS, MULTITASK_STEPS = 2, 10
+
+
+def head_errors(got, want, ref32):
+    """Per head: the relative error (norm of the difference over the norm)
+    of ``got`` and of ``want`` against the f32 plain path ``ref32``."""
+    return {k: (((got[k].float() - ref32[k]).norm() / ref32[k].norm()).item(),
+                ((want[k].float() - ref32[k]).norm() / ref32[k].norm()).item()) for k in ref32}
+
+
+def betaseg_forward(fb, dev, out):
+    """Betaseg's 3-head MedNeXt-S forward, bf16, batch 1 of 192^3: each
+    head's kernel path held to the f32 plain path (relative error at most
+    NISB_FWD_ERR_RATIO times the bf16 plain path's), 18 launches of each
+    pair kernel, fault probes the limit must reject, time and peak memory."""
+    import copy
+
+    from pytorch_connectomics_tpu_torch.config import load_config
+    from pytorch_connectomics_tpu_torch.models import build_model
+
+    cfg = load_config(BETASEG, mode="test")
+    heads = [(h.name, h.out_channels, h.num_blocks) for h in cfg.model.mednext.heads]
+    if heads != [("aff_r1", 3, 0), ("aff_r5", 3, 0), ("sedt", 1, 0)] or cfg.model.compute_dtype != "bfloat16":
+        fail(f"mito_betaseg.yaml no longer ships three bf16 heads of no block: {heads}")
+    model = build_model(cfg.model, device=dev, seed=0)
+    cfg32 = copy.deepcopy(cfg)
+    cfg32.model.compute_dtype = "float32"
+    model32 = build_model(cfg32.model, device=dev, seed=0)
+    model32.load_state_dict(model.state_dict())
+    x = torch.from_numpy(np.random.default_rng(3).random((BETASEG_TEST_BATCH, *cfg.model.input_size, 1),
+                                                         dtype=np.float32)).to(dev)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fb.reset_launch_counts()
+        y = model(x)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        counts = {k.__name__: k.launches for k in fb.KERNELS}
+        if any(v != BETASEG_BLOCKS for v in counts.values()):
+            fail(f"one betaseg forward should launch each kernel {BETASEG_BLOCKS} times, got {counts}")
+        ref = model(x, plain=True)
+        ref32 = {k: v.float() for k, v in model32(x, plain=True).items()}
+        errs = head_errors(y, ref, ref32)
+        for k, (rel_k, rel_p) in errs.items():
+            if not torch.isfinite(y[k]).all() or y[k].shape[-1] != dict((h[0], h[1]) for h in heads)[k] \
+                    or not rel_k <= NISB_FWD_ERR_RATIO * rel_p:
+                fail(f"betaseg head {k} {tuple(y[k].shape)}: kernel path's error against f32 {rel_k:.3g}, more "
+                     f"than {NISB_FWD_ERR_RATIO} x the bf16 plain path's {rel_p:.3g}")
+        # faults the size of a kernel bug in the plain path: the limit must reject each on some head
+        probes = {}
+        for where, blk in (("stage 0", model.enc[0].blocks[0]), ("last decoder stage", model.dec[3].blocks[-1])):
+            for fault, w, idx in (("dw tap (0,0,0) dropped", blk.conv_weight, (slice(None), 0, 0, 0, 0)),
+                                  ("hidden units 0:16 dropped", blk.pw2.weight, (slice(None), slice(0, 16)))):
+                with torch.inference_mode(False), torch.no_grad():
+                    saved = w[idx].clone()
+                    w[idx] = 0
+                faulty = model(x, plain=True)
+                with torch.inference_mode(False), torch.no_grad():
+                    w[idx] = saved
+                probes[f"{fault}, {where}"] = max(e[0] / (NISB_FWD_ERR_RATIO * errs[k][1])
+                                                  for k, e in head_errors(faulty, ref, ref32).items())
+                del faulty
+        log("fault probes (largest head error over its limit): " + ", ".join(f"{k} {v:.3g}" for k, v in probes.items()))
+        if min(probes.values()) <= 1.0:
+            fail(f"the betaseg forward limit lets a fault probe pass: {probes}")
+        ms = time_ms(lambda: model(x), reps=5, warmup=1)
+        plain_ms = time_ms(lambda: model(x, plain=True), reps=2, warmup=1)
+    out["forward"] = dict(ms=ms, plain_ms=plain_ms, peak_memory_bytes=peak, launches_per_forward=counts,
+                          head_rel_err_f32={k: e[0] for k, e in errs.items()},
+                          plain_head_rel_err_f32={k: e[1] for k, e in errs.items()},
+                          err_ratio_limit=NISB_FWD_ERR_RATIO, fault_probe_ratios=probes)
+    log(f"betaseg MedNeXt-S, 3 heads, bf16 batch 1 of 192^3: kernel path {ms:.2f} ms (plain {plain_ms:.2f}), peak "
+        f"memory {peak / 2**30:.2f} GiB; per head the kernel path's relative error against f32 (the bf16 plain "
+        "path's): " + ", ".join(f"{k} {e[0]:.4g} ({e[1]:.4g})" for k, e in errs.items()))
+    del model, model32, y, ref, ref32
+    torch.cuda.empty_cache()
+
+
+def betaseg_train_step(dwk, fb, dev, out):
+    """One betaseg train step as shipped (bf16, outside_block remat, batch 2
+    of 192^3, the five loss terms on three heads): its loss against the
+    plain path's, step time, peak memory and launches."""
+    from pytorch_connectomics_tpu_torch.config import load_config
+    from pytorch_connectomics_tpu_torch.data.targets.build import affinity_target_groups
+    from pytorch_connectomics_tpu_torch.losses import LossOrchestrator
+    from pytorch_connectomics_tpu_torch.models import build_model
+    from pytorch_connectomics_tpu_torch.training.optim import build_optimizer
+    from pytorch_connectomics_tpu_torch.training.state import create_train_state, make_train_step
+
+    cfg = load_config(BETASEG, mode="train")
+    if cfg.model.mednext.checkpoint_style != "outside_block" or cfg.data.dataloader.batch_size != BETASEG_TRAIN_BATCH:
+        fail("mito_betaseg.yaml no longer trains at batch 2 with outside_block remat")
+    model = build_model(cfg.model, device=dev, seed=0)
+    orch = LossOrchestrator(cfg.model.loss, affinity_groups=affinity_target_groups(cfg.data.label_transform))
+    shape = (BETASEG_TRAIN_BATCH, *cfg.data.dataloader.patch_size)
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.random((*shape, 1), dtype=np.float32)).to(dev)
+    y = torch.from_numpy(np.concatenate([(rng.random((*shape, 6)) > 0.5).astype(np.float32),
+                                         rng.uniform(-1, 1, (*shape, 1)).astype(np.float32)], -1)).to(dev)
+    batch = {"image": x, "label": y}
+    with torch.enable_grad():
+        loss_p = orch(model(x, plain=True), y)[0].item()
+    opt, schedule = build_optimizer(cfg.optimization, model, 100)
+    state = create_train_state(model, opt)
+    step = make_train_step(orch, schedule, gradient_clip=cfg.optimization.gradient_clip_val)
+    dwk.reset_launch_counts()
+    fb.reset_launch_counts()
+    logs = step(state, batch)
+    torch.cuda.synchronize()
+    counts = {k.__name__: k.launches for k in dwk.KERNELS + fb.KERNELS}
+    loss_k = float(logs["loss_total"])
+    want = {"depthwise3x3": 3 * BETASEG_BLOCKS, "depthwise3x3_wgrad": BETASEG_BLOCKS, "dw_stats": 0,
+            "fused_block_apply": 0}
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    if counts != want or not loss_err <= TRAIN_LOSS_TOL:
+        fail(f"betaseg train step: launches {counts} (want {want}), loss kernel {loss_k} vs plain {loss_p}")
+    torch.cuda.reset_peak_memory_stats()
+    reps = 2
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        logs = step(state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / reps * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(float(v)) for v in logs.values()):
+        fail(f"betaseg train step logs not finite: {logs}")
+    out["train_step"] = dict(shape=list(shape), step_ms=step_ms, peak_memory_bytes=peak, launches_per_step=counts,
+                             loss_kernel=loss_k, loss_plain=loss_p, loss_rel_err=loss_err)
+    log(f"betaseg train step {shape} bf16 remat: {step_ms:.1f} ms, peak memory {peak / 2**30:.2f} GiB, loss kernel "
+        f"{loss_k:.6f} plain {loss_p:.6f}; launches per step {counts}")
+    del model, opt, state, batch, x, y
+    torch.cuda.empty_cache()
+
+
+class PlainPath(torch.nn.Module):
+    """A model whose forward is the plain path (the train step calls
+    ``model(x)``)."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.m = model
+
+    def forward(self, x):
+        return self.m(x, plain=True)
+
+
+def multitask_train_step(dwk, dev, out):
+    """The SNEMI multi-task recipe's step (batch 8 of 16 x 160 x 160, heads
+    of one block, GradNorm): in f32, every gradient leaf of the kernel path
+    within MULTITASK_GRAD_TOL of the plain path's (with fault probes the
+    limit must reject, a bf16 depthwise conv among them) and GradNorm's
+    weights over three steps within MULTITASK_GRADNORM_TOL; launches a step,
+    the heads' share counted in the same step; then the bf16 step as
+    shipped, timed."""
+    import copy
+
+    from pytorch_connectomics_tpu_torch.config import load_config
+    from pytorch_connectomics_tpu_torch.data.targets.build import affinity_target_groups
+    from pytorch_connectomics_tpu_torch.losses import LossOrchestrator
+    from pytorch_connectomics_tpu_torch.models import build_model
+    from pytorch_connectomics_tpu_torch.training.optim import build_optimizer
+    from pytorch_connectomics_tpu_torch.training.state import create_train_state, make_train_step
+
+    def setup(extra=()):
+        cfg = load_config(MULTITASK, overrides=MULTITASK_SHAPE + list(extra), mode="train")
+        orch = LossOrchestrator(cfg.model.loss, affinity_groups=affinity_target_groups(cfg.data.label_transform))
+        return cfg, orch
+
+    # a constant lr of 1e-3 (the warmup starts at 1e-5): three steps move the GradNorm weights
+    cfg, orch = setup(["optimization.precision=32", "optimization.scheduler.name=constant"])
+    bal = cfg.model.loss.balancing
+    if bal.method != "gradnorm" or [h.num_blocks for h in cfg.model.mednext.heads] != [1, 1]:
+        fail(f"neuron_snemi_sdt_multitask.yaml no longer balances by gradnorm over heads of one block: {bal}")
+    model = build_model(cfg.model, device=dev, seed=0)
+    shape = (MULTITASK_BATCH, *MULTITASK_PATCH)
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.random((*shape, 1), dtype=np.float32)).to(dev)
+    y = torch.from_numpy(np.concatenate([(rng.random((*shape, 3)) > 0.5).astype(np.float32),
+                                         rng.uniform(-1, 1, (*shape, 1)).astype(np.float32)], -1)).to(dev)
+
+    def loss_and_grads(plain):
+        model.zero_grad(set_to_none=True)
+        loss, _ = orch(model(x, plain=plain), y)
+        loss.backward()
+        return loss.item(), {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+    def launches():
+        return {k.__name__: k.launches for k in dwk.KERNELS}
+
+    # the heads' share of the step: the counts where the heads take the last
+    # decoder stage's output and where its gradient is whole (every head's
+    # backward done); the loss between them launches none of these kernels
+    marks = {}
+
+    def at_heads(module, args, y):
+        marks["forward"] = launches()
+        y.register_hook(lambda g: marks.__setitem__("backward", launches()))
+
+    hook = model.dec[-1].register_forward_hook(at_heads)
+    dwk.reset_launch_counts()
+    loss_k, g_k = loss_and_grads(False)
+    torch.cuda.synchronize()
+    hook.remove()
+    counts = launches()
+    head_counts = {k: marks["backward"][k] - marks["forward"][k] for k in counts}
+    want = {"depthwise3x3": 2 * MULTITASK_BLOCKS, "depthwise3x3_wgrad": MULTITASK_BLOCKS}
+    want_heads = {"depthwise3x3": 2 * MULTITASK_HEAD_BLOCKS, "depthwise3x3_wgrad": MULTITASK_HEAD_BLOCKS}
+    if counts != want or head_counts != want_heads:
+        fail(f"one multi-task f32 step should launch {want} ({want_heads} in the heads): {counts} ({head_counts})")
+    loss_p, g_p = loss_and_grads(True)
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    errs, _, whole = unet_leaf_errors(g_k, g_p, UNET_SMALL_LEAF)
+    worst = max(errs, key=errs.get)
+    log(f"multi-task step in f32: loss kernel {loss_k:.7f} plain {loss_p:.7f} (rel err {loss_err:.3g}); worst leaf "
+        f"{worst} {errs[worst]:.3g} (limit {MULTITASK_GRAD_TOL}), whole gradient {whole:.3g}; launches {counts}, "
+        f"of them the heads' {head_counts}")
+    if not loss_err <= 1e-5 or not errs[worst] <= MULTITASK_GRAD_TOL:
+        fail(f"multi-task f32 step: loss rel err {loss_err:.3g}, {worst} {errs[worst]:.3g}")
+    probes = {}
+    for name, w, idx in (("dw tap (0,0,0) dropped, head aff", model.heads["aff"].blocks[0].conv_weight,
+                          (slice(None), 0, 0, 0, 0)),
+                         ("hidden units 0:16 dropped, bottleneck", model.bottleneck.blocks[0].pw2.weight,
+                          (slice(None), slice(0, 16)))):
+        with torch.no_grad():
+            saved = w[idx].clone()
+            w[idx] = 0
+        g_f = loss_and_grads(True)[1]
+        with torch.no_grad():
+            w[idx] = saved
+        probes[name] = max(unet_leaf_errors(g_f, g_p, UNET_SMALL_LEAF)[0].values())
+    # the precision control: the plain path with its depthwise conv computed in bf16
+    dw_plain = dwk.depthwise3x3_plain
+
+    def dw_bf16(x, w, b):
+        return dw_plain(x.bfloat16(), w.bfloat16(), b.bfloat16()).float()
+
+    dwk.depthwise3x3_plain = dw_bf16
+    try:
+        g_f = loss_and_grads(True)[1]
+    finally:
+        dwk.depthwise3x3_plain = dw_plain
+    probes["depthwise conv in bf16, plain path"] = max(unet_leaf_errors(g_f, g_p, UNET_SMALL_LEAF)[0].values())
+    log("fault probes (worst leaf error): " + ", ".join(f"{k} {v:.4g}" for k, v in probes.items()))
+    if min(probes.values()) <= MULTITASK_GRAD_TOL:
+        fail(f"the gradient limit {MULTITASK_GRAD_TOL} lets a fault probe pass: {probes}")
+    del g_k, g_p
+    # GradNorm over three steps, kernel path and plain path from the same weights
+    weights = {}
+    for name, net in (("kernel", model), ("plain", PlainPath(copy.deepcopy(model)))):
+        opt, schedule = build_optimizer(cfg.optimization, net, 100)
+        state = create_train_state(net, opt, gradnorm_terms=orch.num_terms)
+        step = make_train_step(orch, schedule, gradient_clip=cfg.optimization.gradient_clip_val, balancing=bal.method,
+                               balancing_alpha=bal.alpha, balancing_lr=bal.lr)
+        weights[name] = [[float(v) for k, v in step(state, {"image": x, "label": y}).items()
+                          if k.startswith("gradnorm_w_")] for _ in range(3)]
+        del opt, state, net
+    gn_err = max(abs(a - b) for sk, sp in zip(weights["kernel"], weights["plain"]) for a, b in zip(sk, sp))
+    log(f"GradNorm weights over three f32 steps, kernel path {weights['kernel']}, plain {weights['plain']}: max "
+        f"|difference| {gn_err:.3g} (limit {MULTITASK_GRADNORM_TOL})")
+    if not gn_err <= MULTITASK_GRADNORM_TOL or abs(weights["kernel"][-1][0] - 1.0) < 1e-6:
+        fail(f"GradNorm weights kernel {weights['kernel']} vs plain {weights['plain']}")
+    del model
+    # the bf16 step as shipped, timed
+    cfg16, orch16 = setup()
+    model = build_model(cfg16.model, device=dev, seed=0)
+    opt, schedule = build_optimizer(cfg16.optimization, model, 100)
+    state = create_train_state(model, opt, gradnorm_terms=orch16.num_terms)
+    step = make_train_step(orch16, schedule, gradient_clip=cfg16.optimization.gradient_clip_val,
+                           balancing=bal.method, balancing_alpha=bal.alpha, balancing_lr=bal.lr)
+    batch = {"image": x, "label": y}
+    step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        logs = step(state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / reps * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(float(v)) for v in logs.values()):
+        fail(f"multi-task bf16 train step logs not finite: {logs}")
+    out["multitask_step"] = dict(
+        shape=list(shape), f32_loss_rel_err=loss_err, f32_worst_leaf=worst, f32_worst_leaf_error=errs[worst],
+        f32_whole_grad_error=whole, grad_tol=MULTITASK_GRAD_TOL, fault_probe_leaf_errors=probes,
+        launches_per_step=counts, head_launches_per_step=head_counts, gradnorm_weights=weights,
+        gradnorm_max_abs_diff=gn_err, bf16_step_ms=step_ms, bf16_peak_memory_bytes=peak)
+    log(f"multi-task bf16 step {shape}: {step_ms:.1f} ms, peak memory {peak / 2**30:.2f} GiB")
+    del model, opt, state, batch, x, y
+    torch.cuda.empty_cache()
+
+
+def phase_multitask(dwk, fb, dev, work, report):
+    log("== phase 19: multi-task MedNeXt: tutorials/mito_betaseg.yaml (3 heads) and "
+        "tutorials/neuron_snemi_sdt_multitask.yaml (heads of one block, GradNorm): kernels at their shapes, "
+        "forward, train steps, CLI train -> test and the untrained control ==")
+    import shutil
+
+    from pytorch_connectomics_tpu_torch.config import load_config
+    from pytorch_connectomics_tpu_torch.data.synthetic import synthetic_em_task
+    from pytorch_connectomics_tpu_torch.data.targets import build_target_fn
+    from pytorch_connectomics_tpu_torch.data.targets.distance import skeleton_aware_edt
+    from pytorch_connectomics_tpu_torch.runtime.cli import parse_args
+    from pytorch_connectomics_tpu_torch.runtime.dispatch import dispatch_runtime
+
+    out = report["multitask"] = {}
+    t_phase = time.perf_counter()
+    parts = out["part_seconds"] = {}
+    last = [t_phase]
+
+    def lap(what):
+        now = time.perf_counter()
+        parts[what] = now - last[0]
+        last[0] = now
+
+    # (a) the kernels of these paths, bf16: the pair at betaseg's test batch 1
+    # of 192^3, the depthwise kernels at its training batch 2 and at the
+    # multi-task recipe's batch 8 (heads' blocks in its stage 0)
+    out["pair_rows"] = [pair_row(fb, dev, c, r, sp, per, torch.bfloat16, BETASEG_TEST_BATCH, reps=3)
+                        for c, r, sp, per in BETASEG_STAGES]
+    lap("pair_rows")
+    out["depthwise_rows"] = [depthwise_row(dwk, dev, "betaseg", sp, c, per, torch.bfloat16, BETASEG_TRAIN_BATCH, 3)
+                             for c, _, sp, per in BETASEG_STAGES]
+    lap("depthwise_rows")
+    out["depthwise_rows"] += [depthwise_row(dwk, dev, "multitask", sp, c, per, torch.bfloat16, MULTITASK_BATCH, 5)
+                              for c, _, sp, per in MULTITASK_STAGES]
+    lap("multitask_depthwise_rows")
+    betaseg_forward(fb, dev, out)
+    lap("forward")
+    betaseg_train_step(dwk, fb, dev, out)
+    lap("train_step")
+    multitask_train_step(dwk, dev, out)
+    lap("multitask_step")
+
+    # (b) the recipes' CLI legs on volumes made on the card
+    vols, made = {}, {}
+    out["volume_seconds"] = made
+    for tag, task, shape, seed in (("train", "blobs", BETASEG_TRAIN_SHAPE, 61), ("b", "blobs", BETASEG_TEST_SHAPE, 62),
+                                   ("mt_train", "instance", MULTITASK_TRAIN_SHAPE, 63),
+                                   ("mt_b", "instance", MULTITASK_TEST_SHAPE, 64)):
+        t0 = time.perf_counter()
+        img, lbl = synthetic_em_task(task, shape, seed=seed, device=dev)
+        vols[tag] = (work / f"mt_{tag}_im.npy", work / f"mt_{tag}_label.npy")
+        np.save(vols[tag][0], img)
+        np.save(vols[tag][1], lbl)
+        made[tag] = time.perf_counter() - t0
+    lap("volumes")
+    log("volumes made on the card (s): " + ", ".join(f"{k} {v:.1f}" for k, v in made.items()))
+    # the host's share of a betaseg sample (a batch makes two in two threads):
+    # both targets of a 192^3 crop, and the skeleton-aware EDT alone
+    seg = np.load(vols["train"][1])[:192, :192, :192]
+    target = build_target_fn(load_config(BETASEG, mode="train").data.label_transform)
+    t0 = time.perf_counter()
+    target(seg)
+    targets_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    skeleton_aware_edt(seg)
+    skel_ms = (time.perf_counter() - t0) * 1e3
+    out["host_targets_ms_per_sample"] = dict(both_targets=targets_ms, skeleton_aware_edt=skel_ms,
+                                             instances=int(len(np.unique(seg)) - 1))
+    log(f"betaseg targets on the host, one 192^3 sample ({out['host_targets_ms_per_sample']['instances']} "
+        f"instances): {targets_ms:.0f} ms, the skeleton-aware EDT {skel_ms:.0f} ms of it")
+    del seg
+    lap("host_targets")
+
+    logs = LogRecords(("timing[",))
+    port_log = logging.getLogger("pytorch_connectomics_tpu_torch")
+    port_log.addHandler(logs)
+
+    def data(split, tag):
+        return [f"data.{split}.image={vols[tag][0]}", f"data.{split}.label={vols[tag][1]}"]
+
+    def train_leg(recipe, root, tag, epochs, steps, blocks, remat, extra=()):
+        shutil.rmtree(root, ignore_errors=True)
+        dwk.reset_launch_counts()
+        # the losses (and GradNorm's weights) logged every 5 steps
+        res = dispatch_runtime(parse_args(["--config", str(recipe), "--device", str(dev), "--mode", "train",
+                                           *extra, f"save_path={root}", "monitor.logging.scalar.loss_every_n_steps=5",
+                                           f"optimization.max_epochs={epochs}",
+                                           f"optimization.n_steps_per_epoch={steps}", *data("train", tag)]))
+        torch.cuda.synchronize()
+        counts = {k.__name__: k.launches for k in dwk.KERNELS}
+        stats = train_leg_stats(res)
+        n = epochs * steps
+        if stats["train_stats"]["steps"] != n or not res["checkpoint"] or not stats["losses"] \
+                or not all(math.isfinite(v) for v in stats["losses"]):
+            fail(f"{recipe.name} train leg: {stats['train_stats']['steps']} steps, checkpoint {res['checkpoint']}, "
+                 f"losses {stats['losses']}")
+        if counts != {"depthwise3x3": (3 if remat else 2) * blocks * n, "depthwise3x3_wgrad": blocks * n}:
+            fail(f"the {recipe.name} train leg should launch the depthwise kernels {(3 if remat else 2) * blocks} and "
+                 f"{blocks} times a step for {n} steps: {counts}")
+        stats["launches"] = counts
+        log(f"{recipe.name} train leg: {n} steps in {stats['train_stats']['seconds']:.2f} s "
+            f"({stats['steps_per_s']:.3f} steps/s, {stats['step_ms']:.1f} ms a step, {stats['data_wait_ms_per_step']:.1f} "
+            f"of it waiting for batches; pipeline {stats['pipeline_host_ms_per_batch']:.1f} ms a batch); losses "
+            f"{stats['losses'][0]:.4f} -> {stats['losses'][-1]:.4f}; launches {counts}")
+        return res, stats
+
+    def test_leg(recipe, root, tag, blocks, extra=()):
+        fb.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = dispatch_runtime(parse_args(["--config", str(recipe), "--device", str(dev), "--mode", "test",
+                                           *extra, f"save_path={root}", *data("test", tag)]))
+        torch.cuda.synchronize()
+        res["seconds"] = time.perf_counter() - t0
+        res["launches"] = {k.__name__: k.launches for k in fb.KERNELS}
+        if any(v <= 0 or v % blocks for v in res["launches"].values()):
+            fail(f"the {recipe.name} test leg did not run every stride-1 block through the fused kernels: "
+                 f"{res['launches']}")
+        (timing,) = logs.take("timing[")
+        res["timing"] = dict(zip(("read+normalise", "predict", "save", "decode", "evaluate"), timing[1:]))
+        scores = next(iter(res["metrics"].values()))
+        if not scores or not all(math.isfinite(v) for v in scores.values()):
+            fail(f"{recipe.name} test metrics: {scores}")
+        log(f"{recipe.name} test leg ({'restored ' + str(res['restored']['checkpoint']) if res.get('restored') else 'untrained'}): "
+            f"{res['seconds']:.2f} s = " + ", ".join(f"{k} {v:.3f}" for k, v in res["timing"].items())
+            + f"; {scores}; launches {res['launches']}")
+        return res, scores
+
+    try:
+        root, control_root = work / "betaseg", work / "betaseg_control"
+        train, stats = train_leg(BETASEG, root, "train", BETASEG_EPOCHS, BETASEG_STEPS, BETASEG_BLOCKS, True)
+        lap("train_leg")
+        test, scores = test_leg(BETASEG, root, "b", BETASEG_BLOCKS)
+        if (test.get("restored") or {}).get("checkpoint") != train["checkpoint"]:
+            fail(f"the betaseg test leg did not restore {train['checkpoint']}: {test.get('restored')}")
+        lap("test_leg")
+        shutil.rmtree(control_root, ignore_errors=True)
+        control, control_scores = test_leg(BETASEG, control_root, "b", BETASEG_BLOCKS, ["evaluation.metrics=[voi]"])
+        if control.get("restored"):
+            fail(f"the control restored a checkpoint: {control['restored']}")
+        lap("control_leg")
+        if not {"adapted_rand", "voi", "instance_f1"} <= set(scores) or not scores["voi"] < control_scores["voi"]:
+            fail(f"betaseg held-out VOI {scores.get('voi')} (trained) is not below {control_scores.get('voi')} "
+                 "(untrained)")
+        mt_root = work / "snemi_multitask"
+        mt_train, mt_stats = train_leg(MULTITASK, mt_root, "mt_train", MULTITASK_EPOCHS, MULTITASK_STEPS,
+                                       MULTITASK_BLOCKS, False, MULTITASK_SHAPE)
+        gradnorm_logs = [json.loads(line) for line in (Path(mt_train["run_dir"]) / "metrics.jsonl").read_text().splitlines()]
+        gradnorm_w = [{k: v for k, v in r.items() if k.startswith("train_gradnorm_w_")} for r in gradnorm_logs
+                      if any(k.startswith("train_gradnorm_w_") for k in r)]
+        if not gradnorm_w or len(gradnorm_w[-1]) != 2:
+            fail(f"the multi-task train leg logged no GradNorm weights: {gradnorm_logs[:2]}")
+        lap("multitask_train_leg")
+        mt_test, mt_scores = test_leg(MULTITASK, mt_root, "mt_b", MULTITASK_BLOCKS, MULTITASK_SHAPE)
+        lap("multitask_test_leg")
+    finally:
+        port_log.removeHandler(logs)
+    out.update(
+        train=stats, test=dict(seconds=test["seconds"], timing=test["timing"], metrics_b=scores,
+                               launches=test["launches"]),
+        control=dict(seconds=control["seconds"], timing=control["timing"], metrics_b=control_scores,
+                     launches=control["launches"]),
+        multitask_train=dict(**mt_stats, gradnorm_weights=gradnorm_w),
+        multitask_test=dict(seconds=mt_test["seconds"], timing=mt_test["timing"], metrics=mt_scores,
+                            launches=mt_test["launches"]),
+        seconds=time.perf_counter() - t_phase,
+    )
+    log(f"betaseg held-out B {BETASEG_TEST_SHAPE}: VOI {scores['voi']:.4f}, adapted Rand {scores['adapted_rand']:.4f}, "
+        f"instance F1 {scores['instance_f1']:.4f}; untrained control VOI {control_scores['voi']:.4f}; multi-task GradNorm weights at the end {gradnorm_w[-1]}; held-out "
+        f"{mt_scores}; phase {out['seconds']:.1f} s: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+    torch.cuda.empty_cache()
+
+
 def wgrad_line_row(rows, launches):
     """The weight-gradient kernel's entry of the kernels line, per SNEMI
     train step (batch 8 of (18, 160, 160), bf16): each layer shape's times
@@ -3163,17 +3702,18 @@ def main(argv=None) -> None:
 
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU and check it.")
     ap.add_argument("--phases", default=None,
-                    help="comma-separated phases of 3-18 (14 also as 'instance', 17 as 'unet', 18 as 'nisb') to "
-                    "run after the device and build phases (default: all)")
+                    help="comma-separated phases of 3-19 (14 also as 'instance', 17 as 'unet', 18 as 'nisb', 19 as "
+                    "'multitask') to run after the device and build phases (default: all)")
     args = ap.parse_args(argv)
     phases = None
+    names = {"instance": 14, "unet": 17, "nisb": 18, "multitask": 19}
     if args.phases is not None:
         try:
-            phases = {{"instance": 14, "unet": 17, "nisb": 18}.get(p) or int(p) for p in args.phases.split(",")}
+            phases = {names.get(p) or int(p) for p in args.phases.split(",")}
         except ValueError:
-            ap.error("--phases takes phases 3-18")
-    if phases is not None and not phases <= set(range(3, 19)):
-        ap.error("--phases takes phases 3-18")
+            ap.error("--phases takes phases 3-19")
+    if phases is not None and not phases <= set(range(3, 20)):
+        ap.error("--phases takes phases 3-19")
 
     def want(n):
         return phases is None or n in phases
@@ -3287,8 +3827,11 @@ def main(argv=None) -> None:
     if want(18):
         phase_nisb(dwk, fb, dev, work, report)
         mark(18)
+    if want(19):
+        phase_multitask(dwk, fb, dev, work, report)
+        mark(19)
 
-    log("== phase 19: report ==")
+    log("== phase 20: report ==")
     report["total_seconds"] = time.perf_counter() - started
     log(f"chip_smoke ran in {report['total_seconds']:.1f} s")
     device = {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}

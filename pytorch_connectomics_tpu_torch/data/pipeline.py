@@ -15,9 +15,13 @@ generator), and makes the samples of a batch in a pool of
 ``cfg.system.num_workers`` threads; the batches do not depend on the
 thread count. Where a label volume carries ``-1`` (unlabeled) voxels, each
 sample also gets the per-channel validity mask of its targets, multiplied
-into its ``mask``. This slice ports the cached in-RAM dataset: on-device
-augmentation, lazy (zarr) datasets, nnU-Net preprocessing, auxiliary label
-volumes, target context, read-time downscaling and paired data transforms
+into its ``mask``. With ``data.dataloader.target_context`` the dataset
+crops a patch larger by twice the context on each axis, and every array of
+a sample is cropped back to the patch after augmentation and targets, so
+long-range affinities at the patch border see real data (JAX
+``pipeline.py:58-62,218-224``). This slice ports the cached in-RAM dataset:
+on-device augmentation, lazy (zarr) datasets, nnU-Net preprocessing,
+auxiliary label volumes, read-time downscaling and paired data transforms
 raise ``NotImplementedError``. Without ``data.val`` paths, ``data.split``
 splits each train volume into train and val slabs along one axis
 (:mod:`.split`).
@@ -62,17 +66,20 @@ def build_dataset(cfg: Config, split_cfg: DatasetSplitConfig, train: bool = True
         (cfg.data.nnunet_preprocessing.enabled, "nnU-Net preprocessing"),
         (split_cfg.label_aux, "auxiliary label volumes"),
         (split_cfg.image_internal_path or split_cfg.label_internal_path, "internal dataset paths"),
-        (dl.target_context, "target context"),
         (cfg.data.preprocessing.read_downscale, "read-time downscaling"),
         (dt.resize or dt.binarize or any(dt.pad_size or ()), "paired data transforms"),
     ):
         if flag:
             raise NotImplementedError(f"{what} is not ported yet")
+    patch = tuple(dl.patch_size)
+    if dl.target_context:
+        # patch + context: the pipeline crops the context back off after the targets
+        patch = tuple(p + 2 * int(c) for p, c in zip(patch, dl.target_context))
     return VolumeDataset(
         split_cfg.image,
         split_cfg.label,
         split_cfg.mask,
-        patch_size=tuple(dl.patch_size),
+        patch_size=patch,
         normalize=cfg.data.preprocessing.normalize,
         reject=_reject_from_cfg(dl.reject_sampling),
         transpose=split_cfg.transpose,
@@ -112,7 +119,7 @@ class PatchPipeline:
     ``num_threads`` threads."""
 
     def __init__(self, dataset, batch_size: int, seed: int = 0, augment_cfg=None, target_cfg=None,
-                 num_threads: int = 4, prefetch: int = 2, train: bool = True):
+                 num_threads: int = 4, prefetch: int = 2, train: bool = True, target_context=None):
         self.dataset = dataset
         self.batch_size = int(batch_size)
         self.seed = seed
@@ -122,6 +129,7 @@ class PatchPipeline:
         self.target_fn = build_target_fn(target_cfg)
         # decided once per dataset, so every sample of a batch has the same keys
         self.target_mask_fn = build_target_mask_fn(target_cfg) if getattr(dataset, "has_unlabeled", False) else None
+        self.target_context = tuple(int(c) for c in (target_context or ()))
         self.num_threads = max(1, int(num_threads))
         self.prefetch = prefetch
         self._pool: Optional[ThreadPoolExecutor] = None
@@ -141,6 +149,11 @@ class PatchPipeline:
             if self.target_mask_fn is not None:
                 tm = self.target_mask_fn(raw_seg)
                 s["mask"] = s["mask"] * tm if "mask" in s else tm
+        if any(self.target_context):
+            # the context margin off every array, after the targets saw it
+            cz, cy, cx = self.target_context
+            sl = (slice(None), slice(cz, -cz or None), slice(cy, -cy or None), slice(cx, -cx or None))
+            s = {k: v[sl] for k, v in s.items()}
         return s
 
     def make_batch(self, step: int) -> Dict[str, np.ndarray]:
@@ -221,12 +234,13 @@ def build_pipelines(cfg: Config, device=None):
     dl = cfg.data.dataloader
     train_pipe = PatchPipeline(
         train_ds, dl.batch_size, seed=cfg.system.seed, augment_cfg=aug, target_cfg=cfg.data.label_transform,
-        num_threads=cfg.system.num_workers, prefetch=dl.prefetch, train=True,
+        num_threads=cfg.system.num_workers, prefetch=dl.prefetch, train=True, target_context=dl.target_context,
     )
     val_pipe = None
     if val_ds is not None:
         val_pipe = PatchPipeline(
             val_ds, dl.val_batch_size or dl.batch_size, seed=cfg.system.seed,
             target_cfg=cfg.data.label_transform, num_threads=1, prefetch=1, train=False,
+            target_context=dl.target_context,
         )
     return train_pipe, val_pipe

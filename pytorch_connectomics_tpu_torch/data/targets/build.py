@@ -5,9 +5,10 @@ target (C', Z, Y, X)`` float32, the port of ``build_target_fn``,
 ``pytorch_connectomics_tpu/data/targets/build.py:38-253``, with
 ``seg_to_binary`` of ``targets/misc.py:17``.
 
-This slice ports the ``binary``, ``affinity``, ``instance_boundary`` and
-``instance_edt`` targets and the ``erosion`` clean-up (applied to the
-segmentation before every target, as JAX's ``build.py:150-151``); any
+This slice ports the ``binary``, ``affinity``, ``instance_boundary``,
+``instance_edt``, ``semantic_edt``, ``sdt`` and ``skeleton_aware_edt``
+targets (JAX ``build.py:52-90``) and the ``erosion`` clean-up (applied to
+the segmentation before every target, as JAX's ``build.py:150-151``); any
 other target name, and the other clean-ups (normalisation,
 connected-component relabelling, window erosion), raise
 ``NotImplementedError``.
@@ -20,7 +21,14 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 
 from .affinity import affinity_unlabeled_mask, parse_offsets, seg_to_affinity
-from .distance import erode_instances, instance_boundary_mask, instance_edt
+from .distance import (
+    erode_instances,
+    instance_boundary_mask,
+    instance_edt,
+    semantic_edt,
+    signed_distance,
+    skeleton_aware_edt,
+)
 
 _DEFAULT_OFFSETS = ["0-0-1", "0-1-0", "1-0-0"]
 
@@ -50,10 +58,23 @@ def _instance_edt(seg: np.ndarray, mode="3d", **kw) -> np.ndarray:
     return _chan(instance_edt(seg, mode=mode, **kw))
 
 
+def _semantic_edt(seg: np.ndarray, mode="3d", **kw) -> np.ndarray:
+    return _chan(semantic_edt(seg, mode=mode, **kw))
+
+
+def _sdt(seg: np.ndarray, mode="3d", **kw) -> np.ndarray:
+    return _chan(signed_distance(seg, mode=mode, **kw))
+
+
+def _skeleton_aware_edt(seg: np.ndarray, alpha=0.8, bg_value=-1.0, **kw) -> np.ndarray:
+    return _chan(skeleton_aware_edt(seg, alpha=alpha, bg_value=bg_value))
+
+
 _TARGETS: Dict[str, Callable[..., np.ndarray]] = {
     "binary": _binary, "affinity": _affinity, "instance_boundary": _boundary, "instance_edt": _instance_edt,
+    "semantic_edt": _semantic_edt, "sdt": _sdt, "skeleton_aware_edt": _skeleton_aware_edt,
 }
-_PORTED_NAMES = "binary, affinity, instance_boundary and instance_edt"
+_PORTED_NAMES = "binary, affinity, instance_boundary, instance_edt, semantic_edt, sdt and skeleton_aware_edt"
 
 
 def _target_kwargs(t) -> Dict[str, Any]:

@@ -1,8 +1,9 @@
-"""Instance boundary, erosion and per-instance distance targets on the
-host, the port of ``instance_boundary_mask`` (with ``_boundary_shift`` and
-``_boundary_morph``), ``erode_instances`` and ``instance_edt`` (with
-``_per_instance`` and ``_instance_edt_slice``) in
-``pytorch_connectomics_tpu/data/targets/distance.py:20-63,137-212,240-253``.
+"""Instance boundary, erosion and distance targets on the host, the port of
+``instance_boundary_mask`` (with ``_boundary_shift`` and
+``_boundary_morph``), ``erode_instances``, ``instance_edt`` (with
+``_per_instance`` and ``_instance_edt_slice``), ``semantic_edt``,
+``signed_distance`` and ``skeleton_aware_edt`` in
+``pytorch_connectomics_tpu/data/targets/distance.py:20-132,137-212,240-253``.
 
 numpy and scipy's ``ndimage`` (its exact euclidean distance transform), as
 the JAX package computes them.
@@ -58,6 +59,79 @@ def instance_edt(
         if normalize and d.max() > 0:
             d = d / d.max()
         out[obj] = np.where(m[obj], d.astype(np.float32), out[obj])
+    return out
+
+
+def _instance_boxes(seg: np.ndarray):
+    """[(id, bounding box)] of every positive id of a 3-D ``seg``, the boxes
+    ``find_objects(seg == id)`` gives, from one ``find_objects`` pass: over
+    the ids themselves where they are integers below 2^22, else over their
+    ranks among the positive ids."""
+    pos = seg > 0
+    if seg.dtype.kind in "iub" and seg.size and seg.max() < (1 << 22):
+        ids, lab = None, np.where(pos, seg, 0).astype(np.intp, copy=False)
+    else:
+        ids = _per_instance(seg)
+        lab = np.where(pos, np.searchsorted(ids, seg) + 1, 0)
+    boxes = ndimage.find_objects(lab)
+    return [(i + 1 if ids is None else ids[i], b) for i, b in enumerate(boxes) if b is not None]
+
+
+def semantic_edt(
+    mask: np.ndarray,
+    mode: str = "3d",
+    normalize: bool = True,
+    sampling: Optional[Sequence[float]] = None,
+) -> np.ndarray:
+    """The foreground's euclidean distance to the background, normalised by
+    its maximum (per z slice with ``mode="2d"``)."""
+    mask = np.asarray(mask) > 0
+    if mask.ndim == 4:
+        mask = mask[0]
+    if mode == "2d":
+        d = np.stack([ndimage.distance_transform_edt(m) for m in mask]).astype(np.float32)
+    else:
+        d = ndimage.distance_transform_edt(mask, sampling=sampling).astype(np.float32)
+    if normalize and d.max() > 0:
+        d = d / d.max()
+    return d
+
+
+def signed_distance(seg: np.ndarray, mode: str = "3d", truncate: float = 8.0, per_instance: bool = True) -> np.ndarray:
+    """Signed distance in [-1, 1]: the distance inside the foreground (with
+    ``per_instance``, inside it less the boundaries between instances)
+    minus the distance outside, each truncated at ``truncate`` voxels and
+    divided by it."""
+    seg = np.asarray(seg)
+    if seg.ndim == 4:
+        seg = seg[0]
+    fg = seg > 0
+    if per_instance:
+        # boundaries between touching instances count as outside
+        inside = ndimage.distance_transform_edt(fg & ~instance_boundary_mask(seg)).astype(np.float32)
+    else:
+        inside = ndimage.distance_transform_edt(fg).astype(np.float32)
+    outside = ndimage.distance_transform_edt(~fg).astype(np.float32)
+    sdt = np.clip(inside, 0, truncate) / truncate - np.clip(outside, 0, truncate) / truncate
+    return sdt.astype(np.float32)
+
+
+def skeleton_aware_edt(seg: np.ndarray, alpha: float = 0.8, bg_value: float = -1.0, mode: str = "3d") -> np.ndarray:
+    """Each instance's distance to its border inside its bounding box,
+    divided by its largest value (the medial ridge, which stands for the
+    skeleton) and raised to ``alpha``; ``bg_value`` elsewhere."""
+    seg = np.asarray(seg)
+    if seg.ndim == 4:
+        seg = seg[0]
+    out = np.full(seg.shape, bg_value, dtype=np.float32)
+    for iid, obj in _instance_boxes(seg):
+        sub = seg[obj] == iid
+        d = ndimage.distance_transform_edt(sub).astype(np.float32)
+        ridge = float(d.max())
+        if ridge <= 0:
+            continue
+        v = np.clip(d / ridge, 0.0, 1.0) ** alpha
+        out[obj] = np.where(sub, v, out[obj])
     return out
 
 

@@ -1,5 +1,5 @@
-"""Loss orchestrator for plain weighted terms, the port of
-``LossOrchestrator`` in ``pytorch_connectomics_tpu/losses/orchestrator.py:73-232``.
+"""Loss orchestrator, the port of ``LossOrchestrator`` in
+``pytorch_connectomics_tpu/losses/orchestrator.py:73-240``.
 
 It compiles ``model.loss.losses`` once; ``orchestrator(outputs, targets,
 mask, weight)`` returns ``(total, logs)`` with ``logs["loss_<Function>_<i>"]``
@@ -12,9 +12,16 @@ groups of the target tensor
 (``data.targets.build.affinity_target_groups``), a term whose target
 channels overlap a group gets each channel's offset validity (the voxels
 whose offset neighbour exists) multiplied into its mask, as JAX's
-``_affinity_valid_mask`` (``orchestrator.py:29-53,120-147``). Deep
-supervision, multi-head outputs, pred-vs-pred terms and uncertainty/GradNorm
-balancing raise ``NotImplementedError``.
+``_affinity_valid_mask`` (``orchestrator.py:29-53,120-147``).
+
+Multi-head outputs are a dict of head name -> tensor: a term with
+``head`` takes that head's output, and its target channels from the
+stacked label by ``target_slice`` (or ``targets[head]`` where the targets
+are a dict holding it). The total is the weighted sum of the terms, or,
+given ``term_weights`` (GradNorm's, :mod:`.balancing`), each term times its
+weight too, or, given ``balancer_params`` (Kendall's log-variances),
+``sum exp(-s_i) w_i L_i + s_i / 2``; either needs more than one term.
+Deep supervision and pred-vs-pred terms raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from ..utils.slicing import parse_slice
+from .balancing import uncertainty_weighted_total
 from .zoo import auto_pos_weight, get_loss
 
 
@@ -40,6 +48,7 @@ class CompiledTerm:
     pred_slice: Optional[str]
     target_slice: Optional[str]
     mask_slice: Optional[str]
+    head: Optional[str]
     kwargs: Dict[str, Any]
     auto_pos: bool = False
     # how the batch's spatial weight reaches the term: "weight" (default),
@@ -78,20 +87,12 @@ class LossOrchestrator:
         # validity masks by (term, target shape, device): built once, as
         # JAX's are constants of its trace
         self._valid_masks: Dict[Tuple, Optional[torch.Tensor]] = {}
-        for flag, what in (
-            (loss_cfg.deep_supervision, "deep supervision"),
-            (loss_cfg.balancing.method, f"loss balancing '{loss_cfg.balancing.method}'"),
-        ):
-            if flag:
-                raise NotImplementedError(f"{what} is not ported yet")
+        if loss_cfg.deep_supervision:
+            raise NotImplementedError("deep supervision is not ported yet")
         self.terms = []
         for i, t in enumerate(loss_cfg.losses):
-            for flag, what in (
-                (t.head, "multi-head loss terms"),
-                (t.pred2_slice, "pred-vs-pred loss terms"),
-            ):
-                if flag:
-                    raise NotImplementedError(f"{what} ({t.function}) is not ported yet")
+            if t.pred2_slice:
+                raise NotImplementedError(f"pred-vs-pred loss terms ({t.function}) are not ported yet")
             if t.spatial_weight not in (None, "weight", "mask", "none"):
                 raise ValueError(f"loss term {t.function}: spatial_weight must be weight|mask|none, got {t.spatial_weight!r}")
             kwargs = dict(t.kwargs or {})
@@ -101,7 +102,7 @@ class LossOrchestrator:
                 kwargs["pos_weight"] = float(t.pos_weight)
             self.terms.append(CompiledTerm(
                 name=f"{t.function}_{i}", fn=get_loss(t.function), weight=float(t.weight),
-                pred_slice=t.pred_slice, target_slice=t.target_slice, mask_slice=t.mask_slice,
+                pred_slice=t.pred_slice, target_slice=t.target_slice, mask_slice=t.mask_slice, head=t.head,
                 kwargs=kwargs, auto_pos=auto_pos, spatial_weight=t.spatial_weight,
             ))
 
@@ -152,18 +153,49 @@ class LossOrchestrator:
             return term.fn(p, t, weight=w, mask=m, pos_weight=auto_pos_weight(t, m), **term.kwargs)
         return term.fn(p, t, weight=w, mask=m, **term.kwargs)
 
-    def compute(self, outputs, targets, mask=None, weight=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        if isinstance(outputs, dict):
-            raise NotImplementedError("multi-head and deep-supervision outputs are not ported yet")
-        tgt = targets["label"] if isinstance(targets, dict) else targets
+    def compute(self, outputs, targets, mask=None, weight=None, balancer_params=None,
+                term_weights=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """``outputs``: a tensor, or a dict of head outputs; ``targets``: a
+        tensor, or a dict with ``label`` (or one entry a head)."""
+        outputs = self._split_outputs(outputs)
         logs: Dict[str, torch.Tensor] = {}
-        total = None
+        term_losses = []
         for term in self.terms:
+            pred = outputs
+            if isinstance(outputs, dict):
+                if term.head not in outputs:
+                    raise KeyError(f"loss term {term.name} takes head {term.head!r}; the outputs hold {sorted(outputs)}")
+                pred = outputs[term.head]
+            if isinstance(targets, dict):
+                tgt = targets[term.head] if term.head in targets else targets["label"]
+            else:
+                tgt = targets
             # a non-finite term propagates, so the trainer's finite check names it
-            value = self._term_loss(term, outputs, tgt, mask, weight)
+            value = self._term_loss(term, pred, tgt, mask, weight)
             logs[f"loss_{term.name}"] = value
-            total = term.weight * value if total is None else total + term.weight * value
+            term_losses.append(value)
+        if term_weights is not None and len(term_losses) > 1:
+            total = sum(term_weights[i] * t.weight * L for i, (t, L) in enumerate(zip(self.terms, term_losses)))
+        elif balancer_params is not None and len(term_losses) > 1:
+            total = uncertainty_weighted_total([t.weight * L for t, L in zip(self.terms, term_losses)],
+                                               balancer_params[: len(term_losses)])
+        else:
+            total = sum(t.weight * L for t, L in zip(self.terms, term_losses))
         logs["loss_total"] = total
         return total, logs
 
     __call__ = compute
+
+    @staticmethod
+    def _split_outputs(outputs):
+        """A dict of only ``out`` is that tensor; deep-supervision outputs
+        (``ds_*``) raise."""
+        if not isinstance(outputs, dict):
+            return outputs
+        if any(k.startswith("ds_") for k in outputs):
+            raise NotImplementedError("deep-supervision outputs are not ported yet")
+        return outputs["out"] if set(outputs) == {"out"} else outputs
+
+    @property
+    def num_terms(self) -> int:
+        return len(self.terms)

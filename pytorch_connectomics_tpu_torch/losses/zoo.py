@@ -1,7 +1,7 @@
 """Loss zoo, the port of ``pytorch_connectomics_tpu/losses/zoo.py``
 (``_masked_mean``, ``bce_with_logits``, ``auto_pos_weight``,
-``per_channel_bce``, ``dice_loss`` and ``mse_loss``, ``:18-108``, and
-``get_loss``, ``:292-320``).
+``per_channel_bce``, ``dice_loss``, ``mse_loss``, ``:18-108``,
+``smooth_l1_loss``, ``:118-124``, and ``get_loss``, ``:292-320``).
 
 Every loss takes ``(pred, target, weight=None, mask=None)`` with
 channels-last ``(N, Z, Y, X, C)`` tensors and returns a float32 scalar.
@@ -84,6 +84,16 @@ def mse_loss(pred, target, weight=None, mask=None, tanh=False, **kw):
     return _masked_mean((p - target.float()) ** 2, weight, mask)
 
 
+def smooth_l1_loss(pred, target, weight=None, mask=None, beta=1.0, tanh=False, **kw):
+    """Huber-style error of the logits (or of their tanh): quadratic below
+    ``beta``, linear above; masked mean."""
+    p = pred.float()
+    if tanh:
+        p = torch.tanh(p)
+    d = (p - target.float()).abs()
+    return _masked_mean(torch.where(d < beta, 0.5 * d * d / beta, d - 0.5 * beta), weight, mask)
+
+
 def dice_loss(pred, target, weight=None, mask=None, sigmoid=True, softmax=False,
               smooth_nr=1e-5, smooth_dr=1e-5, squared_pred=False, **kw):
     """Soft Dice (MONAI smoothing), per sample and channel, then averaged."""
@@ -123,9 +133,10 @@ _PORTED: Dict[str, Callable] = {
     "GeneralizedDiceLoss": dice_loss,
     "WeightedMSELoss": mse_loss,
     "MSELoss": mse_loss,
+    "SmoothL1Loss": smooth_l1_loss,
 }
 _NOT_PORTED = (
-    "MalisLoss", "WeightedMAELoss", "MAELoss", "L1Loss", "SmoothL1Loss", "CrossEntropyLoss", "FocalLoss",
+    "MalisLoss", "WeightedMAELoss", "MAELoss", "L1Loss", "CrossEntropyLoss", "FocalLoss",
     "TverskyLoss", "SoftClDiceLoss", "ScnpLoss", "BinaryReg", "ForegroundDTConsistency",
     "ContourDTConsistency", "NonOverlapReg", "GANLoss",
 )

@@ -19,7 +19,9 @@ numpy arrays, or as an ``.npz`` whose keys are the ``/``-joined paths
 flax names the submodules of ``MedNeXt`` by creation order: ``_Stage_0..3``
 (encoder), ``MedNeXtBlock_0..3`` (down), ``_Stage_4`` (bottleneck),
 ``MedNeXtBlock_4..7`` (up), ``_Stage_5..8`` (decoder), plus ``stem`` and
-``head``. Inside a block, ``Conv_n`` counts the convs in order (depthwise,
+``head``, or with task heads a ``head_<name>`` subtree a head in place of
+``head``: its blocks ``MedNeXtBlock_n`` and its projection ``Conv_0`` (the
+patchify stem's ``ConvTranspose_0``). Inside a block, ``Conv_n`` counts the convs in order (depthwise,
 expand, compress, residual), so in a transposed up block, whose spatial conv
 is ``ConvTranspose_0``, the expand conv is ``Conv_0``. With remat
 (``checkpoint_style: outside_block``) the blocks of a stage are named
@@ -249,15 +251,29 @@ def flax_to_state_dict(params: Mapping[str, Any], model) -> Dict[str, torch.Tens
     if "params" in params and "stem" not in params:
         params = params["params"]
     sd: Dict[str, torch.Tensor] = {}
+
+    def projection(fp, prefix, transposed):
+        if transposed:
+            sd[prefix + "head_weight"] = conv_transpose_kernel(fp["kernel"])
+            sd[prefix + "head_bias"] = _t(fp["bias"])
+        else:
+            sd[prefix + "head.weight"] = linear_kernel(fp["kernel"])
+            sd[prefix + "head.bias"] = _t(fp["bias"])
+
     if model.patchify_stem:
         sd["stem_weight"] = conv_kernel(params["stem"]["kernel"])
         sd["stem_bias"] = _t(params["stem"]["bias"])
-        sd["head_weight"] = conv_transpose_kernel(params["head"]["kernel"])
-        sd["head_bias"] = _t(params["head"]["bias"])
     else:
-        for name in ("stem", "head"):
-            sd[f"{name}.weight"] = linear_kernel(params[name]["kernel"])
-            sd[f"{name}.bias"] = _t(params[name]["bias"])
+        sd["stem.weight"] = linear_kernel(params["stem"]["kernel"])
+        sd["stem.bias"] = _t(params["stem"]["bias"])
+    if model.heads is None:
+        projection(params["head"], "", model.patchify_stem)
+    for name, head in (model.heads or {}).items():
+        fh = params[f"head_{name}"]
+        for i, blk in enumerate(head.blocks):
+            _block(fh[f"MedNeXtBlock_{i}"], f"heads.{name}.blocks.{i}.", blk, sd)
+        projection(fh["ConvTranspose_0" if model.patchify_stem else "Conv_0"], f"heads.{name}.",
+                   model.patchify_stem)
 
     def stage(flax_name: str, port_name: str, st) -> None:
         fs = params[flax_name]

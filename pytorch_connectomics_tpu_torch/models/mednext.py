@@ -34,10 +34,18 @@ block in JAX) wraps each stage block in ``torch.utils.checkpoint`` when grad
 is enabled: its activations are recomputed in the backward pass instead of
 kept.
 
+Task heads (``model.mednext.heads``, JAX ``MedNeXtTaskHead``,
+``mednext.py:128-178,306-321``) replace the single head: each runs its own
+stride-1 blocks on the last decoder stage's output (expansion ratio 2, the
+same inference and training routes as every stride-1 block, no remat, as
+in JAX) and a float32 projection (1x1x1, or the transposed conv of the
+patchify stem); the forward then returns ``{name: output}`` in the order
+the heads are configured.
+
 This slice ports the stock 1x1x1 stem and the patchify stem (any per-axis
-stride, ``linear`` head). Deep supervision, task heads, 2-D mode, the
-``refine`` head, the full-resolution hybrid and kernel sizes other than 3
-raise ``NotImplementedError``.
+stride, ``linear`` head). Deep supervision, 2-D mode, the ``refine`` head,
+the full-resolution hybrid and kernel sizes other than 3 raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -174,8 +182,47 @@ class _Stage(nn.Module):
         return x
 
 
+def _add_projection(owner: nn.Module, channels: int, out_channels: int, stride, kernel: int) -> None:
+    """Give ``owner`` the float32 output layer: a 1x1x1 conv (``head``), or
+    with the patchify stem's ``stride`` the transposed conv back to full
+    resolution (``head_weight``, stored flipped in (I, O, k, k, k), and
+    ``head_bias``)."""
+    if stride:
+        pk = tuple(1 if s == 1 else kernel for s in stride)
+        owner.head_weight = nn.Parameter(torch.zeros(channels, out_channels, *pk))
+        owner.head_bias = nn.Parameter(torch.zeros(out_channels))
+    else:
+        owner.head = nn.Linear(channels, out_channels)
+
+
+def _project(owner: nn.Module, x: torch.Tensor, stride) -> torch.Tensor:
+    """The output layer that ``_add_projection`` gave ``owner``, in float32."""
+    if stride:
+        return conv_transpose3d_same(x.float(), owner.head_weight, owner.head_bias, stride)
+    return _lin(x, owner.head, torch.float32)
+
+
+class MedNeXtTaskHead(nn.Module):
+    """One task head: ``num_blocks`` stride-1 MedNeXt blocks (ratio 2) at
+    the decoder's width, then the float32 projection."""
+
+    def __init__(self, channels, out_channels, num_blocks, kernel, norm, dtype, up_stride=None, up_kernel=2):
+        super().__init__()
+        self.blocks = nn.ModuleList(
+            MedNeXtBlock(channels, 2, kernel, norm, dtype=dtype) for _ in range(int(num_blocks))
+        )
+        self.stride = up_stride
+        _add_projection(self, channels, out_channels, up_stride, up_kernel)
+
+    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        for blk in self.blocks:
+            x = blk(x, plain)
+        return _project(self, x, self.stride)
+
+
 class MedNeXt(nn.Module):
-    """(B, Z, Y, X, in_channels) float -> (B, Z, Y, X, out_channels) float32."""
+    """(B, Z, Y, X, in_channels) float -> (B, Z, Y, X, out_channels) float32,
+    or with task heads {name: (B, Z, Y, X, head channels) float32}."""
 
     def __init__(
         self,
@@ -200,7 +247,6 @@ class MedNeXt(nn.Module):
         super().__init__()
         for flag, what in (
             (deep_supervision, "deep supervision"),
-            (heads, "task heads"),
             (two_d, "2-D mode"),
             (patchify_stem and patchify_head != "linear", f"patchify head '{patchify_head}'"),
             (patchify_stem and patchify_full_res_width, "the full-resolution hybrid"),
@@ -211,17 +257,22 @@ class MedNeXt(nn.Module):
         self.in_channels, self.out_channels, self.dtype = in_channels, out_channels, dtype
         self.remat = bool(remat)
         self.patchify_stem = bool(patchify_stem)
+        self.stride = None
         if self.patchify_stem:
             self.stride = tuple(int(s) for s in patchify_stride)
             pk = tuple(1 if s == 1 else patchify_kernel for s in self.stride)
             self.stem_weight = nn.Parameter(torch.zeros(C, in_channels, *pk))
             self.stem_bias = nn.Parameter(torch.zeros(C))
-            # transposed-conv head, stored flipped in (I, O, k, k, k)
-            self.head_weight = nn.Parameter(torch.zeros(C, out_channels, *pk))
-            self.head_bias = nn.Parameter(torch.zeros(out_channels))
         else:
             self.stem = nn.Linear(in_channels, C)
-            self.head = nn.Linear(C, out_channels)
+        self.heads = None
+        if heads:
+            self.heads = nn.ModuleDict()
+            for h in heads:
+                self.heads[h.name] = MedNeXtTaskHead(C, h.out_channels, h.num_blocks, kernel, norm, dtype,
+                                                     self.stride, patchify_kernel)
+        else:
+            _add_projection(self, C, out_channels, self.stride, patchify_kernel)
 
         def stage(i, ch):
             return _Stage(ch, B[i], R[i], kernel, norm, dtype, self.remat)
@@ -241,7 +292,7 @@ class MedNeXt(nn.Module):
         )
         self.dec = nn.ModuleList(stage(5 + j, C * 2 ** (3 - j)) for j in range(4))
 
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, plain: bool = False):
         dt = self.dtype
         if self.patchify_stem:
             x = conv3d_same(x.to(dt), self.stem_weight.to(dt), self.stem_bias.to(dt), self.stride)
@@ -256,9 +307,9 @@ class MedNeXt(nn.Module):
         for j in range(4):
             x = self.up[j](x, plain) + skips[3 - j]
             x = self.dec[j](x, plain)
-        if self.patchify_stem:
-            return conv_transpose3d_same(x.float(), self.head_weight, self.head_bias, self.stride)
-        return _lin(x, self.head, torch.float32)
+        if self.heads is not None:
+            return {name: head(x, plain) for name, head in self.heads.items()}
+        return _project(self, x, self.stride)
 
 
 @register_architecture("mednext", "MedNeXt S/B/M/L ConvNeXt-style 3D U-Net")

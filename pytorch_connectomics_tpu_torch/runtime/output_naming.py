@@ -4,13 +4,14 @@ decoded and tuned-params naming of
 encodes the checkpoint stem, the TTA pass count and the head/channel
 selection; a decoded volume's name adds the decode recipe (step names and
 kwargs) or the user's ``save_suffix``; a tune run's study is
-``<tag>_best_params.yaml``."""
+``<tag>_best_params.yaml``; a multi-head model's per-head predictions add
+``_head_<name>`` to the tag."""
 
 from __future__ import annotations
 
 import re
 from pathlib import Path
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional
 
 # decode kwargs that never belong in a filename (paths, runtime context)
 _IGNORED_DECODE_TAG_KEYS = {
@@ -55,6 +56,11 @@ def prediction_tag(
 
 def prediction_filename(volume_name: str, tag: str) -> str:
     return f"{volume_name}_{tag}_prediction.h5"
+
+
+def head_filenames(volume_name: str, tag: str, heads: List[str]) -> Dict[str, str]:
+    """The per-head prediction files of a multi-head model."""
+    return {h: prediction_filename(volume_name, f"{tag}_head_{h}") for h in heads}
 
 
 def _decode_tokens(value: Any) -> List[str]:

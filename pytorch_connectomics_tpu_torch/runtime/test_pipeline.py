@@ -3,8 +3,10 @@ evaluate per test volume. The port of
 ``pytorch_connectomics_tpu/runtime/test_pipeline.py`` with its chunked
 branch (``:126-149``: the volume predicted chunk by chunk through lazy
 reads into one file, then read back), its read-scaled whole-volume reads
-(``:150-158``) and its non-streamed decode (``:233-260``); in ``tune`` mode
-it stops after the prediction is saved (``:220-221``). Prediction-cache
+(``:150-158``), its per-head artifacts of a multi-head model
+(``save_all_heads``, ``:197-210``: each head's channels of the merged
+prediction beside it) and its non-streamed decode (``:233-260``); in
+``tune`` mode it stops after the prediction is saved (``:220-221``). Prediction-cache
 reuse, decode-only runs, nnU-Net preprocessing and test sharding are not
 ported yet and raise ``NotImplementedError``.
 """
@@ -32,7 +34,13 @@ from ..inference import (
     run_chunked_inference,
     save_prediction,
 )
-from .output_naming import decoded_filename, prediction_filename, prediction_tag, volume_name_from_path
+from .output_naming import (
+    decoded_filename,
+    head_filenames,
+    prediction_filename,
+    prediction_tag,
+    volume_name_from_path,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -49,7 +57,6 @@ def _check_ported(cfg: Config) -> None:
         (cfg.data.nnunet_preprocessing.enabled, "nnU-Net preprocessing"),
         (cfg.data.data_transform.align_to_image, "align_to_image"),
         (cfg.inference.output.crop_pad, "prediction crops"),
-        (cfg.inference.output.save_all_heads, "per-head artifacts"),
         ((cfg.system.num_shards or 1) > 1, "test sharding"),
         (cfg.inference.chunked.enabled and cfg.inference.chunked.output_mode == "precomputed",
          "the precomputed chunked output"),
@@ -102,7 +109,7 @@ def run_test_pipeline(
             t_read = time.perf_counter()
             written = run_chunked_inference(
                 manager.predictor, accessor, out_dir / prediction_filename(vol_name, tag), cfg.inference.chunked,
-                out_channels=cfg.model.out_channels,
+                out_channels=manager.out_channels,
                 # the checkpoint is in the signature: a manifest of other weights is dropped
                 signature={"config_hash": cfg_hash, "checkpoint": str(checkpoint or "") or "random-init"},
             )
@@ -130,6 +137,12 @@ def run_test_pipeline(
                 out_dir / prediction_filename(vol_name, tag), stored, cfg_hash, checkpoint or "", tag
             )
             logger.info("prediction[%s]: %s", vol_name, written)
+        if cfg.inference.output.save_all_heads and manager.head_spans and not chunked:
+            names = head_filenames(vol_name, tag, [h for h, _, _ in manager.head_spans])
+            for hname, c0, c1 in manager.head_spans:
+                stored = np.moveaxis(apply_prediction_transform(prediction[..., c0:c1], cfg.inference.output), -1, 0)
+                save_prediction(out_dir / names[hname], np.ascontiguousarray(stored), cfg_hash, checkpoint or "",
+                                f"{tag}_head_{hname}")
         t_save = time.perf_counter()
         voxels = int(np.prod(prediction.shape[:3]))
         logger.info(

@@ -11,7 +11,9 @@ torch file in place of the Orbax ``state`` directory::
     index.json      top-k entries, best first
 
 ``state.pt`` holds ``{"model": state_dict, "optimizer": state_dict,
-"step": int, "ema": {name: tensor} | None, "lr_scale": float}``;
+"step": int, "ema": {name: tensor} | None, "lr_scale": float, "balancer":
+tensor | None, "log_vars": tensor | None}`` (the GradNorm state and the
+uncertainty balancer's log-variances);
 ``metadata.json`` holds ``config_hash``, ``epoch``, ``step`` and the
 metrics.
 """
@@ -73,6 +75,8 @@ class CheckpointManager:
             "step": int(state.step),
             "ema": state.ema,
             "lr_scale": float(state.lr_scale),
+            "balancer": state.balancer,
+            "log_vars": state.log_vars.detach() if state.log_vars is not None else None,
         }
 
     def _save_tree(self, path: Path, payload: Dict[str, Any], metadata: Dict[str, Any]) -> None:
@@ -144,6 +148,11 @@ class CheckpointManager:
         if not reset_epoch:
             state.step = int(ck["step"])
         state.lr_scale = float(ck.get("lr_scale", 1.0))
+        if state.balancer is not None and ck.get("balancer") is not None:
+            state.balancer = ck["balancer"].to(state.balancer.device)
+        if state.log_vars is not None and ck.get("log_vars") is not None:
+            with torch.no_grad():
+                state.log_vars.copy_(ck["log_vars"])
         if state.ema is not None:
             src = ck.get("ema") or ck["model"]
             for n, t in state.ema.items():

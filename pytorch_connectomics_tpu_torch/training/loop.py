@@ -40,7 +40,7 @@ from ..utils.device import resolve_device
 from ..utils.logging import MetricsLogger
 from .checkpoint import CheckpointManager, check_config_hash
 from .optim import build_optimizer
-from .state import create_train_state, make_train_step, make_val_step
+from .state import create_train_state, make_log_vars, make_train_step, make_val_step
 
 logger = logging.getLogger(__name__)
 
@@ -77,16 +77,25 @@ class Trainer:
         n_samples = cfg.data.dataloader.num_samples
         from_samples = max(1, int(n_samples) // max(1, cfg.data.dataloader.batch_size)) if n_samples else None
         self.steps_per_epoch = cfg.optimization.n_steps_per_epoch or from_samples or 100
-        optimizer, self.schedule = build_optimizer(cfg.optimization, self.model, self.steps_per_epoch)
+        bal = cfg.model.loss.balancing
+        # the uncertainty balancer's log-variances train with the model (JAX loop.py:96-100)
+        log_vars = make_log_vars(bal.method, self.orchestrator.num_terms, self.device)
+        optimizer, self.schedule = build_optimizer(
+            cfg.optimization, self.model, self.steps_per_epoch,
+            extra_params=[("balancer", log_vars)] if log_vars is not None else (),
+        )
         self.cfg_hash = config_hash(cfg)
         n_params = sum(p.numel() for p in self.model.parameters())
         logger.info("model %s: %.2fM params on %s", cfg.model.arch.type, n_params / 1e6, self.device)
-        self.state = create_train_state(self.model, optimizer, ema=cfg.monitor.ema.enabled)
+        self.state = create_train_state(
+            self.model, optimizer, ema=cfg.monitor.ema.enabled, log_vars=log_vars,
+            gradnorm_terms=self.orchestrator.num_terms if bal.method in ("gradnorm", "gradnorm_exact") else 0,
+        )
         self._train_step = make_train_step(
             self.orchestrator, self.schedule,
             gradient_clip=cfg.optimization.gradient_clip_val,
             ema_decay=cfg.monitor.ema.decay if cfg.monitor.ema.enabled else None,
-            balancing=cfg.model.loss.balancing.method,
+            balancing=bal.method, balancing_alpha=bal.alpha, balancing_lr=bal.lr,
             distill=cfg.optimization.distill.teacher_checkpoint,
         )
         self._val_step = make_val_step(self.orchestrator, use_ema=cfg.monitor.ema.use_for_val)

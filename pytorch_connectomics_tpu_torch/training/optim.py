@@ -91,16 +91,19 @@ def decay_groups(named_params: Iterable[Tuple[str, torch.nn.Parameter]], weight_
     return groups
 
 
-def build_optimizer(opt_cfg, model: torch.nn.Module, steps_per_epoch: int) -> Tuple[torch.optim.Optimizer, Schedule]:
+def build_optimizer(opt_cfg, model: torch.nn.Module, steps_per_epoch: int,
+                    extra_params: Iterable[Tuple[str, torch.nn.Parameter]] = ()) -> Tuple[torch.optim.Optimizer, Schedule]:
     """(optimizer, schedule). The optimizer's ``lr`` is set per step by the
-    caller from ``schedule``."""
+    caller from ``schedule``. ``extra_params`` (name, parameter) train
+    beside the model's, as the uncertainty balancer's log-variances do in
+    JAX's ``{"model": ..., "balancer": ...}`` tree."""
     o = opt_cfg.optimizer
     if opt_cfg.accumulate_grad_batches > 1:
         raise NotImplementedError("gradient accumulation is not ported yet")
     schedule = build_schedule(opt_cfg, steps_per_epoch)
     name = o.name.lower()
     betas = (float(o.betas[0]), float(o.betas[1]))
-    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad] + list(extra_params)
     if name == "adamw":
         groups = decay_groups(named, float(o.weight_decay), o.no_decay_bias)
         opt = torch.optim.AdamW(groups, lr=schedule(0), betas=betas, eps=float(o.eps))
