@@ -1,9 +1,9 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py [--phases 9,10,12] [--phases instance] [--phases 15,16] [--phases unet] [--phases nisb]
-                          [--phases multitask]
+                          [--phases multitask] [--phases mednext]
 
-With --phases, only phases 1-2 and the listed ones of 3-19 run, and the
+With --phases, only phases 1-2 and the listed ones of 3-20 run, and the
 last line is the same {"ok": true, ...} object with the phases run; the
 kernels line needs every phase and is printed by a full run only.
 
@@ -61,7 +61,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
               plain path, bf16 and f32; 15 launches per forward; four fault
               probes that the bf16 limit must reject
  11. nucmm    the port's CLI, --mode test of tutorials/nuc_nucmm.yaml on a
-              seeded synthetic 165x1024x768 volume with connected-component
+              seeded synthetic 128x768x768 volume with connected-component
               ground truth: prediction, bcd decode, instance metrics; then
               the predict step alone, timed and profiled
  12. probes   the measurement entry points (tools/microbench.py, tools/probes.py)
@@ -80,7 +80,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
  13. recipe   the port's CLI on tutorials/mito_lucchi_tpu_fast.yaml as shipped
               (MedNeXt-S, (1,2,2) stem, bf16, outside_block remat, batch 8
               of 96^3, reject sampling, aug_strong on the host) on a seeded
-              synthetic 165x1024x768 volume: --mode train for 20 steps with
+              synthetic 165x1024x768 volume: --mode train for 12 steps with
               one sample thread, then with cfg.system.num_workers (steps/s,
               the pipeline's host ms per batch, the trainer's wait for data
               and its ms a step besides), then --mode test on a seeded
@@ -123,7 +123,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
               untrained model's prediction of B; fails unless the trained
               adapted Rand on B is below the untrained one's; then
               tutorials/nuc_nucmm.yaml --mode train for 10 steps on phase
-              11's synthetic 165x1024x768 volume
+              11's synthetic 128x768x768 volume
  17. unet     the MONAI U-Nets: the conv's kernels (forward, input gradient,
               weight gradient) against their plain versions at each of
               BasicUNet's 18 layer shapes on tutorials/vesicle_xm.yaml (bf16 at
@@ -140,7 +140,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
               blending, overlap 0.25) -> bcd decode -> adapted Rand and VOI,
               and tutorials/vesicle_xm.yaml train (10 steps) -> test (flip TTA
               xy, binary_cc, jaccard / instance F1) on seeded synthetic em2
-              165x1024x768 volumes (its datasets are not in the repository)
+              128x768x768 volumes (its datasets are not in the repository)
  18. nisb     tutorials/neuron_nisb.yaml (MedNeXt-L, bf16, 3 affinity channels,
               outside_block remat): the block pair (inference batch 8 of
               32x128x128) and the depthwise kernels (training batch 4), bf16
@@ -153,7 +153,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
               synthetic://instance volumes made on the card: --mode train
               (2 epochs of 15 steps, 48x384x384), --mode tune on A
               (32x256x256, 3 of the 20 TPE trials on NERL), --mode tune-test
-              on the held-out B (96x768x768) chunk by chunk at the shipped
+              on the held-out B (72x544x544) chunk by chunk at the shipped
               chunk size and halo (2x2x2 chunks, the last on each axis cut),
               and the same params on an untrained model's B (VOI through
               the CLI, NERL and ERL from the trained leg's skeletons of B's
@@ -187,10 +187,29 @@ Phases (any failure exits non-zero; no phase catches its own failure):
               untrained control (VOI); fails unless the trained VOI is below
               the control's; the host's target time a sample at 192^3; then
               the multi-task recipe at z 16 (its shipped 18 is no multiple of
-              16) on synthetic://instance volumes: train (2 epochs of 10 steps
+              16) on synthetic://instance volumes: train (1 epoch of 10 steps
               on 32x480x480, GradNorm weights logged) and test with waterz on
               32x320x320, reported
- 20. report   a {"kernels": [...]} line, then {"ok": true, "device": ...} last
+ 20. mednext  the rest of MedNeXt: the k 5 pair (bf16, f32) against its plain
+              versions at the fast recipe's five stride-1 stages (batch 16)
+              and the 2-D pair ((1, 3, 3) taps embedded in 3^3) at
+              tutorials/mito_mitolab.yaml's (batch 16 of 1x256x256), timed
+              beside bounds and the library block, with their plans; the k
+              5, 2-D, refine-head and hybrid (w0 16) forwards, each held to
+              its f32 plain path with fault probes, and the k 5 forward
+              against k 3 at batch 16; then through the CLI: the fast
+              recipe's UpKern leg (kernel 5 and deep supervision trained 3
+              steps from phase 13's kernel-3 checkpoint, or from a 4-step
+              kernel-3 leg run here when phase 13 did not run, on a seeded em2
+              96x384x384 volume, then --mode test with flip TTA on phase 5's
+              165x1024x768 volume, every
+              stride-1 block through the k 5 pair), and mito_mitolab.yaml as
+              shipped but for aug_standard's missing_section (ROADMAP C.11) on
+              seeded em2 volumes made on the card (train 20 steps, test on
+              24x1024x1024 with jaccard, dice and instance F1, the untrained
+              control, and inference.direct_2d once; fails unless both
+              trained legs' jaccard is above the control's)
+ 21. report   a {"kernels": [...]} line, then {"ok": true, "device": ...} last
 
 Imports torch and the port only. Details go to build/chip_smoke/chip_smoke.json.
 """
@@ -236,7 +255,8 @@ TRAIN_LOSS_TOL = 1e-3
 TRAIN_GRAD_TOL = 0.05
 NUCMM = ROOT / "tutorials" / "nuc_nucmm.yaml"
 NUCMM_BATCH = 8
-NUCMM_SHAPE = (165, 1024, 768)
+# phase 11's test volume (cut from the Lucchi++ test geometry 165x1024x768 to make room for phase 20)
+NUCMM_SHAPE = (128, 768, 768)
 # ((Z, Y, X), Cin, Cout, launches per forward) of RSUNet's 3^3 convs on the
 # NucMM-Z recipe's 64^3 window (width [28, 36, 48, 64], iso)
 CONV_SHAPES = [
@@ -273,12 +293,14 @@ def device_randn(shape, seed, dev, dtype=torch.float32):
     return torch.randn(shape, generator=g, device=dev).to(dtype)
 
 
-def block_params(rng, c, r, dev):
+def block_params(rng, c, r, dev, taps=(3, 3, 3)):
+    """A block's parameters; ``taps`` the depthwise kernel's (kz, k, k), its
+    values scaled to keep dw(x)'s spread at the 3^3 taps' 0.3."""
     def t(a):
         return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
 
     return dict(
-        w_dw=t(rng.standard_normal((c, 1, 3, 3, 3)) * 0.3),
+        w_dw=t(rng.standard_normal((c, 1, *taps)) * 0.3 * (27 / math.prod(taps)) ** 0.5),
         gamma=t(1.0 + 0.1 * rng.standard_normal(c)),
         beta=t(0.1 * rng.standard_normal(c)),
         w1=t(rng.standard_normal((r, c)) / np.sqrt(c)),
@@ -288,19 +310,20 @@ def block_params(rng, c, r, dev):
     )
 
 
-def bounds(c, r, spatial, es, batch=BATCH):
+def bounds(c, r, spatial, es, batch=BATCH, taps=27):
     """Least times (ms) of one launch of each kernel at ``batch``, split
     into the bytes term (each input read once, each output written once,
     over the HBM rate) and the operations term (CUDA-core FLOP over the f32
-    rate, tensor-core FLOP over the bf16 rate, whichever is larger)."""
+    rate, tensor-core FLOP over the bf16 rate, whichever is larger);
+    ``taps`` the function's depthwise taps (27, 125, or a 2-D block's 9)."""
     n = batch * math.prod(spatial)
-    stencil = 2 * 27 * n * c
+    stencil = 2 * taps * n * c
     stats = dict(
-        bytes=(n * c * es + 27 * c * 4 + batch * 2 * c * 4) / PEAK_BYTES * 1e3,
+        bytes=(n * c * es + taps * c * 4 + batch * 2 * c * 4) / PEAK_BYTES * 1e3,
         ops=(stencil + 3 * n * c) / PEAK_F32 * 1e3,
     )
     mlp, gelu = 2 * n * 2 * c * r, 10 * n * r
-    apply_bytes = 2 * n * c * es + 27 * c * 4 + 2 * r * c * es + batch * 2 * c * 4
+    apply_bytes = 2 * n * c * es + taps * c * 4 + 2 * r * c * es + batch * 2 * c * 4
     if es == 2:
         ops = max((stencil + gelu) / PEAK_F32, mlp / PEAK_BF16_TC)
     else:
@@ -313,20 +336,23 @@ def library_block(x, p, eps):
     port): conv3d(groups=C) + group_norm + linear + GELU + linear + residual,
     with every parameter already in x's dtype."""
     c = x.shape[-1]
-    t = F.conv3d(x.permute(0, 4, 1, 2, 3), p["w_dw"], padding=1, groups=c)
+    pad = tuple(k // 2 for k in p["w_dw"].shape[2:])
+    t = F.conv3d(x.permute(0, 4, 1, 2, 3), p["w_dw"], padding=pad, groups=c)
     t = F.group_norm(t, c, p["gamma"], p["beta"], eps).permute(0, 2, 3, 4, 1)
     h = F.gelu(F.linear(t, p["w1"], p["b1"]), approximate="tanh")
     return x + F.linear(h, p["w2"], p["b2"])
 
 
-def pair_row(fb, dev, c, r, spatial, per_fwd, dtype, batch=BATCH, reps=None):
+def pair_row(fb, dev, c, r, spatial, per_fwd, dtype, batch=BATCH, reps=None, taps=(3, 3, 3)):
     """The block pair at one stage: each kernel against its plain version
     (stated tolerances; fails the run beyond them), timed beside its plain
-    version, its bound and the library yardstick, with the plan it took."""
+    version, its bound and the library yardstick, with the plan it took;
+    ``taps``: (3, 3, 3), (5, 5, 5), or a 2-D block's (1, k, k), which the
+    kernels take embedded in k^3."""
     es = 2 if dtype == torch.bfloat16 else 4
     rng = np.random.default_rng(c)
     x = device_randn((batch, *spatial, c), c, dev, dtype)
-    p = block_params(rng, c, r, dev)
+    p = block_params(rng, c, r, dev, taps)
     # cast once, as the model does: the timed windows hold the launches only
     p.update(w1=p["w1"].to(dtype), w2=p["w2"].to(dtype))
     lib_p = {k: v.to(dtype) for k, v in p.items()}
@@ -340,7 +366,7 @@ def pair_row(fb, dev, c, r, spatial, per_fwd, dtype, batch=BATCH, reps=None):
     stats_abs = (stats - want_stats).abs().max().item()
     stats_rel = ((stats - want_stats).abs() / mag).max().item()
     if not stats_rel <= 1e-5:  # written so that NaN fails
-        fail(f"dw_stats C={c} {dtype}: relative error {stats_rel:.3g} > 1e-5")
+        fail(f"dw_stats C={c} {dtype} taps {taps}: relative error {stats_rel:.3g} > 1e-5")
     err = (out.float() - want.float()).abs().max().item()
     # f32: FMA order. bf16: two bf16 ulps at the output's magnitude; the
     # kernel and the plain version sum in another order, so a value
@@ -348,11 +374,12 @@ def pair_row(fb, dev, c, r, spatial, per_fwd, dtype, batch=BATCH, reps=None):
     top = want.float().abs().max().item()
     tol = 2e-4 if es == 4 else 2.0 ** (math.floor(math.log2(max(top, 1.0))) - 6)
     if not err <= tol:
-        fail(f"fused_block_apply C={c} {dtype}: max error {err:.3g} > {tol:.3g}")
+        fail(f"fused_block_apply C={c} {dtype} taps {taps}: max error {err:.3g} > {tol:.3g}")
     reps = reps or (20 if c >= 128 else 10)
-    b_stats, b_apply = bounds(c, r, spatial, es, batch)
+    b_stats, b_apply = bounds(c, r, spatial, es, batch, math.prod(taps))
     row = dict(
         C=c, R=r, spatial=list(spatial), dtype=str(dtype).split(".")[-1], blocks_per_forward=per_fwd,
+        taps=list(taps), batch=batch,
         dw_stats=dict(
             ms=time_ms(lambda: fb.dw_stats(x, p["w_dw"]), reps),
             plain_ms=time_ms(lambda: fb.dw_stats_plain(x, p["w_dw"]), reps),
@@ -368,12 +395,12 @@ def pair_row(fb, dev, c, r, spatial, per_fwd, dtype, batch=BATCH, reps=None):
         ),
     )
     # the plans the kernels took (ops/fused_block.py::kernel_plan) and the card's report of each
-    row["plan"] = fb.card_plan(tuple(x.shape), dtype, r)
+    row["plan"] = fb.card_plan(tuple(x.shape), dtype, r, k=taps[-1])
     for name, k in row["plan"].items():
         log(f"  plan {name}: " + ", ".join(f"{key} {val}" for key, val in k.items()))
     s, a = row["dw_stats"], row["fused_block_apply"]
     log(
-        f"C={c:4d} R={r:5d} {row['dtype']:8s} dw_stats {s['ms']:.4f} ms (plain {s['plain_ms']:.4f}, "
+        f"C={c:4d} R={r:5d} {row['dtype']:8s} taps {'x'.join(map(str, taps))} dw_stats {s['ms']:.4f} ms (plain {s['plain_ms']:.4f}, "
         f"bound {s['bound_ms']:.4f}, rel err {stats_rel:.2g}) | apply {a['ms']:.4f} ms (plain "
         f"{a['plain_ms']:.4f}, bound {a['bound_ms']:.4f}, library {a['library_ms']:.4f}, "
         f"err {err:.3g} <= {tol:.3g})"
@@ -1151,7 +1178,7 @@ def phase_cli_train_test(dwk, fb, dev, work, report):
 
 # the fast recipe's training leg as shipped, cut to FAST_STEPS steps, on
 # seeded synthetic volumes of the Lucchi++ geometry
-FAST_STEPS = 20
+FAST_STEPS = 12  # cut from 20 (PR 11-17) to make room for phase 20
 LUCCHI_SHAPE = (165, 1024, 768)
 
 
@@ -1203,7 +1230,7 @@ def phase_fast_recipe(dwk, fb, dev, work, report):
         st = res["train_stats"]
         if st["steps"] != FAST_STEPS or not res["checkpoint"]:
             fail(f"fast recipe train leg: {st['steps']} steps, checkpoint {res['checkpoint']}")
-        # steps 6-20 (each logged rate covers the steps since the last log)
+        # the steps after step 5 (each logged rate covers the steps since the last log)
         rates = [(r["step"], r["train_steps_per_sec"]) for r in recs if "train_steps_per_sec" in r]
         late = [(s1 - s0, v) for (s0, _), (s1, v) in zip(rates, rates[1:]) if s0 >= 5]
         stats = dict(threads=n, train_stats=st, steps_per_s=st["steps"] / st["seconds"],
@@ -1964,7 +1991,7 @@ VESICLE = ROOT / "tutorials" / "vesicle_xm.yaml"
 MINIMAL = ROOT / "tutorials" / "minimal.yaml"
 BLOBS = ROOT / "tutorials" / "synthetic_blobs.yaml"
 VESICLE_BATCH = 8
-VESICLE_SHAPE = (165, 1024, 768)
+VESICLE_SHAPE = (128, 768, 768)  # cut from 165x1024x768 to make room for phase 20
 VESICLE_STEPS = 10
 # ((Z, Y, X), Cin, Cout, launches per forward) of BasicUNet's 3^3 convs at
 # vesicle_xm's (16, 128, 128) window, stock features [32, 32, 64, 128, 256, 32]:
@@ -2361,7 +2388,7 @@ NISB_CHUNK_FAR_SHARE = 1e-4
 # of the recipe's (64, 512, 512) chunks on every axis, the second one cut
 NISB_TRAIN_SHAPE = (48, 384, 384)
 NISB_TUNE_SHAPE = (32, 256, 256)
-NISB_TEST_SHAPE = (96, 768, 768)
+NISB_TEST_SHAPE = (72, 544, 544)  # cut from (96, 768, 768) to make room for phase 20
 NISB_EPOCHS, NISB_STEPS, NISB_TRIALS = 2, 15, 3
 # the chunk the resume check drops from the manifest and the kernel path is
 # held to the plain path on: the corner one, cut on every axis
@@ -2849,7 +2876,7 @@ BETASEG_TEST_SHAPE = (192, 576, 576)
 MULTITASK_TRAIN_SHAPE = (32, 480, 480)
 MULTITASK_TEST_SHAPE = (32, 320, 320)
 BETASEG_EPOCHS, BETASEG_STEPS = 2, 10
-MULTITASK_EPOCHS, MULTITASK_STEPS = 2, 10
+MULTITASK_EPOCHS, MULTITASK_STEPS = 1, 10  # cut from 2 epochs to make room for phase 20
 
 
 def head_errors(got, want, ref32):
@@ -3314,6 +3341,361 @@ def phase_multitask(dwk, fb, dev, work, report):
     torch.cuda.empty_cache()
 
 
+# phase 20: the rest of MedNeXt. tutorials/mito_mitolab.yaml (2-D MedNeXt-S,
+# stock stem, bf16, bcd) and the (C, R, (Z, Y, X), blocks per forward) of its
+# stride-1 blocks on its (1, 256, 256) window
+MITOLAB = ROOT / "tutorials" / "mito_mitolab.yaml"
+MITOLAB_TEST_BATCH, MITOLAB_TRAIN_BATCH = 16, 32
+MITOLAB_STAGES = [
+    (32, 64, (1, 256, 256), 4),
+    (64, 128, (1, 128, 128), 4),
+    (128, 256, (1, 64, 64), 4),
+    (256, 512, (1, 32, 32), 4),
+    (512, 1024, (1, 16, 16), 2),
+]
+MEDNEXT_BLOCKS = 18  # stride-1 blocks of a MedNeXt-S forward
+# the UpKern leg: kernel 5 trained from phase 13's kernel-3 checkpoint (or a
+# short kernel-3 leg of UPKERN_SOURCE_STEPS when phase 13 did not run), then
+# tested on phase 5's 165x1024x768 volume with the recipe's flip TTA. Its
+# steps are cut from 20 to 3: kernel-5 training runs cuDNN's 5^3 depthwise conv,
+# about 9 s a step at batch 8 of 96^3 (ROADMAP B.11)
+UPKERN_STEPS, UPKERN_SOURCE_STEPS = 3, 4
+UPKERN_TRAIN_SHAPE = (96, 384, 384)
+K5_CHECK_BATCH = 4  # the k 5 forward's kernel path against the f32 plain path
+# mito_mitolab's seeded synthetic em2 volumes (its h5 volumes are not in the repository)
+MITOLAB_TRAIN_SHAPE = (32, 768, 768)
+MITOLAB_TEST_SHAPE = (24, 1024, 1024)
+MITOLAB_STEPS = 20
+
+
+def forward_check(fb, dev, name, cfg, shape, k, blocks, seed):
+    """One bf16 forward of the MedNeXt ``cfg`` builds (seeded init) on a
+    seeded ``shape`` batch: ``blocks`` launches of each pair kernel at
+    stencil edge ``k`` and none at the other; the kernel path held to the f32
+    plain path (relative error at most NISB_FWD_ERR_RATIO times the bf16
+    plain path's) with fault probes (a dropped depthwise tap, dropped hidden
+    units, in stage 0 and the last decoder stage, as betaseg's) the limit
+    must reject; times."""
+    import copy
+
+    from pytorch_connectomics_tpu_torch.models import build_model
+
+    def main_out(y):
+        return y["out"] if isinstance(y, dict) else y
+
+    model = build_model(cfg.model, device=dev, seed=0)
+    cfg32 = copy.deepcopy(cfg)
+    cfg32.model.compute_dtype = "float32"
+    model32 = build_model(cfg32.model, device=dev, seed=0)
+    model32.load_state_dict(model.state_dict())
+    x = device_randn(shape, seed, dev)
+    with torch.inference_mode():
+        fb.reset_launch_counts()
+        y = main_out(model(x))
+        torch.cuda.synchronize()
+        counts = {f"{kern.__name__}_k{kk}": n for kern in fb.KERNELS for kk, n in kern.launches_k.items()}
+        want_counts = {f"{kern.__name__}_k{kk}": blocks if kk == k else 0 for kern in fb.KERNELS
+                       for kk in kern.launches_k}
+        if counts != want_counts:
+            fail(f"{name}: one forward should launch each pair kernel {blocks} times at k {k}, got {counts}")
+        ref = main_out(model(x, plain=True))
+        ref32 = main_out(model32(x, plain=True)).float()
+
+        def rel(a):
+            return ((a.float() - ref32).norm() / ref32.norm()).item()
+
+        rel_k, rel_p = rel(y), rel(ref)
+        if not torch.isfinite(y).all() or y.shape[:4] != shape[:4] or not rel_k <= NISB_FWD_ERR_RATIO * rel_p:
+            fail(f"{name} {tuple(y.shape)}: the kernel path's error against f32 {rel_k:.3g}, more than "
+                 f"{NISB_FWD_ERR_RATIO} x the bf16 plain path's {rel_p:.3g}")
+        probes = {}
+        for where, blk in (("stage 0", model.enc[0].blocks[0]), ("last decoder stage", model.dec[3].blocks[-1])):
+            for fault, w, idx in (("dw tap (0,0,0) dropped", blk.conv_weight, (slice(None), 0, 0, 0, 0)),
+                                  ("hidden units 0:16 dropped", blk.pw2.weight, (slice(None), slice(0, 16)))):
+                with torch.inference_mode(False), torch.no_grad():
+                    saved = w[idx].clone()
+                    w[idx] = 0
+                probes[f"{fault}, {where}"] = rel(main_out(model(x, plain=True))) / (NISB_FWD_ERR_RATIO * rel_p)
+                with torch.inference_mode(False), torch.no_grad():
+                    w[idx] = saved
+        if min(probes.values()) <= 1.0:
+            fail(f"{name}: the forward limit lets a fault probe pass: {probes}")
+        ms = time_ms(lambda: model(x), reps=3, warmup=1)
+        plain_ms = time_ms(lambda: model(x, plain=True), reps=1, warmup=0)
+    log(f"{name} bf16 {tuple(shape)}: kernel path {ms:.2f} ms (plain {plain_ms:.2f}); relative error against f32 "
+        f"{rel_k:.4g} (bf16 plain {rel_p:.4g}); fault probes over the limit: "
+        + ", ".join(f"{key} {v:.3g}" for key, v in probes.items()))
+    del model, model32, x, y, ref, ref32
+    torch.cuda.empty_cache()
+    return dict(shape=list(shape), k=k, ms=ms, plain_ms=plain_ms, rel_err_f32=rel_k, plain_rel_err_f32=rel_p,
+                err_ratio_limit=NISB_FWD_ERR_RATIO, fault_probe_ratios=probes, launches_per_forward=counts)
+
+
+def mednext_test_leg(fb, dev, logs, recipe, root, name, k, extra=(), checkpoint=None):
+    """``--mode test`` of ``recipe`` through the CLI: its seconds, the test
+    pipeline's timing line, its metrics and the pair's launches by stencil
+    edge (all at ``k``, a multiple of the forward's 18 blocks)."""
+    from pytorch_connectomics_tpu_torch.runtime.cli import parse_args
+    from pytorch_connectomics_tpu_torch.runtime.dispatch import dispatch_runtime
+
+    fb.reset_launch_counts()
+    t0 = time.perf_counter()
+    args = ["--config", str(recipe), "--device", str(dev), "--mode", "test", f"save_path={root}", *extra]
+    if checkpoint:
+        args[6:6] = ["--checkpoint", str(checkpoint)]
+    res = dispatch_runtime(parse_args(args))
+    torch.cuda.synchronize()
+    res["seconds"] = time.perf_counter() - t0
+    counts = res["launches"] = {f"{kern.__name__}_k{kk}": n for kern in fb.KERNELS
+                                for kk, n in kern.launches_k.items()}
+    if any((v <= 0 or v % MEDNEXT_BLOCKS) if key.endswith(f"_k{k}") else v for key, v in counts.items()):
+        fail(f"the {name} test leg did not run every stride-1 block through the pair at k {k}: {counts}")
+    (timing,) = logs.take("timing[")
+    res["timing"] = dict(zip(("read+normalise", "predict", "save", "decode", "evaluate"), timing[1:]))
+    scores = next(iter(res["metrics"].values()))
+    if not scores or not all(math.isfinite(v) for v in scores.values()):
+        fail(f"{name} test metrics: {scores}")
+    res["scores"] = scores
+    log(f"{name} test leg ({'restored ' + str(res['restored']['checkpoint']) if res.get('restored') else 'untrained'}):"
+        f" {res['seconds']:.2f} s = " + ", ".join(f"{key} {v:.3f}" for key, v in res["timing"].items())
+        + f"; {scores}; launches {counts}")
+    return res
+
+
+def phase_mednext(dwk, fb, dev, work, report):
+    log("== phase 20: the rest of MedNeXt: the k 5 and 2-D pair at their stages, the k 5, 2-D, refine and hybrid "
+        "forwards, the fast recipe's UpKern leg (k 3 -> k 5, deep supervision) and tutorials/mito_mitolab.yaml "
+        "through the CLI ==")
+    import copy
+    import shutil
+
+    from pytorch_connectomics_tpu_torch.config import load_config
+    from pytorch_connectomics_tpu_torch.runtime.cli import parse_args
+    from pytorch_connectomics_tpu_torch.runtime.dispatch import dispatch_runtime
+
+    out = report["mednext"] = {}
+    t_phase = time.perf_counter()
+    parts = out["part_seconds"] = {}
+    last = [t_phase]
+
+    def lap(what):
+        now = time.perf_counter()
+        parts[what] = now - last[0]
+        last[0] = now
+
+    # (c) the k 5 pair at the fast recipe's stride-1 stages (batch 16) and the
+    # 2-D pair, (1, 3, 3) taps embedded in 3^3, at mito_mitolab's (batch 16)
+    out["k5_rows"] = [pair_row(fb, dev, c, r, sp, per, dt, BATCH, 3, (5, 5, 5))
+                      for dt in (torch.bfloat16, torch.float32) for c, r, sp, per in STAGES]
+    lap("k5_rows")
+    out["two_d_rows"] = [pair_row(fb, dev, c, r, sp, per, dt, MITOLAB_TEST_BATCH, 3, (1, 3, 3))
+                         for dt in (torch.bfloat16, torch.float32) for c, r, sp, per in MITOLAB_STAGES]
+    lap("two_d_rows")
+    fast = load_model_config()
+    k3_cfg, k5_cfg = copy.deepcopy(fast), copy.deepcopy(fast)
+    k5_cfg.model.mednext.kernel_size = 5
+    window = (BATCH, *fast.inference.window.window_size, 1)  # the test leg's windows, as phase 4's
+    out["forward"] = {"k5": forward_check(fb, dev, "MedNeXt-S k 5", k5_cfg, (K5_CHECK_BATCH, *window[1:]), 5,
+                                          MEDNEXT_BLOCKS, 41)}
+    # the k 5 forward against k 3 at the recipe's inference batch, in the same call
+    from pytorch_connectomics_tpu_torch.models import build_model
+
+    x = device_randn(window, 42, dev)
+    for tag, cfg in (("k3", k3_cfg), ("k5", k5_cfg)):
+        model = build_model(cfg.model, device=dev, seed=0)  # outside inference mode: its weights stay versioned
+        with torch.inference_mode():
+            out["forward"][f"{tag}_batch16_ms"] = time_ms(lambda: model(x), reps=5, warmup=1)
+        del model
+    log(f"MedNeXt-S bf16 batch 16 of {window[1:4]}: k 3 {out['forward']['k3_batch16_ms']:.2f} ms, k 5 "
+        f"{out['forward']['k5_batch16_ms']:.2f} ms")
+    del x
+    mito = load_config(MITOLAB, mode="test")
+    m = mito.model
+    if not (str(m.mednext.dim).lower() == "2d" and m.mednext.size == "S" and m.mednext.kernel_size == 3
+            and list(m.input_size) == [1, 256, 256] and m.compute_dtype == "bfloat16"
+            and list(mito.inference.window.window_size) == [1, 256, 256] and mito.inference.window.overlap == 0.25
+            and mito.inference.window.blending == "gaussian"
+            and mito.inference.window.sw_batch_size == MITOLAB_TEST_BATCH
+            and list(mito.evaluation.metrics) == ["jaccard", "dice", "instance_f1"]):
+        fail("mito_mitolab.yaml no longer ships 2-D MedNeXt-S bf16 k 3 on (1, 256, 256) windows (overlap 0.25, "
+             "gaussian, batch 16) with jaccard, dice and instance F1")
+    out["forward"]["two_d"] = forward_check(fb, dev, "MedNeXt-S 2-D (mito_mitolab)", mito,
+                                            (MITOLAB_TEST_BATCH, 1, 256, 256, 1), 3, MEDNEXT_BLOCKS, 43)
+    refine, hybrid = copy.deepcopy(fast), copy.deepcopy(fast)
+    refine.model.mednext.patchify_head = "refine"
+    hybrid.model.mednext.patchify_full_res_width = 16
+    out["forward"]["refine"] = forward_check(fb, dev, "MedNeXt-S refine head", refine, (4, *window[1:]), 3,
+                                             MEDNEXT_BLOCKS, 44)
+    out["forward"]["hybrid"] = forward_check(fb, dev, "MedNeXt-S hybrid (w0 16)", hybrid, (4, *window[1:]), 3,
+                                             MEDNEXT_BLOCKS + 2, 45)
+    lap("forwards")
+
+    logs = LogRecords(("timing[",))
+    port_log = logging.getLogger("pytorch_connectomics_tpu_torch")
+    port_log.addHandler(logs)
+    try:
+        # seeded em2 volumes made on the card, stored as uint8: the UpKern
+        # leg's train volume (5 steps take little of it) and mito_mitolab's;
+        # the UpKern test volume is phase 5's 165x1024x768 slice (made here
+        # when phase 5 did not run)
+        from pytorch_connectomics_tpu_torch.data.synthetic import synthetic_em_task
+
+        vols = {}
+        made = out["volume_seconds"] = {}
+        for tag, shape, seed in (("upkern_train", UPKERN_TRAIN_SHAPE, 11), ("mitolab_train", MITOLAB_TRAIN_SHAPE, 21),
+                                 ("mitolab_test", MITOLAB_TEST_SHAPE, 22)):
+            t0 = time.perf_counter()
+            img, lbl = synthetic_em_task("em2", shape, seed=seed, device=dev)
+            vols[tag] = (work / f"md_{tag}_im.npy", work / f"md_{tag}_label.npy")
+            np.save(vols[tag][0], np.round(img * 255).astype(np.uint8))
+            np.save(vols[tag][1], lbl)
+            made[tag] = time.perf_counter() - t0
+        name = "syn{}x{}x{}".format(*LUCCHI_SHAPE)
+        vols["lucchi_test"] = (work / f"{name}_im.npy", work / f"{name}_mito.npy")
+        if not all(p.exists() for p in vols["lucchi_test"]):
+            t0 = time.perf_counter()
+            img, lbl = synthetic_volume(LUCCHI_SHAPE, 0)
+            np.save(vols["lucchi_test"][0], img)
+            np.save(vols["lucchi_test"][1], lbl)
+            made["lucchi_test"] = time.perf_counter() - t0
+        lap("volumes")
+
+        def split(name, tag):
+            return [f"data.{name}.image={vols[tag][0]}", f"data.{name}.label={vols[tag][1]}"]
+
+        # (a) the fast recipe's UpKern leg: kernel 5 from the kernel-3 checkpoint, deep supervision
+        data = [*split("train", "upkern_train"), *split("test", "lucchi_test"),
+                "optimization.max_epochs=1", "monitor.logging.scalar.loss_every_n_steps=5"]
+        flags = ["--config", str(RECIPE), "--device", str(dev)]
+        source = ((report.get("fast_recipe") or {}).get("restored") or {}).get("checkpoint")
+        if not source:
+            root = work / "upkern_source"
+            shutil.rmtree(root, ignore_errors=True)
+            res = dispatch_runtime(parse_args(flags + ["--mode", "train", f"save_path={root}", *data,
+                                                       f"optimization.n_steps_per_epoch={UPKERN_SOURCE_STEPS}"]))
+            source = res["checkpoint"]
+        out["upkern_source"] = str(source)
+        root = work / "upkern_k5"
+        shutil.rmtree(root, ignore_errors=True)
+        k5 = ["model.mednext.kernel_size=5", f"model.mednext.upkern_from={source}", "model.loss.deep_supervision=true",
+              f"save_path={root}"]
+        dwk.reset_launch_counts()
+        res = dispatch_runtime(parse_args(flags + ["--mode", "train", *data, *k5,
+                                                   f"optimization.n_steps_per_epoch={UPKERN_STEPS}"]))
+        torch.cuda.synchronize()
+        stats = train_leg_stats(res)
+        up = res.get("upkern") or {}
+        recs = [json.loads(line) for line in (Path(res["run_dir"]) / "metrics.jsonl").read_text().splitlines()]
+        ds_logged = sorted({key for r in recs for key in r if "loss_ds_" in key})
+        if stats["train_stats"]["steps"] != UPKERN_STEPS or not res["checkpoint"] or not stats["losses"] \
+                or not all(math.isfinite(v) for v in stats["losses"]) or up.get("inflated", 0) <= 0 \
+                or up.get("kept") != 2 * 3 or not ds_logged:  # kept: the new ds heads' weights and biases
+            fail(f"the UpKern train leg: {stats['train_stats']['steps']} steps, checkpoint {res['checkpoint']}, "
+                 f"losses {stats['losses']}, UpKern {up}, ds losses logged {ds_logged}")
+        # k 5 trains through conv3d_same(groups=C): no depthwise ring kernel
+        stats["launches"] = {kern.__name__: kern.launches for kern in dwk.KERNELS}
+        if any(stats["launches"].values()):
+            fail(f"the k 5 train leg launched the 3^3 depthwise kernels: {stats['launches']}")
+        stats["upkern"], stats["ds_logged"] = up, ds_logged
+        log(f"UpKern train leg (k 3 -> k 5 from {source}, deep supervision): {up}; {UPKERN_STEPS} steps in "
+            f"{stats['train_stats']['seconds']:.2f} s ({stats['steps_per_s']:.3f} steps/s, {stats['step_ms']:.1f} ms "
+            f"a step, {stats['data_wait_ms_per_step']:.1f} of it waiting for batches); losses {stats['losses'][0]:.4f}"
+            f" -> {stats['losses'][-1]:.4f}; ds terms logged {ds_logged}")
+        out["upkern_train"] = stats
+        lap("upkern_train")
+        test = mednext_test_leg(fb, dev, logs, RECIPE, root, "UpKern k 5", 5, data[2:4] + k5[:1] + k5[2:3])
+        if (test.get("restored") or {}).get("checkpoint") != res["checkpoint"]:
+            fail(f"the UpKern test leg did not restore {res['checkpoint']}: {test.get('restored')}")
+        predict_s = test["timing"]["predict"]
+        out["upkern_test"] = dict(seconds=test["seconds"], timing=test["timing"], metrics=test["scores"],
+                                  launches=test["launches"], predict_mvox_per_s=math.prod(LUCCHI_SHAPE) / predict_s / 1e6)
+        log(f"UpKern test leg: predict {predict_s:.2f} s for {LUCCHI_SHAPE} with flip TTA "
+            f"({out['upkern_test']['predict_mvox_per_s']:.3f} Mvox/s)")
+        lap("upkern_test")
+
+        # (b) mito_mitolab.yaml as shipped on seeded em2 volumes: train, test, the control, direct 2-D
+        mroot, control_root = work / "mitolab", work / "mitolab_control"
+        shutil.rmtree(mroot, ignore_errors=True)
+        shutil.rmtree(control_root, ignore_errors=True)
+        mdata = [*split("train", "mitolab_train"), *split("test", "mitolab_test")]
+        dwk.reset_launch_counts()
+        # one change from the recipe: aug_standard's missing_section blanks a whole (1, 256, 256) sample to
+        # zeros, whose gradient overflows at init in both packages (ROADMAP C.11)
+        mres = dispatch_runtime(parse_args(["--config", str(MITOLAB), "--device", str(dev), "--mode", "train",
+                                            f"save_path={mroot}", *mdata[:2], "optimization.max_epochs=1",
+                                            "data.augmentation.missing_section.enabled=false",
+                                            f"optimization.n_steps_per_epoch={MITOLAB_STEPS}",
+                                            "monitor.logging.scalar.loss_every_n_steps=5"]))
+        torch.cuda.synchronize()
+        mstats = train_leg_stats(mres)
+        mstats["launches"] = {kern.__name__: kern.launches for kern in dwk.KERNELS}
+        want = {"depthwise3x3": 2 * MEDNEXT_BLOCKS * MITOLAB_STEPS, "depthwise3x3_wgrad": MEDNEXT_BLOCKS * MITOLAB_STEPS}
+        if mstats["train_stats"]["steps"] != MITOLAB_STEPS or not mres["checkpoint"] or not mstats["losses"] \
+                or not all(math.isfinite(v) for v in mstats["losses"]) or mstats["launches"] != want:
+            fail(f"the mito_mitolab train leg: {mstats['train_stats']['steps']} steps, checkpoint {mres['checkpoint']},"
+                 f" losses {mstats['losses']}, depthwise launches {mstats['launches']} (want {want})")
+        log(f"mito_mitolab train leg (2-D, batch {MITOLAB_TRAIN_BATCH} of 1x256x256, aug_standard): {MITOLAB_STEPS} "
+            f"steps in {mstats['train_stats']['seconds']:.2f} s ({mstats['steps_per_s']:.3f} steps/s, "
+            f"{mstats['data_wait_ms_per_step']:.1f} ms a step waiting for batches); losses {mstats['losses'][0]:.4f} -> "
+            f"{mstats['losses'][-1]:.4f}; launches {mstats['launches']}")
+        out["mitolab_train"] = mstats
+        lap("mitolab_train")
+        mtest = mednext_test_leg(fb, dev, logs, MITOLAB, mroot, "mito_mitolab", 3, mdata[2:])
+        if (mtest.get("restored") or {}).get("checkpoint") != mres["checkpoint"]:
+            fail(f"the mito_mitolab test leg did not restore {mres['checkpoint']}: {mtest.get('restored')}")
+        control = mednext_test_leg(fb, dev, logs, MITOLAB, control_root, "mito_mitolab control", 3, mdata[2:])
+        if control.get("restored"):
+            fail(f"the mito_mitolab control restored a checkpoint: {control['restored']}")
+        direct = mednext_test_leg(fb, dev, logs, MITOLAB, mroot, "mito_mitolab direct 2-D", 3,
+                                  mdata[2:] + ["inference.direct_2d=true"], checkpoint=mres["checkpoint"])
+        # the 2-D recipe learns on the card: both trained test legs' held-out jaccard above the untrained one's
+        for name, leg in (("test", mtest), ("direct 2-D", direct)):
+            if not leg["scores"]["jaccard"] > control["scores"]["jaccard"]:
+                fail(f"mito_mitolab {name} jaccard {leg['scores']['jaccard']:.4f} (trained) is not above "
+                     f"{control['scores']['jaccard']:.4f} (untrained)")
+        for key, leg in (("mitolab_test", mtest), ("mitolab_control", control), ("mitolab_direct_2d", direct)):
+            out[key] = dict(seconds=leg["seconds"], timing=leg["timing"], metrics=leg["scores"],
+                            launches=leg["launches"],
+                            predict_mvox_per_s=math.prod(MITOLAB_TEST_SHAPE) / leg["timing"]["predict"] / 1e6)
+        lap("mitolab_test")
+    finally:
+        port_log.removeHandler(logs)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"mito_mitolab on {MITOLAB_TEST_SHAPE}: trained {mtest['scores']}, untrained control {control['scores']}, "
+        f"direct 2-D {direct['scores']}; phase {out['seconds']:.1f} s: "
+        + ", ".join(f"{key} {v:.1f}" for key, v in parts.items()))
+    torch.cuda.empty_cache()
+
+
+def k5_line_rows(rows, test_launches):
+    """The k 5 pair's entries of the kernels line, per forward of the
+    UpKern leg's k 5 MedNeXt-S (bf16, batch 16): each stage's times times
+    its blocks; launches from that leg's test run."""
+    source = "pytorch_connectomics_tpu_torch/ops/csrc/mednext_block.cu"
+    replaces = {
+        "dw_stats": "pytorch_connectomics_tpu/ops/fused_block_pallas.py:148",
+        "fused_block_apply": "pytorch_connectomics_tpu/ops/fused_block_pallas.py:238",
+    }
+    bf16 = [r for r in rows if r["dtype"] == "bfloat16"]
+    kernels = []
+    for name in ("dw_stats", "fused_block_apply"):
+        def per_forward(key, name=name):
+            vals = [r[name][key] for r in bf16]
+            return None if any(v is None for v in vals) else sum(v * r["blocks_per_forward"] for v, r in zip(vals, bf16))
+
+        def bound_part(kind, name=name):
+            return sum(r[name]["bound_parts"][kind] * r["blocks_per_forward"] for r in bf16)
+
+        kernels.append(dict(
+            name=f"{name}_k5", route="cuda", source=source, replaces=replaces[name],
+            launches=test_launches[f"{name}_k5"], max_abs_err=max(r[name]["max_abs_err"] for r in bf16),
+            ms=per_forward("ms"), plain_ms=per_forward("plain_ms"), bound_ms=per_forward("bound_ms"),
+            bound_by="bytes" if bound_part("bytes") >= bound_part("ops") else "operations",
+            library_ms=per_forward("library_ms"),
+        ))
+    return kernels
+
+
 def wgrad_line_row(rows, launches):
     """The weight-gradient kernel's entry of the kernels line, per SNEMI
     train step (batch 8 of (18, 160, 160), bf16): each layer shape's times
@@ -3702,18 +4084,18 @@ def main(argv=None) -> None:
 
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU and check it.")
     ap.add_argument("--phases", default=None,
-                    help="comma-separated phases of 3-19 (14 also as 'instance', 17 as 'unet', 18 as 'nisb', 19 as "
-                    "'multitask') to run after the device and build phases (default: all)")
+                    help="comma-separated phases of 3-20 (14 also as 'instance', 17 as 'unet', 18 as 'nisb', 19 as "
+                    "'multitask', 20 as 'mednext') to run after the device and build phases (default: all)")
     args = ap.parse_args(argv)
     phases = None
-    names = {"instance": 14, "unet": 17, "nisb": 18, "multitask": 19}
+    names = {"instance": 14, "unet": 17, "nisb": 18, "multitask": 19, "mednext": 20}
     if args.phases is not None:
         try:
             phases = {names.get(p) or int(p) for p in args.phases.split(",")}
         except ValueError:
-            ap.error("--phases takes phases 3-19")
-    if phases is not None and not phases <= set(range(3, 20)):
-        ap.error("--phases takes phases 3-19")
+            ap.error("--phases takes phases 3-20")
+    if phases is not None and not phases <= set(range(3, 21)):
+        ap.error("--phases takes phases 3-20")
 
     def want(n):
         return phases is None or n in phases
@@ -3830,8 +4212,11 @@ def main(argv=None) -> None:
     if want(19):
         phase_multitask(dwk, fb, dev, work, report)
         mark(19)
+    if want(20):
+        phase_mednext(dwk, fb, dev, work, report)
+        mark(20)
 
-    log("== phase 20: report ==")
+    log("== phase 21: report ==")
     report["total_seconds"] = time.perf_counter() - started
     log(f"chip_smoke ran in {report['total_seconds']:.1f} s")
     device = {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}
@@ -3841,6 +4226,7 @@ def main(argv=None) -> None:
         print(json.dumps({"ok": True, "device": device, "phases": sorted(phases)}))
         return
     kernels = kernel_line_rows(rows, main_run["launches"], dw_rows, train_counts)
+    kernels += k5_line_rows(report["mednext"]["k5_rows"], report["mednext"]["upkern_test"]["launches"])
     kernels.append(conv3d_line_row(conv_rows, nucmm_launches))
     kernels.append(wgrad_line_row(wgrad_rows, snemi_counts["conv3d_3x3_wgrad"]))
     kernels += probe_line_rows(probe_records, probe_counts)

@@ -1,5 +1,7 @@
 """InferenceManager: config -> sliding-window engine + TTA on one device
-(the port of ``pytorch_connectomics_tpu/inference/manager.py``, 3-D path).
+(the port of ``pytorch_connectomics_tpu/inference/manager.py``), or with
+``inference.direct_2d`` each z-section forwarded whole as a 1-deep patch,
+batches of 8, no window and no TTA (JAX ``manager.py:73-105``).
 
 A multi-head model's dict output becomes one tensor before blending
 (JAX ``manager.py:19-40``): the head ``inference.model.output_head``
@@ -16,7 +18,7 @@ import torch
 
 from ..config.schema import Config
 from ..data.targets.build import affinity_target_groups
-from .tta import TTAPredictor
+from .tta import TTAPredictor, apply_channel_activations
 from .window import make_engine
 
 
@@ -43,8 +45,6 @@ class InferenceManager:
     def __init__(self, cfg: Config, model: torch.nn.Module, device: torch.device | str):
         self.cfg = cfg
         inf = cfg.inference
-        if inf.direct_2d:
-            raise NotImplementedError("2-D direct inference is not ported yet")
         self.model = model
         self.device = torch.device(device)
         head = inf.model.output_head
@@ -63,8 +63,8 @@ class InferenceManager:
             for name in sorted(heads):
                 self.head_spans.append((name, start, start + heads[name]))
                 start += heads[name]
-        self.engine = make_engine(lambda w: select_head(model(w), head), inf.window, cfg.model.input_size,
-                                  self.device)
+        self.apply_fn = lambda w: select_head(model(w), head)
+        self.engine = make_engine(self.apply_fn, inf.window, cfg.model.input_size, self.device)
         acts = inf.model.act
         if acts is None:
             acts = (getattr(inf.model, "extra", None) or {}).get("channel_activations")
@@ -78,4 +78,25 @@ class InferenceManager:
 
     def predict(self, volume: np.ndarray) -> np.ndarray:
         """Full-volume prediction with TTA -> (Z,Y,X,C) float32."""
+        if self.cfg.inference.direct_2d:
+            return self.predict_direct_2d(volume)
         return self.predictor.predict(volume, out_channels=self.out_channels)
+
+    def predict_direct_2d(self, volume: np.ndarray, batch_size: int = 8) -> np.ndarray:
+        """Each z-section of ``volume`` forwarded whole as a (1, Y, X) patch,
+        ``batch_size`` sections a forward (the last batch padded with copies
+        of its last section), then the channel activations -> (Z, Y, X, C)
+        float32."""
+        vol = np.asarray(volume, np.float32)
+        if vol.ndim == 3:
+            vol = vol[..., None]
+        outs = []
+        with torch.inference_mode():
+            for start in range(0, vol.shape[0], batch_size):
+                sec = torch.from_numpy(vol[start:start + batch_size]).to(self.device)
+                n = sec.shape[0]
+                if n < batch_size:
+                    sec = torch.cat([sec, sec[-1:].expand(batch_size - n, *sec.shape[1:])])
+                outs.append(self.apply_fn(sec[:, None]).float()[:n, 0])
+            out = apply_channel_activations(torch.cat(outs), self.predictor.activations)
+        return out.float().cpu().numpy()

@@ -21,7 +21,14 @@ are a dict holding it). The total is the weighted sum of the terms, or,
 given ``term_weights`` (GradNorm's, :mod:`.balancing`), each term times its
 weight too, or, given ``balancer_params`` (Kendall's log-variances),
 ``sum exp(-s_i) w_i L_i + s_i / 2``; either needs more than one term.
-Deep supervision and pred-vs-pred terms raise ``NotImplementedError``.
+
+Deep supervision (JAX ``orchestrator.py:232-276``): outputs ``ds_k`` beside
+``out`` (or beside the heads) each add ``w_k * L_k`` to the total, where
+``L_k`` is the weighted sum of the terms without a ``head`` on the output
+against the label average-pooled to its scale by integer factors (the mask
+too; no spatial weight), clipped to ``[0, ds_clamp]`` when set, logged as
+``loss_ds_k``; ``w_k`` is ``ds_weights[k]`` or ``1 / 2^(k+1)``.
+Pred-vs-pred terms raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..utils.slicing import parse_slice
 from .balancing import uncertainty_weighted_total
@@ -87,8 +95,8 @@ class LossOrchestrator:
         # validity masks by (term, target shape, device): built once, as
         # JAX's are constants of its trace
         self._valid_masks: Dict[Tuple, Optional[torch.Tensor]] = {}
-        if loss_cfg.deep_supervision:
-            raise NotImplementedError("deep supervision is not ported yet")
+        self.ds_weights = loss_cfg.ds_weights
+        self.ds_clamp = loss_cfg.ds_clamp
         self.terms = []
         for i, t in enumerate(loss_cfg.losses):
             if t.pred2_slice:
@@ -157,7 +165,7 @@ class LossOrchestrator:
                 term_weights=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """``outputs``: a tensor, or a dict of head outputs; ``targets``: a
         tensor, or a dict with ``label`` (or one entry a head)."""
-        outputs = self._split_outputs(outputs)
+        outputs, ds_outs = self._split_outputs(outputs)
         logs: Dict[str, torch.Tensor] = {}
         term_losses = []
         for term in self.terms:
@@ -181,6 +189,8 @@ class LossOrchestrator:
                                                balancer_params[: len(term_losses)])
         else:
             total = sum(t.weight * L for t, L in zip(self.terms, term_losses))
+        if ds_outs:
+            total = total + self._deep_supervision_loss(ds_outs, targets, mask, logs)
         logs["loss_total"] = total
         return total, logs
 
@@ -188,13 +198,40 @@ class LossOrchestrator:
 
     @staticmethod
     def _split_outputs(outputs):
-        """A dict of only ``out`` is that tensor; deep-supervision outputs
-        (``ds_*``) raise."""
+        """(main, ``{ds_k: output}``): a dict of only ``out`` (beside the
+        ``ds_*``) gives that tensor."""
         if not isinstance(outputs, dict):
-            return outputs
-        if any(k.startswith("ds_") for k in outputs):
-            raise NotImplementedError("deep-supervision outputs are not ported yet")
-        return outputs["out"] if set(outputs) == {"out"} else outputs
+            return outputs, {}
+        ds = {k: v for k, v in outputs.items() if k.startswith("ds_")}
+        main = {k: v for k, v in outputs.items() if not k.startswith("ds_")}
+        return (main["out"] if set(main) == {"out"} else main), ds
+
+    @staticmethod
+    def _downsample_target(target: torch.Tensor, spatial) -> torch.Tensor:
+        """Average-pool (B, Z, Y, X, C) to ``spatial`` by the integer factors
+        ``target // spatial`` (VALID: a remainder is dropped), in float32."""
+        f = [t // s for t, s in zip(target.shape[1:4], spatial)]
+        t = target.float().permute(0, 4, 1, 2, 3)
+        return F.avg_pool3d(t, kernel_size=f, stride=f).permute(0, 2, 3, 4, 1)
+
+    def _deep_supervision_loss(self, ds_outs, targets, mask, logs) -> torch.Tensor:
+        tgt = targets["label"] if isinstance(targets, dict) else targets
+        total = 0.0
+        for i, key in enumerate(sorted(ds_outs, key=lambda k: int(k.split("_")[1]))):
+            out = ds_outs[key]
+            w = self.ds_weights[i] if self.ds_weights and i < len(self.ds_weights) else 0.5 ** (i + 1)
+            t_small = self._downsample_target(tgt, out.shape[1:4])
+            m_small = self._downsample_target(mask, out.shape[1:4]) if mask is not None else None
+            scale_loss = 0.0
+            for term in self.terms:
+                if term.head is not None:
+                    continue  # per-head terms only on full-resolution heads
+                scale_loss = scale_loss + term.weight * self._term_loss(term, out, t_small, m_small, None)
+            if self.ds_clamp is not None:
+                scale_loss = torch.clamp(scale_loss, 0.0, self.ds_clamp)
+            logs[f"loss_{key}"] = scale_loss
+            total = total + w * scale_loss
+        return total
 
     @property
     def num_terms(self) -> int:

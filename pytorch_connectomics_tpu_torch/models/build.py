@@ -22,8 +22,8 @@ def init_model(model: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded init in place, following flax's defaults: LeCun-normal kernels
     (normal truncated at 2 sigma, std sqrt(1/fan_in)), zero biases, unit
     norm scales, UNETR's position embedding normal with std 0.02. Weight
-    shapes of ``conv_weight``/``head_weight`` of transposed convs are (I, O,
-    k...); every other kernel is (O, I, k...)."""
+    shapes of ``conv_weight``/``head_weight``/``up_weight`` of transposed
+    convs are (I, O, k...); every other kernel is (O, I, k...)."""
     g = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -47,7 +47,7 @@ def init_model(model: nn.Module, seed: int = 0) -> nn.Module:
 def _is_transposed(model: nn.Module, name: str) -> bool:
     owner, _, leaf = name.rpartition(".")
     mod = model.get_submodule(owner) if owner else model
-    if leaf == "head_weight":
+    if leaf in ("head_weight", "up_weight"):
         return True
     return leaf == "conv_weight" and bool(getattr(mod, "transpose", False))
 

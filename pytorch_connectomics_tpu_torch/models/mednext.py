@@ -9,43 +9,60 @@ A stride-1 block with as many output channels as input channels runs one of
 two ways, chosen by autograd, not by ``train()``/``eval()``:
 
 - **inference** (grad disabled, or nothing requires grad): the fused MedNeXt
-  block kernels (:mod:`..ops.fused_block`), which never write the stencil,
-  the normalised tensor or the hidden activation to memory and so have no
-  backward pass;
+  block kernels (:mod:`..ops.fused_block`, kernel 3 or 5), which never write
+  the stencil, the normalised tensor or the hidden activation to memory and
+  so have no backward pass;
 - **training** (grad enabled and the input or a parameter requires grad):
-  the unfused block, as the JAX package trains it: the depthwise conv
-  through the kernels of :mod:`..ops.depthwise` (an autograd Function whose
-  backward is a kernel too), then GroupNorm, the pointwise layers with their
-  weights cast inside autograd, tanh-GELU and the residual in torch ops.
+  the unfused block, as the JAX package trains it: the depthwise conv (at
+  kernel 3 through the kernels of :mod:`..ops.depthwise`, an autograd
+  Function whose backward is a kernel too; at kernel 5 through
+  ``conv3d_same(..., groups=C)``, the route of the strided down blocks, as
+  no TPU kernel computes a 5^3 depthwise conv outside the fused pair), then
+  GroupNorm, the pointwise layers with their weights cast inside autograd,
+  tanh-GELU and the residual in torch ops.
 
 On a CUDA device the hand-written kernels run, on the CPU their plain
 versions. ``forward(x, plain=True)`` runs the plain versions on any device,
 the reference a kernel run is held against. The stems, the strided down and
-up blocks and the head are plain PyTorch.
+up blocks and the heads are plain PyTorch.
 
 Activations are channels-last ``(B, Z, Y, X, C)`` in the compute dtype
 (bfloat16 by default); parameters stay float32 and are cast per call, as
 flax does, except the fused blocks' pointwise weights at inference, which
-are cast once per parameter version; the head computes in float32 and the
-output is float32.
+are cast once per parameter version; the heads compute in float32 and the
+outputs are float32.
 
 ``remat`` (``checkpoint_style: outside_block``, ``nn.remat`` of each stage
 block in JAX) wraps each stage block in ``torch.utils.checkpoint`` when grad
 is enabled: its activations are recomputed in the backward pass instead of
 kept.
 
-Task heads (``model.mednext.heads``, JAX ``MedNeXtTaskHead``,
-``mednext.py:128-178,306-321``) replace the single head: each runs its own
-stride-1 blocks on the last decoder stage's output (expansion ratio 2, the
-same inference and training routes as every stride-1 block, no remat, as
-in JAX) and a float32 projection (1x1x1, or the transposed conv of the
-patchify stem); the forward then returns ``{name: output}`` in the order
-the heads are configured.
+The options of JAX's ``MedNeXt`` (``mednext.py:67-327``):
 
-This slice ports the stock 1x1x1 stem and the patchify stem (any per-axis
-stride, ``linear`` head). Deep supervision, 2-D mode, the ``refine`` head,
-the full-resolution hybrid and kernel sizes other than 3 raise
-``NotImplementedError``.
+- **2-D mode** (``two_d``): (1, k, k) taps and (1, s, s) strides in every
+  block, the stem and the heads, so z stays untouched. Its stride-1 blocks
+  run the same kernels as 3-D ones, their taps embedded in a k^3 tap set
+  whose other z planes are zero (:func:`..ops.fused_block.taps3d`): the fused
+  pair at inference, and at kernel 3 the depthwise kernels in training,
+  whose weight gradient flows back through the embedding to the centre plane.
+- **deep supervision**: float32 1x1x1 heads ``ds_heads[str(i)]`` (JAX
+  ``ds_head_{i}``) on decoder stages i = 3, 2, 1; the forward returns
+  ``{"out": head, "ds_0": finest, ..., "ds_2": coarsest}``, or the task
+  heads' outputs and the ``ds_k``.
+- **task heads** (``model.mednext.heads``, JAX ``MedNeXtTaskHead``) replace
+  the single head: each runs its own stride-1 blocks on the last decoder
+  stage's output (expansion ratio 2, no remat, as in JAX) and its
+  projection; the forward returns ``{name: output}`` in configured order.
+- **the patchify stem** (any per-axis stride; (1, 2, 2) in 2-D mode) with
+  the ``linear`` head (a transposed conv back to full resolution) or the
+  ``refine`` head: a transposed conv to ``patchify_head_width`` channels in
+  the compute dtype, concatenated with the raw input, a 1x1x1 conv and GELU,
+  then the float32 1x1x1 projection.
+- **the full-resolution hybrid** (``patchify_full_res_width`` w0): a 1x1x1
+  stem to w0, one stride-1 block at w0 (``full_res_enc``), a stride-2 block
+  into the half-resolution core, and on the way out a transposed block back
+  to w0, the full-resolution skip, one more block (``full_res_dec``) and 1x1x1
+  heads. Its w0 blocks run the fused pair at C w0.
 """
 
 from __future__ import annotations
@@ -75,7 +92,8 @@ def _lin(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
 
 
 class MedNeXtBlock(nn.Module):
-    """One MedNeXt block on channels-last input with ``channels`` channels."""
+    """One MedNeXt block on channels-last input with ``channels`` channels;
+    ``two_d``: (1, k, k) taps and (1, s, s) strides."""
 
     def __init__(
         self,
@@ -87,18 +105,20 @@ class MedNeXtBlock(nn.Module):
         stride: int = 1,
         transpose: bool = False,
         dtype: torch.dtype = torch.bfloat16,
+        two_d: bool = False,
     ):
         super().__init__()
-        if kernel != 3:
-            raise NotImplementedError(f"MedNeXt kernel size {kernel} is not ported yet (3 only)")
+        if kernel % 2 != 1:
+            raise ValueError(f"MedNeXt kernel size must be odd, got {kernel}")
         cin = channels
         cout = out_channels or channels
-        self.kernel, self.stride, self.transpose, self.dtype = kernel, stride, transpose, dtype
+        self.kernel, self.transpose, self.dtype = kernel, transpose, dtype
+        self.stride = (1, stride, stride) if two_d else (stride,) * 3
         self.fused = stride == 1 and cin == cout and not transpose
-        k = (kernel,) * 3
-        if transpose:  # dense transposed conv, stored flipped in (I, O, k, k, k)
+        k = (1, kernel, kernel) if two_d else (kernel,) * 3
+        if transpose:  # dense transposed conv, stored flipped in (I, O, kz, ky, kx)
             self.conv_weight = nn.Parameter(torch.zeros(cin, cin, *k))
-        else:  # depthwise conv, (C, 1, k, k, k)
+        else:  # depthwise conv, (C, 1, kz, ky, kx)
             self.conv_weight = nn.Parameter(torch.zeros(cin, 1, *k))
         self.conv_bias = nn.Parameter(torch.zeros(cin))
         self.norm = Norm(cin, norm)
@@ -108,15 +128,18 @@ class MedNeXtBlock(nn.Module):
         self.res = None if (stride == 1 and cin == cout) else nn.Linear(cin, cout)
         self._cast_key = None
 
-    def _pointwise_weights(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """pw1 and pw2 weights in the compute dtype for the fused inference
-        kernels, cast again only when a weight moves or is written in place.
-        Detached: the training block casts inside autograd instead."""
-        ws = (self.pw1.weight, self.pw2.weight)
+    def _kernel_weights(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The fused inference kernels' weights: the depthwise taps as a k^3
+        float32 set (:func:`..ops.fused_block.taps3d`; 2-D taps embedded),
+        pw1 and pw2 in the compute dtype; made again only when a weight
+        moves or is written in place. Detached: the training block casts
+        inside autograd instead."""
+        ws = (self.conv_weight, self.pw1.weight, self.pw2.weight)
         key = tuple((w.device, w.data_ptr(), w._version) for w in ws)
         if key != self._cast_key:
             with torch.inference_mode(False), torch.no_grad():
-                self._cast = tuple(w.detach().to(self.dtype).contiguous() for w in ws)
+                taps = fused_block.taps3d(self.conv_weight.detach()).float().contiguous()
+                self._cast = (taps, *(w.detach().to(self.dtype).contiguous() for w in ws[1:]))
             self._cast_key = key
         return self._cast
 
@@ -129,12 +152,12 @@ class MedNeXtBlock(nn.Module):
             return self._train_block(x, plain)
         if self.fused:
             block = fused_block.fused_mednext_block_plain if plain else fused_block.fused_mednext_block
-            w1, w2 = self._pointwise_weights()
+            taps, w1, w2 = self._kernel_weights()
             return block(
-                x, self.conv_weight, self.norm.weight, self.norm.bias,
+                x, taps, self.norm.weight, self.norm.bias,
                 w1, self.pw1.bias, w2, self.pw2.bias, self.norm.eps,
             )
-        s = (self.stride,) * 3
+        s = self.stride
         w, b = self.conv_weight.to(dt), self.conv_bias.to(dt)
         if self.transpose:
             y = conv_transpose3d_same(x, w, b, s)
@@ -155,22 +178,24 @@ class MedNeXtBlock(nn.Module):
             res = _lin(x[:, :: s[0], :: s[1], :: s[2]], self.res, dt)
         return res + y
 
-
     def _train_block(self, x: torch.Tensor, plain: bool) -> torch.Tensor:
         """The unfused stride-1 block, differentiable end to end."""
         dt = self.dtype
-        conv = depthwise.depthwise3x3_plain if plain else depthwise.depthwise_conv3x3
-        y = self.norm(conv(x.contiguous(), self.conv_weight, self.conv_bias))
-        y = F.gelu(_lin(y, self.pw1, dt), approximate="tanh")
+        if self.kernel == 3:
+            conv = depthwise.depthwise3x3_plain if plain else depthwise.depthwise_conv3x3
+            y = conv(x.contiguous(), fused_block.taps3d(self.conv_weight), self.conv_bias)
+        else:
+            y = conv3d_same(x, self.conv_weight.to(dt), self.conv_bias.to(dt), (1, 1, 1), groups=x.shape[-1])
+        y = F.gelu(_lin(self.norm(y), self.pw1, dt), approximate="tanh")
         return x + _lin(y, self.pw2, dt)
 
 
 class _Stage(nn.Module):
-    def __init__(self, channels, num_blocks, exp_ratio, kernel, norm, dtype, remat=False):
+    def __init__(self, channels, num_blocks, exp_ratio, kernel, norm, dtype, remat=False, two_d=False):
         super().__init__()
         self.remat = remat
         self.blocks = nn.ModuleList(
-            MedNeXtBlock(channels, exp_ratio, kernel, norm, dtype=dtype) for _ in range(num_blocks)
+            MedNeXtBlock(channels, exp_ratio, kernel, norm, dtype=dtype, two_d=two_d) for _ in range(num_blocks)
         )
 
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
@@ -182,21 +207,35 @@ class _Stage(nn.Module):
         return x
 
 
-def _add_projection(owner: nn.Module, channels: int, out_channels: int, stride, kernel: int) -> None:
-    """Give ``owner`` the float32 output layer: a 1x1x1 conv (``head``), or
-    with the patchify stem's ``stride`` the transposed conv back to full
+def _add_projection(owner: nn.Module, channels: int, out_channels: int, stride, kernel: int,
+                    refine_width: int | None = None, raw_channels: int = 0) -> None:
+    """Give ``owner`` its output layer: a float32 1x1x1 conv (``head``); with
+    the patchify stem's ``stride`` the float32 transposed conv back to full
     resolution (``head_weight``, stored flipped in (I, O, k, k, k), and
-    ``head_bias``)."""
+    ``head_bias``); or with ``refine_width`` as well the refine head: a
+    transposed conv to ``refine_width`` channels (``up_weight``,
+    ``up_bias``), the 1x1x1 conv of it and the raw input (``mix``), and the
+    float32 1x1x1 ``head``."""
     if stride:
         pk = tuple(1 if s == 1 else kernel for s in stride)
+    if stride and refine_width:
+        owner.up_weight = nn.Parameter(torch.zeros(channels, refine_width, *pk))
+        owner.up_bias = nn.Parameter(torch.zeros(refine_width))
+        owner.mix = nn.Linear(refine_width + raw_channels, refine_width)
+        owner.head = nn.Linear(refine_width, out_channels)
+    elif stride:
         owner.head_weight = nn.Parameter(torch.zeros(channels, out_channels, *pk))
         owner.head_bias = nn.Parameter(torch.zeros(out_channels))
     else:
         owner.head = nn.Linear(channels, out_channels)
 
 
-def _project(owner: nn.Module, x: torch.Tensor, stride) -> torch.Tensor:
-    """The output layer that ``_add_projection`` gave ``owner``, in float32."""
+def _project(owner: nn.Module, x: torch.Tensor, stride, dtype: torch.dtype, raw: torch.Tensor | None = None):
+    """The output layer that ``_add_projection`` gave ``owner``; float32 out."""
+    if stride and hasattr(owner, "mix"):
+        h = conv_transpose3d_same(x.to(dtype), owner.up_weight.to(dtype), owner.up_bias.to(dtype), stride)
+        h = F.gelu(_lin(torch.cat([h, raw.to(dtype)], dim=-1), owner.mix, dtype), approximate="tanh")
+        return _lin(h, owner.head, torch.float32)
     if stride:
         return conv_transpose3d_same(x.float(), owner.head_weight, owner.head_bias, stride)
     return _lin(x, owner.head, torch.float32)
@@ -204,25 +243,27 @@ def _project(owner: nn.Module, x: torch.Tensor, stride) -> torch.Tensor:
 
 class MedNeXtTaskHead(nn.Module):
     """One task head: ``num_blocks`` stride-1 MedNeXt blocks (ratio 2) at
-    the decoder's width, then the float32 projection."""
+    the decoder's width, then its projection (``_add_projection``)."""
 
-    def __init__(self, channels, out_channels, num_blocks, kernel, norm, dtype, up_stride=None, up_kernel=2):
+    def __init__(self, channels, out_channels, num_blocks, kernel, norm, dtype, up_stride=None, up_kernel=2,
+                 two_d=False, refine_width=None, raw_channels=0):
         super().__init__()
         self.blocks = nn.ModuleList(
-            MedNeXtBlock(channels, 2, kernel, norm, dtype=dtype) for _ in range(int(num_blocks))
+            MedNeXtBlock(channels, 2, kernel, norm, dtype=dtype, two_d=two_d) for _ in range(int(num_blocks))
         )
-        self.stride = up_stride
-        _add_projection(self, channels, out_channels, up_stride, up_kernel)
+        self.stride, self.dtype = up_stride, dtype
+        _add_projection(self, channels, out_channels, up_stride, up_kernel, refine_width, raw_channels)
 
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, plain: bool = False, raw: torch.Tensor | None = None) -> torch.Tensor:
         for blk in self.blocks:
             x = blk(x, plain)
-        return _project(self, x, self.stride)
+        return _project(self, x, self.stride, self.dtype, raw)
 
 
 class MedNeXt(nn.Module):
-    """(B, Z, Y, X, in_channels) float -> (B, Z, Y, X, out_channels) float32,
-    or with task heads {name: (B, Z, Y, X, head channels) float32}."""
+    """(B, Z, Y, X, in_channels) float -> (B, Z, Y, X, out_channels) float32;
+    with deep supervision ``{"out", "ds_0", ...}``, with task heads ``{name:
+    (B, Z, Y, X, head channels)}`` (and the ``ds_k``)."""
 
     def __init__(
         self,
@@ -242,59 +283,73 @@ class MedNeXt(nn.Module):
         patchify_kernel: int = 2,
         patchify_stride: Sequence[int] = (2, 2, 2),
         patchify_head: str = "linear",
+        patchify_head_width: int = 16,
         patchify_full_res_width: int | None = None,
     ):
         super().__init__()
-        for flag, what in (
-            (deep_supervision, "deep supervision"),
-            (two_d, "2-D mode"),
-            (patchify_stem and patchify_head != "linear", f"patchify head '{patchify_head}'"),
-            (patchify_stem and patchify_full_res_width, "the full-resolution hybrid"),
-        ):
-            if flag:
-                raise NotImplementedError(f"MedNeXt {what} is not ported yet")
+        if patchify_head not in ("linear", "refine"):
+            raise ValueError(f"patchify_head must be linear or refine, got {patchify_head!r}")
         C, R, B = base_channels, list(exp_ratios), list(block_counts)
         self.in_channels, self.out_channels, self.dtype = in_channels, out_channels, dtype
-        self.remat = bool(remat)
+        self.kernel, self.two_d, self.remat = kernel, bool(two_d), bool(remat)
         self.patchify_stem = bool(patchify_stem)
+        self.hybrid = self.patchify_stem and bool(patchify_full_res_width)
+        # the heads' transposed conv back to full resolution: patchify without the hybrid
         self.stride = None
-        if self.patchify_stem:
-            self.stride = tuple(int(s) for s in patchify_stride)
+        blk = dict(dtype=dtype, two_d=two_d)
+        if self.hybrid:
+            w0 = int(patchify_full_res_width)
+            self.stem = nn.Linear(in_channels, w0)
+            self.full_res_enc = MedNeXtBlock(w0, 2, kernel, norm, **blk)
+            self.full_res_down = MedNeXtBlock(w0, 2, kernel, norm, out_channels=C, stride=2, **blk)
+            self.full_res_up = MedNeXtBlock(C, 2, kernel, norm, out_channels=w0, stride=2, transpose=True, **blk)
+            self.full_res_dec = MedNeXtBlock(w0, 2, kernel, norm, **blk)
+        elif self.patchify_stem:
+            self.stride = (1, 2, 2) if two_d else tuple(int(s) for s in patchify_stride)
             pk = tuple(1 if s == 1 else patchify_kernel for s in self.stride)
             self.stem_weight = nn.Parameter(torch.zeros(C, in_channels, *pk))
             self.stem_bias = nn.Parameter(torch.zeros(C))
         else:
             self.stem = nn.Linear(in_channels, C)
+        head_ch = int(patchify_full_res_width) if self.hybrid else C
+        refine = dict(refine_width=patchify_head_width if patchify_head == "refine" else None,
+                      raw_channels=in_channels)
         self.heads = None
         if heads:
             self.heads = nn.ModuleDict()
             for h in heads:
-                self.heads[h.name] = MedNeXtTaskHead(C, h.out_channels, h.num_blocks, kernel, norm, dtype,
-                                                     self.stride, patchify_kernel)
+                self.heads[h.name] = MedNeXtTaskHead(head_ch, h.out_channels, h.num_blocks, kernel, norm, dtype,
+                                                     self.stride, patchify_kernel, two_d, **refine)
         else:
-            _add_projection(self, C, out_channels, self.stride, patchify_kernel)
+            _add_projection(self, head_ch, out_channels, self.stride, patchify_kernel, **refine)
 
         def stage(i, ch):
-            return _Stage(ch, B[i], R[i], kernel, norm, dtype, self.remat)
+            return _Stage(ch, B[i], R[i], kernel, norm, dtype, self.remat, two_d)
 
         self.enc = nn.ModuleList(stage(i, C * 2**i) for i in range(4))
         self.down = nn.ModuleList(
-            MedNeXtBlock(C * 2**i, R[i], kernel, norm, out_channels=C * 2 ** (i + 1), stride=2, dtype=dtype)
+            MedNeXtBlock(C * 2**i, R[i], kernel, norm, out_channels=C * 2 ** (i + 1), stride=2, **blk)
             for i in range(4)
         )
         self.bottleneck = stage(4, C * 16)
         self.up = nn.ModuleList(
-            MedNeXtBlock(
-                C * 2 ** (4 - j), R[5 + j], kernel, norm, out_channels=C * 2 ** (3 - j),
-                stride=2, transpose=True, dtype=dtype,
-            )
+            MedNeXtBlock(C * 2 ** (4 - j), R[5 + j], kernel, norm, out_channels=C * 2 ** (3 - j), stride=2,
+                         transpose=True, **blk)
             for j in range(4)
         )
         self.dec = nn.ModuleList(stage(5 + j, C * 2 ** (3 - j)) for j in range(4))
+        self.ds_heads = (nn.ModuleDict({str(i): nn.Linear(C * 2**i, out_channels) for i in (3, 2, 1)})
+                         if deep_supervision else None)
 
     def forward(self, x: torch.Tensor, plain: bool = False):
         dt = self.dtype
-        if self.patchify_stem:
+        raw = x
+        full_res = None
+        if self.hybrid:
+            x = self.full_res_enc(_lin(x, self.stem, dt), plain)
+            full_res = x
+            x = self.full_res_down(x, plain)
+        elif self.patchify_stem:
             x = conv3d_same(x.to(dt), self.stem_weight.to(dt), self.stem_bias.to(dt), self.stride)
         else:
             x = _lin(x, self.stem, dt)
@@ -304,12 +359,19 @@ class MedNeXt(nn.Module):
             skips.append(x)
             x = self.down[i](x, plain)
         x = self.bottleneck(x, plain)
+        ds = []
         for j in range(4):
             x = self.up[j](x, plain) + skips[3 - j]
             x = self.dec[j](x, plain)
+            if self.ds_heads is not None and j < 3:
+                ds.append(_lin(x, self.ds_heads[str(3 - j)], torch.float32))
+        if full_res is not None:
+            x = self.full_res_dec(self.full_res_up(x, plain) + full_res, plain)
+        ds_out = {f"ds_{k}": d for k, d in enumerate(reversed(ds))}
         if self.heads is not None:
-            return {name: head(x, plain) for name, head in self.heads.items()}
-        return _project(self, x, self.stride)
+            return {**{name: head(x, plain, raw) for name, head in self.heads.items()}, **ds_out}
+        out = _project(self, x, self.stride, dt, raw)
+        return {"out": out, **ds_out} if self.ds_heads is not None else out
 
 
 @register_architecture("mednext", "MedNeXt S/B/M/L ConvNeXt-style 3D U-Net")
@@ -342,5 +404,6 @@ def build_mednext(model_cfg) -> MedNeXt:
         patchify_kernel=int(m.patchify_kernel),
         patchify_stride=tuple(m.patchify_stride or (2, 2, 2)),
         patchify_head=str(m.patchify_head),
+        patchify_head_width=int(m.patchify_head_width),
         patchify_full_res_width=m.patchify_full_res_width,
     )

@@ -26,8 +26,10 @@ Pallas kernel. The 1x1x1 convs are ``F.linear`` over the channel axis.
 Activations are channels-last ``(B, Z, Y, X, C)`` in the compute dtype;
 parameters stay float32 and are cast per call, as flax does (bias added
 after the conv's rounding, in the compute dtype). The head computes in
-float32 and the output is float32. Deep supervision raises
-``NotImplementedError``.
+float32 and the output is float32. With ``deep_supervision`` each decoder
+level i > 0 also has a float32 1x1x1 head (``ds_heads[str(i)]``, JAX
+``ds_head_{i}``), and the forward returns ``{"out": head, "ds_k": ...}``,
+``ds_0`` the finest of them (JAX ``rsunet.py:63-84``).
 """
 
 from __future__ import annotations
@@ -59,8 +61,6 @@ class RSUNet(nn.Module):
         deep_supervision: bool = False,
     ):
         super().__init__()
-        if deep_supervision:
-            raise NotImplementedError("RSUNet deep supervision is not ported yet")
         width = [int(w) for w in width]
         n = len(width) - 1
         if down_factors is not None:
@@ -83,6 +83,8 @@ class RSUNet(nn.Module):
         self.up = nn.ModuleList(nn.Linear(width[i + 1], width[i]) for i in range(n))
         self.dec = nn.ModuleList(ResBlock(width[i], width[i], kernel(i), **blk) for i in range(n))
         self.head = nn.Linear(width[0], out_channels)
+        self.ds_heads = (nn.ModuleDict({str(i): nn.Linear(width[i], out_channels) for i in range(n - 1, 0, -1)})
+                         if deep_supervision else None)
 
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         x = self.stem(x, plain)
@@ -92,11 +94,18 @@ class RSUNet(nn.Module):
             skips.append(x)
             x = downsample(x, self.factors[i])
         x = self.bottleneck(x, plain)
+        ds = []
         for i in reversed(range(len(self.dec))):
             x = upsample_trilinear(x, self.factors[i])
             x = linear(x, self.up[i], self.dtype) + skips[i]
             x = self.dec[i](x, plain)
-        return F.linear(x.float(), self.head.weight, self.head.bias)
+            if self.ds_heads is not None and i > 0:
+                h = self.ds_heads[str(i)]
+                ds.append(F.linear(x.float(), h.weight, h.bias))
+        out = F.linear(x.float(), self.head.weight, self.head.bias)
+        if self.ds_heads is None:
+            return out
+        return {"out": out, **{f"ds_{k}": d for k, d in enumerate(reversed(ds))}}
 
 
 @register_architecture("rsunet", "Residual symmetric U-Net (anisotropic EM default)")

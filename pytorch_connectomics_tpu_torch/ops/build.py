@@ -117,13 +117,13 @@ def stream(index: int) -> int:
 def _declare(name: str, lib: ctypes.CDLL) -> None:
     p, i, f, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     if name == "mednext_block":
-        lib.mednext_ring_plan.argtypes = [i] * 15 + [p]
+        lib.mednext_ring_plan.argtypes = [i] * 16 + [p]
         lib.mednext_ring_plan.restype = i
-        lib.mednext_dw_stats.argtypes = [p] * 4 + [i] * 11 + [p]
+        lib.mednext_dw_stats.argtypes = [p] * 4 + [i] * 13 + [p]
         lib.mednext_dw_stats.restype = i
-        lib.mednext_apply_bf16.argtypes = [p] * 10 + [i] * 13 + [f, p]
+        lib.mednext_apply_bf16.argtypes = [p] * 10 + [i] * 14 + [f, p]
         lib.mednext_apply_bf16.restype = i
-        lib.mednext_block_apply_f32.argtypes = [p] * 10 + [i] * 7 + [f, p]
+        lib.mednext_block_apply_f32.argtypes = [p] * 10 + [i] * 8 + [f, p]
         lib.mednext_block_apply_f32.restype = i
         lib.mednext_error_string.argtypes = [i]
         lib.mednext_error_string.restype = ctypes.c_char_p

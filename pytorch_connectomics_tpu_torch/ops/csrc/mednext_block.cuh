@@ -1,27 +1,12 @@
 // Device helpers shared by the port's kernels: type conversion, tanh-GELU,
 // the tensor-core fragment helpers (cp.async, ldmatrix, mma.sync) of
-// conv3d_3x3.cu and fused_mlp.cu, and the haloed-tile staging + masked
-// depthwise 3^3 stencil of the MedNeXt block's float32 apply check path
-// (mednext_block.cu; the ring kernels walk the slab ring of ring.cuh).
+// conv3d_3x3.cu and fused_mlp.cu, the depthwise 3^3 taps of the ring
+// kernels, and the types of the MedNeXt block's float32 apply check path
+// (mednext_block.cu, which stages its haloed tiles and runs its masked
+// stencil; the ring kernels walk the slab ring of ring.cuh).
 //
 // Layout: activations are channels-last, x[b][v][c] with v = (z*Y + y)*X + x
-// the flat voxel index inside one batch element. A tile is T consecutive flat
-// voxels [v0, v0+T). Its 3^3 neighbourhood lies inside three contiguous flat
-// runs, one per z-offset dz in {-1,0,1}:
-//     [v0 + dz*Y*X - X - 1,  v0 + T + dz*Y*X + X + 1)
-// or inside nine runs of T + 2 voxels, one per (dz, dy):
-//     [v0 + dz*Y*X + dy*X - 1,  v0 + T + dz*Y*X + dy*X + 1)
-// whichever is smaller (the nine runs where X > T + 2, so that no row width
-// outgrows shared memory). Staging a tile is coalesced copies of those runs
-// of C values, issued as asynchronous 16-byte copies (cp.async) so that all
-// of them are in flight at once. A run index that falls outside the volume is
-// zero-filled; a neighbour that is outside the volume only through y or x
-// wrap-around is masked by its coordinates in the stencil, which gives exact
-// SAME zero padding.
-//
-// The stencil works on channel pairs: a thread owns one pair, holds its 54
-// taps in registers and walks voxels, kVox at a time, reading two channels
-// per load.
+// the flat voxel index inside one batch element.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -79,16 +64,12 @@ __device__ __forceinline__ float gelu_tanh_fast(float v) {
   return 0.5f * v * (1.f + t);
 }
 
-// The halo of a tile: `runs` runs of L voxels; tap (dz, dy, dx) of tile voxel
-// t lies in run dz (3 runs) or 3 dz + dy (9 runs) at t + dy * ys + dx.
+// The halo of a tile of the float32 apply pass (halo_of of mednext_block.cu):
+// `runs` runs of L voxels; tap (dz, dy, dx) of tile voxel t lies in run dz
+// (K runs) or K dz + dy (K^2 runs) at t + dy * ys + dx.
 struct Halo {
   int runs, L, ys;
 };
-
-__host__ __device__ __forceinline__ Halo halo_of(int tile, int X) {
-  if (3 * (tile + 2 * X + 2) <= 9 * (tile + 2)) return Halo{3, tile + 2 * X + 2, X};
-  return Halo{9, tile + 2, 0};
-}
 
 __device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src, bool valid) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
@@ -163,30 +144,6 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const unsigned (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Issue the copies of the runs of tile [v0, v0+tile) (halo_of) into
-// halo[runs][L][C]; the caller waits (cp_async_wait_all) and synchronises.
-// Requires C * sizeof(T) % 16 == 0 and a 16-byte aligned x.
-template <typename T>
-__device__ __forceinline__ void stage_halo(const T* __restrict__ xb, T* __restrict__ halo, int v0, int tile,
-                                           const Geom& g) {
-  const Halo h = halo_of(tile, g.X);
-  const int L = h.L;
-  constexpr int per = 16 / (int)sizeof(T);  // values per 16-byte copy
-  const int vec = g.C / per;
-  const int YX = g.Y * g.X;
-  const int total = h.runs * L * vec;
-  for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    const int d = i / (L * vec);
-    const int rem = i - d * L * vec;
-    const int vox = rem / vec;
-    const int q = rem - vox * vec;
-    const int dz = h.runs == 3 ? d : d / 3, dy = h.runs == 3 ? 0 : d - 3 * dz;
-    const int flat = v0 + (dz - 1) * YX + (dy - 1) * g.X - 1 + vox;
-    const bool valid = flat >= 0 && flat < g.N;
-    cp_async16(halo + (d * L + vox) * g.C + q * per, xb + (valid ? (long long)flat * g.C + q * per : 0), valid);
-  }
-}
-
 __device__ __forceinline__ float2 load2(const float* p) { return *reinterpret_cast<const float2*>(p); }
 __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
@@ -203,58 +160,15 @@ __device__ __forceinline__ void load_taps(float2 (&k)[27], const float* __restri
   }
 }
 
-// Voxels a thread runs through the stencil at once: independent
-// accumulators break the 27-long FMA chain of one voxel.
+// Voxels a thread runs through the float32 apply's stencil at once:
+// independent accumulators break the K^3-long FMA chain of one voxel.
 constexpr int kVox = 4;
 
-// Which of the three z (y, x) offsets of a voxel lie inside the volume, as
-// bits 0..2 of a mask; all zero for a voxel past the tile or the volume.
+// Which of the K z (y, x) offsets of a voxel lie inside the volume, as bits
+// 0..K-1 of a mask (the float32 apply pass's tap_mask).
 struct TapMask {
   unsigned z, y, x;
 };
-
-__device__ __forceinline__ TapMask tap_mask(int t, int v0, int tile, const Geom& g) {
-  const int v = v0 + t;
-  if (t >= tile || v >= g.N) return TapMask{0u, 0u, 0u};
-  const int YX = g.Y * g.X;
-  const int z = v / YX;
-  const int rem = v - z * YX;
-  const int y = rem / g.X;
-  const int x = rem - y * g.X;
-  return TapMask{2u | (z > 0 ? 1u : 0u) | (z < g.Z - 1 ? 4u : 0u), 2u | (y > 0 ? 1u : 0u) | (y < g.Y - 1 ? 4u : 0u),
-                 2u | (x > 0 ? 1u : 0u) | (x < g.X - 1 ? 4u : 0u)};
-}
-
-// dw(x) without bias for channel pair p at the kVox tile voxels t[j]: sum
-// over each voxel's in-volume taps, f32 accumulate; zero for a masked-out voxel.
-template <typename T>
-__device__ __forceinline__ void stencil2(const T* __restrict__ halo, const float2 (&k)[27], const int (&t)[kVox],
-                                         const TapMask (&m)[kVox], int p, int tile, const Geom& g,
-                                         float2 (&acc)[kVox]) {
-  const Halo hl = halo_of(tile, g.X);
-  const T* h = halo + 2 * p;
-#pragma unroll
-  for (int j = 0; j < kVox; ++j) acc[j] = make_float2(0.f, 0.f);
-#pragma unroll
-  for (int dz = 0; dz < 3; ++dz) {
-#pragma unroll
-    for (int dy = 0; dy < 3; ++dy) {
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx) {
-        const float2 kk = k[dz * 9 + dy * 3 + dx];
-#pragma unroll
-        for (int j = 0; j < kVox; ++j) {
-          if ((m[j].z >> dz) & (m[j].y >> dy) & (m[j].x >> dx) & 1u) {
-            const int run = hl.runs == 3 ? dz : 3 * dz + dy;
-            const float2 v = load2(h + (run * hl.L + t[j] + dy * hl.ys + dx) * g.C);
-            acc[j].x = fmaf(kk.x, v.x, acc[j].x);
-            acc[j].y = fmaf(kk.y, v.y, acc[j].y);
-          }
-        }
-      }
-    }
-  }
-}
 
 // Host side: the SM count of the current device, asked once per device.
 inline int sm_count() {

@@ -56,13 +56,19 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 
 def setup_config(args: argparse.Namespace) -> Config:
-    """Config from ``--config`` and the ``key=value`` overrides; ``--params``
-    fills ``--best-params``, and ``--tune-trials``/``--tune-trial-timeout``
-    set the tuning's trial count and per-trial timeout."""
+    """Config from ``--config`` and the ``key=value`` overrides;
+    ``--fast-dev-run`` makes it one epoch of two steps and one validation
+    batch; ``--params`` fills ``--best-params``, and
+    ``--tune-trials``/``--tune-trial-timeout`` set the tuning's trial count
+    and per-trial timeout."""
     cfg = load_config(args.config, overrides=args.overrides, mode=args.mode)
     if args.shard_id is not None:
         cfg.system.shard_id = args.shard_id
         cfg.system.num_shards = args.num_shards or 1
+    if args.fast_dev_run:
+        cfg.optimization.max_epochs = 1
+        cfg.optimization.n_steps_per_epoch = 2
+        cfg.optimization.limit_val_batches = 1
     if args.params and not args.best_params:
         args.best_params = args.params
     if args.tune_trials:

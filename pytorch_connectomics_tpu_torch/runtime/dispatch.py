@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import datetime
 import logging
+import pickle
 import sys
 import time
 from pathlib import Path
@@ -28,6 +29,9 @@ from ..config.schema import Config, to_dict
 from ..models import build_model
 from ..models.convert import load_flax_params
 from ..training.checkpoint import CheckpointManager, check_config_hash, is_checkpoint_dir
+from ..training.model_weights import (
+    DEFAULT_PREFIXES, TORCH_SUFFIXES, is_foreign, load_external_weights, read_torch_checkpoint, state_dict_arrays,
+)
 from ..utils.device import resolve_device
 from .cli import parse_args, setup_config
 from .test_pipeline import run_test_pipeline
@@ -78,13 +82,21 @@ def resolve_latest_checkpoint(cfg: Config) -> Optional[str]:
     return str(max(candidates, key=lambda p: (p / "state.pt").stat().st_mtime))
 
 
-def load_weights(model: torch.nn.Module, checkpoint: str, cfg: Config) -> Dict[str, Any]:
+def load_weights(model: torch.nn.Module, checkpoint: str, cfg: Config,
+                 external_prefix: Optional[str] = None) -> Dict[str, Any]:
     """A ``.npz`` of flax params goes through the weight bridge; a port
     checkpoint directory (``state.pt`` + ``metadata.json``) loads its model
     weights, or its EMA weights when ``monitor.ema`` is enabled for
     validation, and has its config hash checked against ``cfg``; anything
-    else is read as a state_dict of the port (optionally under a
-    ``state_dict``/``model`` key). Returns what was restored."""
+    else is read as a torch state_dict (optionally under a
+    ``state_dict``/``model`` key): one whose keys are exactly the port's
+    loads by name, a foreign one (``.pt/.pth/.ckpt/.pytorch``: BANIS,
+    nnU-Net, a reference run) through the shape-bucket matcher
+    (``training/model_weights.load_external_weights``), its keys stripped
+    of ``external_prefix`` or of ``model.``/``module.``/``network.``. The
+    by-name load reads tensors and containers only; a foreign file that
+    pickles more is unpickled in full, with a warning
+    (``read_torch_checkpoint``). Returns what was restored."""
     if str(checkpoint).endswith(".npz"):
         load_flax_params(model, checkpoint)
         return {"checkpoint": str(checkpoint), "kind": "flax"}
@@ -96,12 +108,28 @@ def load_weights(model: torch.nn.Module, checkpoint: str, cfg: Config) -> Dict[s
         logger.info("restored %s (step %d)", checkpoint, step)
         return {"checkpoint": str(checkpoint), "kind": "port", "step": step,
                 "config_hash": meta.get("config_hash"), "config_hash_matches": matches}
-    sd = torch.load(checkpoint, map_location="cpu", weights_only=True)
+    foreign = is_foreign(checkpoint)
+    try:
+        ckpt = read_torch_checkpoint(checkpoint)
+    except pickle.UnpicklingError:
+        if not foreign:
+            raise
+        ckpt = None  # pickles more than tensors: no state dict of the port
+    sd = ckpt
     for key in ("state_dict", "model"):
         if isinstance(sd, dict) and key in sd and isinstance(sd[key], dict):
             sd = sd[key]
-    model.load_state_dict(sd)
-    return {"checkpoint": str(checkpoint), "kind": "state_dict"}
+    if isinstance(sd, dict) and set(sd) == set(model.state_dict()):
+        model.load_state_dict(sd)
+        return {"checkpoint": str(checkpoint), "kind": "state_dict"}
+    if not foreign:
+        raise ValueError(f"{checkpoint}: keys are not the port's, and it is no torch checkpoint ({TORCH_SUFFIXES})")
+    prefixes = (external_prefix,) if external_prefix else DEFAULT_PREFIXES
+    if ckpt is None:
+        ckpt = read_torch_checkpoint(checkpoint, full=True)
+    stats = load_external_weights(model, state_dict_arrays(ckpt, prefixes))
+    logger.info("external checkpoint %s: %s", checkpoint, stats)
+    return {"checkpoint": str(checkpoint), "kind": "external", "stats": stats}
 
 
 def _write_config(cfg: Config, run_dir: Path) -> None:
@@ -138,6 +166,8 @@ def dispatch_runtime(args=None) -> Dict[str, Any]:
 
         trainer = Trainer(cfg, run_dir=run_dir, device=device)
         try:
+            if cfg.model.mednext.upkern_from:
+                results["upkern"] = trainer.upkern()
             if args.checkpoint:
                 trainer.restore(args.checkpoint, reset_optimizer=args.reset_optimizer, reset_epoch=args.reset_epoch)
             if args.mode == "train":
@@ -157,7 +187,7 @@ def dispatch_runtime(args=None) -> Dict[str, Any]:
     t0 = time.perf_counter()
     model = build_model(cfg.model, device=device, seed=cfg.system.seed)
     if args.checkpoint:
-        results["restored"] = load_weights(model, args.checkpoint, cfg)
+        results["restored"] = load_weights(model, args.checkpoint, cfg, args.external_prefix)
     logger.info("model ready in %.3fs", time.perf_counter() - t0)
     if args.mode == "test":
         results["metrics"] = run_test_pipeline(cfg, model, run_dir, args.checkpoint, device)

@@ -15,8 +15,9 @@
 
 Batches reach the device through pinned host memory with non-blocking
 copies. Profiler windows, ReduceLROnPlateau, early stopping, the
-visualizer, anomaly detection and UpKern initialisation raise
-``NotImplementedError`` when configured.
+visualizer and anomaly detection raise ``NotImplementedError`` when
+configured. UpKern initialisation (``model.mednext.upkern_from``) is
+:meth:`Trainer.upkern`, which the runtime calls before any restore.
 """
 
 from __future__ import annotations
@@ -57,7 +58,6 @@ def _check_ported(cfg: Config) -> None:
         (mon.early_stopping.enabled, "early stopping"),
         (int((mon.logging.images or {}).get("log_every_n_epochs", 0)), "the visualizer"),
         (mon.detect_anomaly, "anomaly detection"),
-        (cfg.model.mednext.upkern_from, "UpKern initialisation"),
     ):
         if flag:
             raise NotImplementedError(f"{what} is not ported yet")
@@ -108,6 +108,18 @@ class Trainer:
             self.run_dir, cfg.monitor.logging.backend, wandb_cfg=cfg.monitor.wandb,
             config={"config_hash": self.cfg_hash},
         )
+
+    def upkern(self) -> Dict[str, int]:
+        """Initialise the model from ``model.mednext.upkern_from``
+        (``training/model_weights.upkern_initialize``) and re-seed the EMA
+        copy with the new weights (JAX ``dispatch.py:210-223``)."""
+        from .model_weights import upkern_initialize
+
+        stats = upkern_initialize(self.cfg.model, self.model)
+        if self.state.ema is not None:
+            self.state.ema = {n: p.detach().clone() for n, p in self.model.named_parameters()}
+        logger.info("UpKern-initialised from %s: %s", self.cfg.model.mednext.upkern_from, stats)
+        return stats
 
     # -- checkpoint resume -------------------------------------------------
 

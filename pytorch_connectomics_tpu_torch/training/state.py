@@ -170,6 +170,7 @@ def make_val_step(orchestrator, use_ema: bool = False) -> Callable[[TrainState, 
                 out = model(batch["image"])
             total, logs = orchestrator(out, batch.get("label"), mask=batch.get("mask"), weight=batch.get("weight"))
         res = {k: float(v) for k, v in logs.items()}
+        out = out["out"] if isinstance(out, dict) and "out" in out else out
         if "label" in batch and not isinstance(out, dict):  # no binary metrics of task heads, as in JAX
             t = batch["label"]
             c = min(out.shape[-1], t.shape[-1])

@@ -27,12 +27,12 @@ def device():
     return torch.device("cuda")
 
 
-def _params(rng, c, r, cout, device):
+def _params(rng, c, r, cout, device, taps=(3, 3, 3)):
     def t(a):
         return torch.from_numpy(np.asarray(a, np.float32)).to(device)
 
     return dict(
-        w_dw=t(rng.standard_normal((c, 1, 3, 3, 3)) * 0.3),
+        w_dw=t(rng.standard_normal((c, 1, *taps)) * 0.3 * (27 / np.prod(taps)) ** 0.5),
         gamma=t(1.0 + 0.1 * rng.standard_normal(c)),
         beta=t(0.1 * rng.standard_normal(c)),
         w1=t(rng.standard_normal((r, c)) / np.sqrt(c)),
@@ -93,11 +93,11 @@ def test_kernels_match_plain_at_the_nisb_stages(device, shape, dtype):
             assert k["card_smem_bytes"] == k["smem_bytes"] and k["card_items"] == k["items"], (shape, k)
 
 
-def _check_pair(device, shape, dtype):
+def _check_pair(device, shape, dtype, taps=(3, 3, 3)):
     b, z, y, xs, c, r, cout = shape
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.standard_normal((b, z, y, xs, c), dtype=np.float32)).to(device, dtype)
-    p = _params(rng, c, r, cout, device)
+    p = _params(rng, c, r, cout, device, taps)
     stats = fb.dw_stats(x, p["w_dw"])
     want_stats = fb.dw_stats_plain(x, p["w_dw"])
     torch.cuda.synchronize()
@@ -162,6 +162,114 @@ def test_forced_ragged_plans_match_plain(device, case):
     tol = 2.0 ** (np.floor(np.log2(max(top, 1.0))) - 6)
     err = (out.float() - want.float()).abs().max().item()
     assert err <= tol, (err, tol, ap)
+
+
+# (B, Z, Y, X, C, R, Cout) of the k 5 pair: MedNeXt-S's stride-1 stages on
+# the fast recipe's window (the UpKern leg) at batch 2, and ragged shapes
+# that no band, segment or run of three divides
+K5_SHAPES = [
+    (2, 96, 64, 48, 32, 64, 32),
+    (2, 48, 32, 24, 64, 128, 64),
+    (2, 24, 16, 12, 128, 256, 128),
+    (2, 12, 8, 6, 256, 512, 256),
+    (2, 6, 4, 3, 512, 1024, 512),
+    (3, 5, 7, 9, 16, 32, 16),
+    (1, 4, 6, 10, 32, 64, 48),
+    (1, 3, 9, 40, 16, 32, 16),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", K5_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_k5_kernels_match_plain(device, shape, dtype):
+    _check_pair(device, shape, dtype, taps=(5, 5, 5))
+
+
+# (B, Z, Y, X, C, R, Cout) of MedNeXt's 2-D mode, (1, k, k) taps embedded in
+# k^3: tutorials/mito_mitolab.yaml's stride-1 stages on its (1, 256, 256)
+# window (first and last), and stacks of z 4
+TWO_D_SHAPES = [
+    (4, 1, 256, 256, 32, 64, 32),
+    (4, 1, 16, 16, 512, 1024, 512),
+    (2, 4, 20, 22, 64, 128, 64),
+    (3, 1, 7, 9, 16, 32, 16),
+]
+
+
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", TWO_D_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_two_d_kernels_match_plain(device, shape, dtype, k):
+    _check_pair(device, shape, dtype, taps=(1, k, k))
+
+
+# ragged plans forced on the k 5 kernels, as FORCED: statistics (ty, seg,
+# ring slots 6 or 5[, tx]), apply (ty, seg, cs, rc[, tx])
+K5_FORCED = [
+    ((2, 7, 10, 13, 32, 64, 32), (4, 3, 6), (4, 3, 32, 64)),
+    ((1, 5, 7, 11, 64, 256, 64), (3, 2, 5), (3, 2, 32, 64)),
+    ((2, 5, 6, 40, 32, 64, 32), (2, 2, 6, 12), (3, 2, 32, 64, 9)),
+    ((1, 4, 5, 17, 64, 256, 48), (3, 2, 5, 6), (2, 3, 16, 32, 3)),
+]
+
+
+@pytest.mark.parametrize("case", K5_FORCED, ids=lambda c: "x".join(map(str, c[0])))
+def test_k5_forced_ragged_plans_match_plain(device, case):
+    (b, z, y, xs, c, r, cout), sp, ap = case
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((b, z, y, xs, c), dtype=np.float32)).to(device)
+    p = _params(rng, c, r, cout, device, (5, 5, 5))
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = x.to(dtype)
+        want_stats = fb.dw_stats_plain(xd, p["w_dw"])
+        stats = fb.dw_stats(xd, p["w_dw"], plan=dict(zip(("ty", "seg", "ring", "tx"), sp)))
+        torch.cuda.synchronize()
+        scale = fb.dw_stats_plain(xd.abs(), p["w_dw"].abs())[:, :1].abs() + want_stats[:, 1:]
+        assert torch.all((stats - want_stats).abs() <= 1e-5 * scale + 1e-3), (dtype, sp)
+    xb = x.to(torch.bfloat16)
+    pb = dict(p, w1=p["w1"].to(torch.bfloat16), w2=p["w2"].to(torch.bfloat16))
+    want_stats = fb.dw_stats_plain(xb, p["w_dw"])
+    out = fb.fused_block_apply(xb, want_stats, **pb, plan=dict(zip(("ty", "seg", "cs", "rc", "tx"), ap)))
+    want = fb.fused_block_apply_plain(xb, want_stats, **pb)
+    torch.cuda.synchronize()
+    top = want.float().abs().max().item()
+    tol = 2.0 ** (np.floor(np.log2(max(top, 1.0))) - 6)
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= tol, (err, tol, ap)
+
+
+@pytest.mark.parametrize("k", [3, 5])
+def test_dw_stats_channel_groups_match_plain(device, k):
+    """The statistics kernel over 1, 2 and 4 channel groups (its grid's
+    second axis; each group's plan forced) against plain: the groups read x
+    at its full channel stride and write their channels' partials."""
+    rng = np.random.default_rng(6)
+    b, z, y, xs, c = 2, 5, 6, 7, 64
+    x = torch.from_numpy(rng.standard_normal((b, z, y, xs, c), dtype=np.float32)).to(device)
+    w = torch.from_numpy(rng.standard_normal((c, 1, k, k, k)).astype(np.float32)).to(device)
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = x.to(dtype)
+        want = fb.dw_stats_plain(xd, w)
+        scale = fb.dw_stats_plain(xd.abs(), w.abs())[:, :1].abs() + want[:, 1:]
+        for groups in (1, 2, 4):
+            plan = dict(fb.stats_plan((b, z, y, xs, c // groups), dtype, k), groups=groups)
+            got = fb.dw_stats(xd, w, plan=plan)
+            torch.cuda.synchronize()
+            assert torch.all((got - want).abs() <= 1e-5 * scale + 1e-3), (dtype, groups)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_k5_card_plan_matches_the_planner(device, dtype):
+    for c, r, spatial in FAST_STAGES:
+        shape = (16, *spatial, c)
+        plan = fb.card_plan(shape, dtype, r, k=5)
+        for name in ("dw_stats", "fused_block_apply"):
+            kp = plan[name]
+            if "ty" not in kp:
+                continue
+            assert kp["card_smem_bytes"] == kp["smem_bytes"] and kp["card_items"] == kp["items"], (shape, kp)
+            assert kp["blocks_per_sm"] >= 1 and 1 <= kp["grid"] <= kp["items"], (shape, kp)
+        print(shape, dtype, plan)
 
 
 def test_dw_stats_is_bit_identical_across_launches(device):
@@ -283,6 +391,19 @@ def test_depthwise_kernels_match_plain(device, shape, dtype):
     _check_depthwise(device, shape, dtype)
 
 
+# (B, Z, Y, X, C) of the 2-D MedNeXt-S's stride-1 training stages on
+# tutorials/mito_mitolab.yaml's (1, 256, 256) patch at its batch 32, and a
+# stack of z 4: the depthwise kernels on (1, 3, 3) taps embedded in 3^3
+DW_TWO_D = [(32, 1, 256, 256, 32), (32, 1, 128, 128, 64), (32, 1, 64, 64, 128), (32, 1, 32, 32, 256),
+            (32, 1, 16, 16, 512), (2, 4, 20, 22, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", DW_TWO_D, ids=lambda s: "x".join(map(str, s)))
+def test_depthwise_kernels_match_plain_in_two_d(device, shape, dtype):
+    _check_depthwise(device, shape, dtype, two_d=True)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("shape", DW_NISB, ids=lambda s: "x".join(map(str, s)))
 def test_depthwise_kernels_match_plain_at_the_nisb_stages(device, shape, dtype):
@@ -293,12 +414,14 @@ def test_depthwise_kernels_match_plain_at_the_nisb_stages(device, shape, dtype):
         assert k["card_smem_bytes"] == k["smem_bytes"] and k["card_items"] == k["items"], (shape, k)
 
 
-def _check_depthwise(device, shape, dtype):
+def _check_depthwise(device, shape, dtype, two_d=False):
     c = shape[-1]
     rng = np.random.default_rng(1)
     x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device, dtype)
     dy = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device, dtype)
     w = torch.from_numpy(rng.standard_normal((c, 1, 3, 3, 3)).astype(np.float32) * 0.3).to(device)
+    if two_d:  # (1, 3, 3) taps in the centre z plane of 3^3, as a 2-D MedNeXt block trains them
+        w = fb.taps3d(w[:, :, 1:2].contiguous())
     b = torch.from_numpy(rng.standard_normal(c).astype(np.float32)).to(device)
     for args in ((x, w, b), (dy, w.flip((2, 3, 4)), None)):  # forward, input gradient
         got, want = dwk.depthwise3x3(*args), dwk.depthwise3x3_plain(*args)

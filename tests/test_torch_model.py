@@ -72,8 +72,21 @@ def test_bridge_rejects_a_mismatched_tree(tmp_path):
 
 
 def test_unported_options_raise():
+    """Deep supervision, 2-D mode and kernel 5 are ported (the parity tests
+    are tests/test_torch_mednext_2d.py, test_torch_mednext_k5.py and
+    test_torch_deep_supervision.py): they build and run; an unknown patchify
+    head still raises."""
+    x = torch.zeros((1, 16, 16, 16, 1))
     for field, value in (("deep_supervision", True), ("dim", "2d"), ("kernel_size", 5)):
         cfg = tiny_cfg()
         setattr(cfg.mednext, field, value)
-        with pytest.raises(NotImplementedError):
-            build_model(cfg, device="cpu")
+        with torch.no_grad():
+            out = build_model(cfg, device="cpu")(x)
+        if field == "deep_supervision":
+            assert sorted(out) == ["ds_0", "ds_1", "ds_2", "out"] and out["ds_0"].shape[1] == 8
+        else:
+            assert out.shape == (1, 16, 16, 16, cfg.out_channels)
+    cfg = tiny_cfg()
+    cfg.mednext.patchify_stem, cfg.mednext.patchify_head = True, "conv"
+    with pytest.raises(ValueError):
+        build_model(cfg, device="cpu")

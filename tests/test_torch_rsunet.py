@@ -134,7 +134,8 @@ def test_resblock_conv_names():
 def test_nucmm_config_builds_and_refuses_training():
     """The NucMM-Z config builds; under grad (training) the 3^3 convs run
     through the conv's autograd Function and every parameter gets a
-    gradient, as the plain path's; deep supervision still raises."""
+    gradient, as the plain path's; with deep supervision it returns a dict,
+    ``out`` alone at one level (the heads sit on levels above the finest)."""
     cfg = load_config("tutorials/nuc_nucmm.yaml", overrides=["model.rsunet.width=[8,12]"], mode="test")
     model = build_model(cfg.model, device="cpu", seed=0)
     assert isinstance(model, RSUNet) and model.factors == [(2, 2, 2)]
@@ -149,5 +150,5 @@ def test_nucmm_config_builds_and_refuses_training():
     out.sum().backward()
     assert model.stem.conv.weight.grad is not None
     cfg.model.loss.deep_supervision = True
-    with pytest.raises(NotImplementedError, match="deep supervision"):
-        build_model(cfg.model, device="cpu")
+    out = build_model(cfg.model, device="cpu")(x)
+    assert list(out) == ["out"] and out["out"].shape == (1, 8, 8, 8, cfg.model.out_channels)
