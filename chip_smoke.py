@@ -1,9 +1,9 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py [--phases 9,10,12] [--phases instance] [--phases 15,16] [--phases unet] [--phases nisb]
-                          [--phases multitask] [--phases mednext]
+                          [--phases multitask] [--phases mednext] [--phases training]
 
-With --phases, only phases 1-2 and the listed ones of 3-20 run, and the
+With --phases, only phases 1-2 and the listed ones of 3-21 run, and the
 last line is the same {"ok": true, ...} object with the phases run; the
 kernels line needs every phase and is printed by a full run only.
 
@@ -61,7 +61,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
               plain path, bf16 and f32; 15 launches per forward; four fault
               probes that the bf16 limit must reject
  11. nucmm    the port's CLI, --mode test of tutorials/nuc_nucmm.yaml on a
-              seeded synthetic 128x768x768 volume with connected-component
+              seeded synthetic 96x640x640 volume with connected-component
               ground truth: prediction, bcd decode, instance metrics; then
               the predict step alone, timed and profiled
  12. probes   the measurement entry points (tools/microbench.py, tools/probes.py)
@@ -123,7 +123,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
               untrained model's prediction of B; fails unless the trained
               adapted Rand on B is below the untrained one's; then
               tutorials/nuc_nucmm.yaml --mode train for 10 steps on phase
-              11's synthetic 128x768x768 volume
+              11's synthetic 96x640x640 volume
  17. unet     the MONAI U-Nets: the conv's kernels (forward, input gradient,
               weight gradient) against their plain versions at each of
               BasicUNet's 18 layer shapes on tutorials/vesicle_xm.yaml (bf16 at
@@ -209,7 +209,35 @@ Phases (any failure exits non-zero; no phase catches its own failure):
               24x1024x1024 with jaccard, dice and instance F1, the untrained
               control, and inference.direct_2d once; fails unless both
               trained legs' jaccard is above the control's)
- 21. report   a {"kernels": [...]} line, then {"ok": true, "device": ...} last
+ 21. training the rest of training: tutorials/syn_cremi.yaml (MONAI U-Net
+              [28,36,48,64,80], 2 residual units, bf16, batch 8 of
+              16x160x160, aug_standard on the host, the polarity target, BCE
+              with pos_weight auto plus Dice): the conv's kernels (forward,
+              input gradient, weight gradient) against their plain versions
+              at each of its stride-1 3^3 layer shapes (bf16, timed beside
+              bounds and one PyTorch call), its forward and one train step
+              (batch 4) kernel path against plain path (a fault probe; f32
+              leaves at batch 2), launches per forward and per step; then through the
+              CLI on seeded synthetic://blobs volumes made on the card (odd
+              ids pre-, even post-synaptic): train 20 steps on 48x480x480
+              (fails unless the loss stays finite and the mean of its last
+              five steps is below that of its first five), test the
+              held-out 32x320x320 (flip TTA xy, overlap 0.5,
+              polarity2instance, instance F1) and the same untrained (instance
+              F1 reported, not gated: the image carries no sign of an id's
+              parity); the fast recipe's aug_strong on the card against the
+              same applies on the CPU with the card's draws (geometric and
+              masking transforms bit for bit, intensity within 1e-6) with no
+              device-to-host copy, its train step timed with and without
+              it, then its train leg (12 steps, phase 13's
+              volume) with host augmentation as shipped and with
+              data.augmentation.on_device=true (steps/s, wait, device step);
+              tutorials/fiber_linghu.yaml's train leg (SoftClDiceLoss, 8 steps);
+              the instance recipe's train leg with MalisLoss on its raw
+              segmentation (2 steps, the host's pair-count seconds); 4 steps of
+              syn_cremi under the step_lr (StepLR each step) and
+              reduce_on_plateau (a validation each step, patience 0) profiles
+ 22. report   a {"kernels": [...]} line, then {"ok": true, "device": ...} last
 
 Imports torch and the port only. Details go to build/chip_smoke/chip_smoke.json.
 """
@@ -255,8 +283,9 @@ TRAIN_LOSS_TOL = 1e-3
 TRAIN_GRAD_TOL = 0.05
 NUCMM = ROOT / "tutorials" / "nuc_nucmm.yaml"
 NUCMM_BATCH = 8
-# phase 11's test volume (cut from the Lucchi++ test geometry 165x1024x768 to make room for phase 20)
-NUCMM_SHAPE = (128, 768, 768)
+# phase 11's test volume (cut from the Lucchi++ test geometry 165x1024x768 to make room for phase 20, then
+# from 128x768x768 for phase 21)
+NUCMM_SHAPE = (96, 640, 640)
 # ((Z, Y, X), Cin, Cout, launches per forward) of RSUNet's 3^3 convs on the
 # NucMM-Z recipe's 64^3 window (width [28, 36, 48, 64], iso)
 CONV_SHAPES = [
@@ -2032,7 +2061,7 @@ def unet_leaf_errors(got, want, floor):
     return errs, {n: g.norm().item() / top for n, g in want.items()}, whole
 
 
-def unet_conv_row(c3, dev, spatial, cin, cout, per_fwd, dtype, batch):
+def unet_conv_row(c3, dev, spatial, cin, cout, per_fwd, dtype, batch, recipe="vesicle"):
     """The conv's three kernels at one BasicUNet layer shape: the forward
     against its plain version (bf16 two ulps at the largest output, f32 1e-5
     of the summed magnitudes) with its plan (Cin chunks past one launch's
@@ -2054,13 +2083,13 @@ def unet_conv_row(c3, dev, spatial, cin, cout, per_fwd, dtype, batch):
     else:
         rel, tol = None, 2.0 ** (math.floor(math.log2(want.float().abs().max().item())) - 6)
         bad = err > tol
-    what = f"BasicUNet {spatial} {cin}->{cout} {str(dtype).split('.')[-1]} batch {batch}"
+    what = f"{recipe} {spatial} {cin}->{cout} {str(dtype).split('.')[-1]} batch {batch}"
     if bad:
         fail(f"conv3d_3x3 {what}: error {err:.3g} (relative {rel}) over {tol:.3g}")
     plan = c3.kernel_plan(tuple(x.shape), cout, dtype)
     plain_ms = time_ms(lambda: c3.conv3d_3x3_plain(x, w, b), 3) if es == 2 else None
     del x, w, b, got, want
-    row = conv_backward_row(c3, dev, "vesicle", spatial, cin, cout, per_fwd, dtype, batch)
+    row = conv_backward_row(c3, dev, recipe, spatial, cin, cout, per_fwd, dtype, batch)
     row["forward"] = dict(row.get("forward", {}), max_abs_err=err, max_rel_err=rel, tol=tol, plan=plan,
                           plain_ms=plain_ms)
     log(f"    forward plan: {plan['chunks']} Cin chunk(s) of {plan['cin_chunk']}, tile {plan['xs']}x{plan['r']}, "
@@ -4079,23 +4108,451 @@ def kernel_line_rows(rows, main_counts, dw_rows, dw_counts):
     return kernels
 
 
+
+# phase 21: the rest of training. syn_cremi (MONAI U-Net [28,36,48,64,80],
+# 2 residual units, bf16, batch 8 of 16x160x160, the polarity target) and the
+# other legs on seeded volumes made on the card (the CREMI and fibre volumes
+# are not in the repository): synthetic://blobs, whose odd ids are pre- and
+# even ids post-synaptic as seg_to_polarity reads them
+SYN_CREMI = ROOT / "tutorials" / "syn_cremi.yaml"
+FIBER = ROOT / "tutorials" / "fiber_linghu.yaml"
+SYN_BATCH = 8
+# the train step held to the plain path at half the recipe's batch: the plain
+# path's autograd keeps every tap's f32 product, past 80 GB at batch 8
+SYN_STEP_BATCH = 4
+SYN_TRAIN_SHAPE = (48, 480, 480)
+SYN_TEST_SHAPE = (32, 320, 320)
+SYN_STEPS = 20
+FIBER_SHAPE = (64, 384, 384)
+FIBER_STEPS = 8
+OPT_STEPS = 4
+# the fast recipe's volume for the augmentation check (a batch of 96^3 patches)
+AUG_CHECK_SHAPE = (96, 384, 384)
+# the CPU apply of the card's augmentation draws: intensity transforms within
+# this (sums and powers in another order), the others bit for bit
+AUG_TOL = 1e-6
+
+
+def syn_cremi_batch(cfg, dev):
+    """Batch 8 of syn_cremi's training patch from its pipeline (host
+    augmentation off) on a seeded blob volume made on the card."""
+    from pytorch_connectomics_tpu_torch.config import load_config
+    from pytorch_connectomics_tpu_torch.data.pipeline import build_pipelines
+
+    shape = "shape={},{},{}".format(*SYN_TRAIN_SHAPE)
+    bcfg = load_config(SYN_CREMI, mode="train", overrides=[
+        f"data.train.image=synthetic://blobs/syn_step_image?{shape}&seed=50",
+        f"data.train.label=synthetic://blobs/syn_step_label?{shape}&seed=50", "data.augmentation.enabled=false"])
+    train, _ = build_pipelines(bcfg, dev)
+    try:
+        batch = train.make_batch(0)
+    finally:
+        train.close()
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def syn_cremi_kernels(c3, dev, out):
+    """syn_cremi's stride-1 3^3 convs: their shapes recorded on one forward,
+    each shape's kernels against their plain versions (bf16 at batch 8,
+    timed); the forward and one train step of the kernel path against the
+    plain path (whole gradient in bf16 at batch SYN_STEP_BATCH, each leaf in
+    f32 at batch 2), with a fault probe; launches per forward and per step."""
+    from collections import Counter
+
+    from pytorch_connectomics_tpu_torch.config import load_config
+    from pytorch_connectomics_tpu_torch.losses import LossOrchestrator
+    from pytorch_connectomics_tpu_torch.models import build_model
+    from pytorch_connectomics_tpu_torch.models.layers import Conv
+
+    cfg = load_config(SYN_CREMI, mode="train")
+    m, dl = cfg.model, cfg.data.dataloader
+    if (m.arch.type != "monai_unet" or list(m.monai.filters) != [28, 36, 48, 64, 80] or m.monai.num_res_units != 2
+            or m.compute_dtype != "bfloat16" or dl.batch_size != SYN_BATCH or list(dl.patch_size) != [16, 160, 160]
+            or [t.name for t in cfg.data.label_transform.targets] != ["polarity"]):
+        fail("syn_cremi.yaml no longer trains the MONAI U-Net [28,36,48,64,80] bf16 on batch 8 of 16x160x160 polarity")
+    model = build_model(m, device=dev, seed=0)
+    with torch.no_grad():  # seeded nonzero conv biases: a bias the kernel drops must show
+        g = torch.Generator().manual_seed(1)
+        for mod in model.modules():
+            if isinstance(mod, Conv):
+                mod.bias.copy_(0.1 * torch.randn(mod.bias.shape, generator=g))
+    batch = syn_cremi_batch(cfg, dev)
+    x, y = batch["image"], batch["label"]
+    seen = Counter()
+    conv = c3.conv3d_3x3
+
+    def record(xx, w, b=None, **kw):
+        seen[(tuple(xx.shape[1:4]), xx.shape[-1], w.shape[0])] += 1
+        return conv(xx, w, b, **kw)
+
+    record.launches = 0
+    c3.conv3d_3x3 = record
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        c3.conv3d_3x3 = conv
+    rows = []
+    for (spatial, cin, cout), per in sorted(seen.items(), key=lambda kv: (-kv[0][0][1], kv[0][1], kv[0][2])):
+        rows.append(unet_conv_row(c3, dev, spatial, cin, cout, per, torch.bfloat16, SYN_BATCH, recipe="syn_cremi"))
+        torch.cuda.empty_cache()
+    per_fwd = {k: sum(r[k]["ms"] * r["launches_per_step"] for r in rows) for k in ("forward", "input_grad", "wgrad")}
+    bounds = {k: sum(r[k]["bound_ms"] * r["launches_per_step"] for r in rows) for k in ("forward", "input_grad", "wgrad")}
+    libs = {k: sum(r[k]["library_ms"] * r["launches_per_step"] for r in rows) for k in ("forward", "input_grad", "wgrad")}
+    n_fwd = sum(seen.values())
+    log(f"syn_cremi's {n_fwd} stride-1 3^3 convs ({len(rows)} shapes) a forward (bf16, batch 8 of 16x160x160): "
+        + ", ".join(f"{k} {per_fwd[k]:.3f} ms (bound {bounds[k]:.3f}, library {libs[k]:.3f})"
+                    for k in ("forward", "input_grad", "wgrad")))
+    with torch.no_grad():
+        c3.reset_launch_counts()
+        got = model(x)
+        torch.cuda.synchronize()
+        fwd_counts = conv_counts(c3)
+        want = model(x, plain=True)
+        fwd_err = ((got - want).abs().max() / want.abs().max()).item()
+        fwd_ms = time_ms(lambda: model(x), 5)
+        plain_fwd_ms = time_ms(lambda: model(x, plain=True), 2)
+    if fwd_counts != dict(forward=n_fwd, input_grad=0, wgrad=0):
+        fail(f"one syn_cremi forward should launch conv3d_3x3 {n_fwd} times: {fwd_counts}")
+    if not torch.isfinite(got).all() or fwd_err > UNET_BF16_TOL:
+        fail(f"syn_cremi forward kernel vs plain: {fwd_err:.4g} of max |plain| > {UNET_BF16_TOL}")
+    log(f"syn_cremi forward (bf16, batch 8 of 16x160x160): {fwd_ms:.2f} ms (plain path {plain_fwd_ms:.1f} ms), kernel "
+        f"vs plain {fwd_err:.4g} of max |plain| (limit {UNET_BF16_TOL}), launches {fwd_counts}")
+    del got, want
+    orch = LossOrchestrator(cfg.model.loss)
+    xs, ys = x[:SYN_STEP_BATCH].contiguous(), y[:SYN_STEP_BATCH].contiguous()
+
+    def loss_and_grads(plain, net=model, xx=xs, yy=ys):
+        net.zero_grad(set_to_none=True)
+        loss, _ = orch(net(xx, plain=plain), yy)
+        loss.backward()
+        return loss.item(), {n: p.grad.detach().clone() for n, p in net.named_parameters()}
+
+    model.train()
+    c3.reset_launch_counts()
+    loss_k, g_k = loss_and_grads(False)
+    torch.cuda.synchronize()
+    step_counts = conv_counts(c3)
+    torch.cuda.empty_cache()
+    if step_counts["forward"] != n_fwd or step_counts["wgrad"] != n_fwd or not 0 < step_counts["input_grad"] <= n_fwd:
+        fail(f"one syn_cremi train step should launch {n_fwd} forward and weight-gradient convs and an input gradient "
+             f"for each but a first layer's: {step_counts}")
+    loss_p, g_p = loss_and_grads(True)
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    errs, shares, whole = unet_leaf_errors(g_k, g_p, UNET_SMALL_LEAF)
+    log(f"syn_cremi step (batch {SYN_STEP_BATCH}): loss kernel {loss_k:.6f} plain {loss_p:.6f} (rel err {loss_err:.3g}); whole gradient "
+        f"{whole:.4g} (limit {UNET_TRAIN_GRAD_TOL}); launches {step_counts}")
+    if not math.isfinite(loss_k) or loss_err > UNET_TRAIN_LOSS_TOL:
+        fail(f"syn_cremi train step loss: kernel {loss_k} vs plain {loss_p} (rel err {loss_err:.3g})")
+    if whole > UNET_TRAIN_GRAD_TOL:
+        fail(f"syn_cremi train step gradient: error {whole:.3g} > {UNET_TRAIN_GRAD_TOL}")
+    wgrad = c3.conv3d_3x3_wgrad
+
+    def drop_tap(xx, dd, grid=None):
+        gg = wgrad(xx, dd).clone()
+        gg[:, :, 0, 0, 0] = 0
+        return gg
+
+    drop_tap.launches = 0
+    c3.conv3d_3x3_wgrad = drop_tap
+    try:
+        probe = unet_leaf_errors(loss_and_grads(False)[1], g_p, UNET_SMALL_LEAF)[2]
+    finally:
+        c3.conv3d_3x3_wgrad = wgrad
+    if probe <= UNET_TRAIN_GRAD_TOL:
+        fail(f"the gradient limit {UNET_TRAIN_GRAD_TOL} lets the dropped-tap probe pass on syn_cremi: {probe}")
+    # the same step in f32 at batch 2 (the f32 kernels): every leaf within UNET_F32_GRAD_TOL
+    fcfg = load_config(SYN_CREMI, overrides=["optimization.precision=32"], mode="train")
+    fmodel = build_model(fcfg.model, device=dev, seed=0)
+    fmodel.load_state_dict(model.state_dict())
+    fmodel.train()
+    f_args = dict(net=fmodel, xx=x[:2].contiguous(), yy=y[:2].contiguous())
+    _, fg_k = loss_and_grads(False, **f_args)
+    _, fg_p = loss_and_grads(True, **f_args)
+    ferrs, _, fwhole = unet_leaf_errors(fg_k, fg_p, UNET_SMALL_LEAF)
+    fworst = max(ferrs, key=ferrs.get)
+    log(f"syn_cremi f32 step (batch 2): worst leaf {fworst} {ferrs[fworst]:.3g} (limit {UNET_F32_GRAD_TOL}), whole "
+        f"{fwhole:.3g}; dropped-tap probe (bf16) {probe:.4g}")
+    if ferrs[fworst] > UNET_F32_GRAD_TOL:
+        fail(f"syn_cremi f32 train step leaf {fworst}: error {ferrs[fworst]:.3g} > {UNET_F32_GRAD_TOL}")
+    out.update(conv_rows=rows, conv_launches_per_forward=n_fwd, kernel_ms_per_forward=per_fwd,
+               bound_ms_per_forward=bounds, library_ms_per_forward=libs,
+               forward=dict(ms=fwd_ms, plain_ms=plain_fwd_ms, err=fwd_err, launches=fwd_counts),
+               step=dict(loss_err=loss_err, grad_err=whole, probe_err=probe, f32_worst_leaf=[fworst, ferrs[fworst]],
+                         launches=step_counts))
+    del model, fmodel, batch
+    torch.cuda.empty_cache()
+    return n_fwd, step_counts
+
+
+def check_device_augmentation(dev, out):
+    """The fast recipe's on-device augmentation on one batch (8 of 96^3, its
+    host pipeline's, augmentation off, from a seeded em2 AUG_CHECK_SHAPE
+    volume) on the card: each transform's apply on the card's draws against
+    the same apply on the CPU with those draws (geometric and masking
+    transforms bit for bit, intensity within AUG_TOL), the whole
+    augmentation with no device-to-host copy (CUDA's sync debug mode raises
+    at any), its time on the card, and the recipe's train step on that batch
+    timed with and without it (CUDA events)."""
+    from pytorch_connectomics_tpu_torch.config import load_config
+    from pytorch_connectomics_tpu_torch.data.pipeline import build_pipelines
+    from pytorch_connectomics_tpu_torch.losses import LossOrchestrator
+    from pytorch_connectomics_tpu_torch.models import build_model
+    from pytorch_connectomics_tpu_torch.ops import augment
+    from pytorch_connectomics_tpu_torch.training.loop import device_augment_fn
+    from pytorch_connectomics_tpu_torch.training.optim import build_optimizer
+    from pytorch_connectomics_tpu_torch.training.state import create_train_state, make_train_step, step_generator
+
+    shape = "shape={},{},{}".format(*AUG_CHECK_SHAPE)
+    cfg = load_config(RECIPE, mode="train", overrides=[
+        f"data.train.image=synthetic://em2/aug_check_image?{shape}&seed=13",
+        f"data.train.label=synthetic://em2/aug_check_label?{shape}&seed=13", "data.augmentation.on_device=true"])
+    train, _ = build_pipelines(cfg, dev)
+    try:
+        if train.augment is not None:
+            fail("with augmentation.on_device the host pipeline still augments")
+        host = train.make_batch(0)
+    finally:
+        train.close()
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    geometric = {name for name, _, _, geo in augment.DEVICE_ORDER if geo}
+    gen = step_generator(cfg.system.seed, 0, dev)
+    n, shp = batch["image"].shape[0], tuple(batch["image"].shape[1:])
+    checks, cur = {}, batch
+    for name, draw, apply, kw in augment.device_steps(cfg.data.augmentation):
+        d = draw(gen, n, shp, **kw)
+        got = apply(cur, d, **kw)
+        want = apply({k: v.cpu() for k, v in cur.items()}, {k: v.cpu() for k, v in d.items()}, **kw)
+        errs = {k: (got[k].cpu() - want[k]).abs().max().item() for k in want}
+        exact = name in geometric or name in ("missing_section", "slice_shift", "missing_parts", "cut_noise", "stripe")
+        if any(got[k].device != batch["image"].device for k in got):
+            fail(f"on-device {name} moved a key off the card")
+        if (exact and any(errs.values())) or max(errs.values()) > AUG_TOL:
+            fail(f"on-device {name}: the card against the CPU on the same draws {errs} (exact: {exact})")
+        checks[name] = dict(max_abs_err=max(errs.values()), exact=exact)
+        cur = got
+    fn = device_augment_fn(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        aug = fn(dict(batch), step_generator(cfg.system.seed, 1, dev))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    aug_ms = time_ms(lambda: fn(dict(batch), step_generator(cfg.system.seed, 1, dev)), 10)
+    changed = [k for k in batch if not torch.equal(aug[k], batch[k])]
+    model = build_model(cfg.model, device=dev, seed=0)
+    model.train()
+    orch = LossOrchestrator(cfg.model.loss)
+    opt, schedule = build_optimizer(cfg.optimization, model, 100)
+    state = create_train_state(model, opt)
+    step_ms = {}
+    for tag, aug_fn in (("without", None), ("with", fn)):
+        step = make_train_step(orch, schedule, gradient_clip=cfg.optimization.gradient_clip_val, augment_fn=aug_fn,
+                               seed=cfg.system.seed)
+        step_ms[tag] = time_ms(lambda: step(state, dict(batch)), 5)
+    log(f"on-device augmentation (aug_strong's {len(checks)} device transforms, batch 8 of 96^3): {aug_ms:.2f} ms a "
+        f"batch on the card, no device-to-host copy, keys changed {changed}; the fast recipe's train step "
+        f"{step_ms['without']:.1f} ms without it, {step_ms['with']:.1f} ms with it (CUDA events); card vs CPU on the "
+        "card's draws: " + ", ".join(f"{k} {v['max_abs_err']:.3g}" for k, v in checks.items()))
+    out["augment"] = dict(checks=checks, ms=aug_ms, keys_changed=changed, step_ms=step_ms)
+    del model, opt, state, batch, aug
+    torch.cuda.empty_cache()
+
+
+def phase_training_rest(c3, dwk, dev, work, report):
+    log("== phase 21: the rest of training: syn_cremi (kernels, train -> test, control), the fast recipe with host "
+        "and on-device augmentation, fiber_linghu, MALIS, SGD/StepLR and ReduceLROnPlateau ==")
+    import shutil
+
+    from pytorch_connectomics_tpu_torch.data.io import read_volume
+    from pytorch_connectomics_tpu_torch.losses import malis
+    from pytorch_connectomics_tpu_torch.runtime.cli import parse_args
+    from pytorch_connectomics_tpu_torch.runtime.dispatch import dispatch_runtime
+
+    out = report["training"] = {}
+    t_phase = time.perf_counter()
+
+    def lap(what):
+        out.setdefault("seconds", {})[what] = time.perf_counter() - t_phase
+        log(f"-- {what}: {out['seconds'][what]:.1f} s into phase 21")
+
+    n_fwd, step_counts = syn_cremi_kernels(c3, dev, out)
+    lap("syn_cremi kernels")
+    logs = LogRecords(("timing[",))
+    port_log = logging.getLogger("pytorch_connectomics_tpu_torch")
+    port_log.addHandler(logs)
+
+    def blobs(split, tag, shp, seed):
+        s = "shape={},{},{}".format(*shp)
+        return [f"data.{split}.{r}=synthetic://blobs/{tag}_{r}?{s}&seed={seed}" for r in ("image", "label")]
+
+    def run(recipe, mode, root, extra):
+        c3.reset_launch_counts()
+        dwk.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = dispatch_runtime(parse_args(["--config", str(recipe), "--device", str(dev), "--mode", mode,
+                                           f"save_path={root}", *extra]))
+        torch.cuda.synchronize()
+        res["seconds"] = time.perf_counter() - t0
+        res["launches"] = dict(conv_counts(c3), **{k.__name__: k.launches for k in dwk.KERNELS})
+        return res
+
+    def train_leg(recipe, root, extra, steps, what):
+        res = run(recipe, "train", root, ["monitor.logging.scalar.loss_every_n_steps=1", *extra])
+        st = train_leg_stats(res)
+        if st["train_stats"]["steps"] != steps or not res["checkpoint"] or not st["losses"] \
+                or not all(math.isfinite(v) for v in st["losses"]):
+            fail(f"{what} train leg: {st['train_stats']['steps']} steps, checkpoint {res['checkpoint']}, "
+                 f"losses {st['losses']}")
+        recs = [json.loads(line) for line in (Path(res["run_dir"]) / "metrics.jsonl").read_text().splitlines()]
+        st["lr"] = [r["train_lr"] for r in recs if "train_lr" in r]
+        st["launches"], st["seconds"] = res["launches"], res["seconds"]
+        log(f"{what}: {steps} steps in {st['train_stats']['seconds']:.2f} s ({st['steps_per_s']:.3f} steps/s, "
+            f"{st['step_ms']:.1f} ms a step, {st['data_wait_ms_per_step']:.1f} of it waiting; pipeline "
+            f"{st['pipeline_host_ms_per_batch']:.1f} ms a batch); losses {st['losses'][0]:.4f} -> {st['losses'][-1]:.4f}; "
+            f"lr {st['lr'][0]:.3g} -> {st['lr'][-1]:.3g}; launches {res['launches']}")
+        return res, st
+
+    def test_leg(root, extra):
+        res = run(SYN_CREMI, "test", root, extra)
+        (timing,) = logs.take("timing[")
+        res["timing"] = dict(zip(("read+normalise", "predict", "save", "decode", "evaluate"), timing[1:]))
+        scores = next(iter(res["metrics"].values()))
+        if "instance_f1" not in scores or not all(math.isfinite(v) for v in scores.values()):
+            fail(f"syn_cremi test metrics: {scores}")
+        if res["launches"]["forward"] <= 0 or res["launches"]["forward"] % n_fwd:
+            fail(f"the syn_cremi test leg did not run its forwards through the conv kernel: {res['launches']}")
+        log(f"syn_cremi test ({'restored ' + str(res['restored']['checkpoint']) if res.get('restored') else 'untrained'}"
+            f"): {res['seconds']:.2f} s = " + ", ".join(f"{k} {v:.3f}" for k, v in res["timing"].items())
+            + f"; {scores}; launches {res['launches']}")
+        return res, scores
+
+    try:
+        # syn_cremi as shipped but for its depth: train 20 steps, test the held-out volume, again untrained
+        root, control_root = work / "syn_cremi", work / "syn_cremi_control"
+        for r in (root, control_root):
+            shutil.rmtree(r, ignore_errors=True)
+        train, st = train_leg(SYN_CREMI, root, [f"optimization.n_steps_per_epoch={SYN_STEPS}", "optimization.max_epochs=1",
+                                                *blobs("train", "syn_train", SYN_TRAIN_SHAPE, 51)], SYN_STEPS, "syn_cremi train")
+        want = {k: v * SYN_STEPS for k, v in step_counts.items()}
+        if {k: train["launches"][k] for k in want} != want:
+            fail(f"the syn_cremi train leg should launch {step_counts} convs a step for {SYN_STEPS} steps: "
+                 f"{train['launches']}")
+        head, tail = np.mean(st["losses"][:5]), np.mean(st["losses"][-5:])
+        if not tail < head:
+            fail(f"the syn_cremi train loss did not fall over {SYN_STEPS} steps (mean of the first five {head:.4f}, of "
+                 f"the last five {tail:.4f}): {st['losses']}")
+        lap("syn_cremi train")
+        test_data = blobs("test", "syn_test", SYN_TEST_SHAPE, 52)
+        test, scores = test_leg(root, test_data)
+        if (test.get("restored") or {}).get("checkpoint") != train["checkpoint"]:
+            fail(f"the syn_cremi test leg did not restore {train['checkpoint']}: {test.get('restored')}")
+        pred_file = next(f for f in Path(test["run_dir"]).iterdir() if f.name.endswith(("_prediction.h5",
+                                                                                             "_prediction.npy")))
+        if "_tta_x4_" not in pred_file.name:
+            fail(f"the syn_cremi test leg did not predict with the recipe's 4 flip variants: {pred_file.name}")
+        pred = read_volume(str(pred_file))
+        if pred.shape != (3, *SYN_TEST_SHAPE) or not np.isfinite(pred).all():
+            fail(f"syn_cremi prediction {pred.shape} (finite: {np.isfinite(pred).all()})")
+        decoded = next((f for f in Path(test["run_dir"]).iterdir() if "decoded_polarity2instance" in f.name), None)
+        if decoded is None:
+            fail("the syn_cremi test leg wrote no polarity2instance labels")
+        lap("syn_cremi test")
+        control, control_scores = test_leg(control_root, test_data)
+        if control.get("restored"):
+            fail(f"the syn_cremi control restored a checkpoint: {control['restored']}")
+        lap("syn_cremi control")
+        log(f"syn_cremi held-out instance F1 {scores['instance_f1']:.4f} (trained {SYN_STEPS} steps) against "
+            f"{control_scores['instance_f1']:.4f} (untrained); not gated: the blobs' image carries no sign of an id's "
+            "parity")
+        out["syn_cremi"] = dict(train=st, test=dict(seconds=test["seconds"], timing=test["timing"], metrics=scores,
+                                                    launches=test["launches"]),
+                                control=dict(seconds=control["seconds"], metrics=control_scores))
+        # the fast recipe in one call: host augmentation as shipped, then on the device
+        check_device_augmentation(dev, out)
+        lap("augmentation check")
+        shape = "shape={},{},{}".format(*LUCCHI_SHAPE)
+        fast_over = [f"data.train.image=synthetic://em2/lucchi_train_image?{shape}&seed=11",
+                     f"data.train.label=synthetic://em2/lucchi_train_label?{shape}&seed=11",
+                     f"optimization.n_steps_per_epoch={FAST_STEPS}", "optimization.max_epochs=1"]
+        fast = {}
+        for tag, extra in (("host", []), ("device", ["data.augmentation.on_device=true"])):
+            r = work / f"fast_{tag}_aug"
+            shutil.rmtree(r, ignore_errors=True)
+            _, fst = train_leg(RECIPE, r, fast_over + extra, FAST_STEPS, f"fast recipe, augmentation on the {tag}")
+            if fst["launches"]["depthwise3x3"] <= 0:
+                fail(f"the fast recipe's {tag} leg ran no depthwise kernel: {fst['launches']}")
+            fst["device_step_ms"] = fst["step_ms"] - fst["data_wait_ms_per_step"]
+            fast[tag] = fst
+            lap(f"fast recipe {tag}")
+        log("fast recipe, augmentation on the host vs on the device: " + "; ".join(
+            f"{k} {v['steps_per_s']:.3f} steps/s, waited {v['data_wait_ms_per_step']:.1f} ms a step, "
+            f"{v['device_step_ms']:.1f} ms a step besides, pipeline {v['pipeline_host_ms_per_batch']:.1f} ms a batch"
+            for k, v in fast.items()))
+        out["fast_recipe"] = fast
+        # fiber_linghu's train leg (SoftClDiceLoss); its test leg needs seg_2d
+        r = work / "fiber"
+        shutil.rmtree(r, ignore_errors=True)
+        _, fst = train_leg(FIBER, r, [f"optimization.n_steps_per_epoch={FIBER_STEPS}", "optimization.max_epochs=1",
+                                      *blobs("train", "fiber_train", FIBER_SHAPE, 53)], FIBER_STEPS, "fiber_linghu train")
+        if fst["launches"]["wgrad"] <= 0:
+            fail(f"the fiber_linghu train leg ran no conv kernels: {fst['launches']}")
+        out["fiber"] = fst
+        lap("fiber_linghu train")
+        # one step of the instance recipe with MALIS on its raw segmentation
+        r = work / "malis"
+        shutil.rmtree(r, ignore_errors=True)
+        malis.host_seconds = 0.0
+        _, mst = train_leg(INSTANCE, r, ["optimization.n_steps_per_epoch=2", "optimization.max_epochs=1",
+                                         "model.loss.losses=[{function: MalisLoss}]", "data.label_transform.targets=[]"],
+                           2, "instance recipe with MalisLoss")
+        mst["malis_host_seconds_per_step"] = malis.host_seconds / 2
+        if mst["launches"]["depthwise3x3"] <= 0 or not malis.host_seconds > 0:
+            fail(f"the MALIS leg ran no kernels or no pair counts: {mst['launches']}, {malis.host_seconds}")
+        log(f"MALIS: the host's pair counts {mst['malis_host_seconds_per_step']:.3f} s a step (batch 8 of 32x64x64) "
+            f"of {mst['step_ms'] / 1e3:.3f} s")
+        out["malis"] = mst
+        lap("malis")
+        # a few steps under the step_lr and reduce_on_plateau profiles (plateau: a validation each step, patience 0)
+        for profile, extra in (("step_lr", ["optimization.scheduler.step_size=1", "optimization.scheduler.interval=step"]),
+                               ("reduce_on_plateau", ["optimization.scheduler.patience=0",
+                                                      "optimization.val_check_interval=1",
+                                                      "optimization.limit_val_batches=1",
+                                                      *blobs("val", "syn_val", (16, 320, 320), 55)])):
+            r = work / f"syn_{profile}"
+            shutil.rmtree(r, ignore_errors=True)
+            _, pst = train_leg(SYN_CREMI, r, [f"optimization.profile={profile}", f"optimization.n_steps_per_epoch={OPT_STEPS}",
+                                              "optimization.max_epochs=1",
+                                              *blobs("train", "syn_train", SYN_TRAIN_SHAPE, 51), *extra],
+                               OPT_STEPS, f"syn_cremi under {profile}")
+            if profile == "step_lr" and not (len(set(pst["lr"])) > 1 and pst["lr"][-1] < pst["lr"][0]):
+                fail(f"StepLR with step_size 1 did not lower the learning rate: {pst['lr']}")
+            out[profile] = pst
+        lap("optimizer profiles")
+    finally:
+        port_log.removeHandler(logs)
+    if not out["fast_recipe"]["device"]["launches"]["depthwise3x3"]:
+        fail("the on-device augmentation leg ran no kernels")
+
+
 def main(argv=None) -> None:
     import argparse
 
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU and check it.")
     ap.add_argument("--phases", default=None,
-                    help="comma-separated phases of 3-20 (14 also as 'instance', 17 as 'unet', 18 as 'nisb', 19 as "
-                    "'multitask', 20 as 'mednext') to run after the device and build phases (default: all)")
+                    help="comma-separated phases of 3-21 (14 also as 'instance', 17 as 'unet', 18 as 'nisb', 19 as "
+                    "'multitask', 20 as 'mednext', 21 as 'training') to run after the device and build phases "
+                    "(default: all)")
     args = ap.parse_args(argv)
     phases = None
-    names = {"instance": 14, "unet": 17, "nisb": 18, "multitask": 19, "mednext": 20}
+    names = {"instance": 14, "unet": 17, "nisb": 18, "multitask": 19, "mednext": 20, "training": 21}
     if args.phases is not None:
         try:
             phases = {names.get(p) or int(p) for p in args.phases.split(",")}
         except ValueError:
-            ap.error("--phases takes phases 3-20")
-    if phases is not None and not phases <= set(range(3, 21)):
-        ap.error("--phases takes phases 3-20")
+            ap.error("--phases takes phases 3-21")
+    if phases is not None and not phases <= set(range(3, 22)):
+        ap.error("--phases takes phases 3-21")
 
     def want(n):
         return phases is None or n in phases
@@ -4215,8 +4672,11 @@ def main(argv=None) -> None:
     if want(20):
         phase_mednext(dwk, fb, dev, work, report)
         mark(20)
+    if want(21):
+        phase_training_rest(c3, dwk, dev, work, report)
+        mark(21)
 
-    log("== phase 21: report ==")
+    log("== phase 22: report ==")
     report["total_seconds"] = time.perf_counter() - started
     log(f"chip_smoke ran in {report['total_seconds']:.1f} s")
     device = {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}

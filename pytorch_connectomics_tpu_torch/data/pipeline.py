@@ -225,11 +225,12 @@ class PatchPipeline:
 
 def build_pipelines(cfg: Config, device=None):
     """Config -> (train PatchPipeline, val PatchPipeline or None). The train
-    pipeline augments on the host; augmentation configured to run on the
-    device raises, since it is not ported yet."""
-    aug = cfg.data.augmentation
-    if aug.on_device and build_augmentation_fn(aug) is not None:
-        raise NotImplementedError("on-device augmentation is not ported yet")
+    pipeline augments on the host, and not at all when
+    ``augmentation.on_device`` is set (JAX ``pipeline.py:288``): the train
+    step then runs the transforms that have a device form
+    (``ops/augment.py``), and the host-only ones (elastic and the others)
+    are dropped, as JAX's code drops them (ROADMAP C)."""
+    aug = None if cfg.data.augmentation.on_device else cfg.data.augmentation
     train_ds, val_ds = make_train_val_datasets(cfg, device)
     dl = cfg.data.dataloader
     train_pipe = PatchPipeline(

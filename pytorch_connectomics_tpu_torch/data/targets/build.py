@@ -5,13 +5,12 @@ target (C', Z, Y, X)`` float32, the port of ``build_target_fn``,
 ``pytorch_connectomics_tpu/data/targets/build.py:38-253``, with
 ``seg_to_binary`` of ``targets/misc.py:17``.
 
-This slice ports the ``binary``, ``affinity``, ``instance_boundary``,
-``instance_edt``, ``semantic_edt``, ``sdt`` and ``skeleton_aware_edt``
-targets (JAX ``build.py:52-90``) and the ``erosion`` clean-up (applied to
-the segmentation before every target, as JAX's ``build.py:150-151``); any
-other target name, and the other clean-ups (normalisation,
-connected-component relabelling, window erosion), raise
-``NotImplementedError``.
+Every target of JAX's registry (``build.py:52-120``): ``binary``,
+``affinity``, ``instance_boundary``, ``instance_edt``, ``semantic_edt``,
+``sdt``, ``skeleton_aware_edt``, ``lsd``, ``polarity``, ``small_object``,
+``flow``, ``binary_ratio_weight`` and ``unet3d_weight``. The clean-ups run
+on the segmentation before every target, in JAX's order (``:146-155``):
+``normalize_labels``, ``relabel_cc``, ``erosion``, ``erosion_window``.
 """
 
 from __future__ import annotations
@@ -25,9 +24,20 @@ from .distance import (
     erode_instances,
     instance_boundary_mask,
     instance_edt,
+    seg_erosion_instance,
     semantic_edt,
     signed_distance,
     skeleton_aware_edt,
+)
+from .lsd import seg_to_lsd
+from .misc import (
+    binary_ratio_weight,
+    normalize_labels,
+    relabel_connected_components,
+    seg_to_flow,
+    seg_to_polarity,
+    seg_to_small_object,
+    unet3d_weight,
 )
 
 _DEFAULT_OFFSETS = ["0-0-1", "0-1-0", "1-0-0"]
@@ -70,11 +80,41 @@ def _skeleton_aware_edt(seg: np.ndarray, alpha=0.8, bg_value=-1.0, **kw) -> np.n
     return _chan(skeleton_aware_edt(seg, alpha=alpha, bg_value=bg_value))
 
 
+def _lsd(seg: np.ndarray, sigma=(5.0, 5.0, 5.0), **kw) -> np.ndarray:
+    return seg_to_lsd(seg, sigma=sigma)
+
+
+def _polarity(seg: np.ndarray, exclusive=False, **kw) -> np.ndarray:
+    out = seg_to_polarity(seg, exclusive=exclusive)
+    return out[None].astype(np.float32) if exclusive else out
+
+
+def _small_object(seg: np.ndarray, size_threshold=1000, **kw) -> np.ndarray:
+    return _chan(seg_to_small_object(seg, size_threshold))
+
+
+def _flow(seg: np.ndarray, **kw) -> np.ndarray:
+    return seg_to_flow(seg)
+
+
+def _binary_ratio_weight(seg: np.ndarray, **kw) -> np.ndarray:
+    return _chan(binary_ratio_weight(seg))
+
+
+def _unet3d_weight(seg: np.ndarray, **kw) -> np.ndarray:
+    return _chan(unet3d_weight(seg, **kw))
+
+
 _TARGETS: Dict[str, Callable[..., np.ndarray]] = {
     "binary": _binary, "affinity": _affinity, "instance_boundary": _boundary, "instance_edt": _instance_edt,
-    "semantic_edt": _semantic_edt, "sdt": _sdt, "skeleton_aware_edt": _skeleton_aware_edt,
+    "semantic_edt": _semantic_edt, "sdt": _sdt, "skeleton_aware_edt": _skeleton_aware_edt, "lsd": _lsd,
+    "polarity": _polarity, "small_object": _small_object, "flow": _flow,
+    "binary_ratio_weight": _binary_ratio_weight, "unet3d_weight": _unet3d_weight,
 }
-_PORTED_NAMES = "binary, affinity, instance_boundary, instance_edt, semantic_edt, sdt and skeleton_aware_edt"
+
+
+def _unknown(name: str) -> KeyError:
+    return KeyError(f"unknown target '{name}'; available: {sorted(_TARGETS)}")
 
 
 def _target_kwargs(t) -> Dict[str, Any]:
@@ -90,25 +130,25 @@ def build_target_fn(cfg) -> Optional[Callable[[np.ndarray], np.ndarray]]:
     (the label is used as it is). Targets stack in configured order."""
     if cfg is None or not cfg.targets:
         return None
-    for flag, what in (
-        (cfg.normalize_labels, "normalize_labels"),
-        (cfg.relabel_cc, "relabel_cc"),
-        (getattr(cfg, "erosion_window", None) is not None, "erosion_window"),
-    ):
-        if flag:
-            raise NotImplementedError(f"label transform '{what}' is not ported yet")
     steps = []
     for t in cfg.targets:
         if t.name not in _TARGETS:
-            raise NotImplementedError(f"target '{t.name}' is not ported yet ({_PORTED_NAMES} only)")
+            raise _unknown(t.name)
         steps.append((_TARGETS[t.name], _target_kwargs(t)))
+    window = getattr(cfg, "erosion_window", None)
 
     def fn(seg: np.ndarray) -> np.ndarray:
         s = np.asarray(seg)
         if s.ndim == 4:
             s = s[0]
+        if cfg.normalize_labels:
+            s = normalize_labels(s)
+        if cfg.relabel_cc:
+            s = relabel_connected_components(s)
         if cfg.erosion:
             s = erode_instances(s, cfg.erosion)
+        if window is not None:
+            s = seg_erosion_instance(s, window)
         return np.concatenate([f(s, **kw) for f, kw in steps], axis=0).astype(np.float32)
 
     return fn
@@ -132,7 +172,7 @@ def target_channel_spans(cfg) -> List[Dict[str, Any]]:
         elif t.name in _TARGETS:
             c = int(_TARGETS[t.name](probe, **kw).shape[0])
         else:
-            raise NotImplementedError(f"target '{t.name}' is not ported yet ({_PORTED_NAMES} only)")
+            raise _unknown(t.name)
         spans.append({"name": t.name, "start": start, "end": start + c, "kwargs": kw})
         start += c
     return spans

@@ -2,8 +2,8 @@
 ``instance_boundary_mask`` (with ``_boundary_shift`` and
 ``_boundary_morph``), ``erode_instances``, ``instance_edt`` (with
 ``_per_instance`` and ``_instance_edt_slice``), ``semantic_edt``,
-``signed_distance`` and ``skeleton_aware_edt`` in
-``pytorch_connectomics_tpu/data/targets/distance.py:20-132,137-212,240-253``.
+``signed_distance``, ``skeleton_aware_edt`` and ``seg_erosion_instance`` in
+``pytorch_connectomics_tpu/data/targets/distance.py:20-132,137-253``.
 
 numpy and scipy's ``ndimage`` (its exact euclidean distance transform), as
 the JAX package computes them.
@@ -224,3 +224,25 @@ def erode_instances(seg: np.ndarray, iterations: int = 1, mode: str = "3d") -> n
         b = instance_boundary_mask(out, 1, mode)
         out = np.where(b, 0, out)
     return out[None] if squeeze else out
+
+
+def seg_erosion_instance(seg: np.ndarray, tsz_h=1) -> np.ndarray:
+    """Window erosion (JAX ``distance.py:214``): a voxel keeps its id only
+    when the box window around it holds exactly one positive id. A scalar
+    ``tsz_h`` erodes in-plane (window ``2h+1`` over the last two axes), a
+    sequence per axis; negative ids (unlabeled) pass through."""
+    seg = np.asarray(seg)
+    if np.isscalar(tsz_h):
+        w = 2 * int(tsz_h) + 1
+        size = (1,) * (seg.ndim - 2) + (w, w)
+    else:
+        halves = tuple(int(h) for h in tsz_h)
+        if len(halves) != seg.ndim:
+            raise ValueError(f"tsz_h has {len(halves)} entries for a {seg.ndim}-D seg")
+        size = tuple(2 * h + 1 for h in halves)
+    # one positive id in the window: its max equals the min over positive ids
+    # (background mapped above every id)
+    sentinel = seg.max() + 1
+    wmax = ndimage.maximum_filter(seg, size=size, mode="reflect")
+    wmin = ndimage.minimum_filter(np.where(seg > 0, seg, sentinel), size=size, mode="reflect")
+    return seg * ((wmax == wmin) | (seg < 0))

@@ -1,8 +1,9 @@
 """Built-in decoders of the port: prediction maps -> instance labels, on
 the host through the native ops (``ops/native.py``). The port of
-``binary_cc``, ``bcd_watershed``, ``affinity_cc``, ``waterz`` and
-``mutex_watershed`` of ``pytorch_connectomics_tpu/decoding/decoders.py``
-(``:43-79,97-151,272-292``); the other decoders of the JAX package are not
+``binary_cc``, ``bcd_watershed``, ``affinity_cc``, ``waterz``,
+``mutex_watershed`` and ``polarity2instance`` of
+``pytorch_connectomics_tpu/decoding/decoders.py`` (``:43-79,97-151,272-310``);
+the other decoders of the JAX package are not
 ported yet (``get_decoder`` raises).
 
 Prediction layout: (C, Z, Y, X) float32 probabilities (after the channel
@@ -123,3 +124,22 @@ def decode_mutex_watershed(pred, offsets=None, min_size=0, **kw):
     if min_size:
         labels, _ = remove_small(labels, min_size)
     return labels
+
+
+@register_decoder("polarity2instance")
+def decode_polarity(pred, threshold=0.5, min_size=0, pair_distance=8, **kw):
+    """Synaptic polarity (pre, post, union) -> synapse instances: 26-connected
+    components of the union of the three channels above ``threshold`` (less
+    than ``min_size`` voxels dropped, then renumbered); synapse k's pre
+    voxels get 2k - 1 and its post voxels 2k, other voxels 0."""
+    p = _chan(np.asarray(pred, dtype=np.float32))
+    pre, post = p[0] > threshold, p[1] > threshold
+    syn, _ = connected_components((p[2] > threshold) | pre | post, 26)
+    if min_size:
+        syn, _ = remove_small(syn, min_size)
+        syn, _ = renumber(syn)
+    out = np.zeros_like(syn)
+    on = syn > 0
+    out[on & pre] = syn[on & pre] * 2 - 1
+    out[on & post] = syn[on & post] * 2
+    return out

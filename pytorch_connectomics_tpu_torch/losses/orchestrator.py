@@ -28,7 +28,11 @@ Deep supervision (JAX ``orchestrator.py:232-276``): outputs ``ds_k`` beside
 against the label average-pooled to its scale by integer factors (the mask
 too; no spatial weight), clipped to ``[0, ds_clamp]`` when set, logged as
 ``loss_ds_k``; ``w_k`` is ``ds_weights[k]`` or ``1 / 2^(k+1)``.
-Pred-vs-pred terms raise ``NotImplementedError``.
+
+Pred-vs-pred terms (JAX ``orchestrator.py:252-257``): a term with
+``pred2_slice``, and every ``ContourDTConsistency`` term, takes the
+prediction's ``pred2_slice`` channels (all of them when unset) in place of
+its target.
 """
 
 from __future__ import annotations
@@ -59,6 +63,9 @@ class CompiledTerm:
     head: Optional[str]
     kwargs: Dict[str, Any]
     auto_pos: bool = False
+    # pred-vs-pred: the term's second argument is the prediction's pred2_slice channels
+    pair: bool = False
+    pred2_slice: Optional[str] = None
     # how the batch's spatial weight reaches the term: "weight" (default),
     # "mask" (folded into the loss mask) or "none"
     spatial_weight: Optional[str] = None
@@ -99,8 +106,6 @@ class LossOrchestrator:
         self.ds_clamp = loss_cfg.ds_clamp
         self.terms = []
         for i, t in enumerate(loss_cfg.losses):
-            if t.pred2_slice:
-                raise NotImplementedError(f"pred-vs-pred loss terms ({t.function}) are not ported yet")
             if t.spatial_weight not in (None, "weight", "mask", "none"):
                 raise ValueError(f"loss term {t.function}: spatial_weight must be weight|mask|none, got {t.spatial_weight!r}")
             kwargs = dict(t.kwargs or {})
@@ -112,6 +117,7 @@ class LossOrchestrator:
                 name=f"{t.function}_{i}", fn=get_loss(t.function), weight=float(t.weight),
                 pred_slice=t.pred_slice, target_slice=t.target_slice, mask_slice=t.mask_slice, head=t.head,
                 kwargs=kwargs, auto_pos=auto_pos, spatial_weight=t.spatial_weight,
+                pair=t.function == "ContourDTConsistency" or t.pred2_slice is not None, pred2_slice=t.pred2_slice,
             ))
 
     def _affinity_valid_mask(self, term: CompiledTerm, target: torch.Tensor) -> Optional[torch.Tensor]:
@@ -157,9 +163,9 @@ class LossOrchestrator:
             if term.spatial_weight == "mask":
                 m = w if m is None else m * w
                 w = None
-        if term.auto_pos:
-            return term.fn(p, t, weight=w, mask=m, pos_weight=auto_pos_weight(t, m), **term.kwargs)
-        return term.fn(p, t, weight=w, mask=m, **term.kwargs)
+        kwargs = dict(term.kwargs, pos_weight=auto_pos_weight(t, m)) if term.auto_pos else term.kwargs
+        second = _channels(pred, term.pred2_slice) if term.pair else t
+        return term.fn(p, second, weight=w, mask=m, **kwargs)
 
     def compute(self, outputs, targets, mask=None, weight=None, balancer_params=None,
                 term_weights=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

@@ -2,8 +2,9 @@
 (``csrc/pytc_ops.cpp``): 3-D connected components, seeded watershed, small
 instance removal and renumbering (the bcd decode and post-processing),
 affinity connected components, mean-affinity agglomeration (one threshold
-or many in one pass) and the mutex watershed (the affinity decoders), and
-the TEASAR skeleton (NERL's ground-truth skeletons). The port's own
+or many in one pass) and the mutex watershed (the affinity decoders), the
+TEASAR skeleton (NERL's ground-truth skeletons) and MALIS's maximin pair
+counts (``malis_counts``, the MALIS loss's weights). The port's own
 binding of the shared library: host code, not a GPU kernel.
 
 The library is compiled with ``g++`` on first use into ``build/native/`` at
@@ -87,6 +88,8 @@ def get_lib() -> ctypes.CDLL:
             lib.teasar_skeleton.restype = i64
             lib.teasar_skeleton.argtypes = [u8p, f32p, i64, i64, i64, d, d, d, d, d, d, i64, f64p, i64p, i64, i64,
                                             ctypes.POINTER(i64)]
+            lib.malis_counts.restype = None
+            lib.malis_counts.argtypes = [f32p, u32p, i64, i64, i64, ctypes.c_int, f32p]
             _lib = lib
         return _lib
 
@@ -222,3 +225,16 @@ def teasar_skeleton(
     if n < 0:
         raise RuntimeError("teasar_skeleton: output capacity exceeded")
     return nodes[:n] - 1.0, edges[: n_edges.value].copy()
+
+
+def malis_counts(aff: np.ndarray, seg: np.ndarray, count_pos: bool) -> np.ndarray:
+    """MALIS's pair counts of each edge (``csrc/pytc_ops.cpp:832``): ``aff``
+    (3, Z, Y, X) float32 cardinal affinities (x, y, z, each stored at its
+    high-end voxel), ``seg`` (Z, Y, X) ids; each edge's count of the voxel
+    pairs (of nonzero ids) whose maximin edge it is, over equal ids
+    (``count_pos``) or over different ones."""
+    aff = np.ascontiguousarray(aff, dtype=np.float32)
+    seg = np.ascontiguousarray(seg, dtype=np.uint32)
+    out = np.zeros_like(aff)
+    get_lib().malis_counts(aff, seg, *seg.shape, int(count_pos), out)
+    return out

@@ -5,8 +5,8 @@ For every ``tutorials/*.yaml`` and each leg, on the CPU, with no data:
 
 - **train**: load the config (``mode="train"``), build the model, then the
   trainer's ``_check_ported``, the target builder, the loss orchestrator
-  (with the label transform's affinity groups), the on-device augmentation
-  check and ``data.preprocessing.normalize``;
+  (with the label transform's affinity groups), the optimizer and schedule,
+  the on-device augmentation and ``data.preprocessing.normalize``;
 - **test**: load the config (``mode="test"``), build the model, then the
   test pipeline's ``_check_ported``, the inference manager, the evaluation
   metrics, the decode stage's ``_check_ported`` and each decode step's
@@ -42,20 +42,19 @@ def _normalize(cfg) -> None:
 
 def train_leg(path: Path) -> None:
     from ..config import load_config
-    from ..data.augment import build_augmentation_fn
     from ..data.targets.build import affinity_target_groups, build_target_fn
     from ..losses import LossOrchestrator
     from ..models import build_model
-    from ..training.loop import _check_ported
+    from ..training.loop import _check_ported, device_augment_fn
+    from ..training.optim import build_optimizer
 
     cfg = load_config(path, mode="train")
-    build_model(cfg.model, device="cpu")
+    model = build_model(cfg.model, device="cpu")
     _check_ported(cfg)
     build_target_fn(cfg.data.label_transform)
     LossOrchestrator(cfg.model.loss, affinity_groups=affinity_target_groups(cfg.data.label_transform))
-    aug = cfg.data.augmentation
-    if aug.on_device and build_augmentation_fn(aug) is not None:
-        raise NotImplementedError("on-device augmentation is not ported yet")
+    build_optimizer(cfg.optimization, model, cfg.optimization.n_steps_per_epoch or 100)
+    device_augment_fn(cfg)
     _normalize(cfg)
 
 

@@ -12,8 +12,9 @@ torch file in place of the Orbax ``state`` directory::
 
 ``state.pt`` holds ``{"model": state_dict, "optimizer": state_dict,
 "step": int, "ema": {name: tensor} | None, "lr_scale": float, "balancer":
-tensor | None, "log_vars": tensor | None}`` (the GradNorm state and the
-uncertainty balancer's log-variances);
+tensor | None, "log_vars": tensor | None, "accum": [tensor] | None}`` (the
+GradNorm state, the uncertainty balancer's log-variances and the gradient
+accumulation's running mean);
 ``metadata.json`` holds ``config_hash``, ``epoch``, ``step`` and the
 metrics.
 """
@@ -77,6 +78,7 @@ class CheckpointManager:
             "lr_scale": float(state.lr_scale),
             "balancer": state.balancer,
             "log_vars": state.log_vars.detach() if state.log_vars is not None else None,
+            "accum": getattr(state, "accum", None),
         }
 
     def _save_tree(self, path: Path, payload: Dict[str, Any], metadata: Dict[str, Any]) -> None:
@@ -153,6 +155,9 @@ class CheckpointManager:
         if state.log_vars is not None and ck.get("log_vars") is not None:
             with torch.no_grad():
                 state.log_vars.copy_(ck["log_vars"])
+        if not reset_optimizer and ck.get("accum") is not None:
+            dev = next(state.model.parameters()).device
+            state.accum = [a.to(dev) for a in ck["accum"]]
         if state.ema is not None:
             src = ck.get("ema") or ck["model"]
             for n, t in state.ema.items():

@@ -14,10 +14,27 @@
 - ``validate``, ``restore`` and ``inference_params``.
 
 Batches reach the device through pinned host memory with non-blocking
-copies. Profiler windows, ReduceLROnPlateau, early stopping, the
-visualizer and anomaly detection raise ``NotImplementedError`` when
-configured. UpKern initialisation (``model.mednext.upkern_from``) is
-:meth:`Trainer.upkern`, which the runtime calls before any restore.
+copies. The rest of JAX's trainer (``loop.py:105-121,157-170,225-288,
+392-420``):
+- ``data.augmentation.on_device``: the train step augments the batch on
+  the device (``ops/augment.py``) when every target is flip-safe; otherwise
+  a warning, and no augmentation at all (the host pipeline skips it either
+  way, as JAX's does);
+- ``ReduceLROnPlateau``: the host ``lr_scale`` times ``factor`` after more
+  than ``patience`` validations without a new best ``val_loss`` (by 1e-8);
+  early stopping on ``monitor.early_stopping`` (its metric, mode,
+  ``min_delta``, ``patience``, non-finite check) after each epoch's
+  validation;
+- ``monitor.profile_steps`` [start, end): a ``torch.profiler`` window over
+  those steps, its Chrome trace in ``<run_dir>/profile``;
+- ``monitor.detect_anomaly``: the step raises at the first non-finite value
+  of the forward or the backward;
+- ``optimization.distill``: the frozen teacher (``training/distill.py``);
+- ``optimization.accumulate_grad_batches``.
+
+The visualizer raises ``NotImplementedError`` when configured. UpKern
+initialisation (``model.mednext.upkern_from``) is :meth:`Trainer.upkern`,
+which the runtime calls before any restore.
 """
 
 from __future__ import annotations
@@ -37,9 +54,11 @@ from ..data.pipeline import build_pipelines
 from ..data.targets.build import affinity_target_groups
 from ..losses.orchestrator import LossOrchestrator
 from ..models import build_model
+from ..ops.augment import build_device_augment_fn
 from ..utils.device import resolve_device
 from ..utils.logging import MetricsLogger
 from .checkpoint import CheckpointManager, check_config_hash
+from .distill import build_distill_spec
 from .optim import build_optimizer
 from .state import create_train_state, make_log_vars, make_train_step, make_val_step
 
@@ -50,17 +69,28 @@ class NaNError(RuntimeError):
     pass
 
 
+# targets whose channels keep their meaning under flips and transposes after
+# generation (affinity, LSD and flow channels do not; JAX loop.py:108-109)
+FLIP_SAFE = {"binary", "sdt", "instance_edt", "semantic_edt", "skeleton_aware_edt", "instance_boundary",
+             "small_object"}
+
+
 def _check_ported(cfg: Config) -> None:
-    mon, opt = cfg.monitor, cfg.optimization
-    for flag, what in (
-        (mon.profile_steps, "profiler windows (monitor.profile_steps)"),
-        (opt.scheduler.name == "ReduceLROnPlateau", "ReduceLROnPlateau"),
-        (mon.early_stopping.enabled, "early stopping"),
-        (int((mon.logging.images or {}).get("log_every_n_epochs", 0)), "the visualizer"),
-        (mon.detect_anomaly, "anomaly detection"),
-    ):
-        if flag:
-            raise NotImplementedError(f"{what} is not ported yet")
+    if int((cfg.monitor.logging.images or {}).get("log_every_n_epochs", 0)):
+        raise NotImplementedError("the visualizer is not ported yet")
+
+
+def device_augment_fn(cfg: Config):
+    """The train step's on-device augmentation of ``cfg``, or None: off, or
+    a target that is not flip-safe (with a warning)."""
+    if not cfg.data.augmentation.on_device:
+        return None
+    targets = {t.name for t in (cfg.data.label_transform.targets or [])}
+    if targets and not targets <= FLIP_SAFE:
+        logger.warning("on-device augmentation disabled: targets %s are not flip-safe after generation",
+                       sorted(targets - FLIP_SAFE))
+        return None
+    return build_device_augment_fn(cfg.data.augmentation)
 
 
 class Trainer:
@@ -91,12 +121,17 @@ class Trainer:
             self.model, optimizer, ema=cfg.monitor.ema.enabled, log_vars=log_vars,
             gradnorm_terms=self.orchestrator.num_terms if bal.method in ("gradnorm", "gradnorm_exact") else 0,
         )
+        self.distill = build_distill_spec(cfg, self.device)
+        if self.distill is not None:
+            logger.info("distillation on: teacher=%s alpha=%.2f T=%.1f", cfg.optimization.distill.teacher_checkpoint,
+                        self.distill.alpha, self.distill.temperature)
         self._train_step = make_train_step(
             self.orchestrator, self.schedule,
             gradient_clip=cfg.optimization.gradient_clip_val,
             ema_decay=cfg.monitor.ema.decay if cfg.monitor.ema.enabled else None,
             balancing=bal.method, balancing_alpha=bal.alpha, balancing_lr=bal.lr,
-            distill=cfg.optimization.distill.teacher_checkpoint,
+            distill=self.distill, augment_fn=device_augment_fn(cfg), seed=cfg.system.seed,
+            accumulate=cfg.optimization.accumulate_grad_batches, detect_anomaly=cfg.monitor.detect_anomaly,
         )
         self._val_step = make_val_step(self.orchestrator, use_ema=cfg.monitor.ema.use_for_val)
         ck = cfg.monitor.checkpoint
@@ -108,6 +143,10 @@ class Trainer:
             self.run_dir, cfg.monitor.logging.backend, wandb_cfg=cfg.monitor.wandb,
             config={"config_hash": self.cfg_hash},
         )
+        self._plateau = cfg.optimization.scheduler.name == "ReduceLROnPlateau"
+        self._plateau_best, self._plateau_bad = math.inf, 0
+        self._es_best = math.inf if cfg.monitor.early_stopping.mode == "min" else -math.inf
+        self._es_bad = 0
 
     def upkern(self) -> Dict[str, int]:
         """Initialise the model from ``model.mednext.upkern_from``
@@ -158,6 +197,7 @@ class Trainer:
         last_t, last_step = time.time(), first_step
         t_fit = time.perf_counter()
         data_wait = 0.0
+        prof, prof_window = None, cfg.monitor.profile_steps
         try:
             for epoch in range(start_epoch, max_epochs):
                 losses = []
@@ -167,13 +207,18 @@ class Trainer:
                     t0 = time.perf_counter()
                     batch = self._to_device(next(it))
                     data_wait += time.perf_counter() - t0
+                    if prof_window and prof is None and self.state.step >= prof_window[0]:
+                        prof = self._start_profiler()
                     logs = self._train_step(self.state, batch)
                     step = self.state.step
+                    if prof is not None and step >= prof_window[1]:
+                        self._stop_profiler(prof)
+                        prof, prof_window = None, None
                     vci = cfg.optimization.val_check_interval
                     if vci and val_pipe is not None:
                         ivl = int(vci) if vci >= 1 else max(1, round(float(vci) * self.steps_per_epoch))
                         if step % ivl == 0:
-                            self.validate(val_pipe)
+                            self._plateau_update(self.validate(val_pipe).get("val_loss", float("nan")))
                     ckpt_every = cfg.monitor.checkpoint.every_n_steps
                     if ckpt_every and step % int(ckpt_every) == 0:
                         self.ckpt.save(self.state, epoch, {}, metadata={"config_hash": self.cfg_hash, "step": step})
@@ -193,7 +238,13 @@ class Trainer:
                 epoch_loss = float(np.mean(losses)) if losses else float("nan")
                 epoch_metrics = {"train_loss_total_epoch": epoch_loss, "epoch": epoch}
                 if val_pipe is not None and (epoch + 1) % cfg.optimization.check_val_every_n_epoch == 0:
-                    epoch_metrics.update(self.validate(val_pipe))
+                    val_logs = self.validate(val_pipe)
+                    epoch_metrics.update(val_logs)
+                    self._plateau_update(val_logs.get("val_loss", epoch_loss))
+                    if self._early_stop_update(val_logs):
+                        logger.info("early stopping at epoch %d", epoch)
+                        self._save_epoch(epoch, epoch_metrics)
+                        break
                 self.metrics_logger.log(self.state.step, epoch_metrics)
                 self._save_epoch(epoch, epoch_metrics)
                 if max_steps and self.state.step >= int(max_steps):
@@ -201,6 +252,8 @@ class Trainer:
                     break
         finally:
             it.close()
+            if prof is not None:
+                self._stop_profiler(prof)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         # host-clock totals of this call: steps, seconds, the trainer's wait
@@ -230,6 +283,55 @@ class Trainer:
         return out
 
     # -- host-side control -------------------------------------------------
+
+    def _start_profiler(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
+        prof = profile(activities=acts)
+        prof.__enter__()
+        return prof
+
+    def _stop_profiler(self, prof) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.__exit__(None, None, None)
+        out = self.run_dir / "profile"
+        out.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(out / f"trace_step{self.state.step}.json"))
+        logger.info("profiler trace written to %s", out)
+
+    def _plateau_update(self, metric: float) -> None:
+        """ReduceLROnPlateau on the host: ``lr_scale *= factor`` after more
+        than ``patience`` checks without a new best (JAX ``loop.py:392-405``)."""
+        if not self._plateau:
+            return
+        s = self.cfg.optimization.scheduler
+        if metric < self._plateau_best - 1e-8:
+            self._plateau_best, self._plateau_bad = metric, 0
+            return
+        self._plateau_bad += 1
+        if self._plateau_bad > s.patience:
+            self.state.lr_scale *= s.factor
+            self._plateau_bad = 0
+            logger.info("plateau: lr_scale -> %.2e", self.state.lr_scale)
+
+    def _early_stop_update(self, val_logs: Dict[str, float]) -> bool:
+        """True when training should stop (JAX ``loop.py:407-420``)."""
+        es = self.cfg.monitor.early_stopping
+        if not es.enabled:
+            return False
+        metric = val_logs.get(es.monitor)
+        if metric is None:
+            return False
+        if es.check_finite and not math.isfinite(metric):
+            return True
+        better = metric < self._es_best - es.min_delta if es.mode == "min" else metric > self._es_best + es.min_delta
+        if better:
+            self._es_best, self._es_bad = metric, 0
+            return False
+        self._es_bad += 1
+        return self._es_bad >= es.patience
 
     def _check_finite(self, logs: Dict[str, float], step: int) -> None:
         if not self.cfg.monitor.nan_detection:

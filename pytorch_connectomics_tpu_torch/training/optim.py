@@ -4,12 +4,24 @@
 A schedule is a plain ``count -> lr`` function with optax's formulas, where
 ``count`` is the 0-based number of updates already applied (optax evaluates
 the schedule at the update's count, so the first update uses ``lr(0)``).
-The optimizer is ``torch.optim.AdamW``/``Adam``, whose update equals
-optax's ``adamw``/``adam`` (decoupled decay on the pre-update parameter,
-``eps`` outside the square root); the trainer sets each group's ``lr`` from
-the schedule before every step. Parameter groups follow optax's decay mask:
-a parameter whose leaf name is a bias (``bias``, ``*_bias``) or that has at
-most one dimension (norm scales) is not decayed.
+Every schedule of JAX's ``build_schedule``: constant, ``WarmupCosineLR``,
+``CosineAnnealingLR``, ``CosineAnnealingWarmRestarts`` (optax's
+``join_schedules`` of cosine decays of ``t_0``, ``t_0 t_mult``, ... steps),
+``StepLR``, ``MultiStepLR``, ``WarmupMultiStepLR`` and
+``ReduceLROnPlateau`` (a constant; the trainer scales it by its host
+``lr_scale``).
+
+The optimizers: ``torch.optim.AdamW``/``Adam``, whose update equals optax's
+``adamw``/``adam`` (decoupled decay on the pre-update parameter, ``eps``
+outside the square root), with parameter groups of optax's decay mask (a
+parameter whose leaf name is a bias, ``bias`` or ``*_bias``, or that has at
+most one dimension, norm scales, is not decayed); ``torch.optim.SGD``, whose
+momentum buffer and coupled weight decay are optax's
+``chain(add_decayed_weights, sgd)`` (every parameter decayed, as JAX's
+chain has no mask); and :class:`Lamb`, optax's ``lamb``. The trainer sets
+each group's ``lr`` from the schedule before every update.
+Gradient accumulation (``accumulate_grad_batches``) is the train step's
+(:mod:`.state`), with ``optax.MultiSteps``' semantics.
 
 The global-norm clip is written out as ``optax.clip_by_global_norm``
 computes it: the gradients are scaled by ``max / norm`` only when
@@ -74,7 +86,45 @@ def build_schedule(opt_cfg, steps_per_epoch: int) -> Schedule:
     if name == "cosineannealinglr":
         t_max = int(params.get("t_max", s.t_max or opt_cfg.max_epochs)) * unit
         return _cosine(base_lr, max(1, t_max), s.min_lr / base_lr if base_lr else 0.0)
-    raise NotImplementedError(f"scheduler '{s.name}' is not ported yet (constant, WarmupCosineLR, CosineAnnealingLR)")
+    if name == "cosineannealingwarmrestarts":
+        t, acc, pieces, boundaries = int(params.get("t_0", s.t_0 or 10)) * unit, 0, [], []
+        while acc < total_steps:
+            pieces.append(_cosine(base_lr, max(1, t)))
+            acc += t
+            boundaries.append(acc)
+            t *= max(1, s.t_mult)
+        return _join(pieces, boundaries[:-1])
+    if name == "steplr":
+        step_size = max(1, int(params.get("step_size", s.step_size)) * unit)
+        return lambda count: base_lr * s.gamma ** (count // step_size)
+    milestones = [int(m) * unit for m in (s.milestones or params.get("milestones", []))]
+    if name == "multisteplr":
+        return lambda count: base_lr * s.gamma ** sum(count >= m for m in milestones)
+    if name == "warmupmultisteplr":
+        start = float(params.get("warmup_start_lr", s.warmup_start_lr))
+
+        def schedule(count):
+            if count < warmup_steps:
+                return start + (base_lr - start) * min(max(count / max(1, warmup_steps), 0.0), 1.0)
+            return base_lr * s.gamma ** sum(count >= m for m in milestones)
+
+        return schedule
+    if name == "reducelronplateau":
+        return lambda count: base_lr
+    raise ValueError(f"unknown scheduler '{s.name}'")
+
+
+def _join(pieces, boundaries) -> Schedule:
+    """optax's ``join_schedules``: piece i from boundary i - 1 on, counted
+    from that boundary."""
+    def schedule(count):
+        out = pieces[0](count)
+        for b, piece in zip(boundaries, pieces[1:]):
+            if count >= b:
+                out = piece(count - b)
+        return out
+
+    return schedule
 
 
 def decay_groups(named_params: Iterable[Tuple[str, torch.nn.Parameter]], weight_decay: float, no_decay_bias: bool):
@@ -98,8 +148,6 @@ def build_optimizer(opt_cfg, model: torch.nn.Module, steps_per_epoch: int,
     beside the model's, as the uncertainty balancer's log-variances do in
     JAX's ``{"model": ..., "balancer": ...}`` tree."""
     o = opt_cfg.optimizer
-    if opt_cfg.accumulate_grad_batches > 1:
-        raise NotImplementedError("gradient accumulation is not ported yet")
     schedule = build_schedule(opt_cfg, steps_per_epoch)
     name = o.name.lower()
     betas = (float(o.betas[0]), float(o.betas[1]))
@@ -109,9 +157,47 @@ def build_optimizer(opt_cfg, model: torch.nn.Module, steps_per_epoch: int,
         opt = torch.optim.AdamW(groups, lr=schedule(0), betas=betas, eps=float(o.eps))
     elif name == "adam":
         opt = torch.optim.Adam([p for _, p in named], lr=schedule(0), betas=betas, eps=float(o.eps))
+    elif name == "sgd":
+        opt = torch.optim.SGD([p for _, p in named], lr=schedule(0), momentum=float(o.momentum),
+                              weight_decay=float(o.weight_decay))
+    elif name == "lamb":
+        opt = Lamb([p for _, p in named], lr=schedule(0), weight_decay=float(o.weight_decay))
     else:
-        raise NotImplementedError(f"optimizer '{o.name}' is not ported yet (AdamW, Adam)")
+        raise ValueError(f"unknown optimizer '{o.name}'")
     return opt, schedule
+
+
+class Lamb(torch.optim.Optimizer):
+    """optax's ``lamb`` (its defaults: b1 0.9, b2 0.999, eps 1e-6, no mask):
+    Adam's bias-corrected step, plus ``weight_decay * p``, scaled per
+    parameter by ``|p| / |update|`` (by 1 where either norm is 0), times
+    ``lr``."""
+
+    def __init__(self, params, lr=1e-3, betas=(0.9, 0.999), eps=1e-6, weight_decay=0.0):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad.float()
+                st = self.state[p]
+                if not st:
+                    st["count"], st["mu"], st["nu"] = 0, torch.zeros_like(g), torch.zeros_like(g)
+                st["count"] += 1
+                st["mu"].mul_(b1).add_(g, alpha=1 - b1)
+                st["nu"].mul_(b2).addcmul_(g, g, value=1 - b2)
+                # the bias corrections in float32, as optax takes them
+                bc1, bc2 = (1 - torch.tensor(b, dtype=torch.float32) ** st["count"] for b in (b1, b2))
+                u = (st["mu"] / bc1.to(g.device)) / (torch.sqrt(st["nu"] / bc2.to(g.device)) + group["eps"])
+                if group["weight_decay"]:
+                    u = u + group["weight_decay"] * p.float()
+                pn, un = torch.linalg.vector_norm(p.float()), torch.linalg.vector_norm(u)
+                ratio = torch.where((pn == 0) | (un == 0), torch.ones_like(pn), pn / un)
+                p.sub_((group["lr"] * ratio * u).to(p.dtype))
 
 
 def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:

@@ -24,14 +24,32 @@ the loss is taken with and row 1 the initial losses L_i(0) (the first
 step's), and update it after the step from the step's losses (``exact``:
 also from the norms of d loss_i / d output, one backward through the loss
 only, ``torch.autograd.grad``), logging ``gradnorm_w_*`` (and
-``gradnorm_g_*``). Distillation raises ``NotImplementedError``.
+``gradnorm_g_*``).
+
+The rest of JAX's step (``state.py:58-190``):
+- ``augment_fn(batch, generator)`` (:mod:`..ops.augment`) runs on the
+  batch before the forward, its generator on the batch's device seeded from
+  ``seed`` and the step (:func:`step_generator`);
+- ``accumulate`` k > 1 is ``optax.MultiSteps``: every micro-step takes the
+  running mean of the raw gradients (``TrainState.accum``); the k-th clips
+  that mean and applies it with the schedule at the update count
+  ``step // k``. The step, the EMA (towards parameters that move every k
+  steps), GradNorm's weights and the augmentation's generator advance every
+  micro-step; ``grad_norm`` is the micro-step's own gradient's;
+- ``distill`` (:class:`.distill.DistillSpec`): the frozen teacher's forward
+  under ``no_grad`` and ``(1 - alpha) L + alpha L_distill``, logging
+  ``loss_hard`` and ``loss_distill``;
+- ``detect_anomaly`` raises ``FloatingPointError`` at the first module whose
+  forward output holds a non-finite value, and autograd's anomaly mode at the
+  first backward function that returns one (JAX's ``jax_debug_nans``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from ..losses.balancing import gradnorm_exact_weights, gradnorm_weights
@@ -52,6 +70,27 @@ class TrainState:
     balancer: Optional[torch.Tensor] = None
     # uncertainty balancing: the trained log-variances, one a term
     log_vars: Optional[torch.nn.Parameter] = None
+    # gradient accumulation: the running mean of this cycle's gradients
+    accum: Optional[List[torch.Tensor]] = None
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """A generator on ``device`` for one step's draws, seeded from (seed,
+    step) as JAX keys ``fold_in(PRNGKey(seed), step)``."""
+    g = torch.Generator(device=device)
+    g.manual_seed(int(np.random.SeedSequence([int(seed), int(step)]).generate_state(1, np.uint64)[0] >> 1))
+    return g
+
+
+def _finite_hook(name):
+    def hook(module, args, out):
+        leaves = out.values() if isinstance(out, dict) else (out if isinstance(out, (tuple, list)) else (out,))
+        for t in leaves:
+            if torch.is_tensor(t) and t.is_floating_point() and not torch.isfinite(t).all():
+                raise FloatingPointError(f"non-finite value in the forward output of {name or 'the model'} "
+                                         f"({type(module).__name__})")
+
+    return hook
 
 
 def make_log_vars(balancing: Optional[str], num_terms: int, device) -> Optional[torch.nn.Parameter]:
@@ -97,6 +136,10 @@ def make_train_step(
     balancing_alpha: float = 1.5,
     balancing_lr: float = 0.025,
     distill=None,
+    augment_fn: Optional[Callable] = None,
+    seed: int = 0,
+    accumulate: int = 1,
+    detect_anomaly: bool = False,
 ) -> Callable[[TrainState, Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]:
     """``train_step(state, batch) -> logs``; ``batch`` holds ``image`` and
     ``label`` (and optionally ``mask``/``weight``), channels-last tensors on
@@ -104,17 +147,44 @@ def make_train_step(
     if balancing not in BALANCING:
         raise ValueError(f"loss balancing must be one of {BALANCING}, got {balancing!r}")
     gradnorm = balancing in ("gradnorm", "gradnorm_exact")
-    if distill is not None:
-        raise NotImplementedError("distillation is not ported yet")
+    k = max(1, int(accumulate))
+    hooked: List[torch.nn.Module] = []
 
-    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        model, opt = state.model, state.optimizer
-        opt.zero_grad(set_to_none=True)
+    def forward_loss(state, batch):
+        model = state.model
+        if detect_anomaly and model not in hooked:
+            for name, mod in model.named_modules():
+                mod.register_forward_hook(_finite_hook(name))
+            hooked.append(model)
         out = model(batch["image"])
         term_w = state.balancer[0] if gradnorm and state.balancer is not None else None
         total, logs = orchestrator(out, batch.get("label"), mask=batch.get("mask"), weight=batch.get("weight"),
                                    balancer_params=state.log_vars, term_weights=term_w)
-        total.backward()
+        if distill is not None:
+            from .distill import soft_target_loss
+
+            with torch.no_grad():
+                teacher_out = distill.model(batch["image"])
+            d_loss = soft_target_loss(out, teacher_out, temperature=distill.temperature, mode=distill.mode)
+            logs["loss_hard"], logs["loss_distill"] = total, d_loss
+            total = (1.0 - distill.alpha) * total + distill.alpha * d_loss
+            logs["loss_total"] = total
+        if detect_anomaly and not torch.isfinite(total):
+            raise FloatingPointError(f"non-finite loss: {float(total)}")
+        return out, total, logs
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        model, opt = state.model, state.optimizer
+        if augment_fn is not None:
+            batch = augment_fn(batch, step_generator(seed, state.step, batch["image"].device))
+        opt.zero_grad(set_to_none=True)
+        if detect_anomaly:
+            with torch.autograd.detect_anomaly(check_nan=True):
+                out, total, logs = forward_loss(state, batch)
+                total.backward()
+        else:
+            out, total, logs = forward_loss(state, batch)
+            total.backward()
         named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
         missing = [n for n, p in named if p.grad is None]
         if missing:
@@ -125,10 +195,24 @@ def make_train_step(
                 state.log_vars.grad = torch.zeros_like(state.log_vars)
             grads.append(state.log_vars.grad)
         norm = global_norm(grads)
-        if gradient_clip:
-            clip_by_global_norm_(grads, float(gradient_clip), norm)
-        set_lr(opt, schedule(state.step) * state.lr_scale)
-        opt.step()
+        emit, count = True, state.step
+        if k > 1:
+            mini, count = state.step % k, state.step // k
+            if state.accum is None:
+                state.accum = [torch.zeros_like(g) for g in grads]
+            with torch.no_grad():  # optax's running mean: acc + (g - acc) / (n + 1)
+                for a, g in zip(state.accum, grads):
+                    a.add_((g - a) / (mini + 1))
+            emit = mini == k - 1
+            if emit:
+                for g, a in zip(grads, state.accum):
+                    g.copy_(a)
+                    a.zero_()
+        if emit:
+            if gradient_clip:
+                clip_by_global_norm_(grads, float(gradient_clip), norm if k == 1 else global_norm(grads))
+            set_lr(opt, schedule(count) * state.lr_scale)
+            opt.step()
         if state.ema is not None and ema_decay is not None:
             with torch.no_grad():
                 ema = [state.ema[n] for n, _ in named]

@@ -171,6 +171,10 @@ def test_build_pipelines_augments_on_the_host_with_the_resolved_threads():
 
 
 def test_on_device_augmentation_raises():
+    """On-device augmentation is ported (tests/test_torch_augment_device.py):
+    it no longer raises, and the host pipeline then augments nothing, as
+    JAX's (``pipeline.py:288``)."""
     over = ["data.augmentation.profile=aug_strong", "data.augmentation.on_device=true"]
-    with pytest.raises(NotImplementedError, match="on-device augmentation is not ported yet"):
-        build_pipelines(load_config(SYNTH, overrides=over, mode="train"), "cpu")
+    train, _ = build_pipelines(load_config(SYNTH, overrides=over, mode="train"), "cpu")
+    assert train.augment is None
+    train.close()

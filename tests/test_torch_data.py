@@ -84,8 +84,9 @@ def test_patch_pipeline_bit_identical_to_jax(tmp_path):
 def test_configured_augmentation_raises(tmp_path):
     """Host augmentation is ported: a configured flip block no longer raises
     but builds a pipeline whose batches are JAX's (every transform and the
-    profiles: tests/test_torch_augment.py). Only augmentation configured to
-    run on the device still raises."""
+    profiles: tests/test_torch_augment.py). Augmentation configured to run
+    on the device leaves the host pipeline without augmentation, as JAX's
+    (``pipeline.py:288``; the device transforms: tests/test_torch_augment_device.py)."""
     rng = np.random.default_rng(4)
     np.save(tmp_path / "im.npy", rng.integers(0, 256, (12, 40, 40), dtype=np.uint8))
     np.save(tmp_path / "lb.npy", (rng.random((12, 40, 40)) > 0.9).astype(np.uint32))
@@ -103,8 +104,9 @@ def test_configured_augmentation_raises(tmp_path):
             np.testing.assert_array_equal(got[k], want[k])
     ours.close()
     cfg = load_config(SYNTH, overrides=over + ["data.augmentation.on_device=true"], mode="train")
-    with pytest.raises(NotImplementedError, match="on-device augmentation is not ported yet"):
-        build_pipelines(cfg, "cpu")
+    ours, _ = build_pipelines(cfg, "cpu")
+    assert ours.augment is None
+    ours.close()
 
 
 @pytest.mark.parametrize("v2", [True, False], ids=["em2", "em"])

@@ -69,9 +69,11 @@ def test_bce_pos_weight_matches_jax():
 
 
 def test_unported_loss_raises_naming_it():
-    with pytest.raises(NotImplementedError, match="FocalLoss"):
-        get_loss("FocalLoss")
-    with pytest.raises(KeyError):
+    """Every name of JAX's registry resolves (the whole zoo is ported); an
+    unknown name raises naming it."""
+    assert set(zoo.LOSS_REGISTRY) == set(jax_zoo.LOSS_REGISTRY)
+    assert get_loss("FocalLoss") is zoo.focal_loss
+    with pytest.raises(KeyError, match="NoSuchLoss"):
         get_loss("NoSuchLoss")
 
 
