@@ -1,8 +1,11 @@
-"""Intensity normalization and grow-to-patch padding (host-side, numpy): the
-port's copies of ``normalize_volume`` and ``pad_to_min_shape`` from
+"""Intensity normalization, grow-to-patch padding and centre alignment
+(host-side, numpy): the port's copies of ``normalize_volume``,
+``pad_to_min_shape`` and ``center_align`` from
 ``pytorch_connectomics_tpu/data/preprocess.py``."""
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import numpy as np
 
@@ -66,3 +69,19 @@ def pad_to_min_shape(vol: np.ndarray, min_shape, mode: str = "reflect"):
         np_mode = {"reflect": "reflect", "replicate": "edge", "constant": "constant"}[mode]
         vol = np.pad(vol, pads, mode=np_mode)
     return vol, tuple(pads)
+
+
+def center_align(vol: np.ndarray, target_shape: Sequence[int], pad_value=0) -> np.ndarray:
+    """``vol`` cropped or padded (with ``pad_value``) about its centre to
+    ``target_shape``, axis by axis; an odd difference leaves the extra voxel
+    at the high end."""
+    target_shape = tuple(int(t) for t in target_shape)
+    if len(target_shape) != vol.ndim:
+        raise ValueError(f"center_align target {target_shape} vs volume {vol.shape}")
+    crop = tuple(slice((s - t) // 2, (s - t) // 2 + t) if s >= t else slice(None) for s, t in zip(vol.shape,
+                                                                                                   target_shape))
+    pads = [((t - s) // 2, t - s - (t - s) // 2) if s < t else (0, 0) for s, t in zip(vol.shape, target_shape)]
+    out = vol[crop]
+    if any(p != (0, 0) for p in pads):
+        out = np.pad(out, pads, mode="constant", constant_values=pad_value)
+    return out

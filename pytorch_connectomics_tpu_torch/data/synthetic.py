@@ -84,8 +84,12 @@ def percentile(x: torch.Tensor, q: float) -> torch.Tensor:
     pos = np.float32(np.float32(q) / np.float32(100.0)) * np.float32(n - 1)
     lo, hi = int(np.floor(pos)), int(np.ceil(pos))
     w_hi = torch.tensor(pos - np.float32(lo), dtype=torch.float32, device=x.device)
-    v_lo = flat.kthvalue(lo + 1).values
-    v_hi = v_lo if hi == lo else flat.kthvalue(hi + 1).values
+    if flat.is_cuda:  # the same order statistics: on the card a sort is far faster than kthvalue
+        ordered = torch.sort(flat).values
+        v_lo, v_hi = ordered[lo], ordered[hi]
+    else:
+        v_lo = flat.kthvalue(lo + 1).values
+        v_hi = v_lo if hi == lo else flat.kthvalue(hi + 1).values
     return v_lo * (1.0 - w_hi) + v_hi * w_hi
 
 

@@ -21,8 +21,10 @@ import copy
 import logging
 import math
 import multiprocessing as mp
+import os
 import queue
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -632,7 +634,8 @@ def make_waterz_batch_objective(
 
     The trial's other params (fragment_threshold, min_size, ...) are applied
     normally; any sampled ``threshold`` param is ignored in favor of the
-    sweep.
+    sweep. The thresholds are post-processed and scored on a thread pool
+    (the native ops and the numpy passes release the GIL).
     """
     from ..config.schema import DecodingPostprocessConfig, DecodingStepConfig, build_dataclass
     from .decoders import decode_waterz
@@ -661,8 +664,13 @@ def make_waterz_batch_objective(
                 pred, thresholds=list(batch_thresholds),
                 return_all_thresholds=True, **kwargs,
             )
-            for thr, labels in by_thr.items():
-                per_thr[float(thr)] += compute_segmentation_metric(metric, apply_postprocessing(labels, post), gt_v)
+
+            def score(labels):
+                return compute_segmentation_metric(metric, apply_postprocessing(labels, post), gt_v)
+
+            with ThreadPoolExecutor(min(8, os.cpu_count() or 1, len(by_thr))) as pool:
+                for thr, value in zip(by_thr, pool.map(score, by_thr.values())):
+                    per_thr[float(thr)] += value
         per_thr = {t: v / len(preds) for t, v in per_thr.items()}
         best_thr = (min if minimize else max)(per_thr, key=per_thr.get)
         attrs = {

@@ -3,13 +3,13 @@
 dice, accuracy) of the thresholded probability map and instance metrics
 (adapted_rand, voi, instance_f1, panoptic_quality, ap) of the decoded
 labels against the ground truth, NERL and ERL over the ground truth's
-skeletons (``cfg.nerl``'s anisotropy), and the per-volume metrics report.
-A metric the port does not know raises ``NotImplementedError``, the tube
-QC among them."""
+skeletons (``cfg.nerl``'s anisotropy), the ground-truth-free tube QC of the
+decoded labels (``tube``: ``tube_*`` counts and the per-instance npz), and
+the per-volume metrics report (:mod:`.report`). A metric the port does not
+know raises ``NotImplementedError``."""
 
 from __future__ import annotations
 
-import json
 import logging
 from pathlib import Path
 from typing import Any, Dict, Optional, Sequence
@@ -27,11 +27,22 @@ from ..metrics import (
     jaccard_index,
     voi,
 )
+from ..metrics.tube import tube_instance_qc, tube_qc_summary
+from .report import save_tube_instances, write_metrics_report
 
 logger = logging.getLogger(__name__)
 
 _BINARY_METRICS = {"jaccard", "dice", "accuracy"}
 _INSTANCE_METRICS = {"adapted_rand", "voi", "instance_f1", "ap", "panoptic_quality", "nerl"}
+# computed by run_evaluation_stage from the decoded labels alone
+_STAGE_METRICS = {"tube"}
+
+
+def check_metrics(metrics: Sequence[str]) -> None:
+    """Raises ``NotImplementedError`` naming the metrics the port does not know."""
+    unknown = [m for m in metrics if m.lower() not in _BINARY_METRICS | _INSTANCE_METRICS | _STAGE_METRICS]
+    if unknown:
+        raise NotImplementedError(f"evaluation metrics {unknown} are not ported yet")
 
 
 def compute_test_metrics(
@@ -44,9 +55,7 @@ def compute_test_metrics(
     """``prediction``: probability map (Z,Y,X,C) or (C,Z,Y,X) for the binary
     metrics; ``decoded``: instance labels (Z,Y,X) for the instance metrics.
     A metric whose input is None is left out; an unknown one raises."""
-    unknown = [m for m in metrics if m.lower() not in _BINARY_METRICS | _INSTANCE_METRICS]
-    if unknown:
-        raise NotImplementedError(f"evaluation metrics {unknown} are not ported yet")
+    check_metrics(metrics)
     out: Dict[str, float] = {}
     gt = np.asarray(gt)
     if gt.ndim == 4:
@@ -85,19 +94,6 @@ def compute_test_metrics(
     return out
 
 
-def write_metrics_report(output_dir: str | Path, volume_name: str, metrics: Dict[str, float]) -> Path:
-    """``<volume>_metrics.txt`` plus the run's ``metrics.json``."""
-    out = Path(output_dir)
-    out.mkdir(parents=True, exist_ok=True)
-    lines = [f"# metrics for {volume_name}"] + [f"{k}: {v:.6f}" for k, v in sorted(metrics.items())]
-    (out / f"{volume_name}_metrics.txt").write_text("\n".join(lines) + "\n")
-    json_path = out / "metrics.json"
-    existing = json.loads(json_path.read_text()) if json_path.exists() else {}
-    existing[volume_name] = metrics
-    json_path.write_text(json.dumps(existing, indent=2))
-    return out / f"{volume_name}_metrics.txt"
-
-
 def run_evaluation_stage(
     prediction: Optional[np.ndarray],
     decoded: Optional[np.ndarray],
@@ -109,6 +105,12 @@ def run_evaluation_stage(
     if not cfg.enabled or not cfg.metrics:
         return {}
     results = compute_test_metrics(prediction, decoded, gt, cfg.metrics, cfg.nerl)
+    if "tube" in [m.lower() for m in cfg.metrics] and decoded is not None:
+        kw = dict(cfg.tube or {})
+        results.update({f"tube_{k}": v for k, v in tube_qc_summary(decoded, **kw).items()})
+        if output_dir:
+            save_tube_instances(output_dir, volume_name, tube_instance_qc(decoded, **kw),
+                                volume_shape=np.asarray(decoded).shape, config=kw)
     logger.info("evaluation[%s]: %s", volume_name, {k: round(v, 4) for k, v in results.items()})
     if output_dir:
         write_metrics_report(output_dir, volume_name, results)

@@ -1,5 +1,6 @@
-"""Prediction output transform and provenance-stamped saving (the port of
-``apply_prediction_transform``/``save_prediction`` in
+"""Prediction output transform, provenance-stamped saving and the
+prediction cache's check (the port of ``apply_prediction_transform``,
+``save_prediction`` and ``validate_prediction_cache`` in
 ``pytorch_connectomics_tpu/inference/output.py``)."""
 
 from __future__ import annotations
@@ -70,4 +71,79 @@ def h5py_available() -> bool:
         import h5py  # noqa: F401
     except ImportError:
         return False
+    return True
+
+
+def read_prediction_attrs(path: str | Path) -> Dict[str, Any]:
+    """The provenance attrs of a stored prediction: an HDF5 dataset's
+    attrs, or the ``.json`` beside an ``.npy``; raises ``FileNotFoundError``
+    where a prediction has none."""
+    from ..data.io import split_internal_path
+
+    fpath, inner = split_internal_path(str(path))
+    fpath = Path(fpath)
+    if fpath.suffix == ".npy":
+        meta = fpath.with_suffix(".json")
+        if not meta.exists():
+            raise FileNotFoundError(f"{fpath} has no attrs file {meta.name}")
+        return json.loads(meta.read_text())
+    if fpath.suffix.lower() in (".h5", ".hdf5"):
+        import h5py
+
+        from ..data.io import _h5_dataset_key
+
+        with h5py.File(fpath, "r") as f:
+            return dict(f[_h5_dataset_key(f, inner)].attrs)
+    raise FileNotFoundError(f"{fpath} is a format without attrs")
+
+
+def stamp_prediction_checkpoint(path: str | Path, checkpoint: str) -> None:
+    """Rewrites the checkpoint attr of a stored prediction (``path`` as
+    :func:`stored_prediction_path` gives it), where
+    :func:`read_prediction_attrs` reads it. ``__incomplete__`` is what a
+    chunked run that stopped before its last chunk leaves."""
+    from ..data.io import _h5_dataset_key, split_internal_path
+
+    fpath, inner = split_internal_path(str(stored_prediction_path(path)))
+    fpath = Path(fpath)
+    if fpath.suffix == ".npy":
+        meta = fpath.with_suffix(".json")
+        meta.write_text(json.dumps({**json.loads(meta.read_text()), "checkpoint": checkpoint}, indent=2))
+        return
+    import h5py
+
+    with h5py.File(fpath, "a") as f:
+        f[_h5_dataset_key(f, inner)].attrs["checkpoint"] = checkpoint
+
+
+def validate_prediction_cache(path: str | Path, config_hash: Optional[str] = None,
+                              checkpoint: Optional[str] = None) -> bool:
+    """Whether the stored prediction at ``path`` may stand in for a new one:
+    it exists and its attrs match the run (``path`` as
+    :func:`stored_prediction_path` gives it). A prediction without attrs
+    (an older cache, or a format without them) is accepted. With attrs:
+
+    - checkpoint ``__incomplete__`` (a chunked run that stopped
+      mid-write) is never accepted;
+    - a recorded config hash (not empty) must equal ``config_hash`` where
+      one is given;
+    - with ``checkpoint`` given, a recorded checkpoint must equal it, an
+      empty one reading as ``random-init``, as does an empty ``checkpoint``
+      (the run has no weights). ``checkpoint=None`` skips the check (a
+      decode-only caller without weights)."""
+    from ..data.io import split_internal_path
+
+    if not Path(split_internal_path(str(path))[0]).exists():
+        return False
+    try:
+        attrs = read_prediction_attrs(path)
+    except (FileNotFoundError, OSError, KeyError):
+        return True
+    if str(attrs.get("checkpoint", "")) == "__incomplete__":
+        return False
+    if config_hash and attrs.get("config_hash") not in ("", None, config_hash):
+        return False
+    if checkpoint is not None and "checkpoint" in attrs:
+        if (str(attrs["checkpoint"]) or "random-init") != (str(checkpoint) or "random-init"):
+            return False
     return True

@@ -18,18 +18,31 @@ from scipy.sparse.csgraph import connected_components
 AP_THRESHOLDS = (0.5, 0.55, 0.6, 0.65, 0.7, 0.75, 0.8, 0.85, 0.9, 0.95)
 
 
+def _pair_counts(g: np.ndarray, s: np.ndarray, n_g: int, n_s: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The (gt, seg) id pairs that occur, as sorted keys ``g * n_s + s``,
+    and their voxel counts (ids below ``n_g`` and ``n_s``)."""
+    key = np.asarray(g, np.int64) * n_s + np.asarray(s, np.int64)
+    if n_g * n_s <= 1 << 24:  # a dense count table of at most 128 MB, else sort
+        counts = np.bincount(key, minlength=n_g * n_s)
+        key = np.flatnonzero(counts)
+        return key, counts[key]
+    return np.unique(key, return_counts=True)
+
+
 def _contingency(seg: np.ndarray, gt: np.ndarray, ignore_zero: bool = True):
     """Sparse (gt id x seg id) voxel counts over the voxels with gt > 0
     (all voxels with ``ignore_zero=False``) -> (table, voxels counted)."""
-    s = np.asarray(seg).ravel().astype(np.int64)
-    g = np.asarray(gt).ravel().astype(np.int64)
+    s = np.asarray(seg).ravel()
+    g = np.asarray(gt).ravel()
     if ignore_zero:
         keep = g > 0
         s, g = s[keep], g[keep]
     n = s.size
     if n == 0:
         return None, 0
-    table = sparse.csr_matrix((np.ones(n, np.float64), (g, s)), shape=(int(g.max()) + 1, int(s.max()) + 1))
+    n_g, n_s = int(g.max()) + 1, int(s.max()) + 1
+    key, counts = _pair_counts(g, s, n_g, n_s)
+    table = sparse.csr_matrix((counts.astype(np.float64), (key // n_s, key % n_s)), shape=(n_g, n_s))
     return table, n
 
 
@@ -96,13 +109,7 @@ def _assignment(seg: np.ndarray, gt: np.ndarray) -> Tuple[np.ndarray, int, int]:
     n_gt = int(np.count_nonzero(g_sizes[1:]))
     both = (s > 0) & (g > 0)
     ns = len(s_sizes)
-    key = g[both] * ns + s[both]
-    if len(g_sizes) * ns <= 1 << 24:  # a dense count table of at most 128 MB, else sort
-        counts = np.bincount(key, minlength=len(g_sizes) * ns)
-        key = np.flatnonzero(counts)
-        inter = counts[key]
-    else:
-        key, inter = np.unique(key, return_counts=True)
+    key, inter = _pair_counts(g[both], s[both], len(g_sizes), ns)
     if len(key) == 0:
         return np.zeros(0), n_seg, n_gt
     gi, si = key // ns, key % ns

@@ -1,8 +1,10 @@
 """ctypes bindings for the host C++ post-processing ops the decoders need
 (``csrc/pytc_ops.cpp``): 3-D connected components, seeded watershed, small
-instance removal and renumbering (the bcd decode and post-processing),
-affinity connected components, mean-affinity agglomeration (one threshold
-or many in one pass) and the mutex watershed (the affinity decoders), the
+instance removal, renumbering and remapping (the bcd decode and
+post-processing), affinity connected components, mean-affinity
+agglomeration (one threshold or many in one pass, or on a prebuilt region
+graph: the streamed decode) and the mutex watershed (the affinity
+decoders), 6-connected binary erosion and dilation (the branch suite), the
 TEASAR skeleton (NERL's ground-truth skeletons) and MALIS's maximin pair
 counts (``malis_counts``, the MALIS loss's weights). The port's own
 binding of the shared library: host code, not a GPU kernel.
@@ -90,6 +92,15 @@ def get_lib() -> ctypes.CDLL:
                                             ctypes.POINTER(i64)]
             lib.malis_counts.restype = None
             lib.malis_counts.argtypes = [f32p, u32p, i64, i64, i64, ctypes.c_int, f32p]
+            lib.remap_u32.restype = None
+            lib.remap_u32.argtypes = [u32p, i64, u32p, u32p, i64]
+            vp = ctypes.c_void_p
+            lib.rag_mean_edges.restype = i64
+            lib.rag_mean_edges.argtypes = [u32p, f32p, i64, i64, i64, vp, vp, vp, u32p, u32p, f64p, i64p, i64]
+            lib.agglomerate_rag.restype = i64
+            lib.agglomerate_rag.argtypes = [u32p, u32p, f64p, i64p, i64, ctypes.c_uint32, ctypes.c_float, u32p]
+            lib.binary_morph.restype = None
+            lib.binary_morph.argtypes = [u8p, i64, i64, i64, ctypes.c_int, ctypes.c_int, u8p]
             _lib = lib
         return _lib
 
@@ -129,6 +140,35 @@ def renumber(labels: np.ndarray) -> Tuple[np.ndarray, int]:
     labels = np.array(labels, dtype=np.uint32, order="C", copy=True)
     n = get_lib().renumber_u32(labels, labels.size)
     return labels, int(n)
+
+
+def remap(labels: np.ndarray, mapping: Dict[int, int]) -> np.ndarray:
+    """A copy of ``labels`` (as uint32) with each id in ``mapping``'s keys
+    replaced by its value; other ids unchanged."""
+    out = np.array(labels, dtype=np.uint32, order="C", copy=True)
+    if mapping:
+        keys = np.fromiter(mapping.keys(), np.uint32, len(mapping))
+        vals = np.fromiter(mapping.values(), np.uint32, len(mapping))
+        get_lib().remap_u32(out, out.size, keys, vals, len(mapping))
+    return out
+
+
+def _morph(mask: np.ndarray, iterations: int, dilate: bool) -> np.ndarray:
+    m = np.ascontiguousarray(mask, dtype=np.uint8)
+    out = np.empty(m.shape, np.uint8)
+    get_lib().binary_morph(m, *m.shape, int(iterations), int(dilate), out)
+    return out.astype(bool)
+
+
+def binary_erosion(mask: np.ndarray, iterations: int = 1) -> np.ndarray:
+    """6-connected erosion of a (Z, Y, X) mask, ``iterations`` times; the
+    volume's outside counts as background."""
+    return _morph(mask, iterations, dilate=False)
+
+
+def binary_dilation(mask: np.ndarray, iterations: int = 1) -> np.ndarray:
+    """6-connected dilation of a (Z, Y, X) mask, ``iterations`` times."""
+    return _morph(mask, iterations, dilate=True)
 
 
 def _cardinal_affinities(aff: np.ndarray) -> np.ndarray:
@@ -183,6 +223,50 @@ def agglomerate_multi(
                                      counts)
     by_thr = {t: (out[i], int(counts[i])) for i, t in enumerate(thr)}
     return {float(t): by_thr[float(t)] for t in thresholds}
+
+
+def rag_mean_edges(
+    labels: np.ndarray,
+    aff: np.ndarray,
+    lz: Optional[np.ndarray] = None,
+    ly: Optional[np.ndarray] = None,
+    lx: Optional[np.ndarray] = None,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """The region graph of a chunk of fragments: for each pair of touching
+    fragments (a < b) the sum and count of the affinities on their shared
+    edges -> (a uint32, b uint32, sum float64, count int64). Each edge
+    belongs to its high-end voxel, so the chunks of a grid split the
+    volume's edges exactly; ``lz``/``ly``/``lx`` are the fragment planes
+    just below the chunk's low z/y/x faces ((Y, X), (Z, X), (Z, Y); None on
+    the volume's faces). Concatenated over a grid's chunks they give
+    :func:`agglomerate_rag` the whole volume's graph."""
+    labels = np.ascontiguousarray(labels, dtype=np.uint32)
+    aff = _cardinal_affinities(aff)
+    planes = [None if p is None else np.ascontiguousarray(p, dtype=np.uint32) for p in (lz, ly, lx)]
+    ptrs = [None if p is None else p.ctypes.data for p in planes]
+    cap = 65536
+    while True:
+        ea, eb = np.empty(cap, np.uint32), np.empty(cap, np.uint32)
+        esum, ecnt = np.empty(cap, np.float64), np.empty(cap, np.int64)
+        n = get_lib().rag_mean_edges(labels, aff, *labels.shape, *ptrs, ea, eb, esum, ecnt, cap)
+        if n >= 0:
+            return ea[:n], eb[:n], esum[:n], ecnt[:n]
+        cap = int(-n)  # the edge count the library needs
+
+
+def agglomerate_rag(
+    ea: np.ndarray, eb: np.ndarray, esum: np.ndarray, ecnt: np.ndarray, max_label: int, threshold: float
+) -> np.ndarray:
+    """:func:`agglomerate`'s merges on a region graph given as edge rows
+    (rows of one pair are added up) -> ``mapping`` (max_label + 1,) uint32,
+    each fragment's surviving root (``mapping[0] == 0``)."""
+    ea = np.ascontiguousarray(ea, dtype=np.uint32)
+    eb = np.ascontiguousarray(eb, dtype=np.uint32)
+    esum = np.ascontiguousarray(esum, dtype=np.float64)
+    ecnt = np.ascontiguousarray(ecnt, dtype=np.int64)
+    mapping = np.empty(int(max_label) + 1, np.uint32)
+    get_lib().agglomerate_rag(ea, eb, esum, ecnt, len(ea), int(max_label), float(threshold), mapping)
+    return mapping
 
 
 def mutex_watershed(aff: np.ndarray, offsets: Sequence[Sequence[int]]) -> Tuple[np.ndarray, int]:

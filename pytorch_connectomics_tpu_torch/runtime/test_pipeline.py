@@ -1,13 +1,25 @@
 """Test pipeline: read -> normalise -> infer (+TTA) -> save -> decode ->
 evaluate per test volume. The port of
-``pytorch_connectomics_tpu/runtime/test_pipeline.py`` with its chunked
-branch (``:126-149``: the volume predicted chunk by chunk through lazy
-reads into one file, then read back), its read-scaled whole-volume reads
-(``:150-158``), its per-head artifacts of a multi-head model
-(``save_all_heads``, ``:197-210``: each head's channels of the merged
-prediction beside it) and its non-streamed decode (``:233-260``); in
-``tune`` mode it stops after the prediction is saved (``:220-221``). Prediction-cache
-reuse, decode-only runs, nnU-Net preprocessing and test sharding are not
+``pytorch_connectomics_tpu/runtime/test_pipeline.py``:
+
+- a decode-only run (``decoding.load_prediction_path``): the external
+  prediction replaces inference, uint8 read as k/255, and with no test
+  image the prediction names the volume;
+- the prediction cache: a stored prediction whose attrs match the run's
+  config hash and checkpoint (``inference.output.validate_prediction_cache``)
+  is read instead of predicting; else the chunked branch (the volume
+  predicted chunk by chunk through lazy reads into one file, then read
+  back), the read-scaled whole-volume read, or the whole volume;
+- the saved raw prediction and each head's channels of a multi-head model;
+- prediction crops (``inference.output.crop_pad``), then the decode: read
+  back from the decoded file when the prediction came from the cache and
+  ``decoding.reuse_cached`` is on, else streamed (``decoding.streamed``) or
+  whole;
+- the evaluation, with the ground truth centre-aligned to the prediction
+  (``align_to_image``), and the summary over every volume.
+
+In ``tune`` mode it stops after the prediction is saved. nnU-Net
+preprocessing, test sharding and the precomputed chunked output are not
 ported yet and raise ``NotImplementedError``.
 """
 
@@ -24,8 +36,9 @@ import torch
 from ..config.loader import config_hash
 from ..config.schema import Config
 from ..data.io import read_volume
-from ..data.preprocess import normalize_volume
-from ..decoding import run_decoding_stage
+from ..data.preprocess import center_align, normalize_volume
+from ..decoding import run_decoding_stage, run_streamed_decoding_stage
+from ..evaluation.report import aggregate_metrics_summary
 from ..evaluation.stage import run_evaluation_stage
 from ..inference import (
     InferenceManager,
@@ -33,7 +46,10 @@ from ..inference import (
     apply_prediction_transform,
     run_chunked_inference,
     save_prediction,
+    validate_prediction_cache,
 )
+from ..inference.output import stored_prediction_path
+from ..inference.prediction_crops import apply_prediction_crops
 from .output_naming import (
     decoded_filename,
     head_filenames,
@@ -53,10 +69,7 @@ def _as_list(x):
 
 def _check_ported(cfg: Config) -> None:
     for flag, what in (
-        (cfg.decoding.enabled and cfg.decoding.load_prediction_path, "decode-only runs (load_prediction_path)"),
         (cfg.data.nnunet_preprocessing.enabled, "nnU-Net preprocessing"),
-        (cfg.data.data_transform.align_to_image, "align_to_image"),
-        (cfg.inference.output.crop_pad, "prediction crops"),
         ((cfg.system.num_shards or 1) > 1, "test sharding"),
         (cfg.inference.chunked.enabled and cfg.inference.chunked.output_mode == "precomputed",
          "the precomputed chunked output"),
@@ -75,6 +88,62 @@ def prediction_tag_of(cfg: Config, manager: InferenceManager, checkpoint: Option
     )
 
 
+def external_prediction_path(cfg: Config) -> Optional[str]:
+    """The decode-only run's prediction, where decoding is on and names one."""
+    return cfg.decoding.load_prediction_path if cfg.decoding.enabled else None
+
+
+def load_external_prediction(path: str) -> np.ndarray:
+    """A stored (C, Z, Y, X) or (Z, Y, X) prediction as (C, Z, Y, X); uint8
+    (the 8-bit affinity convention) read as float32 k/255."""
+    pred = read_volume(str(path))
+    if pred.ndim == 3:
+        pred = pred[None]
+    if pred.dtype == np.uint8:
+        pred = pred.astype(np.float32) / 255.0
+    return pred
+
+
+def _read_image(cfg: Config, image_path: str, device) -> np.ndarray:
+    """A test volume, read (scaled where the config says so), transposed
+    and normalised."""
+    if cfg.data.test.read_scale:
+        return LazyVolumeAccessor(
+            image_path, transpose=cfg.data.test.transpose, normalize=cfg.data.preprocessing.normalize,
+            scale=cfg.data.test.read_scale, device=device,
+        ).read_all()
+    vol = read_volume(image_path, device=device)
+    if cfg.data.test.transpose:
+        vol = np.transpose(vol, cfg.data.test.transpose)
+    return normalize_volume(vol, cfg.data.preprocessing.normalize)
+
+
+def _save_outputs(cfg: Config, manager: InferenceManager, prediction: np.ndarray, pred_path: Path, vol_name: str,
+                  tag: str, cfg_hash: str, checkpoint: Optional[str]) -> None:
+    """The raw prediction and each head's channels, as the config asks."""
+    if cfg.inference.output.save_raw:
+        # channel-first and contiguous: np.save writes a strided view element by element
+        stored = np.ascontiguousarray(np.moveaxis(apply_prediction_transform(prediction, cfg.inference.output), -1, 0))
+        written = save_prediction(pred_path, stored, cfg_hash, checkpoint or "", tag)
+        logger.info("prediction[%s]: %s", vol_name, written)
+    if cfg.inference.output.save_all_heads and manager.head_spans:
+        names = head_filenames(vol_name, tag, [h for h, _, _ in manager.head_spans])
+        for hname, c0, c1 in manager.head_spans:
+            stored = np.moveaxis(apply_prediction_transform(prediction[..., c0:c1], cfg.inference.output), -1, 0)
+            save_prediction(pred_path.parent / names[hname], np.ascontiguousarray(stored), cfg_hash,
+                            checkpoint or "", f"{tag}_head_{hname}")
+
+
+def _decode(cfg: Config, prediction: np.ndarray, timings: Dict[str, float]) -> np.ndarray:
+    """(Z, Y, X, C) -> decoded labels uint32, streamed or whole; each step's
+    seconds into ``timings``."""
+    pred_cf = np.moveaxis(prediction, -1, 0)
+    if cfg.decoding.streamed:
+        return run_streamed_decoding_stage(lambda sl: pred_cf[(slice(None),) + tuple(sl)], prediction.shape[:3],
+                                           cfg.decoding, timings).astype(np.uint32)
+    return run_decoding_stage(pred_cf, cfg.decoding, timings=timings).astype(np.uint32)
+
+
 def run_test_pipeline(
     cfg: Config,
     model: torch.nn.Module,
@@ -84,8 +153,9 @@ def run_test_pipeline(
     mode: str = "test",
 ) -> Dict[str, Dict[str, float]]:
     """Infer (and evaluate, where labels are given) every test volume with
-    ``model`` on ``device``. Returns {volume_name: metrics}; in ``tune``
-    mode it stops after saving each prediction ({volume_name: {"cached": 1.0}})."""
+    ``model`` on ``device``, or decode the external prediction of a
+    decode-only run. Returns {volume_name: metrics}; in ``tune`` mode it
+    stops after saving each prediction ({volume_name: {"cached": 1.0}})."""
     _check_ported(cfg)
     out_dir = Path(output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -94,12 +164,26 @@ def run_test_pipeline(
     manager = InferenceManager(cfg, model, device)
     cfg_hash = config_hash(cfg)
     tag = prediction_tag_of(cfg, manager, checkpoint)
+    ext_pred = external_prediction_path(cfg)
+    if ext_pred and not images:
+        images = [ext_pred]
     all_metrics: Dict[str, Dict[str, float]] = {}
     for vi, image_path in enumerate(images):
         vol_name = volume_name_from_path(image_path)
+        pred_path = out_dir / prediction_filename(vol_name, tag)
         t0 = time.perf_counter()
-        chunked = cfg.inference.chunked.enabled
-        if chunked:
+        cached = chunked = False
+        if ext_pred:
+            logger.info("decode-only: loading prediction %s", ext_pred)
+            prediction = np.moveaxis(load_external_prediction(ext_pred), 0, -1)
+            t_read = t_pred = time.perf_counter()
+        elif validate_prediction_cache(stored_prediction_path(pred_path), cfg_hash, checkpoint or ""):
+            logger.info("cache hit: %s", stored_prediction_path(pred_path))
+            cached = True
+            prediction = np.moveaxis(read_volume(str(stored_prediction_path(pred_path))), 0, -1)
+            t_read = t_pred = time.perf_counter()
+        elif cfg.inference.chunked.enabled:
+            chunked = True
             # lazy reads, each chunk normalised on its own; the raw
             # prediction goes to disk chunk by chunk and is read back
             accessor = LazyVolumeAccessor(
@@ -108,41 +192,20 @@ def run_test_pipeline(
             )
             t_read = time.perf_counter()
             written = run_chunked_inference(
-                manager.predictor, accessor, out_dir / prediction_filename(vol_name, tag), cfg.inference.chunked,
-                out_channels=manager.out_channels,
+                manager.predictor, accessor, pred_path, cfg.inference.chunked, out_channels=manager.out_channels,
                 # the checkpoint is in the signature: a manifest of other weights is dropped
                 signature={"config_hash": cfg_hash, "checkpoint": str(checkpoint or "") or "random-init"},
             )
             prediction = np.moveaxis(read_volume(str(written)), 0, -1)
             logger.info("prediction[%s]: %s", vol_name, written)
+            t_pred = time.perf_counter()
         else:
-            if cfg.data.test.read_scale:
-                vol = LazyVolumeAccessor(
-                    image_path, transpose=cfg.data.test.transpose, normalize=cfg.data.preprocessing.normalize,
-                    scale=cfg.data.test.read_scale, device=device,
-                ).read_all()
-            else:
-                vol = read_volume(image_path, device=device)
-                if cfg.data.test.transpose:
-                    vol = np.transpose(vol, cfg.data.test.transpose)
-                vol = normalize_volume(vol, cfg.data.preprocessing.normalize)
+            vol = _read_image(cfg, image_path, device)
             t_read = time.perf_counter()
             prediction = manager.predict(vol)  # (Z,Y,X,C)
-        t_pred = time.perf_counter()
-        if cfg.inference.output.save_raw and not chunked:
-            # channel-first and contiguous: np.save writes a strided view element by element
-            stored = np.moveaxis(apply_prediction_transform(prediction, cfg.inference.output), -1, 0)
-            stored = np.ascontiguousarray(stored)
-            written = save_prediction(
-                out_dir / prediction_filename(vol_name, tag), stored, cfg_hash, checkpoint or "", tag
-            )
-            logger.info("prediction[%s]: %s", vol_name, written)
-        if cfg.inference.output.save_all_heads and manager.head_spans and not chunked:
-            names = head_filenames(vol_name, tag, [h for h, _, _ in manager.head_spans])
-            for hname, c0, c1 in manager.head_spans:
-                stored = np.moveaxis(apply_prediction_transform(prediction[..., c0:c1], cfg.inference.output), -1, 0)
-                save_prediction(out_dir / names[hname], np.ascontiguousarray(stored), cfg_hash, checkpoint or "",
-                                f"{tag}_head_{hname}")
+            t_pred = time.perf_counter()
+        if not (ext_pred or cached or chunked):
+            _save_outputs(cfg, manager, prediction, pred_path, vol_name, tag, cfg_hash, checkpoint)
         t_save = time.perf_counter()
         voxels = int(np.prod(prediction.shape[:3]))
         logger.info(
@@ -153,24 +216,40 @@ def run_test_pipeline(
                         t_pred - t_read, t_save - t_pred)
             all_metrics[vol_name] = {"cached": 1.0}
             continue
+        if cfg.inference.output.crop_pad:
+            prediction = apply_prediction_crops(prediction, crop_pad=cfg.inference.output.crop_pad)
         decoded = None
+        steps: Dict[str, float] = {}
         if cfg.decoding.enabled and (cfg.decoding.steps or cfg.decoding.graph):
-            decoded = run_decoding_stage(np.moveaxis(prediction, -1, 0), cfg.decoding).astype(np.uint32)
+            dec_path = out_dir / decoded_filename(vol_name, tag, decoding_cfg=cfg.decoding)
+            stored = stored_prediction_path(dec_path)
+            if cfg.decoding.reuse_cached and cached and stored.exists():
+                # the decoded name encodes the decode recipe, and the prediction came from a valid cache
+                logger.info("decode cache hit: %s", stored)
+                decoded = read_volume(str(stored)).astype(np.uint32)
+            else:
+                decoded = _decode(cfg, prediction, steps)
+                written = save_prediction(dec_path, decoded, cfg_hash, checkpoint or "", tag)
+                logger.info("decoded[%s]: %s", vol_name, written)
             logger.info("decode[%s]: %.1fs, %d instances", vol_name, time.perf_counter() - t_save,
                         int(np.count_nonzero(np.bincount(decoded.ravel())[1:])))
-            dec_name = decoded_filename(vol_name, tag, decoding_cfg=cfg.decoding)
-            written = save_prediction(out_dir / dec_name, decoded, cfg_hash, checkpoint or "", tag)
-            logger.info("decoded[%s]: %s", vol_name, written)
         t_decode = time.perf_counter()
         if cfg.evaluation.enabled and vi < len(labels):
             gt = read_volume(labels[vi], device=device)
             if cfg.data.test.transpose:
                 gt = np.transpose(gt, cfg.data.test.transpose)
+            ref_shape = tuple(prediction.shape[:3])
+            if cfg.data.data_transform.align_to_image and tuple(gt.shape[-3:]) != ref_shape:
+                # small shape mismatches of the ground truth reconciled by a centred crop or pad
+                gt = center_align(gt, gt.shape[:gt.ndim - 3] + ref_shape)
             all_metrics[vol_name] = run_evaluation_stage(prediction, decoded, gt, cfg.evaluation, out_dir, vol_name)
         else:
             all_metrics[vol_name] = {}
         logger.info(
-            "timing[%s]: read+normalise %.3fs, predict %.3fs, save %.3fs, decode %.3fs, evaluate %.3fs", vol_name,
-            t_read - t0, t_pred - t_read, t_save - t_pred, t_decode - t_save, time.perf_counter() - t_decode,
+            "timing[%s]: read+normalise %.3fs, predict %.3fs, save %.3fs, decode %.3fs, evaluate %.3fs; decode "
+            "steps %s", vol_name, t_read - t0, t_pred - t_read, t_save - t_pred, t_decode - t_save,
+            time.perf_counter() - t_decode, {k: round(v, 3) for k, v in steps.items()},
         )
+    if cfg.evaluation.enabled and any(all_metrics.values()):
+        aggregate_metrics_summary(out_dir)  # the summary over every volume
     return all_metrics

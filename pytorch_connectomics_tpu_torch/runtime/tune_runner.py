@@ -1,11 +1,10 @@
 """Tune mode, the port of ``run_tuning`` and ``apply_best_params`` in
 ``pytorch_connectomics_tpu/runtime/tune_runner.py:32-133``: predict every
-tune volume (inference only), then search the decode parameters against
-the ground truth; tune-test patches the decoding config with the best
-parameters before the test pipeline runs.
-
-The port has no prediction cache: tune mode always predicts, which gives
-the same prediction as a cache hit of the JAX package.
+tune volume (inference only; a valid stored prediction is reused), then
+search the decode parameters against the ground truth; tune-test patches
+the decoding config with the best parameters before the test pipeline
+runs. A decode-only run (``decoding.load_prediction_path``) tunes on its
+external prediction.
 """
 
 from __future__ import annotations
@@ -32,7 +31,13 @@ from ..decoding.tuning import (
 from ..inference import InferenceManager
 from ..inference.output import stored_prediction_path
 from .output_naming import prediction_filename, tuned_params_filename, volume_name_from_path
-from .test_pipeline import _as_list, prediction_tag_of, run_test_pipeline
+from .test_pipeline import (
+    _as_list,
+    external_prediction_path,
+    load_external_prediction,
+    prediction_tag_of,
+    run_test_pipeline,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -55,10 +60,16 @@ def run_tuning(
         raise ValueError("tune mode needs data.test.label ground truth")
     # every tune volume counts: the metric is averaged per trial, each
     # volume decoded on its own
+    ext_pred = external_prediction_path(cfg)
+    if ext_pred and not images:
+        images = [ext_pred]
     pairs = []
     for image_path, label_path in zip(images, labels):
-        name = prediction_filename(volume_name_from_path(image_path), tag)
-        pred = read_volume(str(stored_prediction_path(out_dir / name)))
+        if ext_pred:
+            pred = load_external_prediction(ext_pred)
+        else:
+            name = prediction_filename(volume_name_from_path(image_path), tag)
+            pred = read_volume(str(stored_prediction_path(out_dir / name)))
         gt = read_volume(label_path, device=device)
         if cfg.data.test.transpose:
             gt = np.transpose(gt, cfg.data.test.transpose)

@@ -7,10 +7,13 @@ For every ``tutorials/*.yaml`` and each leg, on the CPU, with no data:
   trainer's ``_check_ported``, the target builder, the loss orchestrator
   (with the label transform's affinity groups), the optimizer and schedule,
   the on-device augmentation and ``data.preprocessing.normalize``;
-- **test**: load the config (``mode="test"``), build the model, then the
-  test pipeline's ``_check_ported``, the inference manager, the evaluation
-  metrics, the decode stage's ``_check_ported`` and each decode step's
-  decoder, and ``data.preprocessing.normalize``.
+- **test**: load the config (``mode="test"``; a decode-only recipe, one
+  whose YAML names ``load_prediction_path``, with a stand-in prediction
+  path), build the model, then the test pipeline's ``_check_ported``, the
+  inference manager, the evaluation metrics (``check_metrics``, the
+  ``tube`` metric among them), the decoding config (``check_decoding``:
+  each step's decoder, each graph node's decoder or graph op, the streamed
+  decode's rules), and ``data.preprocessing.normalize``.
 
 It builds no dataset and runs nothing on a card, so a recipe can still
 raise later (an axis-range split, a missing volume). One JSON line a
@@ -31,6 +34,8 @@ from typing import Callable, Dict, List
 import numpy as np
 
 ROOT = Path(__file__).resolve().parents[2]
+# the prediction a decode-only recipe's test leg is audited with (never read)
+STAND_IN = "stand_in_prediction.h5"
 
 
 def _normalize(cfg) -> None:
@@ -60,25 +65,22 @@ def train_leg(path: Path) -> None:
 
 def test_leg(path: Path) -> None:
     from ..config import load_config
-    from ..decoding.registry import get_decoder
-    from ..decoding.stage import _check_ported as check_decoding
-    from ..evaluation.stage import _BINARY_METRICS, _INSTANCE_METRICS
+    from ..decoding.stage import check_decoding
+    from ..evaluation.stage import check_metrics
     from ..inference import InferenceManager
     from ..models import build_model
     from ..runtime.test_pipeline import _check_ported
 
-    cfg = load_config(path, mode="test")
+    decode_only = "load_prediction_path" in path.read_text()
+    cfg = load_config(path, mode="test",
+                      overrides=[f"decoding.load_prediction_path={STAND_IN}"] if decode_only else ())
     model = build_model(cfg.model, device="cpu")
     _check_ported(cfg)
     InferenceManager(cfg, model, "cpu")
     if cfg.evaluation.enabled:
-        unknown = [m for m in cfg.evaluation.metrics if m.lower() not in _BINARY_METRICS | _INSTANCE_METRICS]
-        if unknown:
-            raise NotImplementedError(f"evaluation metrics {unknown} are not ported yet")
+        check_metrics(cfg.evaluation.metrics)
     if cfg.decoding.enabled:
         check_decoding(cfg.decoding)
-        for step in cfg.decoding.steps or []:
-            get_decoder(step.name if hasattr(step, "name") else step["name"])
     _normalize(cfg)
 
 

@@ -17,7 +17,6 @@ from pytorch_connectomics_tpu.metrics import seg as jseg
 from pytorch_connectomics_tpu.ops import native as jnative
 from pytorch_connectomics_tpu.runtime.output_naming import decoded_filename as jax_decoded_filename
 from pytorch_connectomics_tpu_torch.config import load_config
-from pytorch_connectomics_tpu_torch.config.schema import DecodingStepConfig, build_dataclass
 from pytorch_connectomics_tpu_torch.decoding import decoders as pdec
 from pytorch_connectomics_tpu_torch.decoding import get_decoder, run_decoding_stage
 from pytorch_connectomics_tpu_torch.evaluation.stage import compute_test_metrics
@@ -110,19 +109,32 @@ def test_decoding_stage_matches_jax():
 
 @pytest.mark.parametrize("what", ["qc", "graph", "streamed", "branch_merge", "decoder"])
 def test_decoding_stage_refuses_what_is_not_ported(what):
-    cfg = load_config(NUCMM, mode="test").decoding
-    if what == "qc":
-        cfg.qc.enabled = True
-    elif what == "graph":
-        cfg.graph = {"nodes": {}, "output": "x"}
-    elif what == "streamed":
-        cfg.streamed = True
-    elif what == "branch_merge":
-        cfg.steps.append(build_dataclass(DecodingStepConfig, {"name": "branch_merge"}))
-    else:
-        cfg.steps[0].name = "distance_watershed"
-    with pytest.raises(NotImplementedError):
-        run_decoding_stage(bcd_prediction(0, (4, 8, 8)), cfg)
+    """What the decoding stages still refuse, as the JAX package's do: the
+    streamed stage takes one ``affinity_cc`` or ``waterz`` step and no QC
+    mask or graph; the ``abiss`` decoder is not ported."""
+    from pytorch_connectomics_tpu.decoding.stage import run_streamed_decoding_stage as jax_streamed
+    from pytorch_connectomics_tpu_torch.decoding import run_streamed_decoding_stage
+
+    cfg, jcfg = load_config(NUCMM, mode="test").decoding, jax_load_config(NUCMM, mode="test").decoding
+    pred = bcd_prediction(0, (4, 8, 8))
+    if what == "decoder":
+        cfg.steps[0].name = "abiss"
+        with pytest.raises(NotImplementedError, match="abiss"):
+            run_decoding_stage(pred, cfg)
+        return
+    for c in (cfg, jcfg):
+        if what == "qc":
+            c.steps[0].name = "affinity_cc"
+            c.qc.enabled = True
+        elif what == "graph":
+            c.graph = {"nodes": {"x": {"op": "affinity_cc", "inputs": ["prediction"]}}, "output": "x"}
+        elif what == "branch_merge":
+            c.steps[0].name = "waterz"
+            c.steps.append(type(c.steps[0])(name="branch_merge"))
+    reader = lambda sl: pred[(slice(None),) + tuple(sl)]  # noqa: E731
+    for stage, c in ((run_streamed_decoding_stage, cfg), (jax_streamed, jcfg)):
+        with pytest.raises(ValueError, match="decoding.streamed"):
+            stage(reader, pred.shape[1:], c)
 
 
 @pytest.mark.parametrize("seed", [0, 2, 4])

@@ -105,7 +105,7 @@ def test_evaluation_reports_nerl_and_erl_as_jax(gt, tmp_path):
     assert {"nerl", "erl", "voi"} <= set(report) and "nerl: " in (tmp_path / "b_metrics.txt").read_text()
 
 
-@pytest.mark.parametrize("metric", ["tube", "skeleton_f1"])
+@pytest.mark.parametrize("metric", ["tube_length", "skeleton_f1"])
 def test_evaluation_raises_for_a_metric_it_does_not_know(gt, metric):
     with pytest.raises(NotImplementedError, match=metric):
         compute_test_metrics(None, gt, gt, ["voi", metric])

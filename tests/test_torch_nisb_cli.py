@@ -3,7 +3,8 @@ MedNeXt on small ``synthetic://instance`` volumes, train (3 steps) -> tune
 on ``nerl`` (3 trials, chunked prediction of volume A) -> tune-test on
 volume B chunk by chunk (several chunks an axis, edge chunks cut), with
 ``affinity_cc`` and ``min_instance_size`` post-processing, NERL, ERL and
-VOI in the report; a second tune-test run recomputes no chunk, and the
+VOI in the report; a second tune-test run on a prediction stamped
+incomplete resumes and recomputes no chunk, and the
 chunked test leg's prediction matches the JAX package's test pipeline on
 the same weights."""
 
@@ -21,6 +22,7 @@ from pytorch_connectomics_tpu.models import build_model as jax_build
 from pytorch_connectomics_tpu.models.build import init_model as jax_init
 from pytorch_connectomics_tpu.runtime.test_pipeline import run_test_pipeline as jax_run_test_pipeline
 from pytorch_connectomics_tpu_torch.data.io import read_volume
+from pytorch_connectomics_tpu_torch.inference.output import stamp_prediction_checkpoint
 from pytorch_connectomics_tpu_torch.models.convert import flatten_flax
 from pytorch_connectomics_tpu_torch.runtime.cli import main
 
@@ -84,8 +86,13 @@ def test_cli_train_tune_on_nerl_chunked_tune_test(tmp_path):
         assert all(0 <= t["value"] <= 1 for t in study["trials"])
         assert chunks.runs == [(4, 4)]  # 1 x 2 x 2 chunks over 16 x 40 x 40
         vol_b = [VOL.format("test", k, "b", k, "20,52,44", 23) for k in ("image", "label")]
-        legs = [main(["--config", NISB, "--mode", "tune-test", "--params", tune["best_params"], *common, *vol_b])
-                for _ in range(2)]
+        legs = []
+        for _ in range(2):
+            legs.append(main(["--config", NISB, "--mode", "tune-test", "--params", tune["best_params"], *common,
+                              *vol_b]))
+            # as if the run had stopped before its final stamp: the next one
+            # resumes through the manifest instead of taking the cache
+            stamp_prediction_checkpoint(run / "tune-test" / "synthetic_last_prediction.h5", "__incomplete__")
     finally:
         port_log.removeHandler(chunks)
         port_log.setLevel(level)
