@@ -10,9 +10,8 @@ Reference behavior being reproduced:
 - validation rule set                   (``config_io.py:488``)
 
 The port's own copy of ``pytorch_connectomics_tpu/config/loader.py``. It
-differs in two places: ``num_devices`` resolves against the visible CUDA
-devices, and the free-form kwarg validation of augmentation and decoding
-blocks is left out (the port has neither yet).
+differs in one place: ``num_devices`` resolves against the visible CUDA
+devices.
 """
 
 from __future__ import annotations
@@ -195,6 +194,11 @@ def validate_config(cfg: Config, mode: str = "train") -> List[str]:
         "monai_unet",
     ):
         warnings.append(f"deep supervision untested for arch {cfg.model.arch.type}")
+    # the free-form kwarg blocks, checked against the signatures that read them
+    from .kwarg_validation import validate_augmentation_config, validate_decoding_config
+
+    warnings += validate_augmentation_config(cfg.data.augmentation)
+    warnings += validate_decoding_config(cfg.decoding)
     return warnings
 
 

@@ -54,11 +54,11 @@ def _h5_dataset_key(f, internal: Optional[str]) -> str:
     raise KeyError(f"ambiguous HDF5 datasets {keys}; use 'file.h5:key'")
 
 
-def _tensorstore():
+def _tensorstore(what: str = "zarr volumes"):
     try:
         import tensorstore
     except ImportError as e:
-        raise RuntimeError("reading or writing zarr volumes needs tensorstore") from e
+        raise RuntimeError(f"reading or writing {what} needs tensorstore") from e
     return tensorstore
 
 

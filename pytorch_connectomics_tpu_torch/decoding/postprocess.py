@@ -1,20 +1,22 @@
-"""Decode post-processing, the port of ``apply_postprocessing`` and what it
-reaches in ``pytorch_connectomics_tpu/decoding/postprocess.py`` (:17-118,
-:256-313): the binary cleanup chain, the split of disconnected instances,
-small-instance removal or merging, large-instance removal and the axis
-transpose. Host numpy/scipy plus the native ops of :mod:`..ops.native`;
-the labels are the JAX package's, bit for bit. The manual mask edits and
-the 2-D to 3-D stitching of that module are not ported."""
+"""Decode post-processing, the port of
+``pytorch_connectomics_tpu/decoding/postprocess.py``: the binary cleanup
+chain, the split of disconnected instances, small-instance removal or
+merging, large-instance removal and the axis transpose
+(``apply_postprocessing``); the manual mask edits (binarize and median,
+remove, add and merge masks, the EDT watershed split) and the greedy
+stitching of 2-D labellings into 3-D instances. Host numpy/scipy plus the
+native ops of :mod:`..ops.native`; the labels are the JAX package's, bit
+for bit, new ids and dtypes included."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 from scipy import ndimage
 
 from ..config.schema import DecodingPostprocessConfig
-from ..ops.native import connected_components, remove_small, renumber
+from ..ops.native import connected_components, edt, remove_small, renumber, watershed
 
 SMALL_INSTANCE_MODES = ("none", "background", "background_2d", "neighbor", "neighbor_2d")
 
@@ -109,6 +111,110 @@ def cc_instance_filter(labels: np.ndarray, connectivity: int = 6) -> np.ndarray:
     out = inv.reshape(lab.shape).astype(np.uint32)
     out[~fg] = 0
     return renumber(out)[0]
+
+
+def binarize_and_median(pred: np.ndarray, size: Sequence[int] = (7, 7, 7), thres: float = 0.8) -> np.ndarray:
+    """The mask ``pred > thres``, median-filtered over ``size`` (uint8)."""
+    return ndimage.median_filter((np.asarray(pred) > thres).astype(np.uint8), size=tuple(size))
+
+
+def remove_masks(vol: np.ndarray, indices: List[int]) -> np.ndarray:
+    """Zero the instances ``indices`` of ``vol``, in place."""
+    vol[np.isin(vol, np.asarray(indices, vol.dtype))] = 0
+    return vol
+
+
+def add_masks(vol_base: np.ndarray, vol: np.ndarray, indices: List[int]) -> np.ndarray:
+    """Paste the instances ``indices`` of ``vol`` into ``vol_base`` (in
+    place, over whatever is there) as new ids max + 1, max + 2, ... in
+    order."""
+    max_idx = int(vol_base.max())
+    for i, idx in enumerate(indices):
+        vol_base[vol == idx] = max_idx + i + 1
+    return vol_base
+
+
+def merge_masks(vol: np.ndarray, indices: List[List[int]]) -> np.ndarray:
+    """Each group of ids becomes its first id, in place."""
+    for group in indices:
+        if group:
+            vol[np.isin(vol, np.asarray(group, vol.dtype))] = group[0]
+    return vol
+
+
+def watershed_split(vol: np.ndarray, index: int, min_distance: int = 5) -> np.ndarray:
+    """Split instance ``index`` of a 3-D ``vol`` (in place) by a watershed
+    of its distance transform, seeded at the connected plateaus of distance
+    peaks (maxima over a cube of side ``2 * min_distance + 1``); each part
+    a new id above the volume's max, in the order of the seeds' ids. An
+    instance with fewer than two seeds stays as it is."""
+    if vol.ndim != 3:
+        raise ValueError(f"watershed_split expects a 3-D label array, got {vol.shape}")
+    max_idx = int(vol.max())
+    mask = vol == index
+    if not mask.any():
+        return vol
+    box = ndimage.find_objects(mask.astype(np.uint8))[0]
+    box = tuple(slice(max(0, s.start - 1), min(dim, s.stop + 1)) for s, dim in zip(box, vol.shape))
+    crop = mask[box]
+    dist = edt(crop)
+    fp = np.ones((2 * min_distance + 1,) * 3, bool)
+    peaks = (dist >= ndimage.maximum_filter(dist, footprint=fp) - 1e-9) & crop & (dist > 0)
+    markers, n = connected_components(peaks, 26)
+    if n < 2:
+        return vol
+    parts = watershed((-dist).astype(np.float32), markers.astype(np.uint32), mask=crop)
+    region = vol[box]
+    part_ids = np.unique(parts)
+    for i, pid in enumerate(part_ids[part_ids != 0].tolist()):
+        region[parts == pid] = max_idx + i + 1
+    vol[box] = region
+    return vol
+
+
+def intersection_over_union(masks_true: np.ndarray, masks_pred: np.ndarray) -> np.ndarray:
+    """The IoU of every pair of ids, a (max true + 1, max pred + 1)
+    float64 matrix whose row and column 0 are the background."""
+    a = np.asarray(masks_true).ravel().astype(np.int64)
+    b = np.asarray(masks_pred).ravel().astype(np.int64)
+    na, nb = int(a.max()) + 1, int(b.max()) + 1
+    overlap = np.bincount(a * nb + b, minlength=na * nb).reshape(na, nb).astype(np.float64)
+    denom = overlap.sum(axis=0, keepdims=True) + overlap.sum(axis=1, keepdims=True) - overlap
+    iou = np.zeros_like(overlap)
+    np.divide(overlap, denom, out=iou, where=denom > 0)
+    return iou
+
+
+def stitch_3d(masks: np.ndarray, stitch_threshold: float = 0.25) -> np.ndarray:
+    """Greedy z-stitching of a stack of 2-D labellings into 3-D instances
+    (int64, so that new ids cannot wrap a small input dtype): each slice's
+    label takes the label of the slice below with which its IoU is highest,
+    where that IoU is at least ``stitch_threshold`` and the highest that
+    label of the slice below has; the rest get new ids above every id so
+    far."""
+    masks = np.asarray(masks).astype(np.int64, copy=True)
+    mmax = int(masks[0].max())
+    seen_any = False
+    for i in range(len(masks) - 1):
+        iou = intersection_over_union(masks[i + 1], masks[i])[1:, 1:]
+        if not iou.size:
+            if seen_any:
+                icount = int(masks[i + 1].max())
+                lut = np.concatenate([[0], np.arange(mmax + 1, mmax + icount + 1, dtype=np.int64)])
+                mmax += icount
+                masks[i + 1] = lut[masks[i + 1]]
+            else:
+                mmax = int(masks[i + 1].max())
+            continue
+        iou[iou < stitch_threshold] = 0.0
+        iou[iou < iou.max(axis=0)] = 0.0
+        lut = iou.argmax(axis=1) + 1
+        unmatched = np.nonzero(iou.max(axis=1) == 0.0)[0]
+        lut[unmatched] = np.arange(mmax + 1, mmax + len(unmatched) + 1)
+        mmax += len(unmatched)
+        masks[i + 1] = np.concatenate([[0], lut])[masks[i + 1]]
+        seen_any = True
+    return masks
 
 
 def apply_binary_postprocessing(pred: np.ndarray, config: Dict[str, Any]) -> np.ndarray:

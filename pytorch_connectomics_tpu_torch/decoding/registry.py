@@ -15,9 +15,6 @@ import numpy as np
 
 _DECODERS: Dict[str, Callable] = {}
 _GRAPH_OPS: Dict[str, Callable] = {}
-# decoders of the JAX package the port does not have: the ABISS bridge
-# shells out to an external install and waits for the precomputed io
-_NOT_PORTED = ("abiss",)
 
 
 def register_decoder(name: str):
@@ -37,8 +34,6 @@ def register_graph_op(name: str):
 
 
 def get_decoder(name: str) -> Callable:
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"decoder '{name}' is not ported yet")
     if name not in _DECODERS:
         raise KeyError(f"unknown decoder '{name}'; available: {list_decoders()}")
     return _DECODERS[name]
@@ -48,8 +43,6 @@ def get_graph_op(op: str) -> Callable:
     """A graph node's op: a decoder or a graph op."""
     fn = _DECODERS.get(op) or _GRAPH_OPS.get(op)
     if fn is None:
-        if op in _NOT_PORTED:
-            raise NotImplementedError(f"decoder '{op}' is not ported yet")
         raise KeyError(f"unknown graph op '{op}'")
     return fn
 

@@ -12,10 +12,12 @@ queues between them never hold a thread once the run stops.
 
 The output is HDF5 where h5py is installed, else an ``.npy`` memory map at
 the name :func:`.output.stored_prediction_path` gives, its attributes in
-the JSON file beside it; ``*.zarr`` needs tensorstore. Until the last
-chunk is written the attributes carry the checkpoint ``__incomplete__``.
-The neuroglancer ``precomputed`` output raises ``NotImplementedError``, as
-do stitching shard outputs and the chunk processors.
+the JSON file beside it; ``*.zarr`` and the neuroglancer ``precomputed``
+output mode (a layer at ``output_path``, written chunk-aligned, no
+attributes) need tensorstore. Until the last chunk is written the
+attributes carry the checkpoint ``__incomplete__``.
+:func:`stitch_shard_outputs` merges the files of independent chunk-grid
+shards into one.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import queue
 import threading
 import time
 from pathlib import Path
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -137,6 +139,32 @@ class _ZarrOutput:
         pass
 
 
+class _PrecomputedOutput:
+    """A neuroglancer precomputed layer of ``shape[0]`` channels, its
+    storage chunks the grid's chunks; an existing layer is reopened when
+    resuming."""
+
+    def __init__(self, path: Path, shape, dtype, reopen: bool, chunk):
+        from ..data.precomputed import create_precomputed, open_precomputed
+
+        self.reopened = reopen and (path / "info").exists()
+        if self.reopened:
+            self.volume = open_precomputed(path)
+        else:
+            self.volume = create_precomputed(path, shape[1:], dtype, chunk_size=[min(c, s) for c, s in
+                                                                                 zip(chunk, shape[1:])],
+                                             num_channels=shape[0])
+
+    def stamp(self, attrs: Dict[str, Any]) -> None:
+        pass
+
+    def __setitem__(self, sl, value) -> None:
+        self.volume[sl] = value
+
+    def close(self) -> None:
+        pass
+
+
 def run_chunked_inference(
     predictor: TTAPredictor,
     accessor: LazyVolumeAccessor,
@@ -152,8 +180,6 @@ def run_chunked_inference(
     """Predict ``accessor``'s volume chunk by chunk into one (C, Z, Y, X)
     output; returns the path written. With ``shard_id``/``num_shards`` only
     that shard's chunks are computed."""
-    if chunk_cfg.output_mode == "precomputed":
-        raise NotImplementedError("the precomputed chunked output is not ported yet")
     output_path = Path(output_path)
     vol_shape = accessor.shape
     window = predictor.engine.window
@@ -179,7 +205,9 @@ def run_chunked_inference(
     reopen = bool(manifest and manifest.completed)
     output_path.parent.mkdir(parents=True, exist_ok=True)
     shape = (n_out,) + tuple(vol_shape)
-    if output_path.suffix == ".zarr":
+    if chunk_cfg.output_mode == "precomputed":
+        out = _PrecomputedOutput(output_path, shape, output_dtype, reopen, chunk_size)
+    elif output_path.suffix == ".zarr":
         out = _ZarrOutput(output_path, shape, output_dtype, reopen, chunk_size)
     else:
         output_path = stored_prediction_path(output_path)
@@ -296,3 +324,51 @@ def _run_chunks(predictor, accessor, out, chunks, manifest, n_out, out_channels)
                 "%.3fs, write %.3fs", done, len(chunks), time.perf_counter() - t_start, read_s, overlap,
                 sum(b - a for a, b in busy["predict"]), busy["write"])
     return done
+
+
+def _read_channel(path: Path, internal_path: str, c: int) -> np.ndarray:
+    if path.suffix == ".npy":
+        return np.asarray(np.load(path, mmap_mode="r")[c])
+    with _h5py().File(path, "r") as f:
+        return f[internal_path][c]
+
+
+def stitch_shard_outputs(shard_paths: Sequence[str | Path], output_path: str | Path,
+                         internal_path: str = "main") -> Path:
+    """Merge the (C, Z, Y, X) outputs of independent chunk-grid shards
+    (each holds its own chunks, zeros elsewhere) into one file: each
+    shard's nonzero voxels in turn, a channel at a time. The shards are
+    HDF5 or ``.npy`` as the chunked writer left them (a name is read as
+    :func:`.output.stored_prediction_path` gives it); the output is written
+    the same way, without attributes. Returns the path written."""
+    sources = [stored_prediction_path(p) for p in shard_paths]
+    output_path = stored_prediction_path(output_path)
+    if sources[0].suffix == ".npy":
+        first = np.load(sources[0], mmap_mode="r")
+        shape, dtype = first.shape, first.dtype
+        del first
+    else:
+        with _h5py().File(sources[0], "r") as f:
+            shape, dtype = f[internal_path].shape, f[internal_path].dtype
+    output_path.parent.mkdir(parents=True, exist_ok=True)
+    if output_path.suffix == ".npy":
+        out = np.lib.format.open_memmap(output_path, mode="w+", dtype=dtype, shape=tuple(shape))
+        f_out = None
+    else:
+        f_out = _h5py().File(output_path, "w")
+        out = f_out.create_dataset(internal_path, shape=shape, dtype=dtype)
+    try:
+        for c in range(shape[0]):
+            dst = np.zeros(shape[1:], dtype)
+            for p in sources:
+                src = _read_channel(p, internal_path, c)
+                nz = src != 0
+                dst[nz] = src[nz]
+            out[c] = dst
+    finally:
+        if f_out is not None:
+            f_out.close()
+        else:
+            out.flush()
+            del out
+    return output_path

@@ -1,11 +1,11 @@
 """Windowed reads of a volume by global (z, y, x) slices, the port of
 ``LazyVolumeAccessor`` (``pytorch_connectomics_tpu/inference/lazy.py:78-229``):
 HDF5, zarr, ``.npy`` (memory-mapped), ``random://`` and ``synthetic://``
-sources, with a virtual axis transpose, a virtual pad, read-time scaling
-(``scale`` <= 1 a axis: a native crop resampled linearly to the logical
-extent) and the intensity normalisation applied to each read window on its
-own. Tile-grid sources (a tile-spec JSON or a directory of sections) are
-not ported and raise ``NotImplementedError``.
+sources and tile grids (a tile-spec JSON, or a directory of numeric section
+directories of ``<row>_<col>.png`` tiles; :mod:`..data.tiles`), with a
+virtual axis transpose, a virtual pad, read-time scaling (``scale`` <= 1 a
+axis: a native crop resampled linearly to the logical extent) and the
+intensity normalisation applied to each read window on its own.
 """
 
 from __future__ import annotations
@@ -36,6 +36,41 @@ def is_tile_source(path: str) -> bool:
     if "://" in path or ".zarr" in path or ".n5" in path:
         return False
     return p.suffix.lower() == ".json" or p.is_dir()
+
+
+def _open_tile_source(path: str):
+    """A tile-spec JSON, or a directory of numeric section directories
+    whose first section's ``<row>_<col>.png`` tiles give the grid and the
+    tile size, as a :class:`..data.tiles.TileVolume`."""
+    from ..data.tiles import TileVolume
+
+    p = Path(path)
+    if p.suffix.lower() == ".json":
+        return TileVolume(p)
+    sections = sorted((d for d in p.iterdir() if d.is_dir() and d.name.isdigit()), key=lambda d: int(d.name))
+    if not sections:
+        raise ValueError(f"tile source {path}: no numeric section directories")
+    first = sorted(sections[0].glob("*_*.png"))
+    if not first:
+        raise ValueError(f"tile source {path}: no '<row>_<col>.png' tiles")
+    rows, cols = set(), set()
+    for f in first:
+        r, _, c = f.stem.partition("_")
+        if r.isdigit() and c.isdigit():
+            rows.add(int(r))
+            cols.add(int(c))
+    from PIL import Image
+
+    with Image.open(first[0]) as im:
+        th, tw = im.height, im.width
+    grid = (max(rows) - min(rows) + 1, max(cols) - min(cols) + 1)
+    spec = {
+        "tile_size": [th, tw],
+        "grid": list(grid),
+        "sections": [[str(Path(s.name) / f"{r + min(rows)}_{c + min(cols)}.png") for r in range(grid[0])
+                      for c in range(grid[1])] for s in sections],
+    }
+    return TileVolume(spec, root=p)
 
 
 def _resize_linear(vol: np.ndarray, target: Tuple[int, ...]) -> np.ndarray:
@@ -80,10 +115,12 @@ class LazyVolumeAccessor:
         self.device = device
         if self.scale and any(s <= 0 or s > 1 for s in self.scale):
             raise ValueError(f"read scale must be in (0, 1], got {self.scale}")
-        if is_tile_source(self.path):
-            raise NotImplementedError(f"tile-grid sources ({self.path}) are not ported yet")
         self._handle = None
-        base_shape, self.dtype = probe_volume(self.path, internal_path)
+        if is_tile_source(self.path):
+            self._handle = _open_tile_source(self.path)
+            base_shape, self.dtype = self._handle.shape, self._handle.dtype
+        else:
+            base_shape, self.dtype = probe_volume(self.path, internal_path)
         if self.transpose:
             base_shape = tuple(base_shape[a] for a in self.transpose)
         self.native_shape = base_shape
@@ -96,6 +133,9 @@ class LazyVolumeAccessor:
         """Open the source (a generated one is made now, on this thread);
         the first read opens it otherwise."""
         if self._handle is not None:
+            return
+        if is_tile_source(self.path):
+            self._handle = _open_tile_source(self.path)
             return
         if self.path.startswith("random://"):
             self._handle = random_volume(*parse_random_url(self.path))

@@ -121,7 +121,9 @@ def validate_prediction_cache(path: str | Path, config_hash: Optional[str] = Non
     """Whether the stored prediction at ``path`` may stand in for a new one:
     it exists and its attrs match the run (``path`` as
     :func:`stored_prediction_path` gives it). A prediction without attrs
-    (an older cache, or a format without them) is accepted. With attrs:
+    (an older cache, or a format without them) is accepted; an HDF5 file
+    whose attrs cannot be read (truncated by a killed run) is not. With
+    attrs:
 
     - checkpoint ``__incomplete__`` (a chunked run that stopped
       mid-write) is never accepted;
@@ -133,12 +135,13 @@ def validate_prediction_cache(path: str | Path, config_hash: Optional[str] = Non
       decode-only caller without weights)."""
     from ..data.io import split_internal_path
 
-    if not Path(split_internal_path(str(path))[0]).exists():
+    fpath = Path(split_internal_path(str(path))[0])
+    if not fpath.exists():
         return False
     try:
         attrs = read_prediction_attrs(path)
-    except (FileNotFoundError, OSError, KeyError):
-        return True
+    except (OSError, KeyError):
+        return fpath.suffix.lower() not in (".h5", ".hdf5")
     if str(attrs.get("checkpoint", "")) == "__incomplete__":
         return False
     if config_hash and attrs.get("config_hash") not in ("", None, config_hash):

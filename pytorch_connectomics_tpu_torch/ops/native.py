@@ -5,7 +5,7 @@ post-processing), affinity connected components, mean-affinity
 agglomeration (one threshold or many in one pass, or on a prebuilt region
 graph: the streamed decode) and the mutex watershed (the affinity
 decoders), 6-connected binary erosion and dilation (the branch suite), the
-TEASAR skeleton (NERL's ground-truth skeletons) and MALIS's maximin pair
+multi-label distance transform (``edt``, the watershed split), the TEASAR skeleton (NERL's ground-truth skeletons) and MALIS's maximin pair
 counts (``malis_counts``, the MALIS loss's weights). The port's own
 binding of the shared library: host code, not a GPU kernel.
 
@@ -101,6 +101,9 @@ def get_lib() -> ctypes.CDLL:
             lib.agglomerate_rag.argtypes = [u32p, u32p, f64p, i64p, i64, ctypes.c_uint32, ctypes.c_float, u32p]
             lib.binary_morph.restype = None
             lib.binary_morph.argtypes = [u8p, i64, i64, i64, ctypes.c_int, ctypes.c_int, u8p]
+            f = ctypes.c_float
+            lib.edt_multilabel.restype = None
+            lib.edt_multilabel.argtypes = [u32p, i64, i64, i64, f, f, f, f32p]
             _lib = lib
         return _lib
 
@@ -158,6 +161,16 @@ def _morph(mask: np.ndarray, iterations: int, dilate: bool) -> np.ndarray:
     out = np.empty(m.shape, np.uint8)
     get_lib().binary_morph(m, *m.shape, int(iterations), int(dilate), out)
     return out.astype(bool)
+
+
+def edt(labels: np.ndarray, anisotropy: Sequence[float] = (1.0, 1.0, 1.0)) -> np.ndarray:
+    """Multi-label Euclidean distance transform: each voxel's distance to
+    the nearest voxel of another label (float32; the volume's edges are
+    open)."""
+    labels = np.ascontiguousarray(labels, dtype=np.uint32)
+    out = np.empty(labels.shape, np.float32)
+    get_lib().edt_multilabel(labels, *labels.shape, *(float(a) for a in anisotropy), out)
+    return out
 
 
 def binary_erosion(mask: np.ndarray, iterations: int = 1) -> np.ndarray:

@@ -34,6 +34,7 @@ from ..training.model_weights import (
 )
 from ..utils.device import resolve_device
 from .cli import parse_args, setup_config
+from .preflight import preflight_check
 from .test_pipeline import run_test_pipeline
 from .tune_runner import apply_best_params, run_tuning
 
@@ -146,8 +147,9 @@ def dispatch_runtime(args=None) -> Dict[str, Any]:
     if args is None:
         args = parse_args()
     setup_logging()
-    device = resolve_device(args.device)
     cfg = setup_config(args)
+    preflight_check(cfg, args.mode)
+    device = resolve_device(args.device)
     if args.mode in ("test", "tune", "tune-test") and not args.checkpoint:
         args.checkpoint = resolve_latest_checkpoint(cfg)
         if args.checkpoint:

@@ -18,9 +18,16 @@ evaluate per test volume. The port of
 - the evaluation, with the ground truth centre-aligned to the prediction
   (``align_to_image``), and the summary over every volume.
 
-In ``tune`` mode it stops after the prediction is saved. nnU-Net
-preprocessing, test sharding and the precomputed chunked output are not
-ported yet and raise ``NotImplementedError``.
+Test sharding (:mod:`.sharding`): independent shards take
+``images[shard::num_shards]`` with their labels; a chunked run with
+``system.shard_id``/``num_shards`` computes ``chunks[shard::num_shards]``
+of each volume (:func:`..inference.chunked.stitch_shard_outputs` merges the
+shards' files); TTA variant sharding is off for both. The ``precomputed``
+chunked output is a neuroglancer layer ``<name>_prediction.precomputed``
+beside where the file would be, read back through tensorstore (the JAX
+package cannot read it back). In ``tune`` mode it stops after the
+prediction is saved. nnU-Net preprocessing is not ported yet and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ from .output_naming import (
     prediction_tag,
     volume_name_from_path,
 )
+from .sharding import plan_test_sharding, shard_paths
 
 logger = logging.getLogger(__name__)
 
@@ -68,14 +76,19 @@ def _as_list(x):
 
 
 def _check_ported(cfg: Config) -> None:
-    for flag, what in (
-        (cfg.data.nnunet_preprocessing.enabled, "nnU-Net preprocessing"),
-        ((cfg.system.num_shards or 1) > 1, "test sharding"),
-        (cfg.inference.chunked.enabled and cfg.inference.chunked.output_mode == "precomputed",
-         "the precomputed chunked output"),
-    ):
-        if flag:
-            raise NotImplementedError(f"{what} is not ported yet")
+    if cfg.data.nnunet_preprocessing.enabled:
+        raise NotImplementedError("nnU-Net preprocessing is not ported yet")
+
+
+def _read_chunked(written: Path, precomputed: bool) -> np.ndarray:
+    """The chunked run's (C, Z, Y, X) prediction read back."""
+    if not precomputed:
+        return read_volume(str(written))
+    from ..data.precomputed import open_precomputed
+
+    layer = open_precomputed(written)
+    pred = layer.read(tuple(slice(0, n) for n in layer.shape[-3:]))
+    return pred[None] if pred.ndim == 3 else pred
 
 
 def prediction_tag_of(cfg: Config, manager: InferenceManager, checkpoint: Optional[str]) -> str:
@@ -161,6 +174,18 @@ def run_test_pipeline(
     out_dir.mkdir(parents=True, exist_ok=True)
     images = _as_list(cfg.data.test.image)
     labels = _as_list(cfg.data.test.label)
+    plan = plan_test_sharding(cfg, num_volumes=len(images))
+    for note in plan.notes:
+        logger.info("shard plan: %s", note)
+    if plan.empty:
+        return {}
+    if plan.mode == "independent":
+        # images and labels sharded together, so each image keeps its ground truth
+        paired = shard_paths(list(zip(images, labels + [None] * len(images))), plan.shard_id, plan.num_shards)
+        images = [p[0] for p in paired]
+        labels = [p[1] for p in paired if p[1] is not None]
+    if not plan.tta_sharding:
+        cfg.inference.test_time_augmentation.shard_across_devices = False
     manager = InferenceManager(cfg, model, device)
     cfg_hash = config_hash(cfg)
     tag = prediction_tag_of(cfg, manager, checkpoint)
@@ -191,12 +216,15 @@ def run_test_pipeline(
                 normalize=cfg.data.preprocessing.normalize, scale=cfg.data.test.read_scale, device=device,
             )
             t_read = time.perf_counter()
+            precomputed = cfg.inference.chunked.output_mode == "precomputed"
             written = run_chunked_inference(
-                manager.predictor, accessor, pred_path, cfg.inference.chunked, out_channels=manager.out_channels,
+                manager.predictor, accessor, pred_path.with_suffix(".precomputed") if precomputed else pred_path,
+                cfg.inference.chunked, out_channels=manager.out_channels, shard_id=cfg.system.shard_id,
+                num_shards=cfg.system.num_shards,
                 # the checkpoint is in the signature: a manifest of other weights is dropped
                 signature={"config_hash": cfg_hash, "checkpoint": str(checkpoint or "") or "random-init"},
             )
-            prediction = np.moveaxis(read_volume(str(written)), 0, -1)
+            prediction = np.moveaxis(_read_chunked(written, precomputed), 0, -1)
             logger.info("prediction[%s]: %s", vol_name, written)
             t_pred = time.perf_counter()
         else:

@@ -3,13 +3,14 @@ raise site that reads only its config.
 
 For every ``tutorials/*.yaml`` and each leg, on the CPU, with no data:
 
-- **train**: load the config (``mode="train"``), build the model, then the
+- **train**: load the config (``mode="train"``; it checks the free-form
+  kwarg blocks), the CLI's preflight check, build the model, then the
   trainer's ``_check_ported``, the target builder, the loss orchestrator
   (with the label transform's affinity groups), the optimizer and schedule,
   the on-device augmentation and ``data.preprocessing.normalize``;
 - **test**: load the config (``mode="test"``; a decode-only recipe, one
   whose YAML names ``load_prediction_path``, with a stand-in prediction
-  path), build the model, then the test pipeline's ``_check_ported``, the
+  path), the preflight check, build the model, then the test pipeline's ``_check_ported``, the
   inference manager, the evaluation metrics (``check_metrics``, the
   ``tube`` metric among them), the decoding config (``check_decoding``:
   each step's decoder, each graph node's decoder or graph op, the streamed
@@ -52,8 +53,10 @@ def train_leg(path: Path) -> None:
     from ..models import build_model
     from ..training.loop import _check_ported, device_augment_fn
     from ..training.optim import build_optimizer
+    from ..runtime.preflight import preflight_check
 
     cfg = load_config(path, mode="train")
+    preflight_check(cfg, "train")
     model = build_model(cfg.model, device="cpu")
     _check_ported(cfg)
     build_target_fn(cfg.data.label_transform)
@@ -69,11 +72,13 @@ def test_leg(path: Path) -> None:
     from ..evaluation.stage import check_metrics
     from ..inference import InferenceManager
     from ..models import build_model
+    from ..runtime.preflight import preflight_check
     from ..runtime.test_pipeline import _check_ported
 
     decode_only = "load_prediction_path" in path.read_text()
     cfg = load_config(path, mode="test",
                       overrides=[f"decoding.load_prediction_path={STAND_IN}"] if decode_only else ())
+    preflight_check(cfg, "test")
     model = build_model(cfg.model, device="cpu")
     _check_ported(cfg)
     InferenceManager(cfg, model, "cpu")

@@ -148,9 +148,19 @@ def test_lazy_reads_match_jax(tmp_path, volume, source, kw):
 
 
 def test_tile_sources_raise(tmp_path):
+    """Tile sources that cannot be read raise as the JAX package's do: a
+    directory without numeric section directories when opened, a spec
+    naming a tile that is not there when read."""
+    (tmp_path / "empty").mkdir()
+    for cls in (LazyVolumeAccessor, JaxLazyVolumeAccessor):
+        with pytest.raises(ValueError, match="no numeric section directories"):
+            cls(str(tmp_path / "empty"))
     (tmp_path / "tiles.json").write_text(json.dumps({"tile_size": [4, 4], "grid": [1, 1], "sections": [["a.png"]]}))
-    with pytest.raises(NotImplementedError, match="tile"):
-        LazyVolumeAccessor(str(tmp_path / "tiles.json"))
+    for cls in (LazyVolumeAccessor, JaxLazyVolumeAccessor):
+        acc = cls(str(tmp_path / "tiles.json"), normalize="none")
+        assert acc.shape == (1, 4, 4)
+        with pytest.raises(FileNotFoundError):
+            acc.read_all()
 
 
 # ---------------------------------------------------------------------------
@@ -293,10 +303,15 @@ def test_an_error_on_any_thread_ends_the_run(tmp_path, volume, where, tiny_model
         run_bounded(lambda: run_chunked_inference(predictor, acc, tmp_path / "pred.h5", cfg, out_channels=3))
 
 
-def test_unported_outputs_raise(tmp_path, tiny_models):
+def test_unported_outputs_raise(tmp_path, tiny_models, monkeypatch):
+    """The precomputed output is ported; where tensorstore is missing it
+    raises, naming what it needs, before a chunk is predicted."""
+    import sys
+
     manager, _, _ = tiny_models
+    monkeypatch.setitem(sys.modules, "tensorstore", None)
     cfg = build_dataclass(ChunkedConfig, {**CHUNKS, "output_mode": "precomputed"})
-    with pytest.raises(NotImplementedError, match="precomputed"):
+    with pytest.raises(RuntimeError, match="needs tensorstore"):
         run_chunked_inference(manager.predictor, LazyVolumeAccessor("random://x_image?shape=8,16,16"),
                               tmp_path / "pred", cfg, out_channels=3)
 

@@ -92,5 +92,7 @@ def test_port_imports_no_jax():
               "decoding.stage", "metrics.seg", "ops.fused_mlp", "ops.probes", "tools.microbench", "tools.probes",
               "data.targets.affinity", "data.targets.build", "decoding.tuning", "runtime.tune_runner",
               "decoding.postprocess", "metrics.skeleton", "metrics.nerl", "data.split", "chunked.grid",
-              "chunked.manifest", "inference.lazy", "inference.chunked"):
+              "chunked.manifest", "inference.lazy", "inference.chunked", "config.kwarg_validation",
+              "runtime.preflight", "data.precomputed", "runtime.abiss_bridge", "data.tiles", "chunked.processor",
+              "chunked.skeleton", "runtime.sharding"):
         assert "pytorch_connectomics_tpu_torch." + m in PORT_MODULES

@@ -109,18 +109,19 @@ def test_decoding_stage_matches_jax():
 
 @pytest.mark.parametrize("what", ["qc", "graph", "streamed", "branch_merge", "decoder"])
 def test_decoding_stage_refuses_what_is_not_ported(what):
-    """What the decoding stages still refuse, as the JAX package's do: the
+    """What the decoding stages refuse, as the JAX package's do: the
     streamed stage takes one ``affinity_cc`` or ``waterz`` step and no QC
-    mask or graph; the ``abiss`` decoder is not ported."""
+    mask or graph; a decoder that no registry names raises ``KeyError``."""
     from pytorch_connectomics_tpu.decoding.stage import run_streamed_decoding_stage as jax_streamed
     from pytorch_connectomics_tpu_torch.decoding import run_streamed_decoding_stage
 
     cfg, jcfg = load_config(NUCMM, mode="test").decoding, jax_load_config(NUCMM, mode="test").decoding
     pred = bcd_prediction(0, (4, 8, 8))
     if what == "decoder":
-        cfg.steps[0].name = "abiss"
-        with pytest.raises(NotImplementedError, match="abiss"):
-            run_decoding_stage(pred, cfg)
+        for c, run in ((cfg, run_decoding_stage), (jcfg, jax_run_decoding_stage)):
+            c.steps[0].name = "no_such_decoder"
+            with pytest.raises(KeyError, match="no_such_decoder"):
+                run(pred, c)
         return
     for c in (cfg, jcfg):
         if what == "qc":

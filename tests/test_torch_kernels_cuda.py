@@ -93,6 +93,27 @@ def test_kernels_match_plain_at_the_nisb_stages(device, shape, dtype):
             assert k["card_smem_bytes"] == k["smem_bytes"] and k["card_items"] == k["items"], (shape, k)
 
 
+# (B, Z, Y, X, C, R, Cout) of MedNeXt-S's stride-1 stages on
+# tutorials/neuron_j0126_abiss.yaml's (144, 144, 144) window at its batch 2
+J0126_SHAPES = [
+    (2, 144, 144, 144, 32, 64, 32),
+    (2, 72, 72, 72, 64, 128, 64),
+    (2, 36, 36, 36, 128, 256, 128),
+    (2, 18, 18, 18, 256, 512, 256),
+    (2, 9, 9, 9, 512, 1024, 512),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", J0126_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_kernels_match_plain_at_the_j0126_stages(device, shape, dtype):
+    _check_pair(device, shape, dtype)
+    plan = fb.card_plan(shape[:4] + (shape[4],), dtype, shape[5])
+    for k in plan.values():
+        if "ty" in k:
+            assert k["card_smem_bytes"] == k["smem_bytes"] and k["card_items"] == k["items"], (shape, k)
+
+
 def _check_pair(device, shape, dtype, taps=(3, 3, 3)):
     b, z, y, xs, c, r, cout = shape
     rng = np.random.default_rng(0)

@@ -136,3 +136,55 @@ def test_waterz_batch_objective_postprocesses_as_jax():
     np.testing.assert_allclose(got[0], want[0], rtol=1e-12)
     d["postprocessing"] = {}
     assert make_waterz_batch_objective(aff, gt, d, "voi", [0.3, 0.6])(params)[0] != got[0]
+
+
+# the manual mask edits and the 2-D -> 3-D stitching: labels bit for bit,
+# new ids and dtypes included
+
+def _dumbbells(seed, dtype=np.uint32):
+    """Instances 1 and 2 each two cubes joined by a one-voxel bridge, beside
+    seeded specks of other ids."""
+    rng = np.random.default_rng(seed)
+    vol = np.zeros((9, 12, 30), dtype)
+    for iid, (y0, x0) in ((1, (1, 1)), (2, (6, 2))):
+        vol[1:6, y0:y0 + 5, x0:x0 + 5] = iid
+        vol[1:6, y0:y0 + 5, x0 + 10 + seed:x0 + 15 + seed] = iid
+        vol[3, y0 + 2, x0 + 5:x0 + 10 + seed] = iid
+    specks = (rng.random(vol.shape) > 0.98) & (vol == 0)
+    vol[specks] = rng.integers(3, 9, int(specks.sum()))
+    return vol
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.uint32, np.int64])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_mask_edits_match_jax(seed, dtype):
+    vol = _dumbbells(seed, dtype)
+    other = instance_labels(seed, vol.shape).astype(dtype)
+    for got, want in (
+        (pp.remove_masks(vol.copy(), [1, 5, 77]), jpp.remove_masks(vol.copy(), [1, 5, 77])),
+        (pp.add_masks(vol.copy(), other, [2, 3, 4]), jpp.add_masks(vol.copy(), other, [2, 3, 4])),
+        (pp.merge_masks(vol.copy(), [[2, 1], [], [7, 3, 4]]), jpp.merge_masks(vol.copy(), [[2, 1], [], [7, 3, 4]])),
+    ):
+        assert_same(got, want)
+        assert not np.array_equal(got, vol)
+    for index, md in ((1, 2), (2, 1), (2, 3), (42, 2)):
+        got, want = pp.watershed_split(vol.copy(), index, md), jpp.watershed_split(vol.copy(), index, md)
+        assert_same(got, want)
+    assert int(pp.watershed_split(vol.copy(), 1, 2).max()) > int(vol.max())  # split into new ids
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_binarize_iou_and_stitch_match_jax(seed):
+    prob = prob_map(seed)
+    for size, thres in (((3, 3, 3), 0.5), ((1, 5, 5), 0.7)):
+        assert_same(pp.binarize_and_median(prob, size, thres), jpp.binarize_and_median(prob, size, thres))
+    a, b = instance_labels(seed), instance_labels(seed + 10)
+    got, want = pp.intersection_over_union(a, b), jpp.intersection_over_union(a, b)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    # 2-D labellings a section, uint8 so that the new ids pass its max; an empty section in the middle
+    stack = np.stack([ndimage.label(s)[0] for s in prob > 0.6]).astype(np.uint8)
+    stack[4] = 0
+    for thr in (0.1, 0.25, 0.6):
+        got, want = pp.stitch_3d(stack, thr), jpp.stitch_3d(stack, thr)
+        assert_same(got, want)
+        assert got.dtype == np.int64
